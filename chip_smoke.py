@@ -9,15 +9,21 @@ through the hand-written CUDA SAD-surface kernel, in phases:
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the kernel from video_codecs_tpu_torch/csrc/sad_surface.cu;
   3. hold the kernel against its plain PyTorch version at the slice's
-     shapes (and at search range 32), exactly, and time both;
+     shapes (and at search range 32), exactly, and time the kernel, the
+     plain version and one PyTorch call for the same function
+     (`torch.cdist` with p=1, the yardstick), each beside the kernel's
+     bound at those shapes;
   4. encode a seeded 1280x720 clip (I P P P) on the card, check that the
-     integer ME went through the kernel, decode the stream with the shared
-     H264Decoder and require the decoder's pictures to equal the encoder's;
+     integer ME went through the kernel twice per P picture, decode the
+     stream with the port's own H264Decoder and require the decoder's
+     pictures to equal the encoder's;
   5. run the same P picture on the card and on the CPU (plain SAD) at
      search ranges 16 and 32 and a small clip's whole stream on both, and
-     report where they differ (motion fields must agree exactly).
+     report where they differ (motion fields must agree exactly);
+  6. require that nothing of the JAX package was imported.
 
-Any failed check exits non-zero.  The last line is the result JSON.
+Any failed check exits non-zero.  The last line is the result JSON; the
+line before it lists the kernels.
 """
 
 from __future__ import annotations
@@ -31,13 +37,16 @@ import time
 import numpy as np
 import torch
 
-from video_codecs_tpu.models.h264.inter_codec import H264Decoder
 from video_codecs_tpu_torch.models.h264 import inter_dev
+from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
 from video_codecs_tpu_torch.ops import sad_surface as ss
 
 KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
 W, H, QP, SR = 1280, 720, 28, 16
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
+# operations/s on 8-bit integers, the type of the SAD kernel's inputs.
+PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -102,8 +111,35 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
+def sad_bound(n: int, b: int, r: int) -> tuple[float, float, float]:
+    """(ms, bytes, operations) the card needs at least for one SAD
+    surface: uint8 cur and windows read once, the int32 surface written
+    once, a subtract and an add for every absolute difference."""
+    span = 2 * r + 1
+    nbytes = b * (n * n + (n + 2 * r) ** 2) + 4 * b * span * span
+    ops = 2 * b * span * span * n * n
+    return max(nbytes / PEAK_BYTES, ops / PEAK_OPS) * 1e3, nbytes, ops
+
+
+def sad_cdist(cur: torch.Tensor, win: torch.Tensor, n: int,
+              r: int) -> torch.Tensor:
+    """The yardstick: one PyTorch call (torch.cdist, p=1) for the same
+    surface, in the chunks sad_surface_ref takes."""
+    b, span = cur.shape[0], 2 * r + 1
+    chunk = max(1, ss._CHUNK_ELEMS // (span * span * n * n))
+    out = torch.empty((b, span * span), dtype=torch.float32,
+                      device=cur.device)
+    for s in range(0, b, chunk):
+        c = cur[s:s + chunk].float().reshape(-1, 1, n * n)
+        p = win[s:s + chunk].float().unfold(1, n, 1).unfold(2, n, 1)
+        out[s:s + chunk] = torch.cdist(c, p.reshape(-1, span * span, n * n),
+                                       p=1)[:, 0]
+    return out.reshape(b, span, span)
+
+
 def phase_kernel() -> dict:
-    """Phases 2-3: build, then kernel vs plain at the slice's shapes."""
+    """Phases 2-3: build, then kernel vs plain (and the yardstick) at the
+    slice's shapes."""
     t0 = time.perf_counter()
     so, build_s, log = ss.build()
     ss._load()
@@ -114,13 +150,15 @@ def phase_kernel() -> dict:
             print(f"[build] {line.strip()}")
 
     rng = np.random.default_rng(2024)
-    per_pic_ms = per_pic_plain = 0.0
+    pic = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes=0, ops=0)
     max_err = 0
-    for n, b, r in ((16, 3600, 16), (8, 14400, 16), (16, 3600, 32)):
+    for n, b, r in ((16, 3600, 16), (8, 14400, 16), (16, 3600, 32),
+                    (8, 37, 8)):
         cur = torch.from_numpy(rng.integers(0, 256, (b, n, n),
-                                            dtype=np.int32)).cuda()
+                                            dtype=np.uint8)).cuda()
         win = torch.from_numpy(rng.integers(
-            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.int32)).cuda()
+            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.uint8)).cuda()
         got = ss.sad_surface(cur, win, n, r)
         torch.cuda.synchronize()
         want = ss.sad_surface_ref(cur, win, n, r)
@@ -128,17 +166,39 @@ def phase_kernel() -> dict:
         check(err == 0, f"kernel != plain at n={n} B={b} r={r} "
                         f"(max abs err {err})")
         max_err = max(max_err, err)
+        lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
+        if b < 100:                      # the ragged case: checked only
+            print(f"[sad] n={n} B={b} r={r}: equal")
+            continue
         ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r))
         plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
                         warm=1)
-        gdiff = b * (2 * r + 1) ** 2 * n * n / 1e9
+        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        bound, nbytes, ops = sad_bound(n, b, r)
+        gdiff = ops / 2e9
         print(f"[sad] n={n} B={b} r={r}: equal; kernel {ms:.3f} ms "
               f"({gdiff:.2f} G abs-diffs, {gdiff / ms * 1e3:.0f} G/s), "
-              f"plain {plain:.3f} ms")
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} G ops), {bound / ms:.1%} of it; plain "
+              f"{plain:.3f} ms ({bound / plain:.2%}); torch.cdist "
+              f"{lib:.3f} ms ({bound / lib:.2%}, max abs err {lib_err:g})")
         if r == SR:
-            per_pic_ms += ms
-            per_pic_plain += plain
-    return dict(max_abs_err=max_err, ms=per_pic_ms, plain_ms=per_pic_plain)
+            pic["ms"] += ms
+            pic["plain_ms"] += plain
+            pic["library_ms"] += lib
+            pic["bytes"] += nbytes
+            pic["ops"] += ops
+    pic["bound_ms"] = max(pic["bytes"] / PEAK_BYTES,
+                          pic["ops"] / PEAK_OPS) * 1e3
+    pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
+                       pic["bytes"] / PEAK_BYTES else "bytes")
+    print(f"[sad] per 720p P picture at SR{SR} (n=16 + n=8): kernel "
+          f"{pic['ms']:.3f} ms, bound {pic['bound_ms']:.4f} ms "
+          f"({pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"plain {pic['plain_ms']:.3f} ms; torch.cdist "
+          f"{pic['library_ms']:.3f} ms")
+    pic["max_abs_err"] = max_err
+    return pic
 
 
 def phase_encode_720p() -> int:
@@ -153,8 +213,9 @@ def phase_encode_720p() -> int:
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
     n_p = len(frames) - 1
-    check(launches >= 2 * n_p,
-          f"only {launches} SAD-kernel launches for {n_p} P pictures")
+    check(launches == 2 * n_p,
+          f"{launches} SAD-kernel launches for {n_p} P pictures "
+          "(want 2 each)")
     check(len(enc.p_times) == n_p, "P pictures did not take the device path")
     t0 = time.perf_counter()
     out = H264Decoder().decode(stream)
@@ -173,7 +234,8 @@ def phase_encode_720p() -> int:
           f"{kbps:.1f} kbps at 30 fps, Y-PSNR "
           + " ".join(f"{p:.2f}" for p in psnrs)
           + f" dB; encode {t_enc:.2f} s, decode {t_dec:.2f} s; "
-          f"SAD-kernel launches {launches}; decode bit-exact")
+          f"SAD-kernel launches {launches}; decode bit-exact in the "
+          "port's H264Decoder")
     for i, (dev_s, host_s) in enumerate(enc.p_times):
         print(f"[720p] P{i + 1}: device phase {dev_s * 1e3:.1f} ms, "
               f"host phase {host_s * 1e3:.1f} ms")
@@ -230,12 +292,17 @@ def main() -> None:
     k = phase_kernel()
     launches = phase_encode_720p()
     phase_cuda_vs_cpu()
+    jax_mods = [m for m in sys.modules
+                if m.split(".")[0] in ("video_codecs_tpu", "jax")]
+    check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
+    print("[imports] nothing of video_codecs_tpu or jax was imported")
 
     print(json.dumps({"kernels": [{
         "name": "sad_surface", "route": "cuda", "source": KERNEL_SRC,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}))
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

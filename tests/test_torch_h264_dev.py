@@ -1,10 +1,14 @@
 """The PyTorch port's H.264 device P-slice engine against the JAX engine
 (models/h264/inter_jax.py), on the same seeded clips, with tolerance 0:
 `encode_p_dev` outputs key by key, whole streams byte for byte, and the
-decoded pictures bit-exact in the shared H264Decoder.
+decoded pictures bit-exact in the port's own H264Decoder and in the JAX
+package's.  Also the fence between the two packages: the port imports
+nothing of `video_codecs_tpu`.
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 import textwrap
@@ -17,6 +21,8 @@ import torch
 from video_codecs_tpu.models.h264 import inter_jax as ij
 from video_codecs_tpu.models.h264.inter_codec import H264Decoder
 from video_codecs_tpu_torch.models.h264 import inter_dev as tid
+from video_codecs_tpu_torch.models.h264.inter_codec import (
+    H264Decoder as PortH264Decoder)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,13 +89,14 @@ def test_encode_p_dev_matches_jax(w, h, sr, qp):
 
 
 def _decode_equal(stream, recons):
-    out = H264Decoder().decode(stream)
-    assert len(out) == len(recons)
-    for i, (r, o) in enumerate(zip(recons, out)):
-        for c in range(3):
-            np.testing.assert_array_equal(
-                np.asarray(r[c], np.uint8), np.asarray(o[c], np.uint8),
-                err_msg=f"frame {i} plane {c}")
+    for dec in (PortH264Decoder(), H264Decoder()):
+        out = dec.decode(stream)
+        assert len(out) == len(recons)
+        for i, (r, o) in enumerate(zip(recons, out)):
+            for c in range(3):
+                np.testing.assert_array_equal(
+                    np.asarray(r[c], np.uint8), np.asarray(o[c], np.uint8),
+                    err_msg=f"frame {i} plane {c}")
 
 
 @pytest.mark.parametrize("clip", [shifted_clip, mixed_motion_clip])
@@ -109,38 +116,45 @@ def test_stream_byte_equal_to_jax_engine(clip):
 
 
 def test_host_fallback_cases_raise():
-    enc = tid.DeviceH264Encoder(32, 32, qp=30, search_range=4,
-                                device="cpu", n_refs=2)
-    frames = shifted_clip(32, 32, 3)
+    # several references have no device path and no host P coder in the
+    # port: the constructor refuses them
     with pytest.raises(NotImplementedError):
-        enc.encode_sequence(frames)
+        tid.DeviceH264Encoder(32, 32, qp=30, search_range=4,
+                              device="cpu", n_refs=2)
+    enc = tid.DeviceH264Encoder(32, 32, qp=30, search_range=4)
+    assert enc.device == torch.device("cuda")     # the card by default
 
 
 def test_port_runs_without_jax(tmp_path):
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["video_codecs_tpu"] = None
         import numpy as np
         import video_codecs_tpu_torch
         from video_codecs_tpu_torch.models.h264.inter_dev import (
             DeviceH264Encoder)
-        from video_codecs_tpu.models.h264.inter_codec import H264Decoder
+        from video_codecs_tpu_torch.models.h264.inter_codec import (
+            H264Decoder)
         rng = np.random.default_rng(3)
-        base = rng.integers(0, 256, (64, 80), np.uint8)
+        base = rng.integers(0, 256, (48, 64), np.uint8)
         frames = []
         for f in range(3):
-            y = np.ascontiguousarray(base[f:f + 48, 2 * f:2 * f + 64])
+            y = np.ascontiguousarray(base[f:f + 32, 2 * f:2 * f + 48])
             frames.append((y, y[::2, ::2] // 2 + 64, y[1::2, ::2] // 2))
-        enc = DeviceH264Encoder(64, 48, qp=28, search_range=8,
+        enc = DeviceH264Encoder(48, 32, qp=28, search_range=8,
                                 device="cpu")
         stream, recons = enc.encode_sequence(frames)
         out = H264Decoder().decode(stream)
         assert all(np.array_equal(np.asarray(r[c], np.uint8),
                                   np.asarray(o[c], np.uint8))
                    for r, o in zip(recons, out) for c in range(3))
-        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        bad = [m for m in sys.modules
+               if m in ("jax", "video_codecs_tpu")
+               or m.startswith(("jax.", "video_codecs_tpu."))
                if sys.modules[m] is not None]
         assert not bad, bad
+        assert len(enc.p_times) == 2
         print("OK", len(stream))
         """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -149,3 +163,26 @@ def test_port_runs_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("OK")
+
+
+_FENCED = ["chip_smoke.py", "scripts/profile_torch_h264_p.py",
+           *sorted(str(p.relative_to(REPO)) for p in
+                   pathlib.Path(REPO, "video_codecs_tpu_torch").rglob("*.py"))]
+
+
+@pytest.mark.parametrize("path", _FENCED)
+def test_port_imports_nothing_of_jax_package(path):
+    """No `import video_codecs_tpu...` / `from video_codecs_tpu... import`
+    anywhere in the port, its smoke run or its profiler, at any depth."""
+    tree = ast.parse(pathlib.Path(REPO, path).read_text())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(node.lineno, n) for n in names
+                if n.split(".")[0] in ("video_codecs_tpu", "jax")]
+    assert not bad, bad

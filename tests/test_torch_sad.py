@@ -17,14 +17,15 @@ import torch
 from video_codecs_tpu_torch.ops import sad_surface as ss
 
 
-def _inputs(seed, b, n, r):
+def _inputs(seed, b, n, r, dtype=np.int32):
     rng = np.random.default_rng(seed)
-    cur = rng.integers(0, 256, (b, n, n)).astype(np.int32)
-    win = rng.integers(0, 256, (b, n + 2 * r, n + 2 * r)).astype(np.int32)
+    cur = rng.integers(0, 256, (b, n, n)).astype(dtype)
+    win = rng.integers(0, 256, (b, n + 2 * r, n + 2 * r)).astype(dtype)
     return cur, win
 
 
-@pytest.mark.parametrize("n,r", [(16, 8), (8, 16)])
+@pytest.mark.parametrize("n,r", [(16, 8), (8, 16), (8, 8), (16, 16),
+                                 (16, 32)])
 def test_sad_ref_matches_pallas_interpret(n, r):
     jnp = pytest.importorskip("jax.numpy")
     from video_codecs_tpu.ops import pallas_sad
@@ -35,10 +36,24 @@ def test_sad_ref_matches_pallas_interpret(n, r):
                              n, r)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+    # the kernel's dtype: the same surface from the 8-bit samples
+    got8 = ss.sad_surface_ref(torch.from_numpy(cur.astype(np.uint8)),
+                              torch.from_numpy(win.astype(np.uint8)), n, r)
+    assert got8.dtype == torch.int32
+    np.testing.assert_array_equal(got8.numpy(), want)
+
+
+@pytest.mark.parametrize("n,r", [(8, 4), (16, 16)])
+def test_sad_surface_cpu_takes_uint8_and_int32(n, r):
+    cur, win = _inputs(5, 4, n, r, np.uint8)
+    c8, w8 = torch.from_numpy(cur), torch.from_numpy(win)
+    np.testing.assert_array_equal(
+        ss.sad_surface(c8, w8, n, r).numpy(),
+        ss.sad_surface(c8.int(), w8.int(), n, r).numpy())
 
 
 def test_sad_surface_cpu_runs_plain_version_in_chunks(monkeypatch):
-    cur, win = _inputs(7, 5, 8, 4)
+    cur, win = _inputs(7, 5, 8, 4, np.uint8)
     c, w = torch.from_numpy(cur), torch.from_numpy(win)
     before = ss.sad_surface.launches
     whole = ss.sad_surface(c, w, 8, 4)
@@ -47,27 +62,47 @@ def test_sad_surface_cpu_runs_plain_version_in_chunks(monkeypatch):
     monkeypatch.setattr(ss, "_CHUNK_ELEMS", 1)
     np.testing.assert_array_equal(ss.sad_surface_ref(c, w, 8, 4).numpy(),
                                   whole.numpy())
-    want = np.abs(win[:, 3:11, 5:13] - cur).sum((1, 2))
+    want = np.abs(win[:, 3:11, 5:13].astype(np.int32) - cur).sum((1, 2))
     np.testing.assert_array_equal(whole[:, 3, 5].numpy(), want)
 
 
 def test_sad_surface_rejects_mismatched_shapes():
-    cur, win = _inputs(8, 2, 8, 4)
+    cur, win = _inputs(8, 2, 8, 4, np.uint8)
     with pytest.raises(ValueError):
         ss.sad_surface(torch.from_numpy(cur), torch.from_numpy(win), 8, 5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", [(16, 8), (8, 16), (16, 16), (16, 32)])
-def test_sad_kernel_matches_plain_on_card(n, r):
+@pytest.mark.parametrize("n,r", [(16, 8), (8, 16), (16, 16), (16, 32),
+                                 (8, 8), (8, 5), (16, 3)])
+@pytest.mark.parametrize("b", [97, 37, 1])
+def test_sad_kernel_matches_plain_on_card(n, r, b):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
-    cur, win = _inputs(n * 1000 + r, 97, n, r)
+    cur, win = _inputs(n * 1000 + r + b, b, n, r, np.uint8)
     c = torch.from_numpy(cur).cuda()
     w = torch.from_numpy(win).cuda()
     before = ss.sad_surface.launches
     got = ss.sad_surface(c, w, n, r)
     torch.cuda.synchronize()
     assert ss.sad_surface.launches == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  ss.sad_surface_ref(c, w, n, r).cpu().numpy())
+    err = (got - ss.sad_surface_ref(c, w, n, r)).abs().max().item()
+    assert err == 0
+
+
+@pytest.mark.cuda
+def test_sad_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
+    cur, win = _inputs(9, 4, 8, 4)
+    with pytest.raises(TypeError):          # int32: no silent conversion
+        ss.sad_surface(torch.from_numpy(cur).cuda(),
+                       torch.from_numpy(win).cuda(), 8, 4)
+    cur, win = _inputs(9, 4, 4, 4, np.uint8)
+    with pytest.raises(ValueError):         # n = 4
+        ss.sad_surface(torch.from_numpy(cur).cuda(),
+                       torch.from_numpy(win).cuda(), 4, 4)
+    cur, win = _inputs(9, 2, 16, 200, np.uint8)
+    with pytest.raises(RuntimeError):       # 416x416 window: no CTA holds it
+        ss.sad_surface(torch.from_numpy(cur).cuda(),
+                       torch.from_numpy(win).cuda(), 16, 200)

@@ -1,28 +1,40 @@
 """video_codecs_tpu_torch — the PyTorch/CUDA port of video_codecs_tpu.
 
 The JAX package `video_codecs_tpu` is the reference: every function here
-returns the same integers as its JAX counterpart on the same inputs.  The
-port replaces only device code.  Host code without JAX in it (CAVLC, the
-H.264 host encoder/decoder, the DPB, bit writers, the numpy transform
-tables) is imported from `video_codecs_tpu` as a library.  This package
-imports `torch` and never `jax`.
+returns the same integers (and the same bitstream bytes) as its JAX
+counterpart on the same inputs.  The port imports `torch`, numpy and the
+standard library, and nothing of `video_codecs_tpu` -- not even its
+modules that do not import JAX.  What it needs of the reference's host
+code (bit writer, CAVLC, transforms, deblocking, the H.264 baseline host
+encoder/decoder and DPB) it carries as its own copy, function by
+function under the same names, with each original's file and line in a
+comment; only the tests import both packages.
 
-Rules: plain functions on tensors, an explicit `device` everywhere (nothing
-picks a device by itself), no autograd (work runs under
-`torch.inference_mode()`), and a hand-written CUDA kernel wherever the
-reference had a Pallas kernel.  A kernel wrapper launches its kernel for a
-CUDA tensor or raises; it runs the plain PyTorch version only for a CPU
-tensor.
+Rules: plain functions on tensors, an explicit `device` everywhere (the
+entry point `DeviceH264Encoder` runs on the card unless the caller asks
+for the CPU), no autograd (work runs under `torch.inference_mode()`), and
+a hand-written CUDA kernel wherever the reference had a Pallas kernel.  A
+kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
+the plain PyTorch version only for a CPU tensor.
 
 Module map (port -> JAX counterpart):
 
   utils/device.py            utils/devconst.py (dev_const)
+  entropy/bitstream.py       entropy/bitstream.py (whole)
+  entropy/cavlc.py           entropy/cavlc.py (whole)
+  ops/h264_transform.py      ops/h264_transform.py (4x4 part)
+  ops/h264_deblock.py        ops/h264_deblock.py (whole)
+  ops/h264_interp.py         ops/h264_interp.py (whole; decoder MC)
   ops/interp.py              ops/interp.py (_gather_window)
   ops/cost.py                ops/cost.py (sad, sse, hadamard_satd_8x8)
   ops/sad_surface.py         ops/pallas_sad.py (sad_surface, _sad_kernel)
     + csrc/sad_surface.cu      the Hopper kernel for it
   ops/me.py                  ops/me.py (integer_search, _OFFS8)
   ops/h264_dev.py            ops/h264_jax.py
+  models/h264/dpb.py         models/h264/dpb.py (sliding window)
+  models/h264/intra_codec.py models/h264/intra_codec.py (baseline CAVLC)
+  models/h264/inter_codec.py models/h264/inter_codec.py (IPPP driver,
+                             CAVLC decoder)
   models/hevc/inter_dev.py   models/hevc/inter_jax.py (mvd_bits_dev)
   models/h264/inter_dev.py   models/h264/inter_jax.py (encode_p_dev,
                              DeviceH264Encoder)

@@ -11,10 +11,11 @@ chroma 2x2-DC + AC, all MBs at once.
 
 Phase 2 (host, `DeviceH264Encoder._host_phase`): spec-exact median MV
 prediction, P_Skip detection and CAVLC of exactly the device-decided
-levels, with the shared JAX-free host code of video_codecs_tpu.
+levels, with the port's own H.264 host stack (models/h264/inter_codec.py
+and the modules under it).
 
-The IDR is coded by the shared host intra encoder, as in the reference,
-which overrides only `_encode_p_frame`.
+The IDR is coded by the host intra encoder, as in the reference:
+`DeviceH264Encoder` overrides only `_encode_p_frame`.
 """
 
 from __future__ import annotations
@@ -24,21 +25,18 @@ import time
 import numpy as np
 import torch
 
-from video_codecs_tpu.entropy import cavlc
-from video_codecs_tpu.entropy.bitstream import BitWriter
-from video_codecs_tpu.models.h264 import inter_codec as pc
-from video_codecs_tpu.models.h264.inter_codec import (
-    H264Encoder, NcGrid, _code_residual_16, _NCBP_INTER_420,
-    bs_maps_p, mv_pred_part, _commit_part, skip_mv, deblock_frame)
-from video_codecs_tpu.ops import h264_transform as ht
+from video_codecs_tpu_torch.entropy import cavlc
+from video_codecs_tpu_torch.entropy.bitstream import BitWriter
+from video_codecs_tpu_torch.models.h264.inter_codec import (
+    _BLK_X, _BLK_Y, H264Encoder, NcGrid, _code_residual_16,
+    _NCBP_INTER_420, bs_maps_p, mv_pred_part, _commit_part, skip_mv,
+    deblock_frame)
 from video_codecs_tpu_torch.models.hevc.inter_dev import mvd_bits_dev
+from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import h264_dev as hd
 from video_codecs_tpu_torch.ops import me as me_ops
 from video_codecs_tpu_torch.utils.device import const, to_device
-
-_BLK_X = pc._BLK_X
-_BLK_Y = pc._BLK_Y
 
 # log2(1 + a) for the level magnitudes a 4x4 block can hold (|level| <
 # 2^13 at any QP), correctly rounded to float32 once on the host, so the
@@ -64,16 +62,19 @@ def _refine_h264(ref, cur, x0, y0, mvx, mvy, n, step):
     return mvx, mvy, best
 
 
-def _me_grid(ref, y_plane, n: int, sr: int, w: int, h: int):
-    """Full ME for every aligned n-block: integer full search + half +
-    quarter refinement.  Returns (mvx, mvy, satd, bits-proxy) flat [B]."""
+def _me_grid(ref, y_plane, ref8, n: int, sr: int, w: int, h: int):
+    """Full ME for every aligned n-block: integer full search (on the
+    uint8 reference ref8, as the SAD kernel takes it) + half + quarter
+    refinement (on the int32 planes).  Returns (mvx, mvy, satd,
+    bits-proxy) flat [B], the block origins and the int32 blocks."""
     bw, bh = w // n, h // n
     dev = ref.device
     x0 = (torch.arange(bw, dtype=torch.int32, device=dev) * n).repeat(bh)
     y0 = (torch.arange(bh, dtype=torch.int32, device=dev) * n
           ).repeat_interleave(bw)
     cur = hd._gather(y_plane, x0, y0, n, n)
-    imx, imy = me_ops.integer_search(ref, cur, x0, y0, n, sr)
+    imx, imy = me_ops.integer_search(ref8, cur.to(torch.uint8), x0, y0, n,
+                                     sr)
     mvx, mvy = imx * 4, imy * 4
     mvx, mvy, _ = _refine_h264(ref, cur, x0, y0, mvx, mvy, n, 2)
     mvx, mvy, satd = _refine_h264(ref, cur, x0, y0, mvx, mvy, n, 1)
@@ -127,10 +128,11 @@ def encode_p_dev(y, u, v, ref_y, ref_u, ref_v, qp: int, w: int, h: int,
     dev = y.device
     yi, ui, vi = y.int(), u.int(), v.int()
     ry, ru, rv = ref_y.int(), ref_u.int(), ref_v.int()
+    ry8 = ref_y.to(torch.uint8)                  # samples are 0..255
 
     m16x, m16y, satd16, bits16, x16, y16, cur16 = _me_grid(
-        ry, yi, 16, sr, w, h)
-    m8x, m8y, satd8, bits8, x8, y8, cur8 = _me_grid(ry, yi, 8, sr, w, h)
+        ry, yi, ry8, 16, sr, w, h)
+    m8x, m8y, satd8, bits8, x8, y8, cur8 = _me_grid(ry, yi, ry8, 8, sr, w, h)
 
     # ---- luma residual coding for both hypotheses ----
     def code_luma(pred, cur):
@@ -232,28 +234,23 @@ class DeviceH264Encoder(H264Encoder):
     """H.264 baseline encoder with the P-slice pixel pipeline on `device`
     (ME + mode decision + transforms); host CAVLC phase 2.
 
+    The work runs on the card unless the caller passes `device="cpu"`.
+    The options of `H264Encoder` that the port does not carry (several
+    references, CABAC, weighted prediction, ...) raise
+    NotImplementedError there.
+
     `p_times` collects (device-phase s, host-phase s) per P picture; the
     device phase includes the uploads and the copy of its result to the
     host, so it ends synchronised."""
 
     def __init__(self, width: int, height: int, qp: int = 28,
-                 search_range: int = 16, *, device, **kw) -> None:
-        kw.setdefault("entropy", "cavlc")
+                 search_range: int = 16, *, device="cuda", **kw) -> None:
         super().__init__(width, height, qp=qp,
                          search_range=search_range, **kw)
-        if self.entropy != "cavlc":
-            raise ValueError("device P engine: CAVLC phase 2 only")
-        if self.weighted_pred or self.transform8x8:
-            raise ValueError("device P engine: no weighted pred / 8x8")
         self.device = torch.device(device)
         self.p_times: list[tuple[float, float]] = []
 
-    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None,
-                        reorder_cmds=None, mmco=None):
-        if len(refs) != 1 or reorder_cmds or mmco or self.att:
-            raise NotImplementedError(
-                "device P engine: one reference, no reordering, MMCO or "
-                "attention")
+    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None):
         t0 = time.perf_counter()
         st = self._device_phase(y, u, v, refs[0])
         t1 = time.perf_counter()
@@ -266,7 +263,9 @@ class DeviceH264Encoder(H264Encoder):
         qp = self.qp
         lam = 0.85 * 2.0 ** ((qp - 12) / 3.0)
         with torch.inference_mode():
-            planes = [to_device(np.asarray(p), self.device)
+            # the samples are 8-bit: the int32 reference planes go up as
+            # uint8, a quarter of the bytes
+            planes = [to_device(np.asarray(p, np.uint8), self.device)
                       for p in (y, u, v, *ref)]
             st = encode_p_dev(*planes, qp=qp, w=self.w, h=self.h,
                               sr=self.sr, lam=lam)
@@ -429,6 +428,4 @@ class DeviceH264Encoder(H264Encoder):
         bs_ver, bs_hor = bs_maps_p(intra_mb, nc_y.tc, mvg, refg)
         rec_y, rec_u, rec_v = deblock_frame(rec_y, rec_u, rec_v, qp, qpc,
                                             bs_ver, bs_hor)
-        self._prev_mvg = mvg.copy()
-        self._prev_refg = refg.copy()
         return w.data(), (rec_y, rec_u, rec_v)

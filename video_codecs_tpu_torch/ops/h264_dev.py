@@ -2,7 +2,7 @@
 integer transform, quant/dequant, chroma 2x2 DC.
 
 Counterpart of ops/h264_jax.py (same functions, same integers).  Tables
-come from the JAX-free numpy module ops/h264_transform.py.  The reference's
+come from the port's numpy module ops/h264_transform.py.  The reference's
 forward transform is an int32 einsum; CUDA has no int32 matmul, so
 `fwd4x4_dev` is the Cf butterfly in adds and shifts.  `>>` and `&` on
 int32 tensors are arithmetic shift and two's-complement and, as in jnp.
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video_codecs_tpu.ops import h264_transform as ht
+from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops.interp import gather_window
 from video_codecs_tpu_torch.utils.device import const
 

@@ -2,7 +2,7 @@
 
 The reference gathers a [B, (2r+1)^2, n, n] patch tensor and reduces it;
 here the SAD surface comes from `sad_surface` (the Hopper kernel on CUDA
-tensors).  The centre bias and the argmin stay in PyTorch: `torch.argmin`
+tensors, which takes the 8-bit samples as they are).  The centre bias and the argmin stay in PyTorch: `torch.argmin`
 returns the first minimum, the same rule as `jnp.argmin` over row-major
 (dy, dx).
 """
@@ -26,11 +26,12 @@ def integer_search(ref: torch.Tensor, cur: torch.Tensor, x0: torch.Tensor,
                    search_range: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Full integer-pel search around (0, 0) for every block.
 
-    ref: [H, W] int32; cur: [B, n, n]; returns (mvx, mvy) int-pel [B]."""
+    ref: [H, W], cur: [B, n, n], both uint8 (or both int32 on the CPU);
+    returns (mvx, mvy) int-pel [B]."""
     r = search_range
     span = 2 * r + 1
     win = gather_window(ref, x0 - r, y0 - r, n + 2 * r, n + 2 * r)
-    sad = sad_surface(cur.int().contiguous(), win.int().contiguous(), n, r)
+    sad = sad_surface(cur.contiguous(), win, n, r)
     # small centre bias like HM's mv-cost: prefer shorter MVs on ties
     d = np.abs(np.arange(span) - r)
     mv_cost = const((d[:, None] + d[None, :]).reshape(-1), ref.device)

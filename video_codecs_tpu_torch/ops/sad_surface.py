@@ -5,10 +5,14 @@ kernel).  On a CUDA tensor `sad_surface` launches the hand-written Hopper
 kernel csrc/sad_surface.cu, which it builds with nvcc at first use; on a
 CPU tensor it runs the plain PyTorch version `sad_surface_ref`.  There is
 no other path: a CUDA tensor either goes through the kernel or raises.
+The kernel takes uint8 blocks and windows (the planes are 8-bit) and
+n = 8 or 16, the H.264 block sizes; the plain version takes uint8 or
+int32 and any n.
 
 The kernel is built into build/torch_kernels/ under the repository root,
 as a shared library with a plain C interface loaded with ctypes, and is
-rebuilt whenever the source's hash changes.
+rebuilt whenever the source's hash or the build flags change.  Windows
+too large for one CTA's shared memory are refused by the kernel's launch.
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sad_surface.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# The largest search window one CTA can stage (227 KB of shared memory).
-_MAX_SMEM = 232448
 # sad_surface_ref materialises at most this many patch elements at once.
 _CHUNK_ELEMS = 1 << 26
 
@@ -44,11 +46,11 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile csrc/sad_surface.cu for sm_90a unless a library of the
-    same source hash exists.  Returns (library, build seconds, compiler
+    """Compile csrc/sad_surface.cu for sm_90a unless a library of the same
+    source and flags exists.  Returns (library, build seconds, compiler
     output); seconds is 0.0 when the library was already built."""
-    src = _SRC.read_bytes()
-    tag = hashlib.blake2b(src, digest_size=8).hexdigest()
+    tag = hashlib.blake2b(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode(),
+                          digest_size=8).hexdigest()
     so = _BUILD_DIR / f"libvct_sad_surface_{tag}.so"
     if so.exists():
         return so, 0.0, ""
@@ -64,12 +66,13 @@ def build() -> tuple[Path, float, str]:
     return so, time.perf_counter() - t0, res.stdout + res.stderr
 
 
-def _load():
+def _load() -> ctypes.CDLL:
+    """The built library, with its entry point's C signature declared:
+    vct_sad_surface_u8(cur, win, out, b, n, r, stream)."""
     global _LIB
     if _LIB is None:
-        so, _, _ = build()
-        lib = ctypes.CDLL(str(so))
-        fn = lib.vct_sad_surface_i32
+        lib = ctypes.CDLL(str(build()[0]))
+        fn = lib.vct_sad_surface_u8
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -80,10 +83,10 @@ def _load():
 
 def sad_surface_ref(cur: torch.Tensor, win: torch.Tensor, n: int,
                     r: int) -> torch.Tensor:
-    """Plain PyTorch SAD surface: cur [B, n, n], win [B, n+2r, n+2r] ->
-    [B, 2r+1, 2r+1] int32.  The [b, 2r+1, 2r+1, n, n] patch view of each
-    chunk of blocks is materialised, so chunks keep it under
-    `_CHUNK_ELEMS`."""
+    """Plain PyTorch SAD surface: cur [B, n, n], win [B, n+2r, n+2r]
+    (uint8 or int32) -> [B, 2r+1, 2r+1] int32.  The [b, 2r+1, 2r+1, n, n]
+    patch view of each chunk of blocks is materialised, so chunks keep it
+    under `_CHUNK_ELEMS`."""
     b = cur.shape[0]
     span = 2 * r + 1
     chunk = max(1, _CHUNK_ELEMS // (span * span * n * n))
@@ -100,8 +103,9 @@ def sad_surface(cur: torch.Tensor, win: torch.Tensor, n: int,
                 r: int) -> torch.Tensor:
     """cur [B, n, n], win [B, n+2r, n+2r] -> SAD [B, 2r+1, 2r+1] (int32).
 
-    CUDA tensors go through the Hopper kernel (counted in
-    `sad_surface.launches`); CPU tensors through `sad_surface_ref`."""
+    CUDA tensors (uint8, contiguous, n = 8 or 16) go through the Hopper
+    kernel, counted in `sad_surface.launches`; CPU tensors through
+    `sad_surface_ref`."""
     b = cur.shape[0]
     wsz = n + 2 * r
     if tuple(cur.shape) != (b, n, n) or tuple(win.shape) != (b, wsz, wsz):
@@ -113,22 +117,26 @@ def sad_surface(cur: torch.Tensor, win: torch.Tensor, n: int,
         return sad_surface_ref(cur, win, n, r)
     if cur.device.type != "cuda":
         raise ValueError(f"sad_surface: no kernel for {cur.device}")
-    if cur.dtype != torch.int32 or win.dtype != torch.int32:
-        raise TypeError("sad_surface kernel takes int32 cur and win")
+    if cur.dtype != torch.uint8 or win.dtype != torch.uint8:
+        raise TypeError("sad_surface kernel takes uint8 cur and win, got "
+                        f"{cur.dtype} / {win.dtype}")
+    if n not in (8, 16):
+        raise ValueError(f"sad_surface kernel takes n = 8 or 16, got {n}")
     if not (cur.is_contiguous() and win.is_contiguous()):
         raise ValueError("sad_surface kernel takes contiguous tensors")
-    if 4 * (n * n + wsz * wsz) > _MAX_SMEM:
-        raise ValueError(f"sad_surface: window {wsz}x{wsz} exceeds one "
-                         "CTA's shared memory")
     span = 2 * r + 1
     out = torch.empty((b, span, span), dtype=torch.int32, device=cur.device)
+    if b == 0:
+        return out
     lib = _load()
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream(cur.device).cuda_stream
-        err = lib.vct_sad_surface_i32(cur.data_ptr(), win.data_ptr(),
-                                      out.data_ptr(), b, n, r, stream)
+        err = lib.vct_sad_surface_u8(cur.data_ptr(), win.data_ptr(),
+                                     out.data_ptr(), b, n, r, stream)
     if err != 0:
-        raise RuntimeError(f"sad_surface kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"sad_surface kernel launch failed: cudaError "
+                           f"{err} (1: the {wsz}x{wsz} window does not fit "
+                           "one CTA's shared memory)")
     sad_surface.launches += 1
     return out
 
