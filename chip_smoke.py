@@ -20,7 +20,18 @@ through the hand-written CUDA SAD-surface kernel, in phases:
   5. run the same P picture on the card and on the CPU (plain SAD) at
      search ranges 16 and 32 and a small clip's whole stream on both, and
      report where they differ (motion fields must agree exactly);
-  6. require that nothing of the JAX package was imported.
+  6. hevc-intra: encode 2 pictures of a seeded 1920x1072 clip through the
+     port's HEVC all-intra CTB32 quadtree (`QuadtreeFastEncoder` on the
+     card: QP 32, RDOQ-lite, sign-data hiding, deblocking, MD5 picture
+     hash SEI; the IDR settings of the repo's 1080p headline), timing
+     the device phase and the host phase (native CABAC + hash) of each
+     picture; decode the stream with the port's QuadtreeIntraDecoder,
+     require every picture hash to match and the pictures to equal the
+     encoder's; encode one 416x240 picture on the card and on the CPU and
+     require equal state dicts and equal NAL bytes.  This path has no
+     hand-written kernel (the reference has no Pallas kernel on it): the
+     phase checks that the SAD kernel's launch count does not move;
+  7. require that nothing of the JAX package was imported.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 line before it lists the kernels.
@@ -37,13 +48,18 @@ import time
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.entropy import bitstream as hevc_bs
 from video_codecs_tpu_torch.models.h264 import inter_dev
 from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
+from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
+from video_codecs_tpu_torch.models.hevc import quadtree_codec
 from video_codecs_tpu_torch.ops import sad_surface as ss
 
 KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
 W, H, QP, SR = 1280, 720, 28, 16
+# HEVC all-intra quadtree: the 1080p headline's picture size and QP.
+HEVC_W, HEVC_H, HEVC_QP = 1920, 1072, 32
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
@@ -277,6 +293,87 @@ def phase_cuda_vs_cpu() -> None:
           f"({len(streams['cuda'])} / {len(streams['cpu'])} bytes)")
 
 
+def hevc_cfg(w: int, h: int):
+    """The IDR settings of the 1080p headline (CTB32, min CU 8, max TB 32,
+    RDOQ-lite, SBH), with deblocking and the MD5 picture-hash SEI on."""
+    return hevc_headers.HevcConfig(
+        width=w, height=h, qp=HEVC_QP, log2_ctb=5, log2_min_cb=3,
+        log2_max_tb=5, sign_data_hiding=True, rdoq="lite", hash_sei=True)
+
+
+def phase_hevc_intra() -> None:
+    """Phase 6: the HEVC all-intra quadtree end to end on the card."""
+    w, h = HEVC_W, HEVC_H
+    # the 35-mode prediction is a float32 matmul that is exact only
+    # without TF32 (the package turns it off at import)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    frames = synth_clip(w, h, 2, seed=5)
+    enc = quadtree_codec.QuadtreeFastEncoder(hevc_cfg(w, h), device="cuda")
+    sad_before = ss.sad_surface.launches
+    nals = enc.stream_headers()
+    recons = []
+    for i, (y, u, v) in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = {k: a.cpu() for k, a in enc._dispatch(y, u, v).items()}
+        t1 = time.perf_counter()
+        frame_nals, rec = enc.serialize_frame(st)
+        t2 = time.perf_counter()
+        nals.extend(frame_nals)
+        recons.append(rec)
+        nbytes = sum(len(n) for n in frame_nals if n)
+        d8 = st["depth8"].numpy()[:h // 8, :w // 8]
+        cus = [int((d8 == d).sum()) // (16 >> (2 * d)) for d in (0, 1, 2)]
+        p = psnr(y, rec[0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        print(f"[hevc-intra] picture {i}: device phase "
+              f"{(t1 - t0) * 1e3:.1f} ms (dispatch + copy back), host phase "
+              f"{(t2 - t1) * 1e3:.1f} ms (native CABAC + hash SEI); "
+              f"{nbytes} bytes, {nbytes * 8 * 30 / 1000:.1f} kbps at 30 fps, "
+              f"Y-PSNR {p:.2f} dB; CUs 32/16/8: {cus[0]}/{cus[1]}/{cus[2]}")
+    stream = hevc_bs.annexb(nals)
+    check(ss.sad_surface.launches == sad_before,
+          "the HEVC intra phase launched the SAD kernel")
+    print(f"[hevc-intra] this phase runs no hand-written kernel: the SAD "
+          f"kernel's launch count stayed at {sad_before}")
+
+    t0 = time.perf_counter()
+    dec = quadtree_codec.QuadtreeIntraDecoder()
+    out = dec.decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(dec.hash_status == [True] * len(frames),
+          f"picture hash SEI mismatch: {dec.hash_status}")
+    check(len(out) == len(frames), "decoder returned a wrong picture count")
+    for i, (r, o) in enumerate(zip(recons, out)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
+                  f"decoded picture {i} plane {c} != encoder recon")
+    print(f"[hevc-intra] {w}x{h} QP{HEVC_QP}: {len(stream)} bytes for "
+          f"{len(frames)} pictures; the port's QuadtreeIntraDecoder: hash "
+          f"SEI OK on every picture, pictures equal the encoder's, "
+          f"{t_dec:.2f} s")
+
+    sw, sh = 416, 240                    # the repo's bench_intra_qt size
+    y, u, v = synth_clip(sw, sh, 1, seed=9)[0]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        e = quadtree_codec.QuadtreeFastEncoder(hevc_cfg(sw, sh), device=dev)
+        t0 = time.perf_counter()
+        st = {k: a.cpu().numpy() for k, a in e._dispatch(y, u, v).items()}
+        res[dev] = (st, e.serialize_frame(st)[0],
+                    time.perf_counter() - t0)
+    (g, gn, tg), (c, cn, tc) = res["cuda"], res["cpu"]
+    diff = {k: int((g[k] != c[k]).sum()) for k in g
+            if not np.array_equal(g[k], c[k])}
+    check(not diff, f"cuda != cpu at {sw}x{sh}: elements differing per "
+                    f"key {diff}")
+    check(gn == cn, f"cuda and cpu NAL bytes differ at {sw}x{sh}")
+    print(f"[hevc-intra] {sw}x{sh} picture on the card and on the CPU: all "
+          f"{len(g)} state keys equal, NAL bytes equal "
+          f"({sum(len(n) for n in gn if n)} bytes); cuda {tg:.2f} s, "
+          f"cpu {tc:.2f} s")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
     smi = subprocess.run(
@@ -292,6 +389,7 @@ def main() -> None:
     k = phase_kernel()
     launches = phase_encode_720p()
     phase_cuda_vs_cpu()
+    phase_hevc_intra()
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")

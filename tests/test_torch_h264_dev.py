@@ -155,6 +155,25 @@ def test_port_runs_without_jax(tmp_path):
                if sys.modules[m] is not None]
         assert not bad, bad
         assert len(enc.p_times) == 2
+        from video_codecs_tpu_torch.models.hevc import encoder_qt_dev
+        from video_codecs_tpu_torch.models.hevc import headers
+        from video_codecs_tpu_torch.models.hevc import quadtree_codec
+        cfg = headers.HevcConfig(width=64, height=40, qp=32, log2_ctb=5,
+                                 log2_min_cb=3, log2_max_tb=5,
+                                 sign_data_hiding=True, rdoq="lite")
+        hevc = quadtree_codec.QuadtreeFastEncoder(cfg, device="cpu")
+        hstream, hrec = hevc.encode_sequence(
+            [(base[:40, :64], base[:40:2, :64:2], base[1:41:2, :64:2])])
+        dec = quadtree_codec.QuadtreeIntraDecoder()
+        hout = dec.decode(hstream)
+        assert dec.hash_status == [True]
+        assert all(np.array_equal(hrec[0][c], hout[0][c]) for c in range(3))
+        assert encoder_qt_dev.CTB == 32
+        bad = [m for m in sys.modules
+               if m in ("jax", "video_codecs_tpu")
+               or m.startswith(("jax.", "video_codecs_tpu."))
+               if sys.modules[m] is not None]
+        assert not bad, bad
         print("OK", len(stream))
         """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -166,6 +185,7 @@ def test_port_runs_without_jax(tmp_path):
 
 
 _FENCED = ["chip_smoke.py", "scripts/profile_torch_h264_p.py",
+           "scripts/profile_torch_hevc_intra.py",
            *sorted(str(p.relative_to(REPO)) for p in
                    pathlib.Path(REPO, "video_codecs_tpu_torch").rglob("*.py"))]
 

@@ -6,13 +6,15 @@ counterpart on the same inputs.  The port imports `torch`, numpy and the
 standard library, and nothing of `video_codecs_tpu` -- not even its
 modules that do not import JAX.  What it needs of the reference's host
 code (bit writer, CAVLC, transforms, deblocking, the H.264 baseline host
-encoder/decoder and DPB) it carries as its own copy, function by
+encoder/decoder and DPB; the HEVC spec tables, CABAC, residual coding,
+parameter sets and the intra/quadtree syntax and decoders, and the
+native C++ CABAC writer) it carries as its own copy, function by
 function under the same names, with each original's file and line in a
 comment; only the tests import both packages.
 
 Rules: plain functions on tensors, an explicit `device` everywhere (the
-entry point `DeviceH264Encoder` runs on the card unless the caller asks
-for the CPU), no autograd (work runs under `torch.inference_mode()`), and
+entry points `DeviceH264Encoder` and `QuadtreeFastEncoder` run on the
+card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel.  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
@@ -38,6 +40,24 @@ Module map (port -> JAX counterpart):
   models/hevc/inter_dev.py   models/hevc/inter_jax.py (mvd_bits_dev)
   models/h264/inter_dev.py   models/h264/inter_jax.py (encode_p_dev,
                              DeviceH264Encoder)
+  utils/rom.py               utils/rom.py (whole)
+  entropy/cabac.py, ctx.py,  entropy/cabac.py, ctx.py, residual.py
+    residual.py                (whole)
+  entropy/native.py          entropy/native.py (quadtree serializer)
+    + csrc/cabac_enc.cpp       csrc/cabac_enc.cpp (byte copy)
+  models/hevc/headers.py     models/hevc/headers.py (whole)
+  ops/transform.py           ops/transform.py
+  ops/quant.py               ops/quant.py
+  ops/intra.py               ops/intra.py
+  ops/deblock.py             ops/deblock.py (scalar-QP BS deblocking)
+  ops/rdoq.py                ops/rdoq.py (fractional-bit table)
+  ops/rdoq_dev.py            ops/rdoq_jax.py (rdoq_dev)
+  models/hevc/encoder_dev.py models/hevc/encoder_jax.py (ref gather)
+  models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)
+  models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, hash
+                             SEI, decoder NAL loop)
+  models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (syntax,
+                             QuadtreeIntraDecoder, QuadtreeFastEncoder)
 """
 
 import torch

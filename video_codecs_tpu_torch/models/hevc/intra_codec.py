@@ -1,0 +1,194 @@
+"""HEVC intra host helpers: reference build, MPM, chroma QP, TB coding,
+stream headers, the picture-hash SEI and the intra decoder's NAL loop.
+
+The port's copy of the part of video_codecs_tpu/models/hevc/intra_codec.py
+that the all-intra quadtree path needs; each function keeps its name and
+a comment gives the original's line.  Cut: the flat CTB16 encoder and
+decoder bodies (mode decision, slice coding, SAO, WPP and tiles), which
+wait for a later slice; `IntraDecoder` keeps its NAL loop and hash check,
+and the quadtree decoder supplies `_decode_slice`.  `code_tb_np` raises
+NotImplementedError for rdoq="full" (the host full RDOQ is not ported).
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from video_codecs_tpu_torch.entropy import bitstream as bs
+from video_codecs_tpu_torch.models.hevc import headers
+from video_codecs_tpu_torch.ops import quant as quant_ops
+from video_codecs_tpu_torch.ops import transform as tr_ops
+from video_codecs_tpu_torch.utils import rom
+
+DC = 1
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:46
+def build_ref_np(plane: np.ndarray, x: int, y: int, n: int,
+                 tile_x0: int = 0, tile_x1: int | None = None) -> np.ndarray:
+    """Substituted reference array (4N+1) for block at (x, y) from a
+    partially reconstructed plane; availability follows tile-scan decode
+    order and never crosses the [tile_x0, tile_x1) tile column."""
+    h, w = plane.shape
+    if tile_x1 is None:
+        tile_x1 = w
+    r = 4 * n + 1
+    samples = np.zeros(r, np.int32)
+    avail = np.zeros(r, bool)
+    # left column k=0..2N-1: p[-1][2N-1-k]
+    if x > tile_x0:
+        for k in range(n, 2 * n):          # j = 2N-1-k in [0, N): left part
+            j = 2 * n - 1 - k
+            samples[k] = plane[y + j, x - 1]
+            avail[k] = True
+        # below-left j in [N, 2N): never decoded yet in raster block order
+    if x > tile_x0 and y > 0:
+        samples[2 * n] = plane[y - 1, x - 1]
+        avail[2 * n] = True
+    if y > 0:
+        top_max = min(2 * n, tile_x1 - x)  # clipped at tile/picture edge
+        for i in range(top_max):
+            samples[2 * n + 1 + i] = plane[y - 1, x + i]
+            avail[2 * n + 1 + i] = True
+    # spec 8.4.4.2.2 substitution
+    if not avail.any():
+        return np.full(r, 128, np.int32)
+    out = samples.copy()
+    if not avail[0]:
+        out[0] = samples[np.argmax(avail)]
+    for k in range(1, r):
+        if not avail[k]:
+            out[k] = out[k - 1]
+    return out
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:84
+def mpm_list(left_mode: int) -> list[int]:
+    """MPM candidates; above candidate is always DC because every CU is a
+    CTB top row (spec 8.4.2 line-buffer rule)."""
+    cand_a, cand_b = left_mode, DC
+    if cand_a == cand_b:
+        if cand_a < 2:
+            return [0, 1, 26]
+        return [cand_a, 2 + ((cand_a + 29) % 32), 2 + ((cand_a - 2 + 1) % 32)]
+    out = [cand_a, cand_b]
+    for third in (0, 1, 26):
+        if third not in out:
+            out.append(third)
+            break
+    return out
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:100
+def chroma_qp(qp: int) -> int:
+    return int(rom.CHROMA_QP_TABLE_420[max(0, min(57, qp))])
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:104
+def code_tb_np(orig: np.ndarray, pred: np.ndarray, qp: int, log2: int,
+               dst: bool, sbh: bool = False, rdoq: bool | str = False,
+               is_luma: bool = True,
+               scan_type: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Transform+quant one TB; returns (levels, recon).
+
+    rdoq: False = hard quantization, True/"lite" = soft-decision RDOQ-lite,
+    "full" = full CG/last-pos RDOQ (ops/rdoq.py, HM xRateDistOptQuant twin).
+    scan_type: coefficient scan of the TB (needed so SBH parity is fixed
+    over the CGs of the scan the residual is actually coded with).
+    """
+    res = orig.astype(np.int32) - pred
+    coeff = tr_ops.forward_transform_np(res, log2, dst=dst)
+    lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    if rdoq == "full":
+        raise NotImplementedError("host full RDOQ (rdoq_np) is not ported")
+    elif rdoq:
+        levels = quant_ops.rdoq_lite_np(coeff, qp, log2, lam=lam)
+    else:
+        levels = quant_ops.quantize_np(coeff, qp, log2)
+    if sbh and levels.any():
+        levels = quant_ops.apply_sbh_np(levels, log2, coeff, qp,
+                                        scan_type=scan_type)
+    if not levels.any():
+        return levels, pred.astype(np.int32)
+    dq = quant_ops.dequantize_np(levels, qp, log2)
+    r = tr_ops.inverse_transform_np(dq, log2, dst=dst)
+    return levels, np.clip(pred + r, 0, 255).astype(np.int32)
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:230
+class IntraEncoder:
+    # video_codecs_tpu/models/hevc/intra_codec.py:231
+    def __init__(self, cfg: headers.HevcConfig) -> None:
+        assert cfg.width % 16 == 0 and cfg.height % 16 == 0, \
+            "pad input or use conformance window (not yet emitted)"
+        self.cfg = cfg
+        self._wrote_headers = False
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:237
+    def stream_headers(self) -> list[bytes]:
+        return [
+            bs.nal_unit(bs.NAL_VPS, headers.write_vps(self.cfg)),
+            bs.nal_unit(bs.NAL_SPS, headers.write_sps(self.cfg)),
+            bs.nal_unit(bs.NAL_PPS, headers.write_pps(self.cfg)),
+        ]
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:522
+    def _hash_sei(self, rec_y, rec_u, rec_v) -> bytes | None:
+        if not getattr(self.cfg, "hash_sei", True):
+            return None           # annexb() drops None entries
+        w = bs.BitWriter()
+        w.write(132, 8)           # payloadType = decoded_picture_hash
+        w.write(1 + 48, 8)        # payloadSize
+        w.write(0, 8)             # hash_type = MD5
+        for plane in (rec_y, rec_u, rec_v):
+            md5 = hashlib.md5(plane.astype(np.uint8).tobytes()).digest()
+            for b in md5:
+                w.write(b, 8)
+        w.rbsp_trailing_bits()
+        return bs.nal_unit(bs.NAL_SUFFIX_SEI, w.data())
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:627
+class IntraDecoder:
+    # video_codecs_tpu/models/hevc/intra_codec.py:628
+    def __init__(self) -> None:
+        self.cfg: headers.HevcConfig | None = None
+        self.pps: headers.PpsInfo | None = None
+        self.hash_status: list[bool] = []
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:633
+    def decode(self, stream: bytes) -> list[tuple[np.ndarray, ...]]:
+        frames = []
+        pending_hash: list[bytes] | None = None
+        for nal in bs.split_annexb(stream):
+            nal_type = (nal[0] >> 1) & 0x3F
+            rbsp = bs.strip_emulation_prevention(nal[2:])
+            if nal_type == bs.NAL_VPS:
+                continue
+            if nal_type == bs.NAL_SPS:
+                self.cfg = headers.parse_sps(rbsp)
+            elif nal_type == bs.NAL_PPS:
+                self.pps = headers.parse_pps(rbsp)
+            elif nal_type in (bs.NAL_IDR_W_RADL, bs.NAL_IDR_N_LP, bs.NAL_CRA):
+                frames.append(self._decode_slice(rbsp, nal_type))
+            elif nal_type == bs.NAL_SUFFIX_SEI:
+                md5s = self._parse_hash_sei(rbsp)
+                if md5s and frames:
+                    ok = all(
+                        hashlib.md5(frames[-1][i].astype(np.uint8).tobytes())
+                        .digest() == md5s[i] for i in range(3))
+                    self.hash_status.append(ok)
+        return frames
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:837
+    @staticmethod
+    def _parse_hash_sei(rbsp: bytes) -> list[bytes] | None:
+        r = bs.BitReader(rbsp)
+        ptype = r.read(8)
+        psize = r.read(8)
+        if ptype != 132:
+            return None
+        assert r.read(8) == 0 and psize == 49
+        return [bytes(r.read(8) for _ in range(16)) for _ in range(3)]
