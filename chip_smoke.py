@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's H.264 device P-slice engine end to end at 1280x720
-through the hand-written CUDA SAD-surface kernel, in phases:
+Drives the port's two main paths through the hand-written CUDA
+SAD-surface kernel: the H.264 device P-slice engine at 1280x720 and the
+HEVC random-access GOP-8 headline at 1920x1072, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the kernel from video_codecs_tpu_torch/csrc/sad_surface.cu;
@@ -20,21 +21,35 @@ through the hand-written CUDA SAD-surface kernel, in phases:
   5. run the same P picture on the card and on the CPU (plain SAD) at
      search ranges 16 and 32 and a small clip's whole stream on both, and
      report where they differ (motion fields must agree exactly);
-  6. hevc-intra: encode 2 pictures of a seeded 1920x1072 clip through the
-     port's HEVC all-intra CTB32 quadtree (`QuadtreeFastEncoder` on the
-     card: QP 32, RDOQ-lite, sign-data hiding, deblocking, MD5 picture
-     hash SEI; the IDR settings of the repo's 1080p headline), timing
-     the device phase and the host phase (native CABAC + hash) of each
-     picture; decode the stream with the port's QuadtreeIntraDecoder,
-     require every picture hash to match and the pictures to equal the
-     encoder's; encode one 416x240 picture on the card and on the CPU and
-     require equal state dicts and equal NAL bytes.  This path has no
-     hand-written kernel (the reference has no Pallas kernel on it): the
-     phase checks that the SAD kernel's launch count does not move;
-  7. require that nothing of the JAX package was imported.
+  6. hevc-intra: encode one 416x240 picture through the port's HEVC
+     all-intra CTB32 quadtree (`QuadtreeFastEncoder`) on the card and on
+     the CPU and require equal state dicts and equal NAL bytes (the 1080p
+     IDR now runs as the first picture of phase 7's GOP);
+  7. hevc-ra: the repo's 1080p headline, HEVC random access GOP-8 on the
+     CTB32 device quadtree (`QtDeviceRandomAccessEncoder`, bench.py:84-107
+     settings: 1920x1072, QP 32, SR64 pyramid ME, CU8 tree off, TMVP,
+     full RDOQ, one reference per list, MD5 picture-hash SEI):
+     a. hold the SAD kernel against its plain version at the pyramid's
+        shapes (4x4-pooled quarter-resolution stage n=4 r=16, the +-3
+        full-resolution windows n=16 r=3; the CU8 tree's n=2 and n=8
+        checked) and time the kernel, the plain version and
+        `torch.cdist` beside the bound, per B picture;
+     b. encode 9 pictures of a seeded 1920x1072 clip on the card, timing
+        per picture the device phase (the IDR's quadtree, or
+        encode_b_frame_dev + qt_merge_dev, with the copy back) and the
+        host phase (CABAC serializer, hash SEI, TMVP store), with bytes,
+        kbps, Y-PSNR, CU counts and the SAD kernel's launches (3 per list
+        and reference: 6 per B picture, 3 for the anchor P);
+     c. decode the stream with the port's GeneralDecoder: every picture
+        hash must match and the pictures must equal the encoder's;
+     d. encode small GOPs (96x64: 9 pictures at the headline settings,
+        5 pictures with the CU8 tree and 2 references per list) on the
+        card and on the CPU and require byte-equal streams;
+  8. require that nothing of the JAX package was imported.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
-line before it lists the kernels.
+line before it lists the kernels, with the RA path's launches and its
+per-B-picture times and bound.
 """
 
 from __future__ import annotations
@@ -48,18 +63,20 @@ import time
 import numpy as np
 import torch
 
-from video_codecs_tpu_torch.entropy import bitstream as hevc_bs
 from video_codecs_tpu_torch.models.h264 import inter_dev
 from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
+from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
-from video_codecs_tpu_torch.models.hevc import quadtree_codec
+from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.ops import sad_surface as ss
 
 KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
 W, H, QP, SR = 1280, 720, 28, 16
-# HEVC all-intra quadtree: the 1080p headline's picture size and QP.
+# The 1080p headline (bench.py:84-107): picture size, QP, search range
+# and GOP length.
 HEVC_W, HEVC_H, HEVC_QP = 1920, 1072, 32
+RA_SR, RA_PICTURES = 64, 9
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
@@ -302,57 +319,11 @@ def hevc_cfg(w: int, h: int):
 
 
 def phase_hevc_intra() -> None:
-    """Phase 6: the HEVC all-intra quadtree end to end on the card."""
-    w, h = HEVC_W, HEVC_H
+    """Phase 6: the HEVC all-intra quadtree on the card against the CPU.
+    The 1080p IDR now runs inside the RA GOP of phase 7."""
     # the 35-mode prediction is a float32 matmul that is exact only
     # without TF32 (the package turns it off at import)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
-    frames = synth_clip(w, h, 2, seed=5)
-    enc = quadtree_codec.QuadtreeFastEncoder(hevc_cfg(w, h), device="cuda")
-    sad_before = ss.sad_surface.launches
-    nals = enc.stream_headers()
-    recons = []
-    for i, (y, u, v) in enumerate(frames):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = {k: a.cpu() for k, a in enc._dispatch(y, u, v).items()}
-        t1 = time.perf_counter()
-        frame_nals, rec = enc.serialize_frame(st)
-        t2 = time.perf_counter()
-        nals.extend(frame_nals)
-        recons.append(rec)
-        nbytes = sum(len(n) for n in frame_nals if n)
-        d8 = st["depth8"].numpy()[:h // 8, :w // 8]
-        cus = [int((d8 == d).sum()) // (16 >> (2 * d)) for d in (0, 1, 2)]
-        p = psnr(y, rec[0])
-        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
-        print(f"[hevc-intra] picture {i}: device phase "
-              f"{(t1 - t0) * 1e3:.1f} ms (dispatch + copy back), host phase "
-              f"{(t2 - t1) * 1e3:.1f} ms (native CABAC + hash SEI); "
-              f"{nbytes} bytes, {nbytes * 8 * 30 / 1000:.1f} kbps at 30 fps, "
-              f"Y-PSNR {p:.2f} dB; CUs 32/16/8: {cus[0]}/{cus[1]}/{cus[2]}")
-    stream = hevc_bs.annexb(nals)
-    check(ss.sad_surface.launches == sad_before,
-          "the HEVC intra phase launched the SAD kernel")
-    print(f"[hevc-intra] this phase runs no hand-written kernel: the SAD "
-          f"kernel's launch count stayed at {sad_before}")
-
-    t0 = time.perf_counter()
-    dec = quadtree_codec.QuadtreeIntraDecoder()
-    out = dec.decode(stream)
-    t_dec = time.perf_counter() - t0
-    check(dec.hash_status == [True] * len(frames),
-          f"picture hash SEI mismatch: {dec.hash_status}")
-    check(len(out) == len(frames), "decoder returned a wrong picture count")
-    for i, (r, o) in enumerate(zip(recons, out)):
-        for c in range(3):
-            check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
-                  f"decoded picture {i} plane {c} != encoder recon")
-    print(f"[hevc-intra] {w}x{h} QP{HEVC_QP}: {len(stream)} bytes for "
-          f"{len(frames)} pictures; the port's QuadtreeIntraDecoder: hash "
-          f"SEI OK on every picture, pictures equal the encoder's, "
-          f"{t_dec:.2f} s")
-
     sw, sh = 416, 240                    # the repo's bench_intra_qt size
     y, u, v = synth_clip(sw, sh, 1, seed=9)[0]
     res = {}
@@ -374,6 +345,234 @@ def phase_hevc_intra() -> None:
           f"cpu {tc:.2f} s")
 
 
+def ra_cfg(w: int, h: int, **kw):
+    """The 1080p headline's settings (bench.py:84-107): CTB32, min CU 8,
+    max TB 32, QP 32, SBH, merge-5, TMVP, with the MD5 picture-hash SEI."""
+    cfg = hevc_headers.HevcConfig(
+        width=w, height=h, qp=HEVC_QP, log2_ctb=5, log2_min_cb=3,
+        log2_max_tb=5, reorder_pics=3, sign_data_hiding=True, rdoq="lite",
+        merge_cands=5, hash_sei=True, temporal_mvp=True)
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def ra_sad_shapes(w: int, h: int, sr: int, n: int = 16):
+    """(n, B, r) of the pyramid's three SAD surfaces per list and
+    reference: the 4x4-pooled exhaustive stage and two +-3 windows."""
+    b = (w // n) * (h // n)
+    return [(n // 4, b, max(1, (sr + 3) // 4)), (n, b, 3), (n, b, 3)]
+
+
+def phase_ra_kernel() -> dict:
+    """Phase 7a: the kernel against its plain version at the RA path's
+    shapes (and the CU8 tree's), timed beside its bound; the totals are
+    per B picture (two lists, one reference each)."""
+    rng = np.random.default_rng(2025)
+    pic = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    max_err = 0
+    shapes = ra_sad_shapes(HEVC_W, HEVC_H, RA_SR)
+    cu8 = ra_sad_shapes(HEVC_W, HEVC_H, RA_SR, n=8)
+    for i, (n, b, r) in enumerate(shapes[:2] + cu8[:2]):
+        cur = torch.from_numpy(rng.integers(0, 256, (b, n, n),
+                                            dtype=np.uint8)).cuda()
+        win = torch.from_numpy(rng.integers(
+            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.uint8)).cuda()
+        got = ss.sad_surface(cur, win, n, r)
+        torch.cuda.synchronize()
+        want = ss.sad_surface_ref(cur, win, n, r)
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel != plain at n={n} B={b} r={r} "
+                        f"(max abs err {err})")
+        max_err = max(max_err, err)
+        if i >= 2:                       # the CU8 tree's shapes: checked
+            print(f"[ra-sad] n={n} B={b} r={r} (CU8 tree): equal")
+            continue
+        lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
+        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=21)
+        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
+                        warm=1)
+        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        bound, nbytes, ops = sad_bound(n, b, r)
+        print(f"[ra-sad] n={n} B={b} r={r}: equal; kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.3f} G ops), {bound / ms:.1%} of it; plain "
+              f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
+              f"{lib_err:g})")
+        k = 2 * (1 if i == 0 else 2)     # per B picture: 2 lists
+        pic["ms"] += k * ms
+        pic["plain_ms"] += k * plain
+        pic["library_ms"] += k * lib
+        pic["bytes"] += k * nbytes
+        pic["ops"] += k * ops
+    pic["bound_ms"] = max(pic["bytes"] / PEAK_BYTES,
+                          pic["ops"] / PEAK_OPS) * 1e3
+    pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
+                       pic["bytes"] / PEAK_BYTES else "bytes")
+    print(f"[ra-sad] per 1080p B picture at SR{RA_SR} (2 lists x (quarter "
+          f"stage + 2 windows), 6 launches): kernel {pic['ms']:.4f} ms, "
+          f"bound {pic['bound_ms']:.4f} ms ({pic['bound_by']}), "
+          f"{pic['bound_ms'] / pic['ms']:.1%} of it; plain "
+          f"{pic['plain_ms']:.3f} ms; torch.cdist {pic['library_ms']:.3f} ms")
+    pic["max_abs_err"] = max_err
+    return pic
+
+
+def _ra_instrument(enc):
+    """Time each picture of an RA encode: the device phase (device work +
+    copy back, synchronised), the host phase (CABAC serializer, hash SEI,
+    TMVP store) and the SAD-kernel launches; keep each picture's maps."""
+    log, cur = [], {}
+
+    def timed(name, fn, sync=False):
+        def run(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            n0 = ss.sad_surface.launches
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+            cur["launches"] = cur.get("launches", 0) + \
+                ss.sad_surface.launches - n0
+            if name == "device":
+                cur["qt"] = out
+            return out
+        return run
+
+    enc._device_phase = timed("device", enc._device_phase, sync=True)
+    for name in ("_serialize_qt_slice", "_hash_sei", "_store_motion"):
+        setattr(enc, name, timed("host", getattr(enc, name)))
+    orig_b = enc._encode_b_frame
+
+    def b_frame(frame, poc, refs, is_anchor):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec = orig_b(frame, poc, refs, is_anchor)
+        log.append(dict(poc=poc, kind="P" if is_anchor else "B",
+                        total=time.perf_counter() - t0, nals=nals, rec=rec,
+                        **cur))
+        return nals, rec
+
+    def idr(y, u, v, *a, **kw):
+        qi = enc._qt_intra
+        torch.cuda.synchronize()
+        n0 = ss.sad_surface.launches
+        t0 = time.perf_counter()
+        st = {k: t.cpu() for k, t in qi._dispatch(y, u, v).items()}
+        t1 = time.perf_counter()
+        nals, rec = qi.serialize_frame(st)
+        t2 = time.perf_counter()
+        log.append(dict(poc=0, kind="I", device=t1 - t0, host=t2 - t1,
+                        total=t2 - t0, nals=nals, rec=rec,
+                        launches=ss.sad_surface.launches - n0,
+                        depth8=st["depth8"].numpy()))
+        return nals, rec
+
+    enc._encode_b_frame = b_frame
+    enc.encode_frame = idr
+    return log
+
+
+def phase_hevc_ra() -> int:
+    """Phase 7b-c: the RA GOP-8 headline at 1920x1072 on the card, decoded
+    by the port's GeneralDecoder.  Returns the SAD-kernel launches of the
+    encode."""
+    w, h = HEVC_W, HEVC_H
+    frames = synth_clip(w, h, RA_PICTURES, seed=5)
+    print(f"[hevc-ra] {w}x{h} QP{HEVC_QP} GOP-8 random access, "
+          f"{RA_PICTURES} pictures (POC 0..{RA_PICTURES - 1}: IDR, anchor "
+          f"P at 8, B at 4 2 1 3 6 5 7); SR{RA_SR} pyramid ME, CU8 tree off, "
+          "TMVP, full RDOQ in the B pictures, 1 reference per list")
+    enc = inter_qt.QtDeviceRandomAccessEncoder(
+        ra_cfg(w, h), search_range=RA_SR, me_method="pyr", cu8=False,
+        num_refs_active=1, device="cuda")
+    log = _ra_instrument(enc)
+    ss.sad_surface.launches = 0
+    t0 = time.perf_counter()
+    stream, recons = enc.encode_sequence_ra(frames)
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    want = 0
+    for e in log:
+        nbytes = sum(len(n) for n in e["nals"] if n)
+        p = psnr(frames[e["poc"]][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        if e["kind"] == "I":
+            d8 = e["depth8"][:h // 8, :w // 8]
+            cus = "CUs 32/16/8 (intra) " + "/".join(
+                str(int((d8 == d).sum()) // (16 >> (2 * d)))
+                for d in (0, 1, 2))
+            other = 0.0
+        else:
+            qt = e["qt"]
+            m2 = np.zeros(qt["split8"].shape, bool)
+            g = np.repeat(np.repeat(qt["merged32"], 2, 0), 2, 1)
+            m2[:g.shape[0], :g.shape[1]] = g
+            cus = (f"CU32 merged {int(qt['merged32'].sum())} (residual "
+                   f"{int(qt['res32'].sum())}), CU16 "
+                   f"{int((~m2 & ~qt['split8']).sum())}, CU8 "
+                   f"{4 * int(qt['split8'].sum())}")
+            other = e["total"] - e["device"] - e["host"]
+            want += 3 * (2 if e["kind"] == "B" else 1)
+            check(e["launches"] == (6 if e["kind"] == "B" else 3),
+                  f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
+                  f"(want 3 per list and reference)")
+        print(f"[hevc-ra] POC {e['poc']} ({e['kind']}): device phase "
+              f"{e['device'] * 1e3:.1f} ms, host phase {e['host'] * 1e3:.1f}"
+              f" ms, other {other * 1e3:.1f} ms; {nbytes} bytes, "
+              f"{nbytes * 8 * 30 / 1000:.1f} kbps at 30 fps, Y-PSNR "
+              f"{p:.2f} dB; {cus}; SAD-kernel launches {e['launches']}")
+    check(launches == want, f"{launches} SAD-kernel launches in the GOP, "
+                            f"want {want}")
+    kbps = len(stream) * 8 * 30 / len(frames) / 1000
+    print(f"[hevc-ra] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
+          f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
+          f"SAD-kernel launches {launches}")
+
+    t0 = time.perf_counter()
+    dec = hevc_decoder.GeneralDecoder()
+    out = dec.decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(dec.hash_status == [True] * len(frames),
+          f"picture hash SEI mismatch: {dec.hash_status}")
+    check(len(out) == len(frames), "decoder returned a wrong picture count")
+    for i, (r, o) in enumerate(zip(recons, out)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
+                  f"decoded picture {i} plane {c} != encoder recon")
+    print(f"[hevc-ra] the port's GeneralDecoder: hash SEI OK on all "
+          f"{len(frames)} pictures, pictures equal the encoder's, "
+          f"{t_dec:.2f} s")
+    return launches
+
+
+def phase_ra_cuda_vs_cpu() -> None:
+    """Phase 7d: small RA GOPs on the card and on the CPU; the streams
+    must be byte-equal."""
+    runs = [("96x64, 9 pictures, headline settings", 96, 64, 9,
+             dict(search_range=RA_SR, cu8=False), {}),
+            ("96x64, 5 pictures, CU8 tree + 2 refs per list", 96, 64, 5,
+             dict(search_range=16, cu8=True, num_refs_active=2),
+             dict(temporal_mvp=False))]
+    for what, w, h, n, kw, cfg_kw in runs:
+        frames = synth_clip(w, h, n, seed=17)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            enc = inter_qt.QtDeviceRandomAccessEncoder(
+                ra_cfg(w, h, **cfg_kw), device=dev, **kw)
+            t0 = time.perf_counter()
+            res[dev] = (enc.encode_sequence_ra(frames)[0],
+                        time.perf_counter() - t0)
+        (g, tg), (c, tc) = res["cuda"], res["cpu"]
+        check(g == c, f"RA {what}: card and CPU streams differ "
+                      f"({len(g)} / {len(c)} bytes)")
+        dec = hevc_decoder.GeneralDecoder()
+        dec.decode(g)
+        check(dec.hash_status == [True] * n, f"RA {what}: hash mismatch")
+        print(f"[ra-cuda-vs-cpu] {what}: streams byte-equal ({len(g)} "
+              f"bytes), hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
     smi = subprocess.run(
@@ -386,10 +585,13 @@ def main() -> None:
     print(f"[device] {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} card(s)")
 
-    k = phase_kernel()
-    launches = phase_encode_720p()
+    phase_kernel()
+    phase_encode_720p()
     phase_cuda_vs_cpu()
     phase_hevc_intra()
+    k = phase_ra_kernel()
+    launches = phase_hevc_ra()
+    phase_ra_cuda_vs_cpu()
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")

@@ -15,9 +15,11 @@ search range 16; n=16, B=3600 at 32) it
     comparison) with a register-only micro-kernel timed by clock64():
     lanes per SM per clock;
   - with --parent, builds the kernel of an older tree (its
-    video_codecs_tpu_torch/csrc/sad_surface.cu with the int32 entry point
-    vct_sad_surface_i32) and times it on int32 copies of the same inputs,
-    in turns with the current kernel (old, new, new, old; K rounds);
+    video_codecs_tpu_torch/csrc/sad_surface.cu, with the uint8 entry point
+    vct_sad_surface_u8, or the first kernel's int32 one
+    vct_sad_surface_i32 on int32 copies of the same inputs) and times it
+    in turns with the current kernel (old, new, new, old; K rounds), both
+    called through the same bare ctypes launcher;
 and prints each time beside the bound (chip_smoke.sad_bound).  Needs a
 CUDA card and nvcc.
 """
@@ -161,7 +163,16 @@ def load_parent(parent: Path):
         if "registers" in line or "spill" in line:
             print(f"[build parent] {line.strip()}")
     lib = ctypes.CDLL(str(so))
-    fn = lib.vct_sad_surface_i32
+    # the first kernel took int32 samples, the later ones take uint8
+    u8 = hasattr(lib, "vct_sad_surface_u8")
+    return bare(lib.vct_sad_surface_u8 if u8 else lib.vct_sad_surface_i32,
+                "parent"), u8
+
+
+def bare(fn, who: str):
+    """A launcher calling the C entry point directly (no wrapper checks),
+    so that the old and the new kernel are timed through the same host
+    code."""
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
@@ -172,7 +183,7 @@ def load_parent(parent: Path):
         err = fn(cur.data_ptr(), win.data_ptr(), out.data_ptr(), b, n, r,
                  torch.cuda.current_stream().cuda_stream)
         if err:
-            sys.exit(f"parent kernel launch failed: {err}")
+            sys.exit(f"{who} kernel launch failed: {err}")
         return out
     return run
 
@@ -224,7 +235,8 @@ def main() -> None:
     print(f"[sad] per 720p P picture: {per_pic:.4f} ms")
 
     if args.parent:
-        old = load_parent(Path(args.parent))
+        old, old_u8 = load_parent(Path(args.parent))
+        new = bare(ss._load().vct_sad_surface_u8, "current")
         turns = collections.defaultdict(list)
         for who in ("old", "new", "new", "old") * args.rounds:
             per_pic = 0.0
@@ -232,13 +244,12 @@ def main() -> None:
                 if r != 16:
                     continue
                 if who == "old":
-                    ci, wi = cur.int(), win.int()
+                    ci, wi = (cur, win) if old_u8 else (cur.int(), win.int())
                     err = int((old(ci, wi, n, r) - want).abs().max())
                     ms = cuda_ms(lambda: old(ci, wi, n, r))
                 else:
-                    err = int((ss.sad_surface(cur, win, n, r) - want)
-                              .abs().max())
-                    ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r))
+                    err = int((new(cur, win, n, r) - want).abs().max())
+                    ms = cuda_ms(lambda: new(cur, win, n, r))
                 if err:
                     sys.exit(f"{who} kernel != plain at n={n}")
                 print(f"[turn {who}] n={n} B={b} r={r}: {ms:.4f} ms")

@@ -1,4 +1,5 @@
-"""The HEVC all-intra quadtree on the card against the same port on the CPU.
+"""The HEVC all-intra quadtree and the RA B-picture device phase on the
+card against the same port on the CPU.
 
 Needs an NVIDIA GPU (the `cuda` marker; the cases skip where none is
 present).  The card's machine has no JAX, so this file imports nothing
@@ -43,3 +44,56 @@ def test_card_equals_cpu(w, h, qp, rdoq):
     for k in c:
         np.testing.assert_array_equal(g[k], c[k], err_msg=k)
     assert gn == cn
+
+
+def _ra_clip(w, h, n, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + n + 1, w + 2 * n + 1)).astype(np.uint8)
+    return [(np.ascontiguousarray(base[f:f + h, 2 * f:2 * f + w]),
+             base[f:f + h:2, 2 * f:2 * f + w:2] // 2 + 64,
+             base[f + 1:f + h:2, 2 * f:2 * f + w:2] // 2 + 32)
+            for f in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cu8,refs,tmvp", [(False, 1, True), (True, 2, False)])
+def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
+    """The RA B-picture device phase (encode_b_frame_dev + qt_merge_dev,
+    SAD surfaces from the kernel on the card) against the CPU's at
+    96x64: every key of every picture's dict, and the stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from video_codecs_tpu_torch.models.hevc import inter_qt
+    from video_codecs_tpu_torch.ops import sad_surface as ss
+    w, h = 96, 64
+    frames = _ra_clip(w, h, 5, seed=3 + cu8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = headers.HevcConfig(width=w, height=h, qp=32, log2_ctb=5,
+                                 log2_min_cb=3, log2_max_tb=5,
+                                 reorder_pics=3, sign_data_hiding=True,
+                                 rdoq="lite", merge_cands=5,
+                                 temporal_mvp=tmvp)
+        enc = inter_qt.QtDeviceRandomAccessEncoder(
+            cfg, search_range=64, cu8=cu8, num_refs_active=refs,
+            device=dev)
+        dicts = []
+        phase = enc._device_phase
+
+        def keep(*a, **kw):
+            d = phase(*a, **kw)
+            dicts.append(d)
+            return d
+
+        enc._device_phase = keep
+        n0 = ss.sad_surface.launches
+        stream = enc.encode_sequence_ra(frames)[0]
+        out[dev] = (dicts, stream, ss.sad_surface.launches - n0)
+    (gd, gs, gl), (cd, cs, cl) = out["cuda"], out["cpu"]
+    assert cl == 0 and gl > 0            # the kernel ran only on the card
+    for i, (g, c) in enumerate(zip(gd, cd)):
+        assert set(g) == set(c)
+        for k in c:
+            np.testing.assert_array_equal(g[k], c[k],
+                                          err_msg=f"picture {i}: {k}")
+    assert gs == cs

@@ -68,7 +68,9 @@ _COPIES = {
                         {"_tables_dev", "_floor_log2", "_rate_level_dev",
                          "rdoq_dev"}, {"_seq_sum", "_row_sum", "_cumsum"}),
     "models/hevc/encoder_dev.py": ("models/hevc/encoder_jax.py", set(),
-                                   {"gather_refs", "_extract_blocks"}, set()),
+                                   {"gather_refs", "_extract_blocks",
+                                    "decide_modes_device", "_code_blocks",
+                                    "_code_blocks_rate"}, set()),
     "models/hevc/encoder_qt_dev.py": (
         "models/hevc/encoder_jax_qt.py", set(),
         {"z_index_dev", "gather_refs_z", "_grid", "_mode_sweep",
@@ -78,6 +80,47 @@ _COPIES = {
         {"_pad_edge", "encode_frame_qt"}),
     "models/hevc/intra_codec.py": ("models/hevc/intra_codec.py",
                                    {"code_tb_np"}, set(), set()),
+    "ops/interp.py": (
+        "ops/interp.py", set(),
+        {"_taps_dev", "mc_luma", "mc_chroma", "_gather_window_multi",
+         "_mc_luma14_core", "mc_luma14_multi", "mc_luma_multi",
+         "_mc_chroma14_core", "mc_chroma14_multi", "bi_average"},
+        {"gather_window", "_filter2"}),
+    "ops/me.py": ("ops/me.py", set(),
+                  {"_sad_at_points", "_sad_best_around", "_pool4",
+                   "pyramid_search", "_refine"},
+                  {"_u8", "_span_offsets", "integer_search"}),
+    "models/hevc/inter_dev.py": (
+        "models/hevc/inter_jax.py", set(),
+        {"scale_mv_dev", "mvd_bits_dev", "_shift_grid", "_scatter_blocks",
+         "_intra_wavefront", "b_me_one", "encode_b_frame_dev"},
+        {"_i32", "_round_cost", "_round_const", "_persum", "_sum2x2",
+         "_floor_log2", "_to4", "_from4", "_ssef"}),
+    "models/hevc/motion.py": ("models/hevc/motion.py", set(), set(), set()),
+    "models/hevc/motion_hm.py": ("models/hevc/motion_hm.py", set(), set(),
+                                 set()),
+    "models/hevc/inter_codec.py": ("models/hevc/inter_codec.py", set(),
+                                   set(), set()),
+    "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py", set(),
+                                    set(), set()),
+    "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py", set(), set(),
+                                set()),
+    "models/hevc/inter_qt.py": (
+        "models/hevc/inter_qt.py",
+        {"QtDeviceRandomAccessEncoder.__init__",
+         "QtDeviceRandomAccessEncoder._encode_b_frame",
+         "QtDeviceRandomAccessEncoder._tmvp_fields",
+         "QtDeviceRandomAccessEncoder._device_phase",
+         "QtDeviceRandomAccessEncoder._serialize_qt_slice"},
+        {"_sse_blocks", "_coef_bits_blocks", "_pred_cand", "qt_merge_dev"},
+        set()),
+    "models/hevc/decoder.py": (
+        "models/hevc/decoder.py",
+        {"parse_sps", "parse_pps", "parse_slice_header",
+         "GeneralDecoder.decode", "GeneralDecoder._decode_picture",
+         "GeneralDecoder._decode_slice_segment",
+         "GeneralDecoder._decode_intra_cu", "GeneralDecoder._parse_mvd"},
+        set(), set()),
     "models/hevc/quadtree_codec.py": (
         "models/hevc/quadtree_codec.py",
         {"QuadtreeFastEncoder.__init__", "QuadtreeFastEncoder._dispatch",

@@ -4,13 +4,11 @@ Seeded numpy inputs go through the JAX function (jitted, as the
 reference's encoder runs it) and the port's counterpart on CPU tensors;
 every integer stage is held at tolerance 0, and so are the float32
 decisions and rates, which the port computes in the reference's order
-(see video_codecs_tpu_torch/ops/rdoq_dev.py).  Two float32 values are
-not bit-equal and are checked as stated where they are tested: the
-rate term of `rdoq_lite` reads a correctly rounded log2 table where XLA
-has its own log2, so its decisions are counted and every split must be a
-near-tie; and the rate `rdoq_dev` returns for 4x4 blocks (off the
-quadtree path, which trial-codes luma CUs of 8 to 32) sums 16 float32
-costs in an order the port does not reproduce.
+(see video_codecs_tpu_torch/ops/rdoq_dev.py), the 4x4 rates included.
+One float32 value is not bit-equal and is checked as stated where it is
+tested: the rate term of `rdoq_lite` reads a correctly rounded log2
+table where XLA has its own log2, so its decisions are counted and every
+split must be a near-tie.
 """
 
 import jax
@@ -282,8 +280,24 @@ def test_deblock_cut_options_raise():
     with pytest.raises(NotImplementedError):
         tdbk.deblock_420_bs(z, zc, zc, 30, bs, bs, block=8,
                             qp_map=np.full((2, 2), 30))
-    with pytest.raises(NotImplementedError):
-        tdbk.deblock_420_bs(z, zc, zc, 30, bs, bs, block=8, seg4=True)
+
+
+@pytest.mark.parametrize("qp", [27, 37])
+def test_deblock_seg4_matches_reference(qp):
+    # the general decoder's per-4-sample BS maps (seg4)
+    rng = np.random.default_rng(qp)
+    h, w = 48, 80
+    y = rng.integers(0, 256, (h, w)).astype(np.int32)
+    u = rng.integers(0, 256, (h // 2, w // 2)).astype(np.int32)
+    v = rng.integers(0, 256, (h // 2, w // 2)).astype(np.int32)
+    bs_ver = rng.integers(0, 3, (w // 8 - 1, h // 4)).astype(np.int32)
+    bs_hor = rng.integers(0, 3, (h // 8 - 1, w // 4)).astype(np.int32)
+    want = jdbk.deblock_420_bs_np(y, u, v, qp, bs_ver, bs_hor, block=8,
+                                  seg4=True)
+    got = tdbk.deblock_420_bs_np(y, u, v, qp, bs_ver, bs_hor, block=8,
+                                 seg4=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, np.asarray(b))
 
 
 # ---- device full RDOQ ------------------------------------------------------
@@ -308,14 +322,7 @@ def test_rdoq_dev_levels_and_rate_equal(log2, luma, scan_type):
                                     scan_type=scan_type, is_luma=luma,
                                     return_rate=True)
     np.testing.assert_array_equal(tlv.numpy(), lv)
-    if log2 >= 3:
-        np.testing.assert_array_equal(tbits.numpy(), bits)
-    else:
-        # 4x4: the 16-term distortion sum's order differs from XLA's
-        # (ulp-level), and no 4x4 rate reaches a decision on this path
-        np.testing.assert_allclose(tbits.numpy(), bits, rtol=0,
-                                   atol=4 * float(np.spacing(
-                                       np.float32(bits.max() + 1))))
+    np.testing.assert_array_equal(tbits.numpy(), bits)
     plain = trdoq_dev.rdoq_dev(T(co), qp, log2, lam=lam, scan_type=scan_type,
                                is_luma=luma)
     np.testing.assert_array_equal(plain.numpy(), lv)

@@ -25,7 +25,7 @@ def _inputs(seed, b, n, r, dtype=np.int32):
 
 
 @pytest.mark.parametrize("n,r", [(16, 8), (8, 16), (8, 8), (16, 16),
-                                 (16, 32)])
+                                 (16, 32), (4, 16), (2, 16), (16, 3)])
 def test_sad_ref_matches_pallas_interpret(n, r):
     jnp = pytest.importorskip("jax.numpy")
     from video_codecs_tpu.ops import pallas_sad
@@ -74,7 +74,8 @@ def test_sad_surface_rejects_mismatched_shapes():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,r", [(16, 8), (8, 16), (16, 16), (16, 32),
-                                 (8, 8), (8, 5), (16, 3)])
+                                 (8, 8), (8, 5), (16, 3), (8, 3), (4, 16),
+                                 (4, 3), (2, 16), (2, 5)])
 @pytest.mark.parametrize("b", [97, 37, 1])
 def test_sad_kernel_matches_plain_on_card(n, r, b):
     if not torch.cuda.is_available():
@@ -98,10 +99,10 @@ def test_sad_kernel_refuses_what_it_does_not_take():
     with pytest.raises(TypeError):          # int32: no silent conversion
         ss.sad_surface(torch.from_numpy(cur).cuda(),
                        torch.from_numpy(win).cuda(), 8, 4)
-    cur, win = _inputs(9, 4, 4, 4, np.uint8)
-    with pytest.raises(ValueError):         # n = 4
+    cur, win = _inputs(9, 4, 12, 4, np.uint8)
+    with pytest.raises(ValueError):         # n = 12: no instantiation
         ss.sad_surface(torch.from_numpy(cur).cuda(),
-                       torch.from_numpy(win).cuda(), 4, 4)
+                       torch.from_numpy(win).cuda(), 12, 4)
     cur, win = _inputs(9, 2, 16, 200, np.uint8)
     with pytest.raises(RuntimeError):       # 416x416 window: no CTA holds it
         ss.sad_surface(torch.from_numpy(cur).cuda(),

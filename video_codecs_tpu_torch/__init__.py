@@ -8,13 +8,15 @@ modules that do not import JAX.  What it needs of the reference's host
 code (bit writer, CAVLC, transforms, deblocking, the H.264 baseline host
 encoder/decoder and DPB; the HEVC spec tables, CABAC, residual coding,
 parameter sets and the intra/quadtree syntax and decoders, and the
-native C++ CABAC writer) it carries as its own copy, function by
+native C++ CABAC writer, the inter host classes of the random-access
+encoder and the general decoder) it carries as its own copy, function by
 function under the same names, with each original's file and line in a
 comment; only the tests import both packages.
 
 Rules: plain functions on tensors, an explicit `device` everywhere (the
-entry points `DeviceH264Encoder` and `QuadtreeFastEncoder` run on the
-card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
+entry points `DeviceH264Encoder`, `QuadtreeFastEncoder` and
+`QtDeviceRandomAccessEncoder` run on the card unless the caller asks for
+the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel.  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
@@ -27,17 +29,19 @@ Module map (port -> JAX counterpart):
   ops/h264_transform.py      ops/h264_transform.py (4x4 part)
   ops/h264_deblock.py        ops/h264_deblock.py (whole)
   ops/h264_interp.py         ops/h264_interp.py (whole; decoder MC)
-  ops/interp.py              ops/interp.py (_gather_window)
+  ops/interp.py              ops/interp.py (HEVC MC, numpy twins)
   ops/cost.py                ops/cost.py (sad, sse, hadamard_satd_8x8)
   ops/sad_surface.py         ops/pallas_sad.py (sad_surface, _sad_kernel)
     + csrc/sad_surface.cu      the Hopper kernel for it
-  ops/me.py                  ops/me.py (integer_search, _OFFS8)
+  ops/me.py                  ops/me.py (integer_search, pyramid_search,
+                             _refine)
   ops/h264_dev.py            ops/h264_jax.py
   models/h264/dpb.py         models/h264/dpb.py (sliding window)
   models/h264/intra_codec.py models/h264/intra_codec.py (baseline CAVLC)
   models/h264/inter_codec.py models/h264/inter_codec.py (IPPP driver,
                              CAVLC decoder)
-  models/hevc/inter_dev.py   models/hevc/inter_jax.py (mvd_bits_dev)
+  models/hevc/inter_dev.py   models/hevc/inter_jax.py (MV helpers,
+                             b_me_one, encode_b_frame_dev, lambdas)
   models/h264/inter_dev.py   models/h264/inter_jax.py (encode_p_dev,
                              DeviceH264Encoder)
   utils/rom.py               utils/rom.py (whole)
@@ -52,12 +56,21 @@ Module map (port -> JAX counterpart):
   ops/deblock.py             ops/deblock.py (scalar-QP BS deblocking)
   ops/rdoq.py                ops/rdoq.py (fractional-bit table)
   ops/rdoq_dev.py            ops/rdoq_jax.py (rdoq_dev)
-  models/hevc/encoder_dev.py models/hevc/encoder_jax.py (ref gather)
+  models/hevc/encoder_dev.py models/hevc/encoder_jax.py (ref gather,
+                             decide_modes_device, _code_blocks*)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)
   models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, hash
                              SEI, decoder NAL loop)
   models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (syntax,
                              QuadtreeIntraDecoder, QuadtreeFastEncoder)
+  models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole)
+    motion_hm.py
+  models/hevc/inter_codec.py, models/hevc/inter_codec.py, bframe_codec.py,
+    bframe_codec.py,           ra_codec.py (the RA encoder's chain of
+    ra_codec.py                bases and helpers)
+  models/hevc/inter_qt.py    models/hevc/inter_qt.py (qt_merge_dev,
+                             QtDeviceRandomAccessEncoder)
+  models/hevc/decoder.py     models/hevc/decoder.py (GeneralDecoder)
 """
 
 import torch

@@ -38,7 +38,11 @@
 // whole waves of the card), and a thread loops over tiles when a block
 // has more tiles than the CTA threads.  There is no 2r+1 <= 128 limit as
 // on the TPU: the window only has to fit in shared memory (the launch
-// returns cudaErrorInvalidValue where it does not).  n must be 8 or 16.
+// returns cudaErrorInvalidValue where it does not).  n is 16 or 8 (the
+// H.264 blocks, the HEVC pyramid's full-resolution windows) or 4 or 2
+// (the pyramid's 4x4-pooled quarter-resolution stage): a row of the
+// current block is then one word, whose unused bytes (n = 2) are zero in
+// the block and masked off in the window.
 // What still holds it back is in PERF.md.
 
 #include <cuda_runtime.h>
@@ -136,7 +140,7 @@ template <int N, bool CHECK>
 __device__ __forceinline__ void tile_row(const uint8_t* wrow,
                                          const uint8_t* crow, int rr,
                                          uint32_t (&acc)[kM][kK]) {
-  constexpr int NW = N / 4;             // words of a current-block row
+  constexpr int NW = (N + 3) / 4;       // words of a current-block row
   constexpr int SW = kK / 4 + NW;       // window words one shift needs
   uint32_t w[SW + 1];
 #pragma unroll
@@ -159,15 +163,21 @@ __device__ __forceinline__ void tile_row(const uint8_t* wrow,
     if constexpr (N == 16) {
       const uint4 v = *reinterpret_cast<const uint4*>(crow + y * N);
       c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
-    } else {
+    } else if constexpr (N == 8) {
       const uint2 v = *reinterpret_cast<const uint2*>(crow + y * N);
       c[0] = v.x; c[1] = v.y;
+    } else if constexpr (N == 4) {
+      c[0] = *reinterpret_cast<const uint32_t*>(crow + y * N);
+    } else {
+      c[0] = *reinterpret_cast<const uint16_t*>(crow + y * N);
     }
+    // n = 2: only the low two bytes of a window word are this row's
+    constexpr uint32_t kMask = N == 2 ? 0x0000ffffu : 0xffffffffu;
 #pragma unroll
     for (int k = 0; k < kK; ++k)
 #pragma unroll
       for (int j = 0; j < NW; ++j)
-        acc[m][k] = sad4(sh[k & 3][(k >> 2) + j], c[j], acc[m][k]);
+        acc[m][k] = sad4(sh[k & 3][(k >> 2) + j] & kMask, c[j], acc[m][k]);
   }
 }
 
@@ -300,5 +310,9 @@ extern "C" int vct_sad_surface_u8(const void* cur, const void* win,
     return launch<16>(cur, win, out, b, r, (cudaStream_t)stream);
   if (n == 8)
     return launch<8>(cur, win, out, b, r, (cudaStream_t)stream);
+  if (n == 4)
+    return launch<4>(cur, win, out, b, r, (cudaStream_t)stream);
+  if (n == 2)
+    return launch<2>(cur, win, out, b, r, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,6 +36,7 @@ from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import h264_dev as hd
 from video_codecs_tpu_torch.ops import me as me_ops
+from video_codecs_tpu_torch.ops.quant import fma32
 from video_codecs_tpu_torch.utils.device import const, to_device
 
 # log2(1 + a) for the level magnitudes a 4x4 block can hold (|level| <
@@ -115,6 +116,21 @@ def _up(grid: torch.Tensor, f: int) -> torch.Tensor:
     return grid.repeat_interleave(f, 0).repeat_interleave(f, 1)
 
 
+def _split_costs(d16, rb16, bits16, d8, rb8, bits8, lam: float, mbh: int,
+                 mbw: int):
+    """P_16x16 and P_8x8 costs per MB: j16 = d16 + lam * (rate + mv bits
+    + 2), j8s = the four 8x8 children's d8 + lam * (rate + mv bits + 3),
+    summed, + 4 lam; d8, rb8, bits8 on the raster 8 grid.  XLA's CPU
+    code computes each `d + lam * r` as one fused multiply-add, so the
+    port does too (`fma32`); the four children add left to right."""
+    lamf = torch.tensor(lam, dtype=torch.float32, device=d16.device)
+    j16 = fma32(rb16 + (bits16 + 2).float(), lamf, d16)
+    g = fma32(rb8 + (bits8 + 3).float(), lamf, d8).reshape(mbh, 2, mbw, 2)
+    j8s = (((g[:, 0, :, 0] + g[:, 0, :, 1]) + g[:, 1, :, 0])
+           + g[:, 1, :, 1]).reshape(-1) + lamf * 4.0
+    return j16, j8s
+
+
 def encode_p_dev(y, u, v, ref_y, ref_u, ref_v, qp: int, w: int, h: int,
                  sr: int, lam: float) -> dict:
     """One P picture on the planes' device: ME (16 + 8), P16/P8x8
@@ -154,14 +170,8 @@ def encode_p_dev(y, u, v, ref_y, ref_u, ref_v, qp: int, w: int, h: int,
     pred8 = hd.mc_luma_dev(ry, x8, y8, m8x, m8y, 8)
     lv8, rec8, d8, rb8 = code_luma(pred8, cur8)
 
-    def sum4(a):
-        g = a.reshape(mbh, 2, mbw, 2)
-        return (((g[:, 0, :, 0] + g[:, 0, :, 1]) + g[:, 1, :, 0])
-                + g[:, 1, :, 1]).reshape(-1)
-
-    lamf = torch.tensor(lam, dtype=torch.float32, device=dev)
-    j16 = d16 + lamf * (rb16 + (bits16 + 2).float())
-    j8s = sum4(d8 + lamf * (rb8 + (bits8 + 3).float())) + lamf * 4.0
+    j16, j8s = _split_costs(d16, rb16, bits16, d8, rb8, bits8, lam, mbh,
+                            mbw)
     split8 = j8s < j16                                   # [nmb]
 
     # ---- final luma recon/levels planes ----

@@ -1,22 +1,36 @@
-"""Reference-sample gather and block helpers of the device intra encoders.
+"""Reference-sample gather, 16x16 intra mode decision and batched TB
+coding: the device helpers the quadtree and inter encoders share.
 
 Counterpart of the part of video_codecs_tpu/models/hevc/encoder_jax.py
-that the quadtree encoder (models/hevc/encoder_qt_dev.py) uses.  The
-static tables `_ref_offsets` and `_wavefront_schedule` are the port's
-copies of the originals (each keeps its name and a comment gives the
-original's line); `gather_refs` and `_extract_blocks` take tensors on any
-device.  The flat 16x16 device encoder of that module is not ported yet.
+that the quadtree encoder (models/hevc/encoder_qt_dev.py) and the
+B-picture device phase (models/hevc/inter_dev.py) use.  The static
+tables `_ref_offsets` and `_wavefront_schedule` are the port's copies of
+the originals (each keeps its name and a comment gives the original's
+line); the device functions take tensors on any device.  Cut: the flat
+16x16 device intra encoder (`encode_frame_device`, `encode_frame_jit`)
+and `_predict_single_mode`, which no port path calls; `_code_blocks` and
+`_code_blocks_rate` take the device full RDOQ and `_code_blocks` also
+hard quantization and RDOQ-lite, as the reference does, and the rate
+proxy of `_code_blocks_rate` without the full RDOQ raises
+NotImplementedError (the inter encoders always run the full RDOQ).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import intra as intra_ops
+from video_codecs_tpu_torch.ops import quant as quant_ops
+from video_codecs_tpu_torch.ops import rdoq_dev
+from video_codecs_tpu_torch.ops import transform as tr_ops
 from video_codecs_tpu_torch.utils.device import const
+
+DC = 1
 
 
 # video_codecs_tpu/models/hevc/encoder_jax.py:44
@@ -62,6 +76,49 @@ def gather_refs(plane: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     return intra_ops.substitute_unavailable(samples.int(), avail)
 
 
+# video_codecs_tpu/models/hevc/encoder_jax.py:88
+def decide_modes_device(y: torch.Tensor, qp: int, bw: int,
+                        bh: int) -> torch.Tensor:
+    """[bh, bw] best intra mode per 16x16 block (orig-neighbor sweep).
+
+    The 35-mode SATDs of every block at once, then the MPM-biased argmin
+    left to right along each row (the reference's `lax.scan`), all rows
+    together."""
+    dev = y.device
+    ys = torch.arange(bh, dtype=torch.int32, device=dev) * 16
+    xs = torch.arange(bw, dtype=torch.int32, device=dev) * 16
+    x0 = xs.repeat(bh)
+    y0 = ys.repeat_interleave(bw)
+    refs = gather_refs(y.int(), x0, y0, 16)
+    modes = torch.arange(35, dtype=torch.int32,
+                         device=dev).expand(bw * bh, 35)
+    preds = intra_ops.predict_intra(refs, modes, 4)
+    blocks = _extract_blocks(y.int(), x0, y0, 16)
+    satd = cost_ops.hadamard_satd_8x8(blocks[:, None], preds)  # [B, 35]
+    satd = satd.reshape(bh, bw, 35)
+
+    sl = math.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0))
+    c_mpm0 = int(round(sl * 2.0))
+    c_mpm1 = int(round(sl * 3.0))
+    c_rem = int(round(sl * 6.0))
+
+    rows = torch.arange(bh, device=dev)
+    left_mode = torch.full((bh,), DC, dtype=torch.int32, device=dev)
+    out = []
+    for bx in range(bw):
+        m0 = torch.where(left_mode < 2, 0, left_mode).long()
+        m2 = torch.where(left_mode < 2, 26, 0).long()
+        bits = torch.full((bh, 35), c_rem, dtype=torch.int32, device=dev)
+        bits[rows, m0] = c_mpm0
+        bits[:, 1] = c_mpm1
+        bits[rows, m2] = c_mpm1
+        # careful: order matters if m0/m2 collide with DC=1; mpm0 wins
+        bits[rows, m0] = c_mpm0
+        left_mode = torch.argmin(satd[:, bx] + bits, dim=1).int()
+        out.append(left_mode)
+    return torch.stack(out, dim=1)
+
+
 # video_codecs_tpu/models/hevc/encoder_jax.py:124
 def _extract_blocks(plane: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                     n: int) -> torch.Tensor:
@@ -89,3 +146,62 @@ def _wavefront_schedule(bw: int, bh: int):
             coords[d, i] = (bx, by)
             valid[d, i] = True
     return coords, valid, steps, max_len  # numpy constants
+
+
+# video_codecs_tpu/models/hevc/encoder_jax.py:154
+def _code_blocks(orig, pred, qp, log2, intra_slice=True, sbh=False,
+                 rdoq=False, is_luma=True, lam=None):
+    """Batched TB coding: returns (levels, recon, cbf).
+
+    rdoq: False = hard quant, True/"lite" = elementwise RDOQ-lite,
+    "full" = the scan-based device full RDOQ (ops/rdoq_dev.py).
+    """
+    res = orig - pred
+    coeff = tr_ops.forward_transform(res, log2)
+    if lam is None:
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    if rdoq == "full":
+        levels = rdoq_dev.rdoq_dev(
+            coeff, qp, log2, lam=lam, is_luma=is_luma,
+            slice_type=2 if intra_slice else 0)
+    elif rdoq:
+        levels = quant_ops.rdoq_lite(coeff, qp, log2, lam=lam)
+    else:
+        levels = quant_ops.quantize(coeff, qp, log2)
+    if sbh:
+        levels = quant_ops.apply_sbh(levels, log2, coeff, qp)
+    cbf = (levels != 0).any(-1).any(-1)
+    dq = quant_ops.dequantize(levels, qp, log2)
+    r = tr_ops.inverse_transform(dq, log2)
+    rec = (pred + r).clamp(0, 255)
+    rec = torch.where(cbf[:, None, None], rec, pred)
+    return levels, rec, cbf
+
+
+# video_codecs_tpu/models/hevc/encoder_jax.py:187
+def _code_blocks_rate(orig, pred, qp, log2, sbh=False, is_luma=True,
+                      rdoq="full", lam=None):
+    """Batched TB coding that also returns the estimated CABAC rate.
+
+    Returns (levels, recon, cbf, bits[f32 per block]); the bits come from
+    the full RDOQ's own fractional-bit bookkeeping (HM CABAC-counter
+    parity).  The reference's cheap proxy for the other quantizers is
+    not ported."""
+    res = orig - pred
+    coeff = tr_ops.forward_transform(res, log2)
+    if lam is None:
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    if rdoq != "full":
+        raise NotImplementedError(
+            "_code_blocks_rate: only the full RDOQ's rate is ported")
+    levels, bits = rdoq_dev.rdoq_dev(
+        coeff, qp, log2, lam=lam, is_luma=is_luma, slice_type=0,
+        return_rate=True)
+    if sbh:
+        levels = quant_ops.apply_sbh(levels, log2, coeff, qp)
+    cbf = (levels != 0).any(-1).any(-1)
+    dq = quant_ops.dequantize(levels, qp, log2)
+    r = tr_ops.inverse_transform(dq, log2)
+    rec = (pred + r).clamp(0, 255)
+    rec = torch.where(cbf[:, None, None], rec, pred)
+    return levels, rec, cbf, bits

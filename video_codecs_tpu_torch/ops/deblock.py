@@ -8,12 +8,12 @@ Vertical edges of the whole picture are filtered first, then horizontal
 edges on the result, each pass one tensor op over all edges and 4-line
 segments; the horizontal pass runs the vertical filter on the transpose.
 
-The port carries the scalar-QP case that intra and quadtree pictures
-use; the per-segment QP maps of cu_qp_delta pictures (`qp_map`) and the
-4-sample BS maps of the general decoder (`seg4`) raise
-NotImplementedError.  `deblock_420_bs_np` is not a numpy twin in the
-reference either: it runs the device function on the host (here: on CPU
-tensors).
+The port carries the scalar-QP case that its encoders' pictures use,
+with BS maps per block or, for the general decoder, per 4-sample segment
+(`seg4`); the per-segment QP maps of cu_qp_delta pictures (`qp_map`)
+raise NotImplementedError.  `deblock_420_bs_np` is not a numpy twin in
+the reference either: it runs the device function on the host (here: on
+CPU tensors).
 """
 
 from __future__ import annotations
@@ -208,9 +208,12 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
 
     bs_ver: [n_ver_edges, bh] BS between horizontally adjacent blocks;
     bs_hor: [n_hor_edges, bw] BS between vertically adjacent blocks
-    (numpy arrays or tensors).  `qp_map` and `seg4` are not ported."""
-    if qp_map is not None or seg4:
-        raise NotImplementedError("deblock_420_bs: qp_map / seg4 not ported")
+    (numpy arrays or tensors).  seg4: the maps are already per 4-sample
+    segment ([E, H//4] / [E, W//4]); block must be 8.  `qp_map` is not
+    ported."""
+    if qp_map is not None:
+        raise NotImplementedError("deblock_420_bs: qp_map (cu_qp_delta) "
+                                  "not ported")
     dev = rec_y.device
     h, w = rec_y.shape
     ey = np.arange(block, w, block, dtype=np.int32)
@@ -218,8 +221,12 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
     segs = block // 4
     bs_ver = torch.as_tensor(bs_ver, device=dev)
     bs_hor = torch.as_tensor(bs_hor, device=dev)
-    bs_v = bs_ver.repeat_interleave(segs, dim=1)
-    bs_h = bs_hor.repeat_interleave(segs, dim=1)
+    if seg4:
+        assert block == 8
+        bs_v, bs_h = bs_ver, bs_hor
+    else:
+        bs_v = bs_ver.repeat_interleave(segs, dim=1)
+        bs_h = bs_hor.repeat_interleave(segs, dim=1)
     rec_y = _filter_ver_edges_luma(rec_y, ey, qp, bit_depth, bs=bs_v,
                                    beta_off=beta_off, tc_off=tc_off)
     rec_y = _filter_ver_edges_luma(rec_y.T, ex, qp, bit_depth, bs=bs_h,
@@ -230,7 +237,8 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
     step = 16 // block
     cey = np.arange(8, w // 2, 8, dtype=np.int32)
     cex = np.arange(8, h // 2, 8, dtype=np.int32)
-    crep = block // 2
+    # chroma rows covered by one BS row: 4 luma = 2 chroma when seg4
+    crep = 2 if seg4 else block // 2
     cm_v = (bs_ver[step - 1::step] == 2).repeat_interleave(crep, dim=1)
     cm_h = (bs_hor[step - 1::step] == 2).repeat_interleave(crep, dim=1)
     out_c = []

@@ -1,10 +1,19 @@
-"""Full-window integer motion search (counterpart of ops/me.py:23-45).
+"""Motion estimation: integer search and quarter-pel refinement.
 
-The reference gathers a [B, (2r+1)^2, n, n] patch tensor and reduces it;
-here the SAD surface comes from `sad_surface` (the Hopper kernel on CUDA
-tensors, which takes the 8-bit samples as they are).  The centre bias and the argmin stay in PyTorch: `torch.argmin`
-returns the first minimum, the same rule as `jnp.argmin` over row-major
-(dy, dx).
+Counterpart of video_codecs_tpu/ops/me.py: `integer_search` (:23-45), the
+hierarchical `pyramid_search` (:210-250) with `_pool4` and
+`_sad_best_around`, `_sad_at_points` (the plain gather path) and the
+SATD refinement `_refine` (:253-269).
+
+Every exhaustive SAD grid comes from `sad_surface` (the Hopper kernel on
+CUDA tensors, which takes the 8-bit samples as they are; 4x4-pooled
+planes are rounded means, so they stay within 0..255 too): a surface,
+then the cost, then `torch.argmin`, which returns the first minimum -- the
+row-major (dy outer, dx inner) order in which the reference's chunked
+loops keep the first minimum (argmin within a chunk, strict `<` across
+chunks and windows).  So the winner is the reference's exactly.
+Cut: `tz_search` and `motion_search` (the "tz"/"full"/"auto" methods),
+which no port encoder calls.
 """
 
 from __future__ import annotations
@@ -12,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.ops import cost as cost_ops
+from video_codecs_tpu_torch.ops import interp
 from video_codecs_tpu_torch.ops.interp import gather_window
 from video_codecs_tpu_torch.ops.sad_surface import sad_surface
 from video_codecs_tpu_torch.utils.device import const
@@ -19,6 +30,16 @@ from video_codecs_tpu_torch.utils.device import const
 # The 8-neighbour refinement pattern (ops/me.py:249), as (dx, dy).
 _OFFS8 = np.array([(-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0),
                    (-1, 1), (0, 1), (1, 1)], np.int32)
+
+
+def _u8(a: torch.Tensor) -> torch.Tensor:
+    """8-bit samples (0..255) as contiguous uint8, the kernel's input."""
+    return a.to(torch.uint8).contiguous()
+
+
+def _span_offsets(r: int) -> np.ndarray:
+    """|d| for d = -r..r (the displacement along one axis of a surface)."""
+    return np.abs(np.arange(2 * r + 1) - r).astype(np.int32)
 
 
 def integer_search(ref: torch.Tensor, cur: torch.Tensor, x0: torch.Tensor,
@@ -33,8 +54,119 @@ def integer_search(ref: torch.Tensor, cur: torch.Tensor, x0: torch.Tensor,
     win = gather_window(ref, x0 - r, y0 - r, n + 2 * r, n + 2 * r)
     sad = sad_surface(cur.contiguous(), win, n, r)
     # small centre bias like HM's mv-cost: prefer shorter MVs on ties
-    d = np.abs(np.arange(span) - r)
+    d = _span_offsets(r)
     mv_cost = const((d[:, None] + d[None, :]).reshape(-1), ref.device)
     best = torch.argmin(sad.reshape(-1, span * span) + mv_cost[None, :],
                         dim=1).int()
     return best % span - r, best // span - r
+
+
+# video_codecs_tpu/ops/me.py:48
+def _sad_at_points(win: torch.Tensor, cur: torch.Tensor, pts: np.ndarray,
+                   r: int, n: int) -> torch.Tensor:
+    """SAD of `cur` [B,n,n] vs window patches at integer offsets pts [P,2]
+    (mvx, mvy in [-r, r]).  win: [B, n+2r, n+2r].  Returns [B, P].
+    (The plain gather; the search stages take their grids from
+    `sad_surface`.)"""
+    dev = win.device
+    dx = pts[:, 0] + r
+    dy = pts[:, 1] + r
+    rows = const(dy[:, None, None] + np.arange(n)[None, :, None], dev,
+                 torch.int64)
+    cols = const(dx[:, None, None] + np.arange(n)[None, None, :], dev,
+                 torch.int64)
+    patches = win.int()[:, rows, cols]                       # [B, P, n, n]
+    return (patches - cur.int()[:, None]).abs().sum((-2, -1),
+                                                    dtype=torch.int32)
+
+
+# video_codecs_tpu/ops/me.py:175
+def _sad_best_around(ref: torch.Tensor, cur: torch.Tensor, x0, y0,
+                     cx: torch.Tensor, cy: torch.Tensor, n: int, rad: int,
+                     best_sad, best_x, best_y, bias: int = 0):
+    """Refine (best_x, best_y) over the (2rad+1)^2 window around per-block
+    centers (cx, cy); SAD + |mv| bias argmin folded into the running best.
+
+    One SAD surface for the whole window; its first minimum in raster
+    order is the reference's chunk-of-32 winner, and the fold into the
+    running best keeps the reference's strict `<`."""
+    span = 2 * rad + 1
+    dev = ref.device
+    win = gather_window(ref, x0 + cx - rad, y0 + cy - rad, n + 2 * rad,
+                        n + 2 * rad)
+    sad = sad_surface(_u8(cur), _u8(win), n, rad).reshape(-1, span * span)
+    off = np.arange(-rad, rad + 1, dtype=np.int32)
+    pdx = const(np.tile(off, span), dev)                     # dx inner
+    pdy = const(np.repeat(off, span), dev)                   # dy outer
+    mvx = cx[:, None] + pdx[None, :]
+    mvy = cy[:, None] + pdy[None, :]
+    cost = sad + mvx.abs() + mvy.abs() + bias
+    k = torch.argmin(cost, dim=1, keepdim=True)
+    c = torch.gather(cost, 1, k)[:, 0]
+    better = c < best_sad
+    best_sad = torch.where(better, c, best_sad)
+    best_x = torch.where(better, torch.gather(mvx, 1, k)[:, 0], best_x)
+    best_y = torch.where(better, torch.gather(mvy, 1, k)[:, 0], best_y)
+    return best_sad, best_x, best_y
+
+
+# video_codecs_tpu/ops/me.py:203
+def _pool4(a: torch.Tensor) -> torch.Tensor:
+    """4x4 mean pool (rounded) over the trailing two dims."""
+    sh = a.shape
+    a = a.reshape(sh[:-2] + (sh[-2] // 4, 4, sh[-1] // 4, 4))
+    return (a.sum((-3, -1), dtype=torch.int32) + 8) >> 4
+
+
+# video_codecs_tpu/ops/me.py:210
+def pyramid_search(ref: torch.Tensor, cur: torch.Tensor, x0, y0, n: int,
+                   search_range: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hierarchical integer search: a quarter-resolution exhaustive search
+    over the whole +-search_range window (SADs on 4x4-pooled blocks),
+    then a +-3 full-resolution window around the zero MV and one around
+    the upscaled winner.  Three SAD surfaces, all blocks at once."""
+    rq = max(1, (search_range + 3) // 4)
+    span = 2 * rq + 1
+    dev = ref.device
+    ref_q = _pool4(ref.int())
+    cur_q = _pool4(cur.int())
+    nq = n // 4
+    win_q = gather_window(ref_q, x0 // 4 - rq, y0 // 4 - rq, nq + 2 * rq,
+                          nq + 2 * rq)
+    sad_q = sad_surface(_u8(cur_q), _u8(win_q), nq, rq).reshape(
+        -1, span * span)
+    # scale pooled SADs to full-res magnitude for the |mv| bias to matter
+    d = _span_offsets(rq)
+    bias = const(4 * (d[:, None] + d[None, :]).reshape(-1), dev)
+    cost_q = sad_q * 16 + bias[None, :]
+    kq = torch.argmin(cost_q, dim=1).int()
+    cx = (kq % span - rq) * 4
+    cy = (kq // span - rq) * 4
+
+    big = torch.full((cur.shape[0],), 1 << 30, dtype=torch.int32,
+                     device=dev)
+    zero = torch.zeros(cur.shape[0], dtype=torch.int32, device=dev)
+    best_sad, best_x, best_y = _sad_best_around(
+        ref, cur, x0, y0, zero, zero, n, 3, big, zero, zero)
+    best_sad, best_x, best_y = _sad_best_around(
+        ref, cur, x0, y0, cx, cy, n, 3, best_sad, best_x, best_y)
+    r = search_range
+    return best_x.clamp(-r, r).int(), best_y.clamp(-r, r).int()
+
+
+# video_codecs_tpu/ops/me.py:253
+def _refine(ref, cur, x0, y0, mvx, mvy, n, step):
+    """One diamond refinement round at quarter-pel `step` using SATD."""
+    offs8 = const(_OFFS8, ref.device)
+    cand_x = mvx[:, None] + offs8[None, :, 0] * step   # [B, 8]
+    cand_y = mvy[:, None] + offs8[None, :, 1] * step
+    best = cost_ops.hadamard_satd_8x8(
+        cur, interp.mc_luma(ref, x0, y0, mvx, mvy, n))  # [B]
+    for k in range(8):
+        pred = interp.mc_luma(ref, x0, y0, cand_x[:, k], cand_y[:, k], n)
+        satd = cost_ops.hadamard_satd_8x8(cur, pred)
+        better = satd < best
+        best = torch.where(better, satd, best)
+        mvx = torch.where(better, cand_x[:, k], mvx)
+        mvy = torch.where(better, cand_y[:, k], mvy)
+    return mvx, mvy, best

@@ -27,8 +27,9 @@ tests/test_torch_hevc_ops.py): a 16-entry sum left to right; a row sum
 of more than 32 entries as left-to-right sums of 32-entry chunks, then of
 the chunk sums (XLA's tree-reduction rewrite); and a cumulative sum as
 left-to-right scans of 16-entry tiles plus the exclusive scan of the
-tile totals (XLA's reduce-window rewrite).  So the CPU and the card give
-the same bits.
+tile totals (XLA's reduce-window rewrite); the 16-entry distortion sum
+of a 4x4 block's rate as XLA's CPU code fuses and vectorizes it (see the
+end of `rdoq_dev`).  So the CPU and the card give the same bits.
 """
 
 from __future__ import annotations
@@ -457,5 +458,25 @@ def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
     e = ldf - dqf
     dist_fin = torch.where(levels > 0, e * e * es, d0)
     inv = 1.0 / (lam_bits * (1 << _SCALE_BITS))
-    bits = (chosen_total - _row_sum(dist_fin)) * inv
+    if nn == 16:
+        # 4x4: XLA's CPU code fuses this 16-entry sum with the products
+        # (sq * es, sq the squared error) and unswitches it on the
+        # all-zero decision: where the block was zeroed, left to right
+        # with each product fused into the add; else as an 8-lane vector
+        # reduction, entry i + 8 fused onto the rounded entry i, then
+        # halves (4, 2, 1)
+        sq = torch.where(levels > 0, e * e, ldf * ldf)
+        vec = fma32(sq[:, 8:], es, sq[:, :8] * es)
+        while vec.shape[1] > 1:
+            h = vec.shape[1] // 2
+            vec = vec[:, :h] + vec[:, h:]
+        dist_sum = vec[:, 0]
+        if allow_all_zero:
+            acc = sq[:, 0] * es
+            for i in range(1, nn):
+                acc = fma32(sq[:, i], es, acc)
+            dist_sum = torch.where(all_zero, acc, dist_sum)
+    else:
+        dist_sum = _row_sum(dist_fin)
+    bits = (chosen_total - dist_sum) * inv
     return out, bits.clamp(min=0.0)

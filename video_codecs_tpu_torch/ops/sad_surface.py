@@ -6,8 +6,9 @@ kernel csrc/sad_surface.cu, which it builds with nvcc at first use; on a
 CPU tensor it runs the plain PyTorch version `sad_surface_ref`.  There is
 no other path: a CUDA tensor either goes through the kernel or raises.
 The kernel takes uint8 blocks and windows (the planes are 8-bit) and
-n = 8 or 16, the H.264 block sizes; the plain version takes uint8 or
-int32 and any n.
+n = 16, 8, 4 or 2: the H.264 blocks, the HEVC pyramid's full-resolution
+windows (16, and 8 for the CU8 tree) and its quarter-resolution stage
+(n // 4 = 4 and 2); the plain version takes uint8 or int32 and any n.
 
 The kernel is built into build/torch_kernels/ under the repository root,
 as a shared library with a plain C interface loaded with ctypes, and is
@@ -31,6 +32,8 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sad_surface.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Block sizes the kernel is instantiated for.
+KERNEL_SIZES = (2, 4, 8, 16)
 # sad_surface_ref materialises at most this many patch elements at once.
 _CHUNK_ELEMS = 1 << 26
 
@@ -103,8 +106,8 @@ def sad_surface(cur: torch.Tensor, win: torch.Tensor, n: int,
                 r: int) -> torch.Tensor:
     """cur [B, n, n], win [B, n+2r, n+2r] -> SAD [B, 2r+1, 2r+1] (int32).
 
-    CUDA tensors (uint8, contiguous, n = 8 or 16) go through the Hopper
-    kernel, counted in `sad_surface.launches`; CPU tensors through
+    CUDA tensors (uint8, contiguous, n in KERNEL_SIZES) go through the
+    Hopper kernel, counted in `sad_surface.launches`; CPU tensors through
     `sad_surface_ref`."""
     b = cur.shape[0]
     wsz = n + 2 * r
@@ -120,8 +123,9 @@ def sad_surface(cur: torch.Tensor, win: torch.Tensor, n: int,
     if cur.dtype != torch.uint8 or win.dtype != torch.uint8:
         raise TypeError("sad_surface kernel takes uint8 cur and win, got "
                         f"{cur.dtype} / {win.dtype}")
-    if n not in (8, 16):
-        raise ValueError(f"sad_surface kernel takes n = 8 or 16, got {n}")
+    if n not in KERNEL_SIZES:
+        raise ValueError(f"sad_surface kernel takes n in {KERNEL_SIZES}, "
+                         f"got {n}")
     if not (cur.is_contiguous() and win.is_contiguous()):
         raise ValueError("sad_surface kernel takes contiguous tensors")
     span = 2 * r + 1
