@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the hand-written CUDA
-SAD-surface kernel: the H.264 device P-slice engine at 1280x720 and the
-HEVC random-access GOP-8 headline at 1920x1072, in phases:
+Drives the port's main paths through the hand-written CUDA SAD-surface
+kernel: the H.264 device P-slice engine at 1280x720, the HEVC
+random-access GOP-8 headline at 1920x1072 and the HEVC low-delay P row
+at 832x480, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the kernel from video_codecs_tpu_torch/csrc/sad_surface.cu;
@@ -41,19 +42,42 @@ HEVC random-access GOP-8 headline at 1920x1072, in phases:
         kbps, Y-PSNR, CU counts and the SAD kernel's launches (3 per list
         and reference: 6 per B picture, 3 for the anchor P);
      c. decode the stream with the port's GeneralDecoder: every picture
-        hash must match and the pictures must equal the encoder's;
+        hash must match and the pictures must equal the encoder's; the
+        stream's SHA-1 must be the JAX package's for the same clip and
+        settings (computed on the CPU: RA_SHA1);
      d. encode small GOPs (96x64: 9 pictures at the headline settings,
         5 pictures with the CU8 tree and 2 references per list) on the
         card and on the CPU and require byte-equal streams;
-  8. require that nothing of the JAX package was imported.
+  8. hevc-ldp: bench.py's `bench_ldp_480` (bench.py:171-186) exactly,
+     HEVC low-delay P on `inter_dev.DeviceLowDelayEncoder`: 832x480, QP 32
+     with HM's LD-P QP/lambda ladder, 4 references, merge 5, TMVP, SBH,
+     SR64 pyramid ME, MD5 picture-hash SEI, on bench.synth_clip's clip:
+     a. hold the SAD kernel against its plain version at the LD-P
+        pyramid's shapes (B = 52 x 30 blocks: n=4 r=16 and n=16 r=3)
+        and time it beside its bound and `torch.cdist`;
+     b. encode the 9 pictures on the card, printing per picture the
+        device phase (the flat IDR, or encode_p_frame_dev, with the copy
+        back, synchronised), the host phase (`_reconcile`, CABAC slice,
+        hash SEI), the QP, bytes, Y-PSNR, intra / skip / merge / AMVP
+        block counts and the SAD launches (3 per reference, 78 in all);
+     c. decode with the port's GeneralDecoder (every hash OK, pictures
+        equal the encoder's) and require the stream's SHA-1 to be the
+        JAX package's with its AMVP predictor list repaired as the port
+        repairs it (LDP_SHA1, computed on the CPU);
+     d. encode a 96x64 clip with a scene cut (intra blocks in its P
+        pictures) at 4 references on the card and on the CPU and
+        require byte-equal streams;
+  9. require that nothing of the JAX package was imported.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
-line before it lists the kernels, with the RA path's launches and its
+line before it lists the kernels, with the launches of the RA and LD-P
+encodes together (the line before gives each path's) and the RA path's
 per-B-picture times and bound.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -67,6 +91,7 @@ from video_codecs_tpu_torch.models.h264 import inter_dev
 from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
 from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
+from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.ops import sad_surface as ss
 
@@ -77,6 +102,17 @@ W, H, QP, SR = 1280, 720, 28, 16
 # and GOP length.
 HEVC_W, HEVC_H, HEVC_QP = 1920, 1072, 32
 RA_SR, RA_PICTURES = 64, 9
+# The JAX package's stream for phase 7's GOP (synth_clip(1920, 1072, 9,
+# seed=5) at ra_cfg's settings), on the CPU: bytes and SHA-1.
+RA_BYTES, RA_SHA1 = 313869, "97c3eed7555fdec8392e28f0190c99645943f680"
+# bench_ldp_480 (bench.py:171-186): 832x480, 9 pictures of bench's clip,
+# and the JAX package's stream for it on the CPU with its AMVP predictor
+# list (motion.amvp_candidates) swapped for the spec's, which the port
+# carries: bytes and SHA-1 (scripts/jax_reference_sha1.py).  As the JAX
+# package writes it (172,535 bytes, SHA-1 0bbbb609...) the stream fails
+# its picture hashes from POC 2 on in either package's decoder.
+LDP_W, LDP_H, LDP_PICTURES, LDP_SR = 832, 480, 9, 64
+LDP_BYTES, LDP_SHA1 = 172528, "321996139e1d64922af23de231bf6dd498493e12"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
@@ -136,6 +172,42 @@ def synth_clip(w: int, h: int, nf: int, seed: int):
         u = (y[::2, ::2] // 2 + 64).astype(np.uint8)
         v = ((255 - y[1::2, 1::2]) // 2 + 32).astype(np.uint8)
         frames.append((y, u, v))
+    return frames
+
+
+def bench_synth_clip(w, h, n, seed=42):
+    """bench.py's `synth_clip`, copied: a diagonal ramp with a moving
+    sine band and seeded texture, sinusoidal chroma."""
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    tex = rng.integers(-24, 25, (h, w))
+    frames = []
+    for f in range(n):
+        y = np.clip(((xx * 3 + yy * 2 + f * 7) % 256) * 0.7 + tex + 30 +
+                    20 * np.sin(2 * np.pi * (xx + 8 * f) / 64),
+                    0, 255).astype(np.uint8)
+        u = np.clip(128 + 40 * np.sin(2 * np.pi * (xx[::2, ::2] + 4 * f)
+                                      / 128), 0, 255).astype(np.uint8)
+        v = np.clip(128 + 40 * np.cos(2 * np.pi * (yy[::2, ::2] + 4 * f)
+                                      / 128), 0, 255).astype(np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def cut_clip(w: int, h: int, nf: int, cut: int = 3):
+    """A texture panning by (2, 1) px, then from picture `cut` on a smooth
+    ramp no reference holds: the P pictures after it code intra blocks."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 256, (h + nf + 1, w + 2 * nf + 1)).astype(
+        np.int32)
+    yy, xx = np.mgrid[0:base.shape[0], 0:base.shape[1]]
+    frames = []
+    for f in range(nf):
+        b = (128 + 60 * np.sin(xx / 5.0 + f) * np.cos(yy / 7.0) +
+             (base - 128) // 6) if f < cut else 40 + 2 * xx + (yy // 8) * 9
+        y = np.ascontiguousarray(np.clip(b, 0, 255).astype(np.uint8)[
+            f:f + h, 2 * f:2 * f + w])
+        frames.append((y, y[::2, ::2] // 2 + 64, y[1::2, ::2] // 2 + 32))
     return frames
 
 
@@ -525,9 +597,15 @@ def phase_hevc_ra() -> int:
     check(launches == want, f"{launches} SAD-kernel launches in the GOP, "
                             f"want {want}")
     kbps = len(stream) * 8 * 30 / len(frames) / 1000
+    sha = hashlib.sha1(stream).hexdigest()
     print(f"[hevc-ra] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
           f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
-          f"SAD-kernel launches {launches}")
+          f"SAD-kernel launches {launches}; SHA-1 {sha}")
+    check((len(stream), sha) == (RA_BYTES, RA_SHA1),
+          f"RA stream {len(stream)} bytes SHA-1 {sha}, the JAX package's "
+          f"is {RA_BYTES} bytes {RA_SHA1}")
+    print("[hevc-ra] the stream is the JAX package's, byte for byte "
+          "(SHA-1)")
 
     t0 = time.perf_counter()
     dec = hevc_decoder.GeneralDecoder()
@@ -573,7 +651,232 @@ def phase_ra_cuda_vs_cpu() -> None:
               f"bytes), hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
 
 
+def ldp_cfg(w: int, h: int):
+    """bench_ldp_480's settings (bench.py:171-186): QP 32, 4 references,
+    merge 5, TMVP, SBH, CTB 16, deblocking and the MD5 hash SEI on (the
+    HevcConfig defaults)."""
+    return hevc_headers.HevcConfig(width=w, height=h, qp=32, num_refs=4,
+                                   merge_cands=5, temporal_mvp=True,
+                                   sign_data_hiding=True)
+
+
+def phase_ldp_kernel() -> dict:
+    """Phase 8a: the kernel against its plain version at the LD-P
+    pyramid's shapes, timed beside its bound; the totals are per P
+    picture with all 4 references (4 x (pooled stage + 2 windows))."""
+    rng = np.random.default_rng(2026)
+    pic = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    max_err = 0
+    for i, (n, b, r) in enumerate(ra_sad_shapes(LDP_W, LDP_H, LDP_SR)[:2]):
+        cur = torch.from_numpy(rng.integers(0, 256, (b, n, n),
+                                            dtype=np.uint8)).cuda()
+        win = torch.from_numpy(rng.integers(
+            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.uint8)).cuda()
+        got = ss.sad_surface(cur, win, n, r)
+        torch.cuda.synchronize()
+        want = ss.sad_surface_ref(cur, win, n, r)
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel != plain at n={n} B={b} r={r} "
+                        f"(max abs err {err})")
+        max_err = max(max_err, err)
+        lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
+        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=21)
+        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
+                        warm=1)
+        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        bound, nbytes, ops = sad_bound(n, b, r)
+        print(f"[ldp-sad] n={n} B={b} r={r}: equal; kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} G ops), {bound / ms:.1%} of it; plain "
+              f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
+              f"{lib_err:g})")
+        k = 4 * (1 if i == 0 else 2)     # per P picture: 4 references
+        pic["ms"] += k * ms
+        pic["plain_ms"] += k * plain
+        pic["library_ms"] += k * lib
+        pic["bytes"] += k * nbytes
+        pic["ops"] += k * ops
+    pic["bound_ms"] = max(pic["bytes"] / PEAK_BYTES,
+                          pic["ops"] / PEAK_OPS) * 1e3
+    pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
+                       pic["bytes"] / PEAK_BYTES else "bytes")
+    print(f"[ldp-sad] per 832x480 P picture at 4 references (12 launches): "
+          f"kernel {pic['ms']:.4f} ms, bound {pic['bound_ms']:.4f} ms "
+          f"({pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"plain {pic['plain_ms']:.3f} ms; torch.cdist "
+          f"{pic['library_ms']:.3f} ms")
+    pic["max_abs_err"] = max_err
+    return pic
+
+
+def _ldp_instrument(enc):
+    """Time each picture of an LD-P encode: the device phase (upload,
+    device work, copy back, synchronised), the host phase (`_reconcile`,
+    CABAC slice, hash SEI) and the SAD-kernel launches; keep each
+    picture's block decisions."""
+    log, cur = [], {}
+
+    def timed(name, fn, sync=False):
+        def run(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            n0 = ss.sad_surface.launches
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+            cur["launches"] = cur.get("launches", 0) + \
+                ss.sad_surface.launches - n0
+            cur[fn.__name__] = out
+            return out
+        return run
+
+    enc._device_phase = timed("device", enc._device_phase, sync=True)
+    for name in ("_reconcile", "_encode_p_slice", "_hash_sei"):
+        setattr(enc, name, timed("host", getattr(enc, name)))
+    orig_p = enc.encode_p_frame
+
+    def p_frame(y, u, v, dpb, poc):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec, mf = orig_p(y, u, v, dpb, poc)
+        log.append(dict(poc=poc, kind="P", qp=enc.cfg.qp,
+                        refs=min(len(dpb), enc.cfg.num_refs),
+                        total=time.perf_counter() - t0, nals=nals, rec=rec,
+                        info=cur["_reconcile"], **{
+                            k: cur[k] for k in ("device", "host",
+                                                "launches")}))
+        return nals, rec, mf
+
+    def idr(y, u, v, *a, **kw):
+        torch.cuda.synchronize()
+        n0 = ss.sad_surface.launches
+        t0 = time.perf_counter()
+        st = {k: t.cpu() for k, t in enc._dispatch(y, u, v).items()}
+        t1 = time.perf_counter()
+        nals, rec = enc.serialize_frame(st)
+        t2 = time.perf_counter()
+        log.append(dict(poc=0, kind="I", qp=enc.cfg.qp, refs=0,
+                        device=t1 - t0, host=t2 - t1, total=t2 - t0,
+                        nals=nals, rec=rec,
+                        launches=ss.sad_surface.launches - n0))
+        return nals, rec
+
+    enc.encode_p_frame = p_frame
+    enc.encode_frame = idr
+    return log
+
+
+def phase_hevc_ldp() -> int:
+    """Phase 8b-c: bench_ldp_480 on the card, decoded by the port's
+    GeneralDecoder and held to the JAX package's stream.  Returns the
+    SAD-kernel launches of the encode."""
+    w, h = LDP_W, LDP_H
+    frames = bench_synth_clip(w, h, LDP_PICTURES)
+    print(f"[hevc-ldp] {w}x{h} low-delay P, {LDP_PICTURES} pictures of "
+          "bench.py's clip (seed 42): IDR + 8 P, QP 32 with HM's LD-P "
+          f"ladder, 4 references, merge 5, TMVP, SBH, SR{LDP_SR} pyramid ME, "
+          "full RDOQ in the P pictures")
+    enc = hevc_inter_dev.DeviceLowDelayEncoder(
+        ldp_cfg(w, h), search_range=LDP_SR, device="cuda")
+    log = _ldp_instrument(enc)
+    ss.sad_surface.launches = 0
+    t0 = time.perf_counter()
+    stream, recons = enc.encode_sequence_ldp(frames)
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    want = 0
+    for e in log:
+        nbytes = sum(len(n) for n in e["nals"] if n)
+        p = psnr(frames[e["poc"]][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        if e["kind"] == "I":
+            blocks = f"{(w // 16) * (h // 16)} intra (IDR)"
+        else:
+            cnt = dict(intra=0, skip=0, merge=0, amvp=0)
+            for row in e["info"]:
+                for b in row:
+                    cnt["intra" if b.pred_mode == 1 else "skip" if b.skip
+                        else "merge" if b.merge else "amvp"] += 1
+            blocks = " / ".join(f"{k} {v}" for k, v in cnt.items())
+            want += 3 * e["refs"]
+            check(e["launches"] == 3 * e["refs"],
+                  f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
+                  f"(want 3 per reference, {e['refs']} references)")
+        other = e["total"] - e["device"] - e["host"]
+        print(f"[hevc-ldp] POC {e['poc']} ({e['kind']}, QP {e['qp']}, "
+              f"{e['refs']} refs): device phase {e['device'] * 1e3:.1f} ms,"
+              f" host phase {e['host'] * 1e3:.1f} ms, other "
+              f"{other * 1e3:.1f} ms; {nbytes} bytes, Y-PSNR {p:.2f} dB; "
+              f"blocks {blocks}; SAD-kernel launches {e['launches']}")
+    check(launches == want == 78, f"{launches} SAD-kernel launches in the "
+                                  f"run, want {want} = 78")
+    kbps = len(stream) * 8 * 30 / len(frames) / 1000
+    sha = hashlib.sha1(stream).hexdigest()
+    print(f"[hevc-ldp] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
+          f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
+          f"SAD-kernel launches {launches}; SHA-1 {sha}")
+
+    t0 = time.perf_counter()
+    dec = hevc_decoder.GeneralDecoder()
+    out = dec.decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(dec.hash_status == [True] * len(frames),
+          f"picture hash SEI mismatch: {dec.hash_status}")
+    check(len(out) == len(frames), "decoder returned a wrong picture count")
+    for i, (r, o) in enumerate(zip(recons, out)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
+                  f"decoded picture {i} plane {c} != encoder recon")
+    print(f"[hevc-ldp] the port's GeneralDecoder: hash SEI OK on all "
+          f"{len(frames)} pictures, pictures equal the encoder's, "
+          f"{t_dec:.2f} s")
+    check((len(stream), sha) == (LDP_BYTES, LDP_SHA1),
+          f"LD-P stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+          f"package's (spec AMVP list) is {LDP_BYTES} bytes {LDP_SHA1}")
+    print("[hevc-ldp] the stream is the JAX package's with the spec AMVP "
+          "list, byte for byte (SHA-1)")
+    return launches
+
+
+def phase_ldp_cuda_vs_cpu() -> None:
+    """Phase 8d: a 96x64 LD-P run at 4 references on the card and on
+    the CPU, with intra blocks in its P pictures: byte-equal streams."""
+    w, h, n = 96, 64, 5
+    frames = cut_clip(w, h, n)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        enc = hevc_inter_dev.DeviceLowDelayEncoder(
+            ldp_cfg(w, h), search_range=LDP_SR, device=dev)
+        modes = []
+        phase = enc._device_phase
+
+        def keep(*a, **kw):
+            st = phase(*a, **kw)
+            modes.append(st["pred_mode"])
+            return st
+
+        enc._device_phase = keep
+        t0 = time.perf_counter()
+        res[dev] = (enc.encode_sequence_ldp(frames)[0],
+                    time.perf_counter() - t0, modes)
+    (g, tg, gm), (c, tc, cm) = res["cuda"], res["cpu"]
+    intra = [int((m == 1).sum()) for m in gm]
+    check(all(np.array_equal(a, b) for a, b in zip(gm, cm)),
+          "LD-P 96x64: card and CPU block modes differ")
+    check(sum(intra) > 0, "LD-P 96x64: no intra block in the P pictures")
+    check(g == c, f"LD-P 96x64: card and CPU streams differ ({len(g)} / "
+                  f"{len(c)} bytes)")
+    dec = hevc_decoder.GeneralDecoder()
+    dec.decode(g)
+    check(dec.hash_status == [True] * n, "LD-P 96x64: hash mismatch")
+    print(f"[ldp-cuda-vs-cpu] 96x64, 5 pictures, 4 references, scene cut "
+          f"at 3: intra blocks per P picture {intra} (through the "
+          f"wavefront on the card); streams byte-equal ({len(g)} bytes), "
+          f"hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -590,12 +893,22 @@ def main() -> None:
     phase_cuda_vs_cpu()
     phase_hevc_intra()
     k = phase_ra_kernel()
-    launches = phase_hevc_ra()
+    ra_launches = phase_hevc_ra()
     phase_ra_cuda_vs_cpu()
+    phase_ldp_kernel()
+    ldp_launches = phase_hevc_ldp()
+    phase_ldp_cuda_vs_cpu()
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported")
+
+    launches = ra_launches + ldp_launches
+    print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, LD-P run "
+          f"{ldp_launches}, together {launches}; times and bound below are "
+          "the RA path's per B picture")
+    print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "
+          "the kernel's build included")
 
     print(json.dumps({"kernels": [{
         "name": "sad_surface", "route": "cuda", "source": KERNEL_SRC,

@@ -1,0 +1,90 @@
+"""Bytes and SHA-1 of the JAX package's streams that chip_smoke.py holds
+the port's to, computed with the JAX package on the CPU.
+
+    JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra]
+
+LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
+`inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
+default MD5 hash SEI, twice: as the JAX package writes it, and with its
+AMVP predictor derivation `motion.amvp_candidates` replaced in memory by
+the spec's (the port's repaired copy; no file of the JAX package is
+edited).  Each stream is decoded by the JAX package's GeneralDecoder and
+its picture-hash results printed.  --ra adds the HEVC RA GOP-8 of
+chip_smoke.py's phase 7 (1920x1072, its clip and settings), which takes
+about five minutes.  This is a tool for the reference side: it imports
+the JAX package, and the port's `motion` module only for the repaired
+function.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import sys
+import time
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import bench  # noqa: E402
+import chip_smoke  # noqa: E402
+from video_codecs_tpu.models.hevc import decoder, headers  # noqa: E402
+from video_codecs_tpu.models.hevc import inter_jax, inter_qt  # noqa: E402
+from video_codecs_tpu.models.hevc import motion  # noqa: E402
+from video_codecs_tpu_torch.models.hevc import motion as tmotion  # noqa: E402
+
+
+def report(what: str, stream: bytes, n: int, t: float) -> None:
+    dec = decoder.GeneralDecoder()
+    dec.decode(stream)
+    print(f"{what}: {len(stream)} bytes, SHA-1 "
+          f"{hashlib.sha1(stream).hexdigest()}, encode {t:.1f} s, JAX "
+          f"GeneralDecoder hash OK {sum(dec.hash_status)} of {n}: "
+          f"{dec.hash_status}", flush=True)
+
+
+def ldp() -> None:
+    frames = bench.synth_clip(832, 480, 9)
+    for what, amvp in (("ldp as written", motion.amvp_candidates),
+                       ("ldp spec AMVP", tmotion.amvp_candidates)):
+        motion.amvp_candidates = amvp
+        cfg = headers.HevcConfig(width=832, height=480, qp=32, num_refs=4,
+                                 merge_cands=5, temporal_mvp=True,
+                                 sign_data_hiding=True)
+        enc = inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)
+        t0 = time.time()
+        stream, _ = enc.encode_sequence_ldp(frames)
+        report(what, stream, len(frames), time.time() - t0)
+
+
+def ra() -> None:
+    w, h = chip_smoke.HEVC_W, chip_smoke.HEVC_H
+    frames = chip_smoke.synth_clip(w, h, chip_smoke.RA_PICTURES, seed=5)
+    cfg = headers.HevcConfig(
+        width=w, height=h, qp=chip_smoke.HEVC_QP, log2_ctb=5,
+        log2_min_cb=3, log2_max_tb=5, reorder_pics=3, sign_data_hiding=True,
+        rdoq="lite", merge_cands=5, hash_sei=True, temporal_mvp=True)
+    enc = inter_qt.QtDeviceRandomAccessEncoder(
+        cfg, search_range=chip_smoke.RA_SR, me_method="pyr", cu8=False,
+        num_refs_active=1)
+    t0 = time.time()
+    stream, _ = enc.encode_sequence_ra(frames)
+    report("ra 1080p", stream, len(frames), time.time() - t0)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ra", action="store_true",
+                    help="also the 1080p RA GOP of chip_smoke phase 7")
+    args = ap.parse_args()
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    ldp()
+    if args.ra:
+        ra()
+
+
+if __name__ == "__main__":
+    main()

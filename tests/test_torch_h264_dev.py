@@ -187,6 +187,7 @@ def test_port_runs_without_jax(tmp_path):
 _FENCED = ["chip_smoke.py", "scripts/profile_torch_h264_p.py",
            "scripts/profile_torch_hevc_intra.py",
            "scripts/profile_torch_hevc_ra.py",
+           "scripts/profile_torch_hevc_ldp.py",
            *sorted(str(p.relative_to(REPO)) for p in
                    pathlib.Path(REPO, "video_codecs_tpu_torch").rglob("*.py"))]
 

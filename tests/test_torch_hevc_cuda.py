@@ -97,3 +97,44 @@ def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
             np.testing.assert_array_equal(g[k], c[k],
                                           err_msg=f"picture {i}: {k}")
     assert gs == cs
+
+
+@pytest.mark.cuda
+def test_ldp_card_equals_cpu():
+    """The LD-P encoder (flat device IDR, encode_p_frame_dev with SAD
+    surfaces from the kernel, the intra wavefront) at bench_ldp_480's
+    settings on 96x64: every P picture's dict and the stream equal the
+    CPU's, and intra blocks went through the wavefront."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from chip_smoke import cut_clip
+    from video_codecs_tpu_torch.models.hevc import inter_dev
+    from video_codecs_tpu_torch.ops import sad_surface as ss
+    frames = cut_clip(96, 64, 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = headers.HevcConfig(width=96, height=64, qp=32, num_refs=4,
+                                 merge_cands=5, temporal_mvp=True,
+                                 sign_data_hiding=True)
+        enc = inter_dev.DeviceLowDelayEncoder(cfg, search_range=64,
+                                              device=dev)
+        dicts = []
+        phase = enc._device_phase
+
+        def keep(*a, **kw):
+            d = phase(*a, **kw)
+            dicts.append(d)
+            return d
+
+        enc._device_phase = keep
+        n0 = ss.sad_surface.launches
+        stream = enc.encode_sequence_ldp(frames)[0]
+        out[dev] = (dicts, stream, ss.sad_surface.launches - n0)
+    (gd, gs, gl), (cd, cs, cl) = out["cuda"], out["cpu"]
+    assert cl == 0 and gl == 3 * (1 + 2 + 3 + 4)
+    for i, (g, c) in enumerate(zip(gd, cd)):
+        for k in c:
+            np.testing.assert_array_equal(g[k], c[k],
+                                          err_msg=f"picture {i}: {k}")
+    assert sum(int((d["pred_mode"] == 1).sum()) for d in cd) > 0
+    assert gs == cs

@@ -47,7 +47,8 @@ _COPIES = {
     "entropy/ctx.py": ("entropy/ctx.py", set(), set(), set()),
     "entropy/residual.py": ("entropy/residual.py", set(), set(), set()),
     "entropy/native.py": ("entropy/native.py",
-                          {"_load", "encode_slice_qt_native"}, set(), set()),
+                          {"_load", "encode_slice_native",
+                           "encode_slice_qt_native"}, set(), set()),
     "models/hevc/headers.py": ("models/hevc/headers.py", set(), set(),
                                set()),
     "ops/transform.py": ("ops/transform.py", set(),
@@ -55,13 +56,14 @@ _COPIES = {
                          set()),
     "ops/quant.py": ("ops/quant.py", {"apply_sbh_np"},
                      {"quantize", "dequantize", "rdoq_lite", "_sbh_fix_cgs",
-                      "apply_sbh", "apply_sbh_scan"}, {"fma32"}),
+                      "apply_sbh", "apply_sbh_scan"},
+                     {"fma32", "log_xla", "log2_xla", "log_1p_tables"}),
     "ops/intra.py": ("ops/intra.py", set(),
                      {"substitute_unavailable", "smooth_reference",
                       "predict_intra", "use_filtered_ref"}, {"_weights_dev"}),
     "ops/deblock.py": ("ops/deblock.py", set(),
                        {"_filter_ver_edges_luma", "_filter_ver_edges_chroma",
-                        "deblock_420_bs", "deblock_420_bs_np"},
+                        "deblock_420", "deblock_420_bs", "deblock_420_bs_np"},
                        {"_scalar_qp"}),
     "ops/rdoq.py": ("ops/rdoq.py", set(), set(), set()),
     "ops/rdoq_dev.py": ("ops/rdoq_jax.py", set(),
@@ -70,7 +72,10 @@ _COPIES = {
     "models/hevc/encoder_dev.py": ("models/hevc/encoder_jax.py", set(),
                                    {"gather_refs", "_extract_blocks",
                                     "decide_modes_device", "_code_blocks",
-                                    "_code_blocks_rate"}, set()),
+                                    "_code_blocks_rate",
+                                    "_predict_single_mode",
+                                    "encode_frame_device"},
+                                   {"encode_frame", "_put_blocks"}),
     "models/hevc/encoder_qt_dev.py": (
         "models/hevc/encoder_jax_qt.py", set(),
         {"z_index_dev", "gather_refs_z", "_grid", "_mode_sweep",
@@ -78,13 +83,18 @@ _COPIES = {
          "_scatter", "_scan_type_dev", "_code_tb_batch",
          "encode_frame_qt_device", "bs_maps_from_depth"},
         {"_pad_edge", "encode_frame_qt"}),
-    "models/hevc/intra_codec.py": ("models/hevc/intra_codec.py",
-                                   {"code_tb_np"}, set(), set()),
+    "models/hevc/intra_codec.py": (
+        "models/hevc/intra_codec.py",
+        {"code_tb_np", "IntraEncoder.__init__", "IntraEncoder.encode_frame",
+         "IntraEncoder._encode_slice", "IntraEncoder._encode_ctu",
+         "IntraEncoder.encode_frame_fast", "IntraEncoder.serialize_frame",
+         "IntraEncoder.encode_sequence"}, set(), {"IntraEncoder._dispatch"}),
     "ops/interp.py": (
         "ops/interp.py", set(),
         {"_taps_dev", "mc_luma", "mc_chroma", "_gather_window_multi",
          "_mc_luma14_core", "mc_luma14_multi", "mc_luma_multi",
-         "_mc_chroma14_core", "mc_chroma14_multi", "bi_average"},
+         "_mc_chroma14_core", "mc_chroma14_multi", "mc_chroma_multi",
+         "bi_average"},
         {"gather_window", "_filter2"}),
     "ops/me.py": ("ops/me.py", set(),
                   {"_sad_at_points", "_sad_best_around", "_pool4",
@@ -93,14 +103,24 @@ _COPIES = {
     "models/hevc/inter_dev.py": (
         "models/hevc/inter_jax.py", set(),
         {"scale_mv_dev", "mvd_bits_dev", "_shift_grid", "_scatter_blocks",
-         "_intra_wavefront", "b_me_one", "encode_b_frame_dev"},
+         "_intra_wavefront", "encode_p_frame_dev", "b_me_one",
+         "encode_b_frame_dev", "DeviceLowDelayEncoder.__init__",
+         "DeviceLowDelayEncoder.encode_p_frame",
+         "DeviceLowDelayEncoder.encode_frame"},
         {"_i32", "_round_cost", "_round_const", "_persum", "_sum2x2",
-         "_floor_log2", "_to4", "_from4", "_ssef"}),
-    "models/hevc/motion.py": ("models/hevc/motion.py", set(), set(), set()),
+         "_to4", "_from4", "_ssef", "DeviceLowDelayEncoder._device_phase"}),
+    "models/hevc/motion.py": ("models/hevc/motion.py", {"amvp_candidates"},
+                              set(), set()),
     "models/hevc/motion_hm.py": ("models/hevc/motion_hm.py", set(), set(),
                                  set()),
-    "models/hevc/inter_codec.py": ("models/hevc/inter_codec.py", set(),
-                                   set(), set()),
+    "models/hevc/inter_codec.py": (
+        "models/hevc/inter_codec.py",
+        {"write_p_slice_header", "LowDelayEncoder.encode_sequence_ldp",
+         "LowDelayEncoder.encode_frames", "LowDelayEncoder.encode_p_frame",
+         "LowDelayEncoder._encode_p_slice", "LowDelayEncoder._encode_p_ctu"},
+        set(), set()),
+    "models/hevc/checkpoint.py": ("models/hevc/checkpoint.py", set(), set(),
+                                  set()),
     "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py", set(),
                                     set(), set()),
     "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py", set(), set(),

@@ -373,3 +373,15 @@ def test_h264_split_costs_match_xla():
     _eq(got[0], want[0])
     _eq(got[1], want[1])
     _eq(got[0] > got[1], want[2])
+
+
+def test_h264_lv_bits_match_xla():
+    """The H.264 coefficient-rate proxy `_lv_bits` (h264/inter_jax.py:88)
+    at 0 ulp: XLA's log, its FMAs and its order of the 4x4 sum (rows as
+    vector lanes, columns chained, lanes in halves)."""
+    from video_codecs_tpu.models.h264 import inter_jax as jh264
+    rng = np.random.default_rng(31)
+    lv = rng.integers(-40, 41, (3000, 4, 4)).astype(np.int32)
+    lv[rng.random(lv.shape) < 0.6] = 0
+    lv[:8] = rng.integers(-3000, 3000, (8, 4, 4))
+    _eq(th264._lv_bits(T(lv)), jax.jit(jh264._lv_bits)(lv))

@@ -92,6 +92,21 @@ def test_sad_kernel_matches_plain_on_card(n, r, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(4, 16), (16, 3)])
+def test_sad_kernel_at_ldp_shapes(n, r):
+    """The LD-P pyramid's surfaces at 832x480: B = 52 x 30 blocks, the
+    4x4-pooled stage (n=4, r=16) and the +-3 full-resolution windows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
+    cur, win = _inputs(1560 + n + r, 1560, n, r, np.uint8)
+    c = torch.from_numpy(cur).cuda()
+    w = torch.from_numpy(win).cuda()
+    got = ss.sad_surface(c, w, n, r)
+    torch.cuda.synchronize()
+    assert (got - ss.sad_surface_ref(c, w, n, r)).abs().max().item() == 0
+
+
+@pytest.mark.cuda
 def test_sad_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")

@@ -9,14 +9,14 @@ code (bit writer, CAVLC, transforms, deblocking, the H.264 baseline host
 encoder/decoder and DPB; the HEVC spec tables, CABAC, residual coding,
 parameter sets and the intra/quadtree syntax and decoders, and the
 native C++ CABAC writer, the inter host classes of the random-access
-encoder and the general decoder) it carries as its own copy, function by
+and low-delay P encoders and the general decoder) it carries as its own copy, function by
 function under the same names, with each original's file and line in a
 comment; only the tests import both packages.
 
 Rules: plain functions on tensors, an explicit `device` everywhere (the
-entry points `DeviceH264Encoder`, `QuadtreeFastEncoder` and
-`QtDeviceRandomAccessEncoder` run on the card unless the caller asks for
-the CPU), no autograd (work runs under `torch.inference_mode()`), and
+entry points `DeviceH264Encoder`, `QuadtreeFastEncoder`,
+`QtDeviceRandomAccessEncoder`, `DeviceLowDelayEncoder` and the flat
+`IntraEncoder` run on the card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel.  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
@@ -41,13 +41,16 @@ Module map (port -> JAX counterpart):
   models/h264/inter_codec.py models/h264/inter_codec.py (IPPP driver,
                              CAVLC decoder)
   models/hevc/inter_dev.py   models/hevc/inter_jax.py (MV helpers,
-                             b_me_one, encode_b_frame_dev, lambdas)
+                             _intra_wavefront, encode_p_frame_dev,
+                             DeviceLowDelayEncoder, b_me_one,
+                             encode_b_frame_dev, lambdas)
   models/h264/inter_dev.py   models/h264/inter_jax.py (encode_p_dev,
                              DeviceH264Encoder)
   utils/rom.py               utils/rom.py (whole)
   entropy/cabac.py, ctx.py,  entropy/cabac.py, ctx.py, residual.py
     residual.py                (whole)
-  entropy/native.py          entropy/native.py (quadtree serializer)
+  entropy/native.py          entropy/native.py (flat and quadtree
+                             serializers)
     + csrc/cabac_enc.cpp       csrc/cabac_enc.cpp (byte copy)
   models/hevc/headers.py     models/hevc/headers.py (whole)
   ops/transform.py           ops/transform.py
@@ -56,18 +59,21 @@ Module map (port -> JAX counterpart):
   ops/deblock.py             ops/deblock.py (scalar-QP BS deblocking)
   ops/rdoq.py                ops/rdoq.py (fractional-bit table)
   ops/rdoq_dev.py            ops/rdoq_jax.py (rdoq_dev)
-  models/hevc/encoder_dev.py models/hevc/encoder_jax.py (ref gather,
-                             decide_modes_device, _code_blocks*)
+  models/hevc/encoder_dev.py models/hevc/encoder_jax.py (helpers and
+                             the flat CTB16 intra encoder encode_frame)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)
-  models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, hash
-                             SEI, decoder NAL loop)
+  models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, the
+                             flat IDR host tail, hash SEI, decoder NAL
+                             loop)
   models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (syntax,
                              QuadtreeIntraDecoder, QuadtreeFastEncoder)
-  models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole)
-    motion_hm.py
+  models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole;
+    motion_hm.py               amvp_candidates repaired to the spec)
+  models/hevc/checkpoint.py  models/hevc/checkpoint.py (EncoderState,
+                             capture)
   models/hevc/inter_codec.py, models/hevc/inter_codec.py, bframe_codec.py,
-    bframe_codec.py,           ra_codec.py (the RA encoder's chain of
-    ra_codec.py                bases and helpers)
+    bframe_codec.py,           ra_codec.py (the LD-P host P coder; the RA
+    ra_codec.py                encoder's chain of bases and helpers)
   models/hevc/inter_qt.py    models/hevc/inter_qt.py (qt_merge_dev,
                              QtDeviceRandomAccessEncoder)
   models/hevc/decoder.py     models/hevc/decoder.py (GeneralDecoder)

@@ -1,14 +1,17 @@
-"""ctypes bindings for the native quadtree CABAC slice serializer.
+"""ctypes bindings for the native CABAC slice serializers: the flat CTB16
+intra slice (`encode_slice_native`) and the quadtree slice
+(`encode_slice_qt_native`).
 
-The port's copy of the quadtree part of video_codecs_tpu/entropy/native.py
-(each function keeps its name and a comment gives the original's line),
+The port's copy of video_codecs_tpu/entropy/native.py (each function
+keeps its name and a comment gives the original's line),
 over the port's byte-for-byte copy of csrc/cabac_enc.cpp
 (video_codecs_tpu_torch/csrc/cabac_enc.cpp).  The library is built with
 `g++ -O2` at first use into build/torch_kernels/ under the repository
 root (never beside the sources) and rebuilt when the source changes.  A
 failed build raises: there is no fallback here, and the plain Python
 serializer (models/hevc/quadtree_codec.encode_slice_qt) gives the same
-bytes.
+bytes, as does the flat one (models/hevc/intra_codec.IntraEncoder
+._encode_slice).
 """
 
 from __future__ import annotations
@@ -50,6 +53,20 @@ def _load():
                                f"{res.stdout}{res.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
+    lib.vct_encode_slice.restype = ctypes.c_int
+    lib.vct_encode_slice.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),   # modes
+        ctypes.POINTER(ctypes.c_uint8),   # cbf [3][B]
+        ctypes.POINTER(ctypes.c_int32),   # levels_y
+        ctypes.POINTER(ctypes.c_int32),   # levels_cb
+        ctypes.POINTER(ctypes.c_int32),   # levels_cr
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,  # header
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,  # init states
+        ctypes.POINTER(ctypes.c_int),     # offsets
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,  # out
+        ctypes.c_int,                     # sign_hiding
+    ]
     lib.vct_encode_slice_qt.restype = ctypes.c_int
     lib.vct_encode_slice_qt.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,      # w, h, log2_ctb
@@ -68,6 +85,50 @@ def _load():
     ]
     _LIB = lib
     return lib
+
+
+# video_codecs_tpu/entropy/native.py:76
+def encode_slice_native(bw: int, bh: int, qp: int, modes: np.ndarray,
+                        cbf: np.ndarray, levels_y: np.ndarray,
+                        levels_cb: np.ndarray, levels_cr: np.ndarray,
+                        header: bytes, init_states: np.ndarray,
+                        sign_hiding: bool = False) -> bytes:
+    """Returns the EBSP payload (header + slice data) of a flat CTB16
+    intra slice."""
+    lib = _load()
+    offs = np.array([
+        ctx.off("part_size"), ctx.off("prev_intra_luma_pred"),
+        ctx.off("chroma_pred_mode"), ctx.off("cbf_luma"),
+        ctx.off("cbf_chroma"), ctx.off("last_x"), ctx.off("last_y"),
+        ctx.off("sig_cg"), ctx.off("sig_flag"), ctx.off("one_flag"),
+        ctx.off("abs_flag")], dtype=np.int32)
+
+    modes = np.ascontiguousarray(modes, np.int32)
+    cbf = np.ascontiguousarray(cbf, np.uint8)
+    levels_y = np.ascontiguousarray(levels_y, np.int32)
+    levels_cb = np.ascontiguousarray(levels_cb, np.int32)
+    levels_cr = np.ascontiguousarray(levels_cr, np.int32)
+    header_arr = np.frombuffer(header, np.uint8)
+    states = np.ascontiguousarray(init_states, np.uint8)
+    cap = levels_y.nbytes + levels_cb.nbytes + levels_cr.nbytes + \
+        len(header) + 4096
+    out = np.zeros(cap, np.uint8)
+
+    def p(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    n = lib.vct_encode_slice(
+        bw, bh, qp,
+        p(modes, ctypes.c_int32), p(cbf, ctypes.c_uint8),
+        p(levels_y, ctypes.c_int32), p(levels_cb, ctypes.c_int32),
+        p(levels_cr, ctypes.c_int32),
+        p(header_arr, ctypes.c_uint8), len(header),
+        p(states, ctypes.c_uint8), states.size,
+        p(offs, ctypes.c_int), p(out, ctypes.c_uint8), cap,
+        1 if sign_hiding else 0)
+    if n < 0:
+        raise RuntimeError(f"native slice serializer failed ({n})")
+    return out[:n].tobytes()
 
 
 # video_codecs_tpu/entropy/native.py:122

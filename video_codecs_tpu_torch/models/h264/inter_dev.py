@@ -36,14 +36,9 @@ from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import h264_dev as hd
 from video_codecs_tpu_torch.ops import me as me_ops
-from video_codecs_tpu_torch.ops.quant import fma32
+from video_codecs_tpu_torch.ops.quant import INV_LN2, fma32, log_1p_tables
 from video_codecs_tpu_torch.utils.device import const, to_device
 
-# log2(1 + a) for the level magnitudes a 4x4 block can hold (|level| <
-# 2^13 at any QP), correctly rounded to float32 once on the host, so the
-# rate proxy is the same number on every device.
-_LOG2_1P = np.log2(1.0 + np.arange(1 << 13, dtype=np.float64)).astype(
-    np.float32)
 
 
 def _refine_h264(ref, cur, x0, y0, mvx, mvy, n, step):
@@ -97,11 +92,19 @@ def _sum_in_order(a: torch.Tensor, dims: int) -> torch.Tensor:
 
 
 def _lv_bits(lv):
-    """Coefficient-rate proxy per block batch [..., 4, 4] (bits)."""
+    """Coefficient-rate proxy per block batch [..., 4, 4] (bits):
+    2 * (nonzero count + sum of log2(1 + |level|)) in the order XLA's CPU
+    code computes it: the four rows as vector lanes, each summing its
+    columns as a chain of FMAs of log(1 + a) and 1/ln 2, the lanes added
+    as (row 0 + row 2) + (row 1 + row 3), then the count, then times 2."""
     a = lv.abs()
-    lg = const(_LOG2_1P, lv.device, torch.float32)[a.long()]
-    return (2.0 * (a > 0).sum((-2, -1)).float() +
-            2.0 * _sum_in_order(lg, 2))
+    ln = const(log_1p_tables()[0], lv.device, torch.float32)[a.long()]
+    inv = torch.tensor(INV_LN2, device=lv.device)
+    acc = ln[..., 0] * inv
+    for j in range(1, 4):
+        acc = fma32(ln[..., j], inv, acc)
+    tot = (acc[..., 0] + acc[..., 2]) + (acc[..., 1] + acc[..., 3])
+    return (tot + (a > 0).sum((-2, -1)).float()) * 2.0
 
 
 def _blocks_to_plane(vals: torch.Tensor, bh: int, bw: int) -> torch.Tensor:

@@ -1,18 +1,20 @@
-"""Reference-sample gather, 16x16 intra mode decision and batched TB
-coding: the device helpers the quadtree and inter encoders share.
+"""The flat CTB16 all-intra device encoder and the device helpers the
+quadtree and inter encoders share: reference-sample gather, 16x16 intra
+mode decision, batched TB coding.
 
-Counterpart of the part of video_codecs_tpu/models/hevc/encoder_jax.py
-that the quadtree encoder (models/hevc/encoder_qt_dev.py) and the
-B-picture device phase (models/hevc/inter_dev.py) use.  The static
+Counterpart of video_codecs_tpu/models/hevc/encoder_jax.py.  The static
 tables `_ref_offsets` and `_wavefront_schedule` are the port's copies of
 the originals (each keeps its name and a comment gives the original's
-line); the device functions take tensors on any device.  Cut: the flat
-16x16 device intra encoder (`encode_frame_device`, `encode_frame_jit`)
-and `_predict_single_mode`, which no port path calls; `_code_blocks` and
-`_code_blocks_rate` take the device full RDOQ and `_code_blocks` also
-hard quantization and RDOQ-lite, as the reference does, and the rate
-proxy of `_code_blocks_rate` without the full RDOQ raises
-NotImplementedError (the inter encoders always run the full RDOQ).
+line); the device functions take tensors on any device.  `encode_frame`
+is `encode_frame_jit`: the mode decision, the reconstruction wavefront
+over the anti-diagonals d = bx + 2 * by (`encode_frame_device`, one
+batch of 16x16 luma and 8x8 chroma blocks per diagonal, only the
+diagonal's own blocks: the reference's padded lanes write nothing) and
+the uniform-grid deblock.  `_code_blocks` and `_code_blocks_rate` take
+the device full RDOQ and `_code_blocks` also hard quantization and
+RDOQ-lite, as the reference does; the rate proxy of `_code_blocks_rate`
+without the full RDOQ raises NotImplementedError (the inter encoders
+always run the full RDOQ).
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import math
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
+from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import intra as intra_ops
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops import rdoq_dev
@@ -128,6 +132,15 @@ def _extract_blocks(plane: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     return plane[rows, cols]
 
 
+def _put_blocks(plane: torch.Tensor, vals: torch.Tensor, x0: torch.Tensor,
+                y0: torch.Tensor, n: int) -> None:
+    """Write the [B, n, n] blocks `vals` into `plane` at (x0, y0), in
+    place (the blocks do not overlap)."""
+    ar = torch.arange(n, dtype=torch.int64, device=plane.device)
+    plane[y0.long()[:, None, None] + ar[None, :, None],
+          x0.long()[:, None, None] + ar[None, None, :]] = vals.to(plane.dtype)
+
+
 # video_codecs_tpu/models/hevc/encoder_jax.py:135
 @functools.lru_cache(maxsize=None)
 def _wavefront_schedule(bw: int, bh: int):
@@ -205,3 +218,89 @@ def _code_blocks_rate(orig, pred, qp, log2, sbh=False, is_luma=True,
     rec = (pred + r).clamp(0, 255)
     rec = torch.where(cbf[:, None, None], rec, pred)
     return levels, rec, cbf, bits
+
+
+# video_codecs_tpu/models/hevc/encoder_jax.py:224
+def _predict_single_mode(refs: torch.Tensor, modes: torch.Tensor, log2: int,
+                         is_luma: bool) -> torch.Tensor:
+    """[L, 4N+1] refs + [L] modes -> [L, N, N] predictions."""
+    return intra_ops.predict_intra(refs, modes[:, None], log2,
+                                   is_luma=is_luma)[:, 0]
+
+
+# video_codecs_tpu/models/hevc/encoder_jax.py:231
+def encode_frame_device(y, u, v, modes, qp: int, qp_c: int, bw: int, bh: int,
+                        sbh: bool = False, rdoq: bool = False):
+    """Wavefront recon of a whole frame on the planes' device.
+
+    Inputs: int32 planes, modes [bh, bw].
+    Returns: levels_y [B,16,16], levels_cb/cr [B,8,8], cbf [3, B] and
+    rec_y, rec_u, rec_v (int32).  Each diagonal's blocks depend only on
+    earlier diagonals, so each is one batch; its prediction reads the
+    planes before the diagonal writes them."""
+    coords, valid, steps, _ = _wavefront_schedule(bw, bh)
+    dev = y.device
+    cdev = const(coords, dev)
+    lens = valid.sum(1)
+    h, w = y.shape
+    b = bw * bh
+    st = dict(
+        rec_y=torch.zeros((h, w), dtype=torch.int32, device=dev),
+        rec_u=torch.zeros((h // 2, w // 2), dtype=torch.int32, device=dev),
+        rec_v=torch.zeros((h // 2, w // 2), dtype=torch.int32, device=dev),
+        levels_y=torch.zeros((b, 16, 16), dtype=torch.int32, device=dev),
+        levels_cb=torch.zeros((b, 8, 8), dtype=torch.int32, device=dev),
+        levels_cr=torch.zeros((b, 8, 8), dtype=torch.int32, device=dev),
+        cbf=torch.zeros((3, b), dtype=torch.bool, device=dev),
+    )
+    modes_flat = modes.reshape(-1)
+
+    def plane_step(plane, orig, x0, y0, n, blk_modes, is_luma, qpp):
+        log2 = 4 if n == 16 else 3
+        refs = gather_refs(plane, x0, y0, n)
+        pred = _predict_single_mode(refs, blk_modes, log2, is_luma)
+        oblk = _extract_blocks(orig, x0, y0, n)
+        levels, rec, cbf = _code_blocks(oblk, pred, qpp, log2, sbh=sbh,
+                                        rdoq=rdoq)
+        _put_blocks(plane, rec, x0, y0, n)
+        return levels, cbf
+
+    planes = (("rec_y", "levels_y", y, 16, qp),
+              ("rec_u", "levels_cb", u, 8, qp_c),
+              ("rec_v", "levels_cr", v, 8, qp_c))
+    for d in range(steps):
+        c = cdev[d, :int(lens[d])]
+        bx, by = c[:, 0], c[:, 1]
+        bidx = (by * bw + bx).long()
+        blk_modes = modes_flat[bidx]
+        for comp, (rec_key, lv_key, orig, n, qpp) in enumerate(planes):
+            lv, cbf = plane_step(st[rec_key], orig, bx * n, by * n, n,
+                                 blk_modes, comp == 0, qpp)
+            st[lv_key][bidx] = lv
+            st["cbf"][comp, bidx] = cbf
+    return st
+
+
+# video_codecs_tpu/models/hevc/encoder_jax.py:299
+def encode_frame(y, u, v, qp: int, bw: int, bh: int, deblock: bool = True,
+                 sbh: bool = False, rdoq: bool = False):
+    """Full device pipeline: mode decision + wavefront recon + deblock,
+    on the planes' device.  Returns the reference's dict: rec planes
+    uint8, levels int16, cbf [3, B] bool and modes int8."""
+    yi = y.int()
+    ui = u.int()
+    vi = v.int()
+    modes = decide_modes_device(yi, qp, bw, bh)
+    st = encode_frame_device(yi, ui, vi, modes, qp, chroma_qp(qp), bw, bh,
+                             sbh=sbh, rdoq=rdoq)
+    if deblock:
+        st["rec_y"], st["rec_u"], st["rec_v"] = deblock_ops.deblock_420(
+            st["rec_y"], st["rec_u"], st["rec_v"], qp)
+    st["modes"] = modes
+    st["rec_y"] = st["rec_y"].to(torch.uint8)
+    st["rec_u"] = st["rec_u"].to(torch.uint8)
+    st["rec_v"] = st["rec_v"].to(torch.uint8)
+    for k in ("levels_y", "levels_cb", "levels_cr"):
+        st[k] = st[k].clamp(-32768, 32767).to(torch.int16)
+    st["modes"] = st["modes"].to(torch.int8)
+    return st

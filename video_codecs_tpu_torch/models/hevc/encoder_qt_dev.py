@@ -166,10 +166,12 @@ def _mode_sweep(y: torch.Tensor, qp: int, n: int,
 # video_codecs_tpu/models/hevc/encoder_jax_qt.py:148
 def _level_rate_bits(levels: torch.Tensor) -> torch.Tensor:
     """Crude coefficient-rate model over [..., N, N] levels (bits), summed
-    row-major left to right (log2 from the table quant_ops.LOG2_1P)."""
+    row-major left to right; 2 + log2(1 + a) is XLA's log and one FMA
+    (quant_ops.log_1p_tables)."""
     a = levels.abs()
-    log2_1p = const(quant_ops.LOG2_1P, levels.device, torch.float32)
-    bits = torch.where(a == 0, 0.0, 2.0 + log2_1p[a.long()])
+    rate = const(quant_ops.log_1p_tables()[1], levels.device,
+                 torch.float32)
+    bits = torch.where(a == 0, 0.0, rate[a.long()])
     flat = bits.reshape(bits.shape[:-2] + (-1,))
     acc = flat[..., 0]
     for i in range(1, flat.shape[-1]):

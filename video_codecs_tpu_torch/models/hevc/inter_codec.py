@@ -1,28 +1,62 @@
-"""Host helpers of the HEVC inter encoders: the MVD rate estimate, the
-merge-index and MVD binarizations and the decoder's Exp-Golomb read.
+"""Host half of the HEVC low-delay P encoder: the per-block coding state,
+the P-slice header and CABAC syntax, the picture loop over the DPB, and
+the helpers the random-access encoders share (the MVD rate estimate, the
+merge-index and MVD binarizations, the decoder's Exp-Golomb read).
 
-The port's copy of the part of video_codecs_tpu/models/hevc/inter_codec.py
-that the random-access quadtree encoder (models/hevc/inter_qt.py) reaches
-through its `LowDelayEncoder` base; each function keeps its name and a
-comment gives the original's line.  Cut (not reached by that chain): the
-host low-delay P encoder and its decoder (`encode_frames`,
-`encode_p_frame`, the P-slice writer and parser, `LowDelayDecoder`), the
-cu_qp_delta syntax, the weighted-prediction estimate and the flat 16x16
-MV predictors.
+The port's copy of video_codecs_tpu/models/hevc/inter_codec.py; each
+function keeps its name and a comment gives the original's line.  The
+P pictures are coded by the device engine
+(models/hevc/inter_dev.DeviceLowDelayEncoder); this module's
+`encode_p_frame`, the host decision loop, raises NotImplementedError.
+Cut, raising ValueError where a caller asks for them: resuming from a
+checkpoint state, rate control, HRD timing SEI, the long-term IDR
+reference, weighted prediction, cu_qp_delta and SAO.  Not ported: the
+P-slice parser and `LowDelayDecoder` (the port decodes with
+models/hevc/decoder.GeneralDecoder), the weighted-prediction estimate
+and the single-candidate flat MV predictors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
-from video_codecs_tpu_torch.entropy import ctx
-from video_codecs_tpu_torch.models.hevc import headers
+import numpy as np
+
+from video_codecs_tpu_torch.entropy import bitstream as bs
+from video_codecs_tpu_torch.entropy import cabac, ctx, residual
+from video_codecs_tpu_torch.models.hevc import checkpoint, headers, motion
 from video_codecs_tpu_torch.models.hevc import intra_codec as ic
+from video_codecs_tpu_torch.utils import rom
 
 DC = 1
 NAL_TRAIL_R = 1
 
 MODE_INTER, MODE_INTRA = 0, 1
+
+
+# video_codecs_tpu/models/hevc/inter_codec.py:44
+@dataclasses.dataclass
+class BlockInfo:
+    """Per-16x16-block coding state (the SoA row of TComDataCU)."""
+    pred_mode: int = MODE_INTRA   # MODE_INTER / MODE_INTRA
+    skip: bool = False
+    merge: bool = False
+    merge_idx: int = 0
+    mvp_idx: int = 0
+    mvd: tuple[int, int] = (0, 0)
+    mv: tuple[int, int] = (0, 0)  # final quarter-pel MV (inter only)
+    ref_idx: int = 0              # L0 reference index
+    ref_poc: int = 0              # POC of the used reference
+    intra_mode: int = DC
+    qp: int = 0                   # final CU QP (cu_qp_delta pictures)
+    qp_delta: int = 0
+    cbf_y: bool = False
+    cbf_cb: bool = False
+    cbf_cr: bool = False
+    levels_y: np.ndarray | None = None
+    levels_cb: np.ndarray | None = None
+    levels_cr: np.ndarray | None = None
 
 
 # video_codecs_tpu/models/hevc/inter_codec.py:122
@@ -37,6 +71,39 @@ def mvd_bits_estimate(mvd: tuple[int, int]) -> int:
     return b
 
 
+# video_codecs_tpu/models/hevc/inter_codec.py:180
+def write_p_slice_header(cfg: headers.HevcConfig, poc: int, n_refs: int = 1):
+    w = bs.BitWriter()
+    w.flag(1)          # first_slice_segment_in_pic_flag
+    w.ue(0)            # slice_pic_parameter_set_id
+    w.ue(1)            # slice_type = P
+    w.write(poc & 255, 8)  # slice_pic_order_cnt_lsb
+    w.flag(0)          # short_term_ref_pic_set_sps_flag
+    # st_ref_pic_set: n_refs negative refs at deltas 1..n_refs
+    w.ue(n_refs)       # num_negative_pics
+    w.ue(0)            # num_positive_pics
+    for _ in range(n_refs):
+        w.ue(0)        # delta_poc_s0_minus1[i]
+        w.flag(1)      # used_by_curr_pic_s0_flag[i]
+    if cfg.temporal_mvp:
+        w.flag(1)      # slice_temporal_mvp_enabled_flag
+    if n_refs != 1:    # pps default is 1 active reference
+        w.flag(1)      # num_ref_idx_active_override_flag
+        w.ue(n_refs - 1)
+    else:
+        w.flag(0)
+    if cfg.temporal_mvp:
+        # P slice: collocated_from_l0 inferred 1; idx coded when >1 refs
+        if n_refs > 1:
+            w.ue(0)    # collocated_ref_idx = 0
+    w.ue(5 - cfg.merge_cands)  # five_minus_max_num_merge_cand
+    w.se(cfg.qp - 26)  # slice_qp_delta
+    if not cfg.deblocking_disabled:
+        w.flag(1)      # slice_loop_filter_across_slices_enabled_flag
+    w.byte_alignment()
+    return w
+
+
 # video_codecs_tpu/models/hevc/inter_codec.py:331
 class LowDelayEncoder(ic.IntraEncoder):
     """IPPP encoder: frame 0 IDR intra, then P frames."""
@@ -48,6 +115,73 @@ class LowDelayEncoder(ic.IntraEncoder):
         self.search_range = search_range
         # "full" (HM FastSearch:0) | "tz" (FastSearch:1) | "auto"
         self.me_method = me_method
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:341
+    def encode_sequence_ldp(self, frames, rate_control=None):
+        """IPPP encode; returns (annexb stream, recons)."""
+        nals = self.stream_headers()
+        frame_nals, recons, _ = self.encode_frames(frames, None, rate_control)
+        nals.extend(frame_nals)
+        return bs.annexb(nals), recons
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:349
+    def encode_frames(self, frames, start_state=None, rate_control=None):
+        """Encode pictures; returns (nal list, recons, final EncoderState).
+        The picture QP follows `qp_schedule` when an encoder sets one."""
+        if start_state is not None or rate_control is not None:
+            raise ValueError("resuming from a state and rate control are "
+                             "not ported")
+        if self.cfg.timing_sei or self.cfg.long_term_idr:
+            raise ValueError("timing SEI and the long-term IDR reference "
+                             "are not ported")
+        nals: list[bytes] = []
+        recons = []
+        dpb: list[tuple] = []    # [(poc, planes, MotionField)] newest first
+        poc0 = 0
+        self.frame_qps: list[int] = []
+        for k, (y, u, v) in enumerate(frames):
+            poc = poc0 + k
+            sched = getattr(self, "qp_schedule", None)
+            if sched is not None:
+                self.cfg.qp = sched(poc)
+            self.frame_qps.append(self.cfg.qp)
+            if poc == 0:
+                frame_nals, rec = self.encode_frame(y, u, v)
+                bw, bh = self.cfg.width // 16, self.cfg.height // 16
+                mf = motion.MotionField.empty(bw, bh, poc)
+            else:
+                frame_nals, rec, mf = self.encode_p_frame(y, u, v, dpb, poc)
+            nals.extend(frame_nals)
+            recons.append(rec)
+            dpb.insert(0, (poc, rec, mf))
+            del dpb[self.cfg.num_refs:]
+        final = checkpoint.capture(poc0 + len(recons),
+                                   dpb[0][1] if dpb else None, rate_control)
+        final.dpb = tuple(dpb)
+        return nals, recons, final
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:420
+    def encode_p_frame(self, y, u, v, dpb, poc):
+        """The host decision loop is not ported: the device engine
+        (inter_dev.DeviceLowDelayEncoder) codes P pictures."""
+        raise NotImplementedError(
+            "LowDelayEncoder.encode_p_frame: the host P coder is not ported "
+            "(inter_dev.DeviceLowDelayEncoder)")
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:645
+    def _encode_p_slice(self, info, poc, n_refs: int = 1) -> bytes:
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        w = write_p_slice_header(cfg, poc, n_refs)
+        states = ctx.init_states(ctx.P, cfg.qp)
+        enc = cabac.CabacEncoder(w, states)
+        for by in range(bh):
+            for bx in range(bw):
+                self._encode_p_ctu(enc, info, bx, by, bw, bh, n_refs)
+                last = (by == bh - 1 and bx == bw - 1)
+                enc.encode_terminate(1 if last else 0)
+        enc.finish_slice()
+        return bs.nal_unit(NAL_TRAIL_R, w.data())
 
     # video_codecs_tpu/models/hevc/inter_codec.py:663
     def _encode_merge_idx(self, enc, idx: int) -> None:
@@ -61,6 +195,100 @@ class LowDelayEncoder(ic.IntraEncoder):
                 enc.encode_bypass(1)
             if idx < self.cfg.merge_cands - 1:
                 enc.encode_bypass(0)
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:675
+    @staticmethod
+    def _encode_ref_idx(enc, idx: int, n_refs: int) -> None:
+        """ref_idx TR binarization: bins 0/1 ctx-coded, rest bypass
+        (TEncSbac codeRefFrmIdx; spec 9.3.3 Table 9-40)."""
+        if n_refs <= 1:
+            return
+        enc.encode_bin(ctx.off("ref_idx", 0), 1 if idx > 0 else 0)
+        if idx > 0 and n_refs > 2:
+            for k in range(1, n_refs - 1):
+                bin_v = 1 if idx > k else 0
+                if k == 1:
+                    enc.encode_bin(ctx.off("ref_idx", 1), bin_v)
+                else:
+                    enc.encode_bypass(bin_v)
+                if not bin_v:
+                    break
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:692
+    def _encode_p_ctu(self, enc, info, bx, by, bw, bh, n_refs):
+        b: BlockInfo = info[by][bx]
+        left = info[by][bx - 1] if bx else None
+        above = info[by - 1][bx] if by else None
+        skip_ctx = (1 if (left and left.skip) else 0) + \
+                   (1 if (above and above.skip) else 0)
+        enc.encode_bin(ctx.off("skip_flag", skip_ctx), 1 if b.skip else 0)
+        if b.skip:
+            self._encode_merge_idx(enc, b.merge_idx)
+            return
+        enc.encode_bin(ctx.off("pred_mode"),
+                       1 if b.pred_mode == MODE_INTRA else 0)
+        if b.pred_mode == MODE_INTRA:
+            left_mode = (left.intra_mode
+                         if left and left.pred_mode == MODE_INTRA else DC)
+            self._encode_intra_part(enc, b, left_mode)
+        else:
+            enc.encode_bin(ctx.off("part_size"), 1)  # PART_2Nx2N
+            enc.encode_bin(ctx.off("merge_flag"), 1 if b.merge else 0)
+            if b.merge:
+                self._encode_merge_idx(enc, b.merge_idx)
+            if not b.merge:
+                self._encode_ref_idx(enc, b.ref_idx, n_refs)
+                self._encode_mvd(enc, b.mvd)
+                enc.encode_bin(ctx.off("mvp_idx"), b.mvp_idx)
+            has_resid = b.cbf_y or b.cbf_cb or b.cbf_cr
+            if not b.merge:
+                enc.encode_bin(ctx.off("qt_root_cbf"), 1 if has_resid else 0)
+                if not has_resid:
+                    return
+            # transform tree depth 0
+            enc.encode_bin(ctx.off("cbf_chroma"), 1 if b.cbf_cb else 0)
+            enc.encode_bin(ctx.off("cbf_chroma"), 1 if b.cbf_cr else 0)
+            if b.cbf_cb or b.cbf_cr:
+                enc.encode_bin(ctx.off("cbf_luma", 1), 1 if b.cbf_y else 0)
+            else:
+                assert b.cbf_y, "inter rootCbf=1 with all-zero cbfs"
+            if b.cbf_y:
+                residual.encode_residual(enc, b.levels_y, 4, rom.SCAN_DIAG, True, sign_hiding=self.cfg.sign_data_hiding)
+            if b.cbf_cb:
+                residual.encode_residual(enc, b.levels_cb, 3, rom.SCAN_DIAG, False, sign_hiding=self.cfg.sign_data_hiding)
+            if b.cbf_cr:
+                residual.encode_residual(enc, b.levels_cr, 3, rom.SCAN_DIAG, False, sign_hiding=self.cfg.sign_data_hiding)
+            return
+        # intra CU residual (always coded cbfs)
+        enc.encode_bin(ctx.off("cbf_chroma"), 1 if b.cbf_cb else 0)
+        enc.encode_bin(ctx.off("cbf_chroma"), 1 if b.cbf_cr else 0)
+        enc.encode_bin(ctx.off("cbf_luma", 1), 1 if b.cbf_y else 0)
+        if b.cbf_y:
+            residual.encode_residual(enc, b.levels_y, 4, rom.SCAN_DIAG, True, sign_hiding=self.cfg.sign_data_hiding)
+        if b.cbf_cb:
+            residual.encode_residual(enc, b.levels_cb, 3, rom.SCAN_DIAG, False, sign_hiding=self.cfg.sign_data_hiding)
+        if b.cbf_cr:
+            residual.encode_residual(enc, b.levels_cr, 3, rom.SCAN_DIAG, False, sign_hiding=self.cfg.sign_data_hiding)
+
+    # video_codecs_tpu/models/hevc/inter_codec.py:751
+    def _encode_intra_part(self, enc, b: BlockInfo, left_mode: int):
+        enc.encode_bin(ctx.off("part_size"), 1)  # 2Nx2N
+        mpm = ic.mpm_list(left_mode)
+        mode = b.intra_mode
+        if mode in mpm:
+            enc.encode_bin(ctx.off("prev_intra_luma_pred"), 1)
+            idx = mpm.index(mode)
+            enc.encode_bypass(0 if idx == 0 else 1)
+            if idx:
+                enc.encode_bypass(idx - 1)
+        else:
+            enc.encode_bin(ctx.off("prev_intra_luma_pred"), 0)
+            rem = mode
+            for c in sorted(mpm, reverse=True):
+                if mode > c:
+                    rem -= 1
+            enc.encode_bypass_bins(rem, 5)
+        enc.encode_bin(ctx.off("chroma_pred_mode"), 0)  # DM
 
     # video_codecs_tpu/models/hevc/inter_codec.py:770
     def _encode_mvd(self, enc, mvd):

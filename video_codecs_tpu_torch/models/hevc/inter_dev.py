@@ -1,26 +1,33 @@
-"""B-picture device phase of the random-access encoder.
+"""The device phases of the HEVC inter encoders and the low-delay P
+encoder.
 
 Counterpart of video_codecs_tpu/models/hevc/inter_jax.py: the MV helpers
 (`scale_mv_dev`, `mvd_bits_dev`, `_shift_grid`, `_scatter_blocks`), the
-per-list motion search `b_me_one` and the per-16 B/anchor-P decision
-`encode_b_frame_dev` with the options the CTB32 quadtree encoder runs
-(models/hevc/inter_qt.py): `merge_eval="best4"`, the RQT, the CU8 tree,
-the device TMVP candidate, `no_backward` and `[R, H, W]` multi-reference
-stacks, without intra blocks.  `hm_lambda` and `_gop_lambda` are the
-port's copies of the host lambda ladder.
+intra wavefront of inter pictures `_intra_wavefront`, the P-picture
+pipeline `encode_p_frame_dev` and the LD-P encoder
+`DeviceLowDelayEncoder` (device phase, spec merge/AMVP reconciliation
+`_reconcile`, HM's LD-P QP/lambda ladder), the per-list motion search
+`b_me_one` and the per-16 B/anchor-P decision `encode_b_frame_dev` with
+the options the CTB32 quadtree encoder runs (models/hevc/inter_qt.py):
+`merge_eval="best4"`, the RQT, the CU8 tree, the device TMVP candidate,
+`no_backward` and `[R, H, W]` multi-reference stacks, without intra
+blocks.  `hm_lambda` and `_gop_lambda` are the port's copies of the host
+lambda ladder.
 
-Cut, raising NotImplementedError: `allow_intra=True` (the intra
-wavefront `_intra_wavefront` is carried as its no-intra branch only),
-`merge_eval="first"`, `me_fields` / `gx_blk0` (the multichip dryrun's
-tile-sharded inputs) and motion searches other than the pyramid.
+Cut, raising NotImplementedError: `encode_b_frame_dev`'s
+`allow_intra=True`, `merge_eval="first"` and `deblock=True` (the flat
+hier-B/RA path), `me_fields` / `gx_blk0` (the multichip dryrun's
+tile-sharded inputs) and motion searches other than the pyramid; the
+options `DeviceLowDelayEncoder` refuses raise ValueError.
 
 Float32 in the reference's order.  The decisions compare float32 costs
 J = D + lambda * R, so each is the reference's float32 expression as
 XLA's CPU backend computes it: `round(sl * (7 + b))` is a float32
 product rounded half to even, a multiply feeding an add in one fused
 loop is one fused multiply-add (`ops/quant.fma32`), a 4-entry sum
-(`_persum`, `_sum2x2`) runs left to right.  Sums of squared integer
-differences are integers below 2^24, exact in any order.
+(`_persum`, `_sum2x2`) runs left to right, and `log2` is XLA's
+(`ops/quant.log2_xla`).  Sums of squared integer differences are
+integers below 2^24, exact in any order.
 """
 
 from __future__ import annotations
@@ -31,11 +38,16 @@ import numpy as np
 import torch
 
 from video_codecs_tpu_torch.models.hevc import encoder_dev
+from video_codecs_tpu_torch.models.hevc import inter_codec as pc
+from video_codecs_tpu_torch.models.hevc import motion
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
+from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import intra as intra_ops
 from video_codecs_tpu_torch.ops import me as me_ops
-from video_codecs_tpu_torch.ops.quant import fma32
+from video_codecs_tpu_torch.ops.quant import fma32, log2_xla
+from video_codecs_tpu_torch.utils.device import to_device
 
 MODE_INTER, MODE_INTRA = 0, 1
 INF = 1 << 30
@@ -99,24 +111,6 @@ def scale_mv_dev(mvx, mvy, tb, td):
             torch.where(same, mvy, one(mvy)).int())
 
 
-# Powers of two whose float32 log2 XLA's CPU code returns one ulp low
-# (found by evaluating it for every int32 a < 2^21).
-_XLA_LOG2_LOW = (8192, 32768)
-
-
-def _floor_log2(a: torch.Tensor) -> torch.Tensor:
-    """floor(log2(float32 a)) as the reference computes it, for int32
-    1 <= a < 2^21 (MVs are 16-bit, so every MV difference is): frexp of
-    the exact float64 value gives a = m * 2^e with m in [0.5, 1), and
-    XLA's float32 log2 falls just below the integer at 8192 and 32768
-    (tests/test_torch_hevc_inter_ops.py checks |d| <= 70000)."""
-    lg = torch.frexp(a.double())[1] - 1
-    low = torch.zeros_like(a, dtype=torch.bool)
-    for p in _XLA_LOG2_LOW:
-        low = low | (a == p)
-    return lg - low.to(lg.dtype)
-
-
 # video_codecs_tpu/models/hevc/inter_jax.py:90
 def mvd_bits_dev(dx, dy):
     """Closed-form MVD rate estimate (twin of inter_codec
@@ -124,7 +118,8 @@ def mvd_bits_dev(dx, dy):
     for a > 1."""
     def comp(d):
         a = d.int().abs()
-        lg = _floor_log2(a.clamp(min=1)).clamp(min=1)
+        lg = torch.floor(log2_xla(a.clamp(min=1).float())).clamp(
+            min=1.0).int()
         return (a > 0).int() + torch.where(a > 1, 2 * lg,
                                            torch.zeros_like(lg))
 
@@ -154,12 +149,8 @@ def _scatter_blocks(plane, vals, xs, ys, n, sel):
     of bounds)."""
     out = plane.clone()
     idx = torch.nonzero(sel, as_tuple=True)[0]
-    if idx.numel() == 0:
-        return out
-    ar = torch.arange(n, dtype=torch.int64, device=plane.device)
-    rows = ys[idx].long()[:, None, None] + ar[None, :, None]
-    cols = xs[idx].long()[:, None, None] + ar[None, None, :]
-    out[rows, cols] = vals[idx].to(out.dtype)
+    if idx.numel():
+        encoder_dev._put_blocks(out, vals[idx], xs[idx], ys[idx], n)
     return out
 
 
@@ -167,15 +158,280 @@ def _scatter_blocks(plane, vals, xs, ys, n, sel):
 def _intra_wavefront(yi, ui, vi, intra_grid, intra_modes, planes, cbfs,
                      qp: int, qp_c: int, sbh: bool, rdoq: bool,
                      bw: int, bh: int):
-    """Reconstruct the intra blocks of an inter picture on an
-    anti-diagonal wavefront.  Only the branch without intra blocks is
-    ported (the CTB32 quadtree path never makes one): it returns the
-    planes and cbfs as they are, and an intra block raises."""
-    if bool(intra_grid.any()):
+    """Reconstruct the (rare) intra blocks of an inter picture on an
+    anti-diagonal wavefront: rec planes already hold the inter recon, so
+    each intra block reads decode-order-correct neighbors.
+
+    planes: (rec_y, rec_u, rec_v, coef_y, coef_u, coef_v);
+    cbfs: (cbf_y, cbf_u, cbf_v) flat [B] bool with inter blocks filled.
+    Returns the updated (planes, cbfs), new tensors.  The intra map is
+    read back once; each diagonal d = bx + 2 * by codes only its intra
+    blocks, in one batch, and a diagonal without one is skipped (the
+    reference's masked lanes write nothing)."""
+    grid = intra_grid.cpu().numpy()
+    if not grid.any():
+        return planes, cbfs
+    dev = yi.device
+    coords, valid, steps, _ = encoder_dev._wavefront_schedule(bw, bh)
+    per_d = [coords[d][valid[d]] for d in range(steps)]
+    per_d = [c[grid[c[:, 1], c[:, 0]]] for c in per_d]
+    ends = np.cumsum([len(c) for c in per_d])
+    sel = torch.from_numpy(np.concatenate(per_d)).to(dev)
+    rec_y, rec_u, rec_v, cf_y, cf_u, cf_v = (p.clone() for p in planes)
+    cb_y, cb_u, cb_v = (c.clone() for c in cbfs)
+    put = encoder_dev._put_blocks
+    for d in range(steps):
+        if not len(per_d[d]):
+            continue
+        c = sel[ends[d] - len(per_d[d]):ends[d]]
+        bxs, bys = c[:, 0], c[:, 1]
+        xs, ys = bxs * 16, bys * 16
+        modes = intra_modes[bys.long(), bxs.long()]
+        refs_l = encoder_dev.gather_refs(rec_y, xs, ys, 16)
+        pr = intra_ops.predict_intra(refs_l, modes[:, None], 4)[:, 0]
+        ob = encoder_dev._extract_blocks(yi, xs, ys, 16)
+        lv, rec, cb = encoder_dev._code_blocks(ob, pr, qp, 4,
+                                               intra_slice=True, sbh=sbh,
+                                               rdoq=rdoq)
+        put(rec_y, rec, xs, ys, 16)
+        put(cf_y, lv, xs, ys, 16)
+        tgt = (bys * bw + bxs).long()
+        cb_y[tgt] = cb
+        cxs, cys = xs // 2, ys // 2
+        for orig_p, rec_p, cf_p, cb_p in ((ui, rec_u, cf_u, cb_u),
+                                          (vi, rec_v, cf_v, cb_v)):
+            refs_c = encoder_dev.gather_refs(rec_p, cxs, cys, 8)
+            prc = intra_ops.predict_intra(refs_c, modes[:, None], 3,
+                                          is_luma=False)[:, 0]
+            oc = encoder_dev._extract_blocks(orig_p, cxs, cys, 8)
+            lvc, recc, cbc = encoder_dev._code_blocks(
+                oc, prc, qp_c, 3, intra_slice=True, sbh=sbh, rdoq=rdoq)
+            put(rec_p, recc, cxs, cys, 8)
+            put(cf_p, lvc, cxs, cys, 8)
+            cb_p[tgt] = cbc
+    return (rec_y, rec_u, rec_v, cf_y, cf_u, cf_v), (cb_y, cb_u, cb_v)
+
+
+# ---------------------------------------------------------------------------
+# The P-frame pipeline (low-delay P toolset)
+# ---------------------------------------------------------------------------
+
+# video_codecs_tpu/models/hevc/inter_jax.py:192
+def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
+                       col_inter, col_mvx, col_mvy, col_refpoc,
+                       ref_pocs, poc, col_poc,
+                       qp: int, w: int, h: int, n_refs: int,
+                       search_range: int, sbh: bool, rdoq: bool,
+                       tmvp: bool, me_method: str = "pyr",
+                       deblock: bool = True, lam: float | None = None):
+    """One P picture, all pixel math on the tensors' device.
+
+    refs_y: [R, H, W] stacked L0 references (newest first, 8-bit samples
+    in any integer dtype); col_*: collocated picture motion field (TMVP
+    source), [bh, bw]; ref_pocs: [R] int32; poc, col_poc: ints.  Returns
+    the reference's dict of field maps + coef/recon planes."""
+    if me_method != "pyr":
         raise NotImplementedError(
-            "_intra_wavefront: intra blocks in inter pictures are not "
-            "ported")
-    return planes, cbfs
+            f"encode_p_frame_dev: me_method={me_method!r} is not ported "
+            "(pyr only)")
+    dev = y.device
+    bw, bh = w // 16, h // 16
+    nb = bw * bh
+    qp_c = chroma_qp(qp)
+    x0 = (torch.arange(bw, dtype=torch.int32, device=dev) * 16).repeat(bh)
+    y0 = (torch.arange(bh, dtype=torch.int32, device=dev) *
+          16).repeat_interleave(bw)
+    yi = y.int()
+    refs_y = refs_y.int()
+    cur = encoder_dev._extract_blocks(yi, x0, y0, 16)
+    if lam is None:
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    sl = math.sqrt(lam)
+
+    # ---- 1. motion search per reference ----
+    mvx_r, mvy_r, satd_r = [], [], []
+    for r in range(n_refs):
+        imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
+                                         search_range)
+        mvx, mvy = imx * 4, imy * 4
+        mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0, mvx, mvy,
+                                     16, 2)
+        mvx, mvy, satd = me_ops._refine(refs_y[r], cur, x0, y0, mvx,
+                                        mvy, 16, 1)
+        mvx_r.append(mvx)
+        mvy_r.append(mvy)
+        satd_r.append(satd)
+    me_mvx = torch.stack(mvx_r)          # [R, B]
+    me_mvy = torch.stack(mvy_r)
+    me_satd = torch.stack(satd_r)
+
+    # ---- 2a. explicit-MV candidates: rate vs the left-neighbor predictor
+    # (approximation of AMVP; the host recomputes the real predictor) ----
+    gx = me_mvx.reshape(n_refs, bh, bw)
+    gy = me_mvy.reshape(n_refs, bh, bw)
+    zcol = torch.zeros((n_refs, bh, 1), dtype=torch.int32, device=dev)
+    pred_x = torch.cat([zcol, gx[:, :, :-1]], dim=2).reshape(n_refs, nb)
+    pred_y = torch.cat([zcol, gy[:, :, :-1]], dim=2).reshape(n_refs, nb)
+    bits_me = mvd_bits_dev(me_mvx - pred_x, me_mvy - pred_y)
+    ref_bias = torch.arange(n_refs, dtype=torch.int32, device=dev)[:, None]
+    cost_me_r = me_satd + _round_cost(sl, 4 + ref_bias + bits_me)
+    best_r = torch.argmin(cost_me_r, dim=0).int()       # first minimum
+    cost_me = cost_me_r.min(dim=0).values
+    me_best_mvx = torch.gather(me_mvx, 0, best_r.long()[None])[0]
+    me_best_mvy = torch.gather(me_mvy, 0, best_r.long()[None])[0]
+
+    # ---- 2b. merge candidate approximations from the phase-1 field ----
+    f_mvx = me_best_mvx.reshape(bh, bw)
+    f_mvy = me_best_mvy.reshape(bh, bw)
+    f_ref = best_r.reshape(bh, bw)
+    by_i = torch.arange(bh, device=dev).repeat_interleave(bw)
+    bx_i = torch.arange(bw, device=dev).repeat(bh)
+    cands = []                                        # (mvx, mvy, ref, ok)
+    for dx, dy in ((-1, 0), (0, -1), (1, -1), (-1, -1)):
+        cx = _shift_grid(f_mvx, dx, dy, 0).reshape(nb)
+        cy = _shift_grid(f_mvy, dx, dy, 0).reshape(nb)
+        cr = _shift_grid(f_ref, dx, dy, 0).reshape(nb)
+        ys_ = by_i + dy
+        xs_ = bx_i + dx
+        ok = (ys_ >= 0) & (ys_ < bh) & (xs_ >= 0) & (xs_ < bw) & \
+            ((dy < 0) | (dx < 0))
+        cands.append((cx, cy, cr, ok))
+    if tmvp:
+        td = col_poc - col_refpoc.reshape(nb).int()
+        tb = poc - int(ref_pocs[0])
+        tx_, ty_ = scale_mv_dev(col_mvx.reshape(nb).int(),
+                                col_mvy.reshape(nb).int(), tb, td)
+        cands.append((tx_, ty_, torch.zeros(nb, dtype=torch.int32,
+                                            device=dev),
+                      col_inter.reshape(nb).bool()))
+    zeros = torch.zeros(nb, dtype=torch.int32, device=dev)
+    cands.append((zeros, zeros, zeros,
+                  torch.ones(nb, dtype=torch.bool, device=dev)))
+
+    cost_mrg = torch.full((nb,), INF, dtype=torch.int32, device=dev)
+    mrg_mvx = mrg_mvy = mrg_ref = zeros
+    for idx, (cx, cy, cr, ok) in enumerate(cands):
+        pred = interp.mc_luma_multi(refs_y, cr, x0, y0, cx, cy, 16)
+        satd = cost_ops.hadamard_satd_8x8(cur, pred)
+        c = satd + _round_const(sl * (2 + idx))
+        c = torch.where(ok, c, INF)
+        better = c < cost_mrg
+        cost_mrg = torch.where(better, c, cost_mrg)
+        mrg_mvx = torch.where(better, cx, mrg_mvx)
+        mrg_mvy = torch.where(better, cy, mrg_mvy)
+        mrg_ref = torch.where(better, cr, mrg_ref)
+
+    # ---- 2c. intra candidate (orig-neighbor sweep, like the host path) --
+    intra_modes = encoder_dev.decide_modes_device(yi, qp, bw, bh)  # [bh,bw]
+    refs_o = encoder_dev.gather_refs(yi, x0, y0, 16)
+    pred_i = intra_ops.predict_intra(
+        refs_o, intra_modes.reshape(nb)[:, None], 4)[:, 0]
+    cost_intra = cost_ops.hadamard_satd_8x8(cur, pred_i) + \
+        _round_const(sl * 9)
+
+    # ---- 2d. decision ----
+    use_intra = cost_intra <= torch.minimum(cost_mrg, cost_me)
+    use_mrg = (~use_intra) & (cost_mrg <= cost_me)
+    fin_mvx = torch.where(use_mrg, mrg_mvx, me_best_mvx)
+    fin_mvy = torch.where(use_mrg, mrg_mvy, me_best_mvy)
+    fin_ref = torch.where(use_mrg, mrg_ref, best_r).int()
+    pred_mode = torch.where(use_intra, MODE_INTRA, MODE_INTER).int()
+
+    # ---- 3. final MC + residual coding for inter blocks ----
+    pred_y_fin = interp.mc_luma_multi(refs_y, fin_ref, x0, y0,
+                                      fin_mvx, fin_mvy, 16)
+    rd = "full" if rdoq else False
+    lv_y, rec_blk, cbf_y = encoder_dev._code_blocks(
+        cur, pred_y_fin, qp, 4, intra_slice=False, sbh=sbh, rdoq=rd,
+        lam=lam)
+
+    cx0, cy0 = x0 // 2, y0 // 2
+    ui = u.int()
+    vi = v.int()
+    cur_u = encoder_dev._extract_blocks(ui, cx0, cy0, 8)
+    cur_v = encoder_dev._extract_blocks(vi, cx0, cy0, 8)
+    pred_u = interp.mc_chroma_multi(refs_u.int(), fin_ref, cx0, cy0,
+                                    fin_mvx, fin_mvy, 8)
+    pred_v = interp.mc_chroma_multi(refs_v.int(), fin_ref, cx0, cy0,
+                                    fin_mvx, fin_mvy, 8)
+    lv_u, rec_u_blk, cbf_u = encoder_dev._code_blocks(
+        cur_u, pred_u, qp_c, 3, intra_slice=False, sbh=sbh, rdoq=rd,
+        is_luma=False, lam=lam)
+    lv_v, rec_v_blk, cbf_v = encoder_dev._code_blocks(
+        cur_v, pred_v, qp_c, 3, intra_slice=False, sbh=sbh, rdoq=rd,
+        is_luma=False, lam=lam)
+
+    # scatter inter recon + coefficients into planes
+    is_inter = pred_mode == MODE_INTER
+
+    def plane0(hh, ww):
+        return torch.zeros((hh, ww), dtype=torch.int32, device=dev)
+
+    rec_y_pl = _scatter_blocks(plane0(h, w), rec_blk, x0, y0, 16, is_inter)
+    rec_u_pl = _scatter_blocks(plane0(h // 2, w // 2), rec_u_blk, cx0, cy0,
+                               8, is_inter)
+    rec_v_pl = _scatter_blocks(plane0(h // 2, w // 2), rec_v_blk, cx0, cy0,
+                               8, is_inter)
+    coef_y = _scatter_blocks(plane0(h, w), lv_y, x0, y0, 16, is_inter)
+    coef_u = _scatter_blocks(plane0(h // 2, w // 2), lv_u, cx0, cy0, 8,
+                             is_inter)
+    coef_v = _scatter_blocks(plane0(h // 2, w // 2), lv_v, cx0, cy0, 8,
+                             is_inter)
+
+    # ---- 4. intra blocks: wavefront recon (neighbor-dependent); the
+    # reference inlines _intra_wavefront's body here ----
+    planes, cbfs = _intra_wavefront(
+        yi, ui, vi, use_intra.reshape(bh, bw), intra_modes,
+        (rec_y_pl, rec_u_pl, rec_v_pl, coef_y, coef_u, coef_v),
+        (cbf_y & is_inter, cbf_u & is_inter, cbf_v & is_inter),
+        qp, qp_c, sbh, rdoq, bw, bh)
+    rec_y_pl, rec_u_pl, rec_v_pl, coef_y, coef_u, coef_v = planes
+    cbf_y, cbf_u, cbf_v = cbfs
+
+    # ---- 5. deblock with BS maps (twin of inter_codec.compute_bs_maps) --
+    pm = pred_mode.reshape(bh, bw)
+    cby = cbf_y.reshape(bh, bw)
+    mx = fin_mvx.reshape(bh, bw)
+    my = fin_mvy.reshape(bh, bw)
+    rpoc = ref_pocs.to(dev).int()[fin_ref.long()].reshape(bh, bw)
+
+    def bs_pair(a_intra, b_intra, a_cbf, b_cbf, amx, bmx, amy, bmy,
+                arp, brp):
+        intra2 = a_intra | b_intra
+        one = a_cbf | b_cbf | (arp != brp) | ((amx - bmx).abs() >= 4) | \
+            ((amy - bmy).abs() >= 4)
+        return torch.where(intra2, 2, torch.where(one, 1, 0)).int()
+
+    ii = pm == MODE_INTRA
+    bs_ver = bs_pair(ii[:, :-1], ii[:, 1:], cby[:, :-1], cby[:, 1:],
+                     mx[:, :-1], mx[:, 1:], my[:, :-1], my[:, 1:],
+                     rpoc[:, :-1], rpoc[:, 1:]).T
+    bs_hor = bs_pair(ii[:-1, :], ii[1:, :], cby[:-1, :], cby[1:, :],
+                     mx[:-1, :], mx[1:, :], my[:-1, :], my[1:, :],
+                     rpoc[:-1, :], rpoc[1:, :])
+    if deblock:
+        rec_y_pl, rec_u_pl, rec_v_pl = deblock_ops.deblock_420_bs(
+            rec_y_pl, rec_u_pl, rec_v_pl, qp, bs_ver, bs_hor, block=16)
+
+    def i16(c):
+        return c.clamp(-32768, 32767).to(torch.int16)
+
+    return dict(
+        pred_mode=pred_mode.reshape(bh, bw).to(torch.int8),
+        intra_mode=intra_modes.to(torch.int8),
+        mvx=fin_mvx.reshape(bh, bw),
+        mvy=fin_mvy.reshape(bh, bw),
+        ref_idx=fin_ref.reshape(bh, bw).to(torch.int8),
+        cbf_y=cbf_y.reshape(bh, bw),
+        cbf_cb=cbf_u.reshape(bh, bw),
+        cbf_cr=cbf_v.reshape(bh, bw),
+        coef_y=i16(coef_y),
+        coef_u=i16(coef_u),
+        coef_v=i16(coef_v),
+        rec_y=rec_y_pl.to(torch.uint8),
+        rec_u=rec_u_pl.to(torch.uint8),
+        rec_v=rec_v_pl.to(torch.uint8),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -797,3 +1053,214 @@ def _gop_lambda(enc, poc):
     if e is None:
         return None
     return hm_lambda(enc.cfg.qp, e.qp_factor, e.temporal_id)
+
+
+# ---------------------------------------------------------------------------
+# The low-delay P encoder: device phase + host reconciliation and CABAC
+# ---------------------------------------------------------------------------
+
+# video_codecs_tpu/models/hevc/inter_jax.py:1188
+class DeviceLowDelayEncoder(pc.LowDelayEncoder):
+    """LD-P encoder whose per-picture pixel pipeline runs on a torch
+    device (the card unless the caller passes device="cpu").
+
+    Same bitstream toolset as LowDelayEncoder (CTB=CU=PU=16, multi-ref,
+    merge, TMVP); the IDR is the flat CTB16 device intra encoder, each P
+    picture `encode_p_frame_dev`, then the host reconciles the merge/AMVP
+    syntax and writes the slice and the picture-hash SEI.  The
+    configurations the reference diverts to its host path (SAO, tiles)
+    and the options the port does not carry raise ValueError here."""
+
+    #: HM encoder_lowdelay_P_main.cfg GOP-4 ladder: (QPoffset, QPfactor)
+    LD_GOP = ((5, 0.4624), (4, 0.4624), (5, 0.4624), (1, 0.578))
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1199
+    def __init__(self, cfg, search_range: int = 64,
+                 me_method: str = "pyr", ld_ladder: bool = True, *,
+                 device="cuda") -> None:
+        for opt in ("sao", "wpp", "weighted_pred", "cu_qp_delta",
+                    "timing_sei", "long_term_idr"):
+            if getattr(cfg, opt):
+                raise ValueError(f"DeviceLowDelayEncoder: {opt} is not "
+                                 "ported")
+        if cfg.tile_columns != 1:
+            raise ValueError("DeviceLowDelayEncoder: tiles are not ported")
+        if me_method != "pyr":
+            raise NotImplementedError(
+                f"DeviceLowDelayEncoder: me_method={me_method!r} is not "
+                "ported (pyr only)")
+        super().__init__(cfg, search_range, me_method)
+        self.ld_ladder = ld_ladder
+        self.device = torch.device(device)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1206
+    def encode_sequence_ldp(self, frames, rate_control=None):
+        """Apply HM's LD-P QP/lambda ladder (QPoffset cycle 5,4,5,1 with
+        per-entry QPFactor, TEncSlice setUpLambda) unless a rate
+        controller drives QP."""
+        if rate_control is not None or not self.ld_ladder:
+            return super().encode_sequence_ldp(frames, rate_control)
+        base = self.cfg.qp
+        gop = self.LD_GOP
+
+        def sched(poc):
+            if poc == 0:
+                return base
+            return base + gop[(poc - 1) % len(gop)][0]
+
+        self.qp_schedule = sched
+        try:
+            return super().encode_sequence_ldp(frames, rate_control)
+        finally:
+            self.qp_schedule = None
+            self.cfg.qp = base
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1227
+    def _ld_lambda(self, poc):
+        if getattr(self, "qp_schedule", None) is None:
+            return None
+        off, fac = self.LD_GOP[(poc - 1) % len(self.LD_GOP)]
+        return hm_lambda(self.cfg.qp, fac, 1 if off > 1 else 0)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1233
+    def encode_p_frame(self, y, u, v, dpb, poc):
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        refs = dpb[:cfg.num_refs]
+        n_refs = len(refs)
+        ref_pocs = [p for (p, _, _) in refs]
+        col = refs[0][2] if cfg.temporal_mvp else None
+        if col is None:
+            col_inter = np.zeros((bh, bw), bool)
+            col_mv = np.zeros((bh, bw, 2), np.int32)
+            col_refpoc = np.zeros((bh, bw), np.int32)
+            col_poc = 0
+        else:
+            col_inter, col_mv, col_refpoc, col_poc = (
+                col.inter, col.mv, col.ref_poc, col.poc)
+
+        st = self._device_phase(y, u, v, refs, col_inter, col_mv,
+                                col_refpoc, ref_pocs, poc, col_poc)
+
+        info = self._reconcile(st, bw, bh, ref_pocs, poc,
+                               col if cfg.temporal_mvp else None)
+
+        rec_y = st["rec_y"].astype(np.int32)
+        rec_u = st["rec_u"].astype(np.int32)
+        rec_v = st["rec_v"].astype(np.int32)
+
+        mf = motion.MotionField.empty(bw, bh, poc)
+        inter_m = st["pred_mode"] == MODE_INTER
+        mf.inter[:] = inter_m
+        mf.mv[..., 0] = np.where(inter_m, st["mvx"], 0)
+        mf.mv[..., 1] = np.where(inter_m, st["mvy"], 0)
+        ref_poc_map = np.array(ref_pocs, np.int32)[st["ref_idx"]]
+        mf.ref_poc[:] = np.where(inter_m, ref_poc_map, 0)
+
+        slice_nal = self._encode_p_slice(info, poc, n_refs)
+        sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
+        return [slice_nal, sei_nal], (rec_y, rec_u, rec_v), mf
+
+    def _device_phase(self, y, u, v, refs, col_inter, col_mv, col_refpoc,
+                      ref_pocs, poc, col_poc) -> dict:
+        """Upload the picture, its references and the collocated field,
+        run `encode_p_frame_dev` on the encoder's device and copy the
+        dict back as numpy (the copy synchronises)."""
+        cfg = self.cfg
+        dev = self.device
+        with torch.inference_mode():
+            def up(a):
+                return to_device(np.asarray(a), dev)
+
+            def stack(c):
+                return up(np.stack([np.asarray(pl[c], np.uint8)
+                                    for (_, pl, _) in refs]))
+
+            st = encode_p_frame_dev(
+                *(up(np.asarray(p, np.uint8)) for p in (y, u, v)),
+                stack(0), stack(1), stack(2),
+                up(col_inter), up(col_mv[..., 0]), up(col_mv[..., 1]),
+                up(col_refpoc), torch.tensor(ref_pocs, dtype=torch.int32),
+                poc, col_poc,
+                qp=cfg.qp, w=cfg.width, h=cfg.height, n_refs=len(refs),
+                search_range=self.search_range, sbh=cfg.sign_data_hiding,
+                rdoq=True, tmvp=cfg.temporal_mvp, me_method=self.me_method,
+                deblock=not cfg.deblocking_disabled,
+                lam=self._ld_lambda(poc))
+            return {k: t.cpu().numpy() for k, t in st.items()}
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1294
+    def encode_frame(self, y, u, v, *args, **kwargs):
+        """IDR pictures via the flat CTB16 device intra encoder."""
+        return self.encode_frame_fast(y, u, v)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1302
+    def _reconcile(self, st, bw, bh, ref_pocs, poc, col):
+        """Build the BlockInfo grid: spec-exact merge/AMVP syntax for the
+        device-decided final motion field (motion.py derivation, shared
+        with the decoder)."""
+        cfg = self.cfg
+        info: list[list[pc.BlockInfo | None]] = [
+            [None] * bw for _ in range(bh)]
+        grid = motion.NeighborGrid(info, bw, bh)
+        pmod = st["pred_mode"]
+        mvx, mvy = st["mvx"], st["mvy"]
+        ridx = st["ref_idx"]
+        cbf_y, cbf_cb, cbf_cr = st["cbf_y"], st["cbf_cb"], st["cbf_cr"]
+        coef_y, coef_u, coef_v = st["coef_y"], st["coef_u"], st["coef_v"]
+        imodes = st["intra_mode"]
+
+        for by in range(bh):
+            for bx in range(bw):
+                b = pc.BlockInfo()
+                b.qp = cfg.qp
+                xx, yy = bx * 16, by * 16
+                b.cbf_y = bool(cbf_y[by, bx])
+                b.cbf_cb = bool(cbf_cb[by, bx])
+                b.cbf_cr = bool(cbf_cr[by, bx])
+                if b.cbf_y:
+                    b.levels_y = coef_y[yy:yy + 16, xx:xx + 16] \
+                        .astype(np.int32)
+                if b.cbf_cb:
+                    b.levels_cb = coef_u[yy // 2:yy // 2 + 8,
+                                         xx // 2:xx // 2 + 8] \
+                        .astype(np.int32)
+                if b.cbf_cr:
+                    b.levels_cr = coef_v[yy // 2:yy // 2 + 8,
+                                         xx // 2:xx // 2 + 8] \
+                        .astype(np.int32)
+                if pmod[by, bx] == MODE_INTRA:
+                    b.pred_mode = pc.MODE_INTRA
+                    b.intra_mode = int(imodes[by, bx])
+                    info[by][bx] = b
+                    continue
+                b.pred_mode = pc.MODE_INTER
+                mv = (int(mvx[by, bx]), int(mvy[by, bx]))
+                r = int(ridx[by, bx])
+                b.mv = mv
+                b.ref_idx = r
+                b.ref_poc = ref_pocs[r]
+                merge_list = motion.merge_candidates(
+                    grid, bx, by, ref_pocs, poc, col, cfg.merge_cands,
+                    cfg.temporal_mvp)
+                try:
+                    m_idx = merge_list.index((mv, r))
+                except ValueError:
+                    m_idx = -1
+                no_resid = not (b.cbf_y or b.cbf_cb or b.cbf_cr)
+                if m_idx >= 0:
+                    b.merge = True
+                    b.merge_idx = m_idx
+                    if no_resid:
+                        b.skip = True
+                else:
+                    b.merge = False
+                    amvp = motion.amvp_candidates(
+                        grid, bx, by, r, ref_pocs, poc, col,
+                        cfg.temporal_mvp)
+                    mvds = [(mv[0] - p[0], mv[1] - p[1]) for p in amvp]
+                    bits = [pc.mvd_bits_estimate(d) for d in mvds]
+                    b.mvp_idx = 0 if bits[0] <= bits[1] else 1
+                    b.mvd = mvds[b.mvp_idx]
+                info[by][bx] = b
+        return info

@@ -452,8 +452,8 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
         #: 1 is the reference's default, the 2-ref machinery is
         #: conformant and tested)
         self.num_refs_active = num_refs_active
-        self.device = torch.device(device)
         super().__init__(cfg, gop, search_range, me_method)
+        self.device = torch.device(device)
         self._qt_intra = quadtree_codec.QuadtreeFastEncoder(
             cfg, device=device)
         # HM I-slice lambda scale: 0.57*(1 - 0.05*NumberBFrames)

@@ -12,15 +12,19 @@ NotImplementedError for rdoq="full" (the host full RDOQ is not ported).
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 
 import numpy as np
+import torch
 
 from video_codecs_tpu_torch.entropy import bitstream as bs
+from video_codecs_tpu_torch.entropy import cabac, ctx, native, residual
 from video_codecs_tpu_torch.models.hevc import headers
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
 from video_codecs_tpu_torch.utils import rom
+from video_codecs_tpu_torch.utils.device import to_device
 
 DC = 1
 
@@ -117,14 +121,24 @@ def code_tb_np(orig: np.ndarray, pred: np.ndarray, qp: int, log2: int,
     return levels, np.clip(pred + r, 0, 255).astype(np.int32)
 
 
+# video_codecs_tpu/models/hevc/intra_codec.py:135
+@dataclasses.dataclass
+class CtuData:
+    mode: int
+    levels_y: np.ndarray | None
+    levels_cb: np.ndarray | None
+    levels_cr: np.ndarray | None
+
+
 # video_codecs_tpu/models/hevc/intra_codec.py:230
 class IntraEncoder:
     # video_codecs_tpu/models/hevc/intra_codec.py:231
-    def __init__(self, cfg: headers.HevcConfig) -> None:
+    def __init__(self, cfg: headers.HevcConfig, *, device="cuda") -> None:
         assert cfg.width % 16 == 0 and cfg.height % 16 == 0, \
             "pad input or use conformance window (not yet emitted)"
         self.cfg = cfg
         self._wrote_headers = False
+        self.device = torch.device(device)
 
     # video_codecs_tpu/models/hevc/intra_codec.py:237
     def stream_headers(self) -> list[bytes]:
@@ -134,7 +148,79 @@ class IntraEncoder:
             bs.nal_unit(bs.NAL_PPS, headers.write_pps(self.cfg)),
         ]
 
-    # video_codecs_tpu/models/hevc/intra_codec.py:522
+    # video_codecs_tpu/models/hevc/intra_codec.py:289
+    def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     modes: np.ndarray | None = None):
+        """The host CTB loop is not ported: `encode_frame_fast` codes the
+        same syntax on the device."""
+        raise NotImplementedError(
+            "IntraEncoder.encode_frame: the host CTB loop is not ported "
+            "(encode_frame_fast)")
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:413
+    def _encode_slice(self, ctus: list[CtuData]) -> bytes:
+        """Serialize the slice; with tiles, one CABAC substream per tile
+        in tile-scan order with entry-point offsets in the header."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        bounds = cfg.tile_col_bounds()
+        substreams = []
+        for t, (tx0, tx1) in enumerate(bounds):
+            w = bs.BitWriter()
+            enc = cabac.CabacEncoder(w, ctx.init_states(ctx.I, cfg.qp))
+            last_tile = t == len(bounds) - 1
+            for by in range(bh):
+                for bx in range(tx0, tx1):
+                    ctu = ctus[by * bw + bx]
+                    left_mode = ctus[by * bw + bx - 1].mode if bx > tx0 else DC
+                    self._encode_ctu(enc, ctu, left_mode)
+                    last_ctu = (by == bh - 1 and bx == tx1 - 1)
+                    enc.encode_terminate(1 if (last_ctu and last_tile) else 0)
+                    if last_ctu and not last_tile:
+                        enc.encode_terminate(1)  # end_of_subset_one_bit
+            enc.finish_slice()
+            substreams.append(w.data())
+        hdr = headers.write_slice_header(
+            cfg, bs.NAL_IDR_W_RADL,
+            entry_points=[len(ss) for ss in substreams[:-1]])
+        return bs.nal_unit(bs.NAL_IDR_W_RADL,
+                           hdr.data() + b"".join(substreams))
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:448
+    def _encode_ctu(self, enc: cabac.CabacEncoder, ctu: CtuData,
+                    left_mode: int) -> None:
+        enc.encode_bin(ctx.off("part_size"), 1)  # PART_2Nx2N
+        mpm = mpm_list(left_mode)
+        mode = ctu.mode
+        if mode in mpm:
+            enc.encode_bin(ctx.off("prev_intra_luma_pred"), 1)
+            idx = mpm.index(mode)
+            enc.encode_bypass(0 if idx == 0 else 1)
+            if idx:
+                enc.encode_bypass(idx - 1)
+        else:
+            enc.encode_bin(ctx.off("prev_intra_luma_pred"), 0)
+            rem = mode
+            for c in sorted(mpm, reverse=True):
+                if mode > c:
+                    rem -= 1
+            enc.encode_bypass_bins(rem, 5)
+        enc.encode_bin(ctx.off("chroma_pred_mode"), 0)  # DM
+        enc.encode_bin(ctx.off("cbf_chroma"), 0 if ctu.levels_cb is None else 1)
+        enc.encode_bin(ctx.off("cbf_chroma"), 0 if ctu.levels_cr is None else 1)
+        enc.encode_bin(ctx.off("cbf_luma", 1), 0 if ctu.levels_y is None else 1)
+        sbh = self.cfg.sign_data_hiding
+        if ctu.levels_y is not None:
+            residual.encode_residual(enc, ctu.levels_y, 4, rom.SCAN_DIAG, True,
+                                     sign_hiding=sbh)
+        if ctu.levels_cb is not None:
+            residual.encode_residual(enc, ctu.levels_cb, 3, rom.SCAN_DIAG,
+                                     False, sign_hiding=sbh)
+        if ctu.levels_cr is not None:
+            residual.encode_residual(enc, ctu.levels_cr, 3, rom.SCAN_DIAG,
+                                     False, sign_hiding=sbh)
+
+# video_codecs_tpu/models/hevc/intra_codec.py:522
     def _hash_sei(self, rec_y, rec_u, rec_v) -> bytes | None:
         if not getattr(self.cfg, "hash_sei", True):
             return None           # annexb() drops None entries
@@ -148,6 +234,83 @@ class IntraEncoder:
                 w.write(b, 8)
         w.rbsp_trailing_bits()
         return bs.nal_unit(bs.NAL_SUFFIX_SEI, w.data())
+
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:536
+    def encode_frame_fast(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+        """Device path: the flat CTB16 encoder on the encoder's device,
+        then the native C++ CABAC serializer."""
+        return self.serialize_frame(self._dispatch(y, u, v))
+
+    def _dispatch(self, y, u, v) -> dict:
+        """Upload the 8-bit planes and run `encoder_dev.encode_frame`;
+        returns its dict of tensors on the device (not synchronised)."""
+        from video_codecs_tpu_torch.models.hevc import encoder_dev
+
+        cfg = self.cfg
+        if cfg.tile_columns != 1:
+            raise ValueError("tiles are not ported (parallel.tiles)")
+        if cfg.sao:
+            raise ValueError("SAO is not ported")
+        bw, bh = cfg.width // 16, cfg.height // 16
+        with torch.inference_mode():
+            planes = [to_device(np.asarray(p, np.uint8), self.device)
+                      for p in (y, u, v)]
+            return encoder_dev.encode_frame(
+                *planes, cfg.qp, bw, bh, deblock=not cfg.deblocking_disabled,
+                sbh=cfg.sign_data_hiding, rdoq=bool(cfg.rdoq))
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:554
+    def serialize_frame(self, st, use_native: bool = True):
+        """Host tail: fetch device outputs once, CABAC-serialize, hash."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        st = {k: (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                  else np.asarray(a)) for k, a in st.items()}
+        modes = st["modes"].reshape(-1)
+        lv_y, lv_cb, lv_cr = st["levels_y"], st["levels_cb"], st["levels_cr"]
+        cbf = st["cbf"]
+        rec = (st["rec_y"], st["rec_u"], st["rec_v"])
+
+        if use_native:
+            header = headers.write_slice_header(cfg, bs.NAL_IDR_W_RADL).data()
+            payload = native.encode_slice_native(
+                bw, bh, cfg.qp, modes, cbf, lv_y, lv_cb, lv_cr, header,
+                ctx.init_states(ctx.I, cfg.qp),
+                sign_hiding=cfg.sign_data_hiding)
+            h0 = bs.NAL_IDR_W_RADL << 1
+            slice_nal = bytes([h0, 1]) + payload
+        else:
+            ctus = [CtuData(mode=int(modes[i]),
+                            levels_y=lv_y[i] if cbf[0, i] else None,
+                            levels_cb=lv_cb[i] if cbf[1, i] else None,
+                            levels_cr=lv_cr[i] if cbf[2, i] else None)
+                    for i in range(bw * bh)]
+            slice_nal = self._encode_slice(ctus)
+        sei_nal = self._hash_sei(*rec)
+        return [slice_nal, sei_nal], rec
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:588
+    def encode_sequence(self, frames, fast: bool = False) -> tuple[bytes, list]:
+        """frames: iterable of (y, u, v); returns (annexb stream, recons).
+
+        The fast path dispatches every picture to the device first, then
+        copies each state back and serializes it."""
+        nals = self.stream_headers()
+        recons = []
+        if fast:
+            states = [self._dispatch(y, u, v) for (y, u, v) in frames]
+            states = [{k: a.cpu() for k, a in st.items()} for st in states]
+            for st in states:
+                frame_nals, rec = self.serialize_frame(st)
+                nals.extend(frame_nals)
+                recons.append(rec)
+        else:
+            for (y, u, v) in frames:
+                frame_nals, rec = self.encode_frame(y, u, v)
+                nals.extend(frame_nals)
+                recons.append(rec)
+        return bs.annexb(nals), recons
 
 
 # video_codecs_tpu/models/hevc/intra_codec.py:627

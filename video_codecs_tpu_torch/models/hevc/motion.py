@@ -17,7 +17,12 @@ spec's same-CTB-row constraint) — the center position is used, which at
 16x16 granularity is the collocated block itself.
 
 The port's whole copy of video_codecs_tpu/models/hevc/motion.py (each
-function keeps its name and a comment gives the original's line).
+function keeps its name and a comment gives the original's line), with
+one repair: `amvp_candidates` takes the spec's step for a prediction
+block without an A neighbor (the reference's derivation gives another
+predictor list than any decoder when the B neighbors use different
+reference pictures, so its low-delay P streams at several references can
+fail their picture hashes).
 """
 
 from __future__ import annotations
@@ -175,7 +180,12 @@ def amvp_candidates(grid: NeighborGrid, bx: int, by: int, ref_idx: int,
                 mv_a = scale_mv(m[0], cur_poc - target_poc, cur_poc - m[2])
                 break
 
-    # B: B0, B1, B2; scaled pass only when no A neighbor exists
+    # B: B0, B1, B2 with the same reference picture.  When no A neighbor
+    # exists (isScaledFlag 0), that candidate becomes A, and B is the
+    # first available B neighbor, scaled (spec 8.5.3.2.7, HM
+    # TComDataCU::fillMvpCand; the reference keeps the unscaled B and
+    # takes a scaled one only when none was found, which a decoder reads
+    # differently once the B neighbors use different references)
     b_nbs = [neighbor(bx + 1, by - 1), neighbor(bx, by - 1),
              neighbor(bx - 1, by - 1)]
     mv_b = None
@@ -183,7 +193,10 @@ def amvp_candidates(grid: NeighborGrid, bx: int, by: int, ref_idx: int,
         if m is not None and m[2] == target_poc:
             mv_b = m[0]
             break
-    if mv_b is None and not a_exists:
+    if not a_exists:
+        if mv_b is not None:
+            mv_a = mv_b
+        mv_b = None
         for m in b_nbs:
             if m is not None:
                 mv_b = scale_mv(m[0], cur_poc - target_poc, cur_poc - m[2])

@@ -197,6 +197,32 @@ def _filter_ver_edges_chroma(plane: torch.Tensor, edges: np.ndarray, qp,
     return out
 
 
+# video_codecs_tpu/ops/deblock.py:210
+def deblock_420(rec_y: torch.Tensor, rec_u: torch.Tensor,
+                rec_v: torch.Tensor, qp: int, block: int = 16,
+                bit_depth: int = 8):
+    """Deblock an all-intra picture with a uniform `block` CU/TU grid.
+
+    Vertical edges first (whole picture), then horizontal on the result
+    (HM loopFilterPic order).  Horizontal = vertical kernel on transpose.
+    """
+    h, w = rec_y.shape
+    ey = np.arange(block, w, block, dtype=np.int32)
+    ex = np.arange(block, h, block, dtype=np.int32)
+    cb = block // 2
+    cey = np.arange(cb, w // 2, cb, dtype=np.int32)
+    cex = np.arange(cb, h // 2, cb, dtype=np.int32)
+
+    rec_y = _filter_ver_edges_luma(rec_y, ey, qp, bit_depth)
+    rec_y = _filter_ver_edges_luma(rec_y.T, ex, qp, bit_depth).T
+    out_c = []
+    for p in (rec_u, rec_v):
+        p = _filter_ver_edges_chroma(p, cey, qp, bit_depth)
+        p = _filter_ver_edges_chroma(p.T, cex, qp, bit_depth).T
+        out_c.append(p.contiguous())
+    return rec_y.contiguous(), out_c[0], out_c[1]
+
+
 # video_codecs_tpu/ops/deblock.py:245
 def deblock_420_bs(rec_y, rec_u, rec_v, qp,
                    bs_ver: np.ndarray, bs_hor: np.ndarray,

@@ -13,8 +13,8 @@ All arithmetic stays int32 (`>>` on int32 is the arithmetic shift, as
 in jnp): 14-bit intermediates, shift2 = 6, final (p + 32) >> 6 for
 uni-prediction and (p0 + p1 + 64) >> 7 for bi-prediction.
 `gather_window` is the integer motion search's edge-clamped window.
-Cut: `mc_chroma_multi` and the other numpy twins (square-block,
-bi-prediction and weighted-prediction MC), which no port path calls.
+Cut: the other numpy twins (square-block, bi-prediction and
+weighted-prediction MC), which no port path calls.
 """
 
 from __future__ import annotations
@@ -159,6 +159,13 @@ def mc_chroma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
     win = _gather_window_multi(refs.int(), ridx, ix - 1, iy - 1, n + 3,
                                n + 3)
     return _mc_chroma14_core(win, mvx & 7, mvy & 7, n)
+
+
+# video_codecs_tpu/ops/interp.py:164
+def mc_chroma_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
+                    n: int) -> torch.Tensor:
+    p14 = mc_chroma14_multi(refs, ridx, x0, y0, mvx, mvy, n)
+    return ((p14 + 32) >> 6).clamp(0, 255).int()
 
 
 # video_codecs_tpu/ops/interp.py:170

@@ -13,26 +13,23 @@ CPU and the card.  Where the reference adds the result of a multiply in
 the same fused XLA loop, XLA's CPU backend emits a fused multiply-add
 (LLVM contracts `a * b + c`, taking the left operand of the add when
 both are products); `fma32` gives that single rounding on any device, and
-the port calls it exactly there.  The one value the port cannot
-reproduce is the reference's float32 `log2`: XLA's is not correctly
-rounded, and neither is CUDA's `log2f`, so the rate of `rdoq_lite` reads a
-table of correctly rounded float32 log2(k + 1), k = 0..32768, built once
-in float64 with numpy.  A decision can then split from the reference only
-where two costs tie within an ulp of the rate.
+the port calls it exactly there.  The reference's float32 `log2` is
+XLA's: `log(x) * 1.44269502f`, where `log` is the Cephes `logf`
+polynomial that XLA's CPU backend inlines, its multiply-adds contracted
+to FMAs.  `log_xla` evaluates that polynomial step for step (read from
+the object code XLA emits for `jnp.log2`), and the rate tables of the
+level magnitudes are built from it once on the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from video_codecs_tpu_torch.utils import rom
 from video_codecs_tpu_torch.utils.device import const
-
-# Correctly rounded float32 log2(k + 1) for every level magnitude k
-# (levels are 16-bit: |k| <= 32768).
-LOG2_1P = np.log2(np.arange(1, (1 << 15) + 2, dtype=np.float64)).astype(
-    np.float32)
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -41,6 +38,65 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     sum rounded to float32 is the fused result (a double rounding would
     need the float64 sum to land exactly on a float32 midpoint)."""
     return (a.double() * b.double() + c.double()).float()
+
+
+# Cephes logf coefficients, as XLA's CPU backend rounds them to float32
+# (xla/service/cpu polynomial_approximations: GenerateVF32Log).
+_LOG_P = [np.float32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1)]
+_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
+INV_LN2 = np.float32(1.44269502)   # 1 / log(2): jnp.log2's divide, folded
+
+
+def log_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log of finite normal x > 0 as XLA's CPU backend
+    computes it: frexp-style split x = m * 2^e with m in [0.5, 1), the
+    shift to [sqrt(1/2), sqrt(2)), the degree-8 polynomial in FMAs and
+    the two-part e * log(2), in the object code's order."""
+    f32 = torch.float32
+    dev = x.device
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    bits = x.float().view(torch.int32)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(f32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    mask = m < c(0.707106781186547524)
+    x = (m - 1.0) + torch.where(mask, m, c(0.0))
+    e = e - torch.where(mask, c(1.0), c(0.0))
+    x2 = x * x
+    x3 = x2 * x
+    p = [c(v) for v in _LOG_P]
+    y = fma32(x, p[0], p[1])
+    y1 = fma32(x, p[3], p[4])
+    y = fma32(y, x, p[2])
+    y1 = fma32(y1, x, p[5])
+    y = fma32(y, x3, y1)
+    y2 = fma32(fma32(x, p[6], p[7]), x, p[8])
+    y = fma32(y, x3, y2)
+    y = fma32(y, x3, e * c(_LOG_Q1))
+    t = fma32(x2, c(-0.5), x) + y
+    return fma32(e, c(_LOG_Q2), t)
+
+
+def log2_xla(x: torch.Tensor) -> torch.Tensor:
+    """jnp.log2 as XLA's CPU backend computes it: log_xla(x) * 1/ln 2."""
+    return log_xla(x) * torch.tensor(INV_LN2, device=x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def log_1p_tables() -> tuple[np.ndarray, np.ndarray]:
+    """float32 tables over every level magnitude a = 0..32768 (levels are
+    16-bit): log(1 + a), and the rate 2 + log2(1 + a) where XLA fuses the
+    multiply by 1/ln 2 into the add (one FMA)."""
+    ln = log_xla(torch.arange(1, (1 << 15) + 2, dtype=torch.float32))
+    rate = fma32(ln, torch.tensor(INV_LN2),
+                 torch.tensor(2.0, dtype=torch.float32))
+    return ln.numpy(), rate.numpy()
+
 
 # video_codecs_tpu/ops/quant.py:26
 def transform_shift(log2_size: int, bit_depth: int = 8) -> int:
@@ -93,7 +149,8 @@ def rdoq_lite(coeff: torch.Tensor, qp: int, log2_size: int, *,
               lam_scale: float = 2.0) -> torch.Tensor:
     """Device twin of rdoq_lite_np: per-coefficient floor/ceil/zero
     choice by J = D_td + lambda_td * R, fully elementwise, in float32 as
-    the reference (its log2 from the table LOG2_1P)."""
+    the reference: the rate 2 + log2(1 + a) is one FMA of XLA's log, and
+    the cost d * d + lam_td * r another."""
     per, rem = qp // 6, qp % 6
     q_bits = rom.QUANT_SHIFT + per + transform_shift(log2_size, bit_depth)
     scale = int(rom.QUANT_SCALES[rem])
@@ -103,13 +160,13 @@ def rdoq_lite(coeff: torch.Tensor, qp: int, log2_size: int, *,
     lam_td = float(lam_scale) * float(lam) * float(
         4 ** (15 - bit_depth - log2_size))
     lam_f = torch.tensor(lam_td, dtype=torch.float32, device=c.device)
-    log2_1p = const(LOG2_1P, c.device, torch.float32)
+    rate = const(log_1p_tables()[1], c.device, torch.float32)
 
     def cost(lv):
         dq = dequantize(lv, qp, log2_size, bit_depth=bit_depth)
         d = (mag - dq).float()
         a = lv.abs()
-        r = torch.where(a == 0, 0.0, 2.0 + log2_1p[a.long()])
+        r = torch.where(a == 0, 0.0, rate[a.long()])
         return fma32(d, d, lam_f * r)             # d ** 2 + lam_td * r
 
     l0 = l_floor.clamp(0, (1 << 15) - 1)
