@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths through the hand-written CUDA SAD-surface
-kernel: the H.264 device P-slice engine at 1280x720, the HEVC
-random-access GOP-8 headline at 1920x1072 and the HEVC low-delay P row
-at 832x480, in phases:
+Drives the port's main paths through its hand-written CUDA kernels, the
+SAD surface and the SAO statistics: the H.264 device P-slice engine at
+1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
+then on) and the HEVC low-delay P row at 832x480, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the kernel from video_codecs_tpu_torch/csrc/sad_surface.cu;
+  2. build both kernels at once, one nvcc each, from
+     video_codecs_tpu_torch/csrc/sad_surface.cu and sao_stats.cu;
   3. hold the kernel against its plain PyTorch version at the slice's
      shapes (and at search range 32), exactly, and time the kernel, the
      plain version and one PyTorch call for the same function
@@ -46,8 +47,21 @@ at 832x480, in phases:
         stream's SHA-1 must be the JAX package's for the same clip and
         settings (computed on the CPU: RA_SHA1);
      d. encode small GOPs (96x64: 9 pictures at the headline settings,
-        5 pictures with the CU8 tree and 2 references per list) on the
-        card and on the CPU and require byte-equal streams;
+        5 pictures with the CU8 tree and 2 references per list; 112x80:
+        9 pictures with SAO, partial edge CTBs) on the card and on the
+        CPU and require byte-equal streams;
+     e. sao-kernel: hold the SAO-statistics kernel against its plain
+        version, all four outputs exactly, at the 1080p picture's padded
+        planes (luma 1920x1088 at CTB 32, each chroma 960x544 at CTB 16)
+        and at 112x80's, and time it beside its bound and the plain
+        version per picture (no single PyTorch call computes it);
+     f. hevc-ra-sao: the same GOP as b with SAO on (`cfg.sao`, HM's RA
+        main tool set): per picture the device phase, the host phase,
+        the SAO decision (statistics on the card, 3 kernel launches, and
+        the offset search on the host) and the OFF/BO/EO CTBs per plane;
+        the stream's SHA-1 must be the JAX package's (RA_SAO_SHA1), the
+        port's GeneralDecoder must give every hash OK and the encoder's
+        pictures, and the SAO kernel must run 24 times;
   8. hevc-ldp: bench.py's `bench_ldp_480` (bench.py:171-186) exactly,
      HEVC low-delay P on `inter_dev.DeviceLowDelayEncoder`: 832x480, QP 32
      with HM's LD-P QP/lambda ladder, 4 references, merge 5, TMVP, SBH,
@@ -70,13 +84,14 @@ at 832x480, in phases:
   9. require that nothing of the JAX package was imported.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
-line before it lists the kernels, with the launches of the RA and LD-P
-encodes together (the line before gives each path's) and the RA path's
-per-B-picture times and bound.
+line before it lists the kernels, with the launches of the main paths'
+encodes (the line before gives each path's), the SAD kernel's RA
+per-B-picture times and bound and the SAO kernel's per 1080p picture.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import statistics
@@ -94,9 +109,12 @@ from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
 from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.ops import sad_surface as ss
+from video_codecs_tpu_torch.ops import sao as sao_ops
 
 KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
+SAO_SRC = "video_codecs_tpu_torch/csrc/sao_stats.cu"
+SAO_REPLACES = "video_codecs_tpu/ops/sao.py:127"
 W, H, QP, SR = 1280, 720, 28, 16
 # The 1080p headline (bench.py:84-107): picture size, QP, search range
 # and GOP length.
@@ -105,6 +123,10 @@ RA_SR, RA_PICTURES = 64, 9
 # The JAX package's stream for phase 7's GOP (synth_clip(1920, 1072, 9,
 # seed=5) at ra_cfg's settings), on the CPU: bytes and SHA-1.
 RA_BYTES, RA_SHA1 = 313869, "97c3eed7555fdec8392e28f0190c99645943f680"
+# The same GOP with SAO on (scripts/jax_reference_sha1.py --ra-sao; all 9
+# hashes OK in the JAX package's decoder).
+RA_SAO_BYTES = 317260
+RA_SAO_SHA1 = "48bee427dce04acf683246853f7ce746599d1127"
 # bench_ldp_480 (bench.py:171-186): 832x480, 9 pictures of bench's clip,
 # and the JAX package's stream for it on the CPU with its AMVP predictor
 # list (motion.amvp_candidates) swapped for the spec's, which the port
@@ -242,18 +264,25 @@ def sad_cdist(cur: torch.Tensor, win: torch.Tensor, n: int,
     return out.reshape(b, span, span)
 
 
-def phase_kernel() -> dict:
-    """Phases 2-3: build, then kernel vs plain (and the yardstick) at the
-    slice's shapes."""
+def build_kernels() -> None:
+    """Phase 2: one nvcc for each kernel's source, all started together,
+    then load each library."""
     t0 = time.perf_counter()
-    so, build_s, log = ss.build()
-    ss._load()
-    print(f"[build] {so.name}: nvcc {build_s:.2f} s (0 = cached), "
-          f"build and load {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = list(pool.map(lambda m: m.build(), (ss, sao_ops)))
+    for mod, (so, build_s, log) in zip((ss, sao_ops), builds):
+        mod._load()
+        print(f"[build] {so.name}: nvcc {build_s:.2f} s (0 = cached)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}")
+    print(f"[build] both kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
 
+
+def phase_kernel() -> dict:
+    """Phase 3: the SAD kernel vs plain (and the yardstick) at the H.264
+    slice's shapes."""
     rng = np.random.default_rng(2024)
     pic = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes=0, ops=0)
@@ -490,10 +519,108 @@ def phase_ra_kernel() -> dict:
     return pic
 
 
+def sao_bound(h: int, w: int, ctb: int) -> tuple[float, float, float]:
+    """(ms, bytes, operations) the card needs at least for one plane's SAO
+    statistics: uint8 orig and rec read once, the 104 four-byte values of
+    each CTB (EO counts and sums 4 x 5 each, band counts and sums 32 each)
+    written once; per sample 8 neighbour differences, the orig - rec
+    difference, the band shift and 10 accumulations."""
+    nbytes = 2 * h * w + 104 * 4 * (h // ctb) * (w // ctb)
+    ops = 20 * h * w
+    return max(nbytes / PEAK_BYTES, ops / PEAK_OPS) * 1e3, nbytes, ops
+
+
+def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
+    """Median device time in ms of the kernels called `name` that reps
+    calls of fn() launch, from torch.profiler; None if the profiler saw
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    return statistics.median(times) / 1e3 if times else None
+
+
+def phase_sao_kernel() -> dict:
+    """Phase 7e: the SAO-statistics kernel against its plain version at
+    the RA SAO path's padded planes, exactly, timed beside its bound; the
+    totals are per 1080p picture (luma + two chroma planes, 3 launches)."""
+    y, u, v = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
+    rng = np.random.default_rng(2027)
+    pic = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    max_err = 0.0
+    for what, plane, ctb, timed in (
+            ("1080p luma", y, 32, True), ("1080p Cb", u, 16, True),
+            ("1080p Cr", v, 16, True), ("112x80 luma", y[:80, :112], 32,
+                                        False),
+            ("112x80 Cb", u[:40, :56], 16, False)):
+        o = inter_qt._pad_to(np.ascontiguousarray(plane), ctb)
+        r = np.clip(o.astype(np.int16) + rng.integers(-3, 4, o.shape),
+                    0, 255).astype(np.uint8)
+        to = torch.from_numpy(np.ascontiguousarray(o)).cuda()
+        tr = torch.from_numpy(r).cuda()
+        got = sao_ops.sao_stats(to, tr, ctb)
+        torch.cuda.synchronize()
+        want = sao_ops.sao_stats_ref(to, tr, ctb)
+        check(all(g.dtype == w_.dtype and g.shape == w_.shape
+                  for g, w_ in zip(got, want)),
+              f"SAO kernel outputs' dtypes or shapes differ ({what})")
+        err = max(float((g.double() - w_.double()).abs().max())
+                  for g, w_ in zip(got, want))
+        check(err == 0, f"SAO kernel != plain at {what} {o.shape} "
+                        f"(max abs err {err})")
+        max_err = max(max_err, err)
+        hp, wp = o.shape
+        if not timed:
+            print(f"[sao-kernel] {what} ({wp}x{hp} padded, CTB {ctb}): "
+                  "all four outputs equal")
+            continue
+        ev = cuda_ms(lambda: sao_ops.sao_stats(to, tr, ctb), reps=21)
+        dev = kernel_device_ms(lambda: sao_ops.sao_stats(to, tr, ctb),
+                               "sao_stats_kernel")
+        ms = ev if dev is None else dev
+        plain = cuda_ms(lambda: sao_ops.sao_stats_ref(to, tr, ctb), reps=3,
+                        warm=1)
+        bound, nbytes, ops = sao_bound(hp, wp, ctb)
+        print(f"[sao-kernel] {what} ({wp}x{hp} padded, CTB {ctb}, "
+              f"{(hp // ctb) * (wp // ctb)} CTBs): all four outputs equal; "
+              f"kernel {'not measured' if dev is None else f'{dev:.4f} ms'} "
+              f"(profiler), {ev:.4f} ms a wrapper call (CUDA events); "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+              f"{bound / ms:.1%} of it; plain {plain:.3f} ms")
+        pic["ms"] += ms
+        pic["event_ms"] += ev
+        pic["plain_ms"] += plain
+        pic["bytes"] += nbytes
+        pic["ops"] += ops
+    pic["bound_ms"] = max(pic["bytes"] / PEAK_BYTES,
+                          pic["ops"] / PEAK_OPS) * 1e3
+    pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
+                       pic["bytes"] / PEAK_BYTES else "bytes")
+    print(f"[sao-kernel] per 1080p picture (3 launches): kernel "
+          f"{pic['ms']:.4f} ms ({pic['event_ms']:.4f} ms in wrapper calls), "
+          f"bound {pic['bound_ms']:.4f} ms ({pic['bytes'] / 1e6:.2f} MB, "
+          f"{pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"plain {pic['plain_ms']:.3f} ms; no single PyTorch call computes "
+          "these statistics (library_ms null)")
+    pic["library_ms"] = None
+    pic["max_abs_err"] = max_err
+    return pic
+
+
 def _ra_instrument(enc):
     """Time each picture of an RA encode: the device phase (device work +
     copy back, synchronised), the host phase (CABAC serializer, hash SEI,
-    TMVP store) and the SAD-kernel launches; keep each picture's maps."""
+    TMVP store), with SAO the decision (`_sao_decide_qt`) and within it
+    the statistics on the card (`inter_qt._sao_stats`, synchronised, which
+    this patches until the returned restore() is called), and the SAD and
+    SAO kernels' launches; keep each picture's maps and SAO parameters."""
     log, cur = [], {}
 
     def timed(name, fn, sync=False):
@@ -501,19 +628,28 @@ def _ra_instrument(enc):
             if sync:
                 torch.cuda.synchronize()
             n0 = ss.sad_surface.launches
+            s0 = sao_ops.sao_stats.launches
             t0 = time.perf_counter()
             out = fn(*a, **kw)
+            if name == "sao_stats":
+                torch.cuda.synchronize()
             cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
-            cur["launches"] = cur.get("launches", 0) + \
-                ss.sad_surface.launches - n0
-            if name == "device":
-                cur["qt"] = out
+            if name != "sao_stats":     # counted in "sao" around it
+                cur["launches"] = cur.get("launches", 0) + \
+                    ss.sad_surface.launches - n0
+                cur["sao_launches"] = cur.get("sao_launches", 0) + \
+                    sao_ops.sao_stats.launches - s0
+            if name in ("device", "sao"):
+                cur["qt" if name == "device" else "sao_params"] = out
             return out
         return run
 
     enc._device_phase = timed("device", enc._device_phase, sync=True)
+    enc._sao_decide_qt = timed("sao", enc._sao_decide_qt, sync=True)
     for name in ("_serialize_qt_slice", "_hash_sei", "_store_motion"):
         setattr(enc, name, timed("host", getattr(enc, name)))
+    stats_fn = inter_qt._sao_stats
+    inter_qt._sao_stats = timed("sao_stats", stats_fn, sync=True)
     orig_b = enc._encode_b_frame
 
     def b_frame(frame, poc, refs, is_anchor):
@@ -540,30 +676,51 @@ def _ra_instrument(enc):
                         depth8=st["depth8"].numpy()))
         return nals, rec
 
+    def restore():
+        inter_qt._sao_stats = stats_fn
+
     enc._encode_b_frame = b_frame
     enc.encode_frame = idr
-    return log
+    return log, restore
 
 
-def phase_hevc_ra() -> int:
-    """Phase 7b-c: the RA GOP-8 headline at 1920x1072 on the card, decoded
-    by the port's GeneralDecoder.  Returns the SAD-kernel launches of the
-    encode."""
+def _sao_counts(params) -> str:
+    """OFF / BO / EO CTBs per plane of one picture's SAO parameters."""
+    out = []
+    for c, plane in enumerate(("Y", "Cb", "Cr")):
+        types = [p3[c].type_idx for p3 in params]
+        out.append(f"{plane} " + "/".join(
+            str(types.count(t)) for t in (sao_ops.SAO_OFF, sao_ops.SAO_BO,
+                                          sao_ops.SAO_EO)))
+    return "SAO CTBs OFF/BO/EO " + ", ".join(out)
+
+
+def phase_hevc_ra(sao: bool = False) -> tuple[int, int]:
+    """Phase 7b-c (and 7f with sao): the RA GOP-8 headline at 1920x1072 on
+    the card, decoded by the port's GeneralDecoder.  Returns the SAD- and
+    SAO-kernel launches of the encode."""
     w, h = HEVC_W, HEVC_H
+    tag = "hevc-ra-sao" if sao else "hevc-ra"
     frames = synth_clip(w, h, RA_PICTURES, seed=5)
-    print(f"[hevc-ra] {w}x{h} QP{HEVC_QP} GOP-8 random access, "
+    print(f"[{tag}] {w}x{h} QP{HEVC_QP} GOP-8 random access, "
           f"{RA_PICTURES} pictures (POC 0..{RA_PICTURES - 1}: IDR, anchor "
           f"P at 8, B at 4 2 1 3 6 5 7); SR{RA_SR} pyramid ME, CU8 tree off, "
-          "TMVP, full RDOQ in the B pictures, 1 reference per list")
+          "TMVP, full RDOQ in the B pictures, 1 reference per list; SAO "
+          + ("on" if sao else "off"))
     enc = inter_qt.QtDeviceRandomAccessEncoder(
-        ra_cfg(w, h), search_range=RA_SR, me_method="pyr", cu8=False,
-        num_refs_active=1, device="cuda")
-    log = _ra_instrument(enc)
+        ra_cfg(w, h, sao=sao), search_range=RA_SR, me_method="pyr",
+        cu8=False, num_refs_active=1, device="cuda")
+    log, restore = _ra_instrument(enc)
     ss.sad_surface.launches = 0
+    sao_ops.sao_stats.launches = 0
     t0 = time.perf_counter()
-    stream, recons = enc.encode_sequence_ra(frames)
+    try:
+        stream, recons = enc.encode_sequence_ra(frames)
+    finally:
+        restore()
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
+    sao_launches = sao_ops.sao_stats.launches
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
@@ -584,27 +741,44 @@ def phase_hevc_ra() -> int:
                    f"{int(qt['res32'].sum())}), CU16 "
                    f"{int((~m2 & ~qt['split8']).sum())}, CU8 "
                    f"{4 * int(qt['split8'].sum())}")
-            other = e["total"] - e["device"] - e["host"]
+            other = (e["total"] - e["device"] - e["host"] -
+                     e.get("sao", 0.0))
             want += 3 * (2 if e["kind"] == "B" else 1)
             check(e["launches"] == (6 if e["kind"] == "B" else 3),
                   f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
                   f"(want 3 per list and reference)")
-        print(f"[hevc-ra] POC {e['poc']} ({e['kind']}): device phase "
+            check(e["sao_launches"] == (3 if sao else 0),
+                  f"POC {e['poc']}: {e['sao_launches']} SAO-kernel "
+                  f"launches (want {3 if sao else 0})")
+        if sao and e["kind"] != "I":
+            cus += (f"; SAO {e['sao'] * 1e3:.1f} ms (statistics on the card "
+                    f"{e['sao_stats'] * 1e3:.1f} ms, {e['sao_launches']} "
+                    f"launches; offset search on the host "
+                    f"{(e['sao'] - e['sao_stats']) * 1e3:.1f} ms); "
+                    + _sao_counts(e["sao_params"]))
+        print(f"[{tag}] POC {e['poc']} ({e['kind']}): device phase "
               f"{e['device'] * 1e3:.1f} ms, host phase {e['host'] * 1e3:.1f}"
               f" ms, other {other * 1e3:.1f} ms; {nbytes} bytes, "
               f"{nbytes * 8 * 30 / 1000:.1f} kbps at 30 fps, Y-PSNR "
               f"{p:.2f} dB; {cus}; SAD-kernel launches {e['launches']}")
     check(launches == want, f"{launches} SAD-kernel launches in the GOP, "
                             f"want {want}")
+    check(sao_launches == (24 if sao else 0),
+          f"{sao_launches} SAO-kernel launches in the GOP, want "
+          f"{24 if sao else 0}")
     kbps = len(stream) * 8 * 30 / len(frames) / 1000
     sha = hashlib.sha1(stream).hexdigest()
-    print(f"[hevc-ra] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
-          f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
-          f"SAD-kernel launches {launches}; SHA-1 {sha}")
-    check((len(stream), sha) == (RA_BYTES, RA_SHA1),
+    y_psnr = np.mean([psnr(f[0], r[0]) for f, r in zip(frames, recons)])
+    print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, mean "
+          f"Y-PSNR {y_psnr:.3f} dB, encode {t_enc:.2f} s "
+          f"({len(frames) / t_enc:.3f} fps); SAD-kernel launches {launches}"
+          f", SAO-kernel launches {sao_launches}; SHA-1 {sha}")
+    ref_bytes, ref_sha = ((RA_SAO_BYTES, RA_SAO_SHA1) if sao
+                          else (RA_BYTES, RA_SHA1))
+    check((len(stream), sha) == (ref_bytes, ref_sha),
           f"RA stream {len(stream)} bytes SHA-1 {sha}, the JAX package's "
-          f"is {RA_BYTES} bytes {RA_SHA1}")
-    print("[hevc-ra] the stream is the JAX package's, byte for byte "
+          f"is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's, byte for byte "
           "(SHA-1)")
 
     t0 = time.perf_counter()
@@ -618,10 +792,10 @@ def phase_hevc_ra() -> int:
         for c in range(3):
             check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
                   f"decoded picture {i} plane {c} != encoder recon")
-    print(f"[hevc-ra] the port's GeneralDecoder: hash SEI OK on all "
+    print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
           f"{len(frames)} pictures, pictures equal the encoder's, "
           f"{t_dec:.2f} s")
-    return launches
+    return launches, sao_launches
 
 
 def phase_ra_cuda_vs_cpu() -> None:
@@ -631,17 +805,26 @@ def phase_ra_cuda_vs_cpu() -> None:
              dict(search_range=RA_SR, cu8=False), {}),
             ("96x64, 5 pictures, CU8 tree + 2 refs per list", 96, 64, 5,
              dict(search_range=16, cu8=True, num_refs_active=2),
-             dict(temporal_mvp=False))]
+             dict(temporal_mvp=False)),
+            ("112x80, 9 pictures, SAO, CU8 tree, SR8 (partial edge CTBs)",
+             112, 80, 9, dict(search_range=8, cu8=True),
+             dict(sao=True, temporal_mvp=False))]
     for what, w, h, n, kw, cfg_kw in runs:
         frames = synth_clip(w, h, n, seed=17)
         res = {}
         for dev in ("cuda", "cpu"):
             enc = inter_qt.QtDeviceRandomAccessEncoder(
                 ra_cfg(w, h, **cfg_kw), device=dev, **kw)
+            s0 = sao_ops.sao_stats.launches
             t0 = time.perf_counter()
             res[dev] = (enc.encode_sequence_ra(frames)[0],
-                        time.perf_counter() - t0)
-        (g, tg), (c, tc) = res["cuda"], res["cpu"]
+                        time.perf_counter() - t0,
+                        sao_ops.sao_stats.launches - s0)
+        (g, tg, gl), (c, tc, cl) = res["cuda"], res["cpu"]
+        want = 3 * (n - 1) if cfg_kw.get("sao") else 0
+        check((gl, cl) == (want, 0),
+              f"RA {what}: SAO-kernel launches {gl} on the card, {cl} on "
+              f"the CPU (want {want}, 0)")
         check(g == c, f"RA {what}: card and CPU streams differ "
                       f"({len(g)} / {len(c)} bytes)")
         dec = hevc_decoder.GeneralDecoder()
@@ -888,13 +1071,16 @@ def main() -> None:
     print(f"[device] {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} card(s)")
 
+    build_kernels()
     phase_kernel()
     phase_encode_720p()
     phase_cuda_vs_cpu()
     phase_hevc_intra()
     k = phase_ra_kernel()
-    ra_launches = phase_hevc_ra()
+    ra_launches, _ = phase_hevc_ra()
     phase_ra_cuda_vs_cpu()
+    sk = phase_sao_kernel()
+    ra_sao_sad, sao_launches = phase_hevc_ra(sao=True)
     phase_ldp_kernel()
     ldp_launches = phase_hevc_ldp()
     phase_ldp_cuda_vs_cpu()
@@ -903,19 +1089,26 @@ def main() -> None:
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported")
 
-    launches = ra_launches + ldp_launches
-    print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, LD-P run "
-          f"{ldp_launches}, together {launches}; times and bound below are "
-          "the RA path's per B picture")
+    launches = ra_launches + ra_sao_sad + ldp_launches
+    print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
+          f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, together "
+          f"{launches}; its times and bound below are the RA path's per B "
+          f"picture. sao_stats launches: RA GOP with SAO {sao_launches}; "
+          "its times and bound are per 1080p picture (3 planes)")
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "
-          "the kernel's build included")
+          "the kernels' build included")
 
     print(json.dumps({"kernels": [{
         "name": "sad_surface", "route": "cuda", "source": KERNEL_SRC,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]}))
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}, {
+        "name": "sao_stats", "route": "cuda", "source": SAO_SRC,
+        "replaces": SAO_REPLACES, "launches": sao_launches,
+        "max_abs_err": sk["max_abs_err"], "ms": sk["ms"],
+        "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"], "library_ms": sk["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Bytes and SHA-1 of the JAX package's streams that chip_smoke.py holds
 the port's to, computed with the JAX package on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra]
+    JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -11,7 +11,9 @@ the spec's (the port's repaired copy; no file of the JAX package is
 edited).  Each stream is decoded by the JAX package's GeneralDecoder and
 its picture-hash results printed.  --ra adds the HEVC RA GOP-8 of
 chip_smoke.py's phase 7 (1920x1072, its clip and settings), which takes
-about five minutes.  This is a tool for the reference side: it imports
+about five minutes; --ra-sao the same GOP with SAO on (`cfg.sao=True`,
+HM's RA main tool set), chip_smoke.py's `[hevc-ra-sao]` phase; --no-ldp
+skips the LD-P streams.  This is a tool for the reference side: it imports
 the JAX package, and the port's `motion` module only for the repaired
 function.
 """
@@ -59,31 +61,40 @@ def ldp() -> None:
         report(what, stream, len(frames), time.time() - t0)
 
 
-def ra() -> None:
+def ra(sao: bool = False) -> None:
     w, h = chip_smoke.HEVC_W, chip_smoke.HEVC_H
     frames = chip_smoke.synth_clip(w, h, chip_smoke.RA_PICTURES, seed=5)
     cfg = headers.HevcConfig(
         width=w, height=h, qp=chip_smoke.HEVC_QP, log2_ctb=5,
         log2_min_cb=3, log2_max_tb=5, reorder_pics=3, sign_data_hiding=True,
-        rdoq="lite", merge_cands=5, hash_sei=True, temporal_mvp=True)
+        rdoq="lite", merge_cands=5, hash_sei=True, temporal_mvp=True,
+        sao=sao)
     enc = inter_qt.QtDeviceRandomAccessEncoder(
         cfg, search_range=chip_smoke.RA_SR, me_method="pyr", cu8=False,
         num_refs_active=1)
     t0 = time.time()
     stream, _ = enc.encode_sequence_ra(frames)
-    report("ra 1080p", stream, len(frames), time.time() - t0)
+    report("ra 1080p sao" if sao else "ra 1080p", stream, len(frames),
+           time.time() - t0)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
                     help="also the 1080p RA GOP of chip_smoke phase 7")
+    ap.add_argument("--ra-sao", action="store_true",
+                    help="also that GOP with SAO on (phase hevc-ra-sao)")
+    ap.add_argument("--no-ldp", action="store_true",
+                    help="skip the LD-P streams")
     args = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
-    ldp()
+    if not args.no_ldp:
+        ldp()
     if args.ra:
         ra()
+    if args.ra_sao:
+        ra(sao=True)
 
 
 if __name__ == "__main__":

@@ -131,9 +131,9 @@ _COPIES = {
          "QtDeviceRandomAccessEncoder._encode_b_frame",
          "QtDeviceRandomAccessEncoder._tmvp_fields",
          "QtDeviceRandomAccessEncoder._device_phase",
-         "QtDeviceRandomAccessEncoder._serialize_qt_slice"},
+         "QtDeviceRandomAccessEncoder._sao_decide_qt"},
         {"_sse_blocks", "_coef_bits_blocks", "_pred_cand", "qt_merge_dev"},
-        set()),
+        {"_sao_stats"}),
     "models/hevc/decoder.py": (
         "models/hevc/decoder.py",
         {"parse_sps", "parse_pps", "parse_slice_header",
@@ -141,6 +141,9 @@ _COPIES = {
          "GeneralDecoder._decode_slice_segment",
          "GeneralDecoder._decode_intra_cu", "GeneralDecoder._parse_mvd"},
         set(), set()),
+    "ops/sao.py": ("ops/sao.py", set(), set(),
+                   {"build", "_load", "sao_stats_ref", "sao_stats",
+                    "apply_ctus"}),
     "models/hevc/quadtree_codec.py": (
         "models/hevc/quadtree_codec.py",
         {"QuadtreeFastEncoder.__init__", "QuadtreeFastEncoder._dispatch",

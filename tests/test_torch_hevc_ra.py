@@ -195,10 +195,8 @@ def test_ra_headline_settings_tmvp(monkeypatch):
 
 
 def test_ra_cut_options_raise():
-    cfg = _cfg(theaders, 64, 64)
-    cfg.sao = True
-    with pytest.raises(NotImplementedError):
-        tqt.QtDeviceRandomAccessEncoder(cfg, device="cpu")
+    cfg = _cfg(theaders, 64, 64, sao=True)       # SAO is ported
+    assert tqt.QtDeviceRandomAccessEncoder(cfg).device == torch.device("cuda")
     with pytest.raises(NotImplementedError):
         tqt.QtDeviceRandomAccessEncoder(_cfg(theaders, 64, 64),
                                         me_method="tz", device="cpu")
@@ -214,7 +212,7 @@ def test_ra_cut_options_raise():
             allow_intra=True, merge_eval="best4")
 
 
-@pytest.mark.parametrize("feature", ["sao", "tile_columns", "wpp",
+@pytest.mark.parametrize("feature", ["tile_columns", "wpp",
                                      "weighted_pred", "cu_qp_delta",
                                      "long_term_idr"])
 def test_general_decoder_cut_syntax_raises(feature):

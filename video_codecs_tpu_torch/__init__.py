@@ -17,7 +17,8 @@ Rules: plain functions on tensors, an explicit `device` everywhere (the
 entry points `DeviceH264Encoder`, `QuadtreeFastEncoder`,
 `QtDeviceRandomAccessEncoder`, `DeviceLowDelayEncoder` and the flat
 `IntraEncoder` run on the card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
-a hand-written CUDA kernel wherever the reference had a Pallas kernel.  A
+a hand-written CUDA kernel wherever the reference had a Pallas kernel
+(and for its SAO-statistics XLA loop).  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
 
@@ -33,6 +34,9 @@ Module map (port -> JAX counterpart):
   ops/cost.py                ops/cost.py (sad, sse, hadamard_satd_8x8)
   ops/sad_surface.py         ops/pallas_sad.py (sad_surface, _sad_kernel)
     + csrc/sad_surface.cu      the Hopper kernel for it
+  ops/sao.py                 ops/sao.py (whole; sao_stats_dev as
+                             sao_stats / sao_stats_ref)
+    + csrc/sao_stats.cu        the Hopper kernel for it
   ops/me.py                  ops/me.py (integer_search, pyramid_search,
                              _refine)
   ops/h264_dev.py            ops/h264_jax.py
@@ -63,8 +67,8 @@ Module map (port -> JAX counterpart):
                              the flat CTB16 intra encoder encode_frame)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)
   models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, the
-                             flat IDR host tail, hash SEI, decoder NAL
-                             loop)
+                             flat IDR host tail, sao() syntax, hash SEI,
+                             decoder NAL loop)
   models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (syntax,
                              QuadtreeIntraDecoder, QuadtreeFastEncoder)
   models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole;

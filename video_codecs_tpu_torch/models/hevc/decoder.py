@@ -8,11 +8,14 @@ four AMP shapes, skip/merge/AMVP with the full spec candidate derivation
 (motion_hm.py), TMVP, bi-prediction, the full RQT on both prediction
 modes, all 35 luma + 5 chroma intra modes, sign data hiding, strong
 intra smoothing, motion-aware deblocking (ops/deblock.py, 4-sample BS
-segments) and decoded-picture-hash verification.
+segments), sample adaptive offset (SAO: the sao() syntax per CTB and
+the offsets applied after deblocking, each EO class's category map
+computed once per plane with `ops/sao.apply_ctus`, where the reference
+recomputes it for every CTB) and decoded-picture-hash verification.
 
 Cut, raising NotImplementedError from the parameter sets that enable
-them (no port encoder emits them): SAO, PCM, scaling lists, tiles and
-WPP entry points, weighted prediction, long-term reference pictures,
+them (no port encoder emits them): PCM, scaling lists, tiles and WPP
+entry points, weighted prediction, long-term reference pictures,
 transform skip and cu_qp_delta.  The branches those flags guard inside
 the CU decode stay as in the reference and are never entered.
 
@@ -42,6 +45,7 @@ from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import interp
 from video_codecs_tpu_torch.ops import intra as intra_ops
 from video_codecs_tpu_torch.ops import quant as quant_ops
+from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
 from video_codecs_tpu_torch.utils import rom
 
@@ -251,8 +255,6 @@ def parse_sps(rbsp: bytes) -> Sps:
         raise NotImplementedError("GeneralDecoder: scaling lists")
     s.amp = bool(r.flag())
     s.sao = bool(r.flag())
-    if s.sao:
-        raise NotImplementedError("GeneralDecoder: SAO")
     s.pcm = bool(r.flag())
     if s.pcm:
         raise NotImplementedError("GeneralDecoder: PCM")
@@ -681,7 +683,8 @@ class GeneralDecoder:
         st = _PicState(sps, pps, h)
         st.ref_pics = ref_pics
         st.mctx = mctx
-        self._cur_pic = dict(st=st, h0=h, slice_idx=0,
+        sao_params = [[sao_ops.SaoParam()] * 3 for _ in range(cw * ch)]
+        self._cur_pic = dict(st=st, sao=sao_params, h0=h, slice_idx=0,
                              ctb_slice=np.full(cw * ch, -1, np.int32))
         return self._decode_slice_segment(rbsp, h, resume=False)
 
@@ -694,6 +697,7 @@ class GeneralDecoder:
         sps, pps = self.sps, self.pps
         cp = self._cur_pic
         st = cp["st"]
+        sao_params = cp["sao"]
         w, hgt = sps.width, sps.height
         ctb = 1 << sps.log2_ctb
         cw = (w + ctb - 1) // ctb
@@ -750,6 +754,10 @@ class GeneralDecoder:
             cp["ctb_slice"][i] = region
             st.slice4[cy // 4:min(cy + ctb, hgt) // 4,
                       cx // 4:min(cx + ctb, w) // 4] = region
+            if h.sao_luma or h.sao_chroma:
+                self._decode_sao(dec, sao_params, i, cx // ctb,
+                                 cy // ctb, cw, h,
+                                 ctb_slice=cp["ctb_slice"])
             self._decode_cqt(dec, st, cx, cy, sps.log2_ctb, 0)
             return dec.decode_terminate()
 
@@ -773,6 +781,19 @@ class GeneralDecoder:
                 qp_map=st.qp4 if pps.cu_qp_delta else None, seg4=True,
                 beta_off=h.beta_offset_div2, tc_off=h.tc_offset_div2,
                 cb_qp_off=pps.cb_qp_offset, cr_qp_off=pps.cr_qp_offset)
+        if h.sao_luma or h.sao_chroma:
+            # the reference's apply_ctu loop, with each EO class's map
+            # computed once per plane instead of once per CTB
+            bd = self.sps.bit_depth
+            if h.sao_luma:
+                rec_y = sao_ops.apply_ctus(
+                    rec_y, [p3[0] for p3 in sao_params], ctb, cw, bd)
+            if h.sao_chroma:
+                half = ctb // 2
+                rec_u = sao_ops.apply_ctus(
+                    rec_u, [p3[1] for p3 in sao_params], half, cw, bd)
+                rec_v = sao_ops.apply_ctus(
+                    rec_v, [p3[2] for p3 in sao_params], half, cw, bd)
         frame = (rec_y, rec_u, rec_v)
         self.frames.append(frame)
         self._keys.append((self._epoch, h.poc))
@@ -783,6 +804,62 @@ class GeneralDecoder:
                 if p not in keep:   # long-term pics survive the window
                     del self.dpb[p]
         return frame
+
+    # video_codecs_tpu/models/hevc/decoder.py:1039
+    def _decode_sao(self, dec, params, i, bx, by, cw, h: SliceHeader,
+                    ctb_slice=None):
+        """sao() syntax (spec 7.3.8.3) with per-component slice enables;
+        merge flags are only present when the neighbor CTB is in the
+        same slice segment (spec 7.3.8.3 leftCtbInSliceSeg)."""
+        def same(j):
+            return ctb_slice is None or ctb_slice[j] == ctb_slice[i]
+
+        if bx > 0 and same(i - 1) and dec.decode_bin(ctx.off("sao_merge")):
+            params[i] = list(params[i - 1])
+            return
+        if by > 0 and same(i - cw) and \
+                dec.decode_bin(ctx.off("sao_merge")):
+            params[i] = list(params[i - cw])
+            return
+        out = [sao_ops.SaoParam()] * 3
+        for c in range(3):
+            if c == 0 and not h.sao_luma:
+                continue
+            if c > 0 and not h.sao_chroma:
+                continue
+            if c < 2:
+                if dec.decode_bin(ctx.off("sao_type")):
+                    type_idx = (sao_ops.SAO_EO if dec.decode_bypass()
+                                else sao_ops.SAO_BO)
+                else:
+                    type_idx = sao_ops.SAO_OFF
+            else:
+                type_idx = out[1].type_idx
+            if type_idx == sao_ops.SAO_OFF:
+                continue
+            # sao_offset_abs TR cMax = (1 << (min(bd,10) - 5)) - 1
+            # (spec 7.4.9.3): 7 at 8-bit, 31 at 10-bit
+            cmax = (1 << (min(self.sps.bit_depth, 10) - 5)) - 1
+            mags = []
+            for _ in range(4):
+                m = 0
+                while m < cmax and dec.decode_bypass():
+                    m += 1
+                mags.append(m)
+            if type_idx == sao_ops.SAO_BO:
+                offs = []
+                for k in range(4):
+                    if mags[k]:
+                        neg = dec.decode_bypass()
+                        offs.append(-mags[k] if neg else mags[k])
+                    else:
+                        offs.append(0)
+                pos = dec.decode_bypass_bins(5)
+                out[c] = sao_ops.SaoParam(sao_ops.SAO_BO, 0, pos, tuple(offs))
+            else:
+                ec = (dec.decode_bypass_bins(2) if c < 2 else out[1].eo_class)
+                out[c] = sao_ops.SaoParam(sao_ops.SAO_EO, ec, 0, tuple(mags))
+        params[i] = out
 
     # ---- coding quadtree ----
 

@@ -1078,7 +1078,13 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
     def __init__(self, cfg, search_range: int = 64,
                  me_method: str = "pyr", ld_ladder: bool = True, *,
                  device="cuda") -> None:
-        for opt in ("sao", "wpp", "weighted_pred", "cu_qp_delta",
+        if cfg.sao:
+            raise ValueError(
+                "DeviceLowDelayEncoder: sao is not ported: with SAO on, the "
+                "reference codes the IDR on its host CTB loop "
+                "(IntraEncoder.encode_frame, a device-to-host fallback, "
+                "inter_jax.py:1295-1300), which the port does not carry")
+        for opt in ("wpp", "weighted_pred", "cu_qp_delta",
                     "timing_sei", "long_term_idr"):
             if getattr(cfg, opt):
                 raise ValueError(f"DeviceLowDelayEncoder: {opt} is not "

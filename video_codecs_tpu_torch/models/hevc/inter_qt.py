@@ -13,11 +13,14 @@ original's line.
 on the card unless the caller passes device="cpu": the IDR through the
 port's `QuadtreeFastEncoder`, each B/P picture through
 `inter_dev.encode_b_frame_dev` + `qt_merge_dev` (`_device_phase`, which
-returns numpy), then the host serializer and the picture-hash SEI.  Cut,
-raising NotImplementedError at construction: `cfg.sao` (the device SAO
-statistics and the SAO syntax) and any `me_method` other than "pyr";
-the intra candidate of B pictures is off on this path, as in the
-reference (`allow_intra=False`, inter_qt.py:657).
+returns numpy), then, with `cfg.sao`, the SAO decision (`_sao_decide_qt`:
+per-CTB statistics on the device through the CUDA kernel of
+`ops/sao.sao_stats`, three launches a picture, and the reference's
+offset search on the host) and its apply to the recon, then the host
+serializer and the picture-hash SEI.  Cut, raising NotImplementedError at
+construction: any `me_method` other than "pyr"; the intra candidate of B
+pictures is off on this path, as in the reference (`allow_intra=False`,
+inter_qt.py:657).
 
 Float32: the tree decision compares `d + round(lam * r)` in float32 and
 the residual CU32 cost `(d + lam * (20 + bits)).astype(int32)`, the
@@ -35,12 +38,14 @@ from video_codecs_tpu_torch.entropy import cabac, ctx, residual
 from video_codecs_tpu_torch.models.hevc import encoder_dev
 from video_codecs_tpu_torch.models.hevc import inter_codec as pc
 from video_codecs_tpu_torch.models.hevc import inter_dev
+from video_codecs_tpu_torch.models.hevc import intra_codec as ic
 from video_codecs_tpu_torch.models.hevc import motion_hm
 from video_codecs_tpu_torch.models.hevc import quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ra_codec as ra
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops.quant import fma32
 from video_codecs_tpu_torch.utils import rom
 from video_codecs_tpu_torch.utils.device import const, to_device
@@ -416,6 +421,12 @@ def qt_merge_dev(y, u, v, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
     )
 
 
+# video_codecs_tpu/models/hevc/inter_qt.py:454 (_sao_stats_jit)
+def _sao_stats(orig, rec, ctb: int):
+    """Device SAO statistics of one (padded, CTB-multiple) plane."""
+    return sao_ops.sao_stats(orig, rec, ctb)
+
+
 # video_codecs_tpu/models/hevc/inter_qt.py:460
 def _pad_to(a, m):
     h, w = a.shape
@@ -439,9 +450,6 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
         assert cfg.log2_ctb == 5 and cfg.log2_min_cb == 3 and \
             cfg.log2_max_tb == 5, "qt inter build is CTB32 (quadtree SPS)"
         assert cfg.width % 16 == 0 and cfg.height % 16 == 0
-        if cfg.sao:
-            raise NotImplementedError(
-                "QtDeviceRandomAccessEncoder: SAO is not ported")
         if me_method != "pyr":
             raise NotImplementedError(
                 f"QtDeviceRandomAccessEncoder: me_method={me_method!r} is "
@@ -497,10 +505,21 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
                                     no_backward=no_backward)
         else:
             qt = self._device_phase(y, u, v, args, has_l1, lam)
+        sao_params = None
+        if cfg.sao:
+            sao_params = self._sao_decide_qt(
+                (np.asarray(y), np.asarray(u), np.asarray(v)), qt, lam)
         qt = {k: np.asarray(val) for k, val in qt.items()}
+        if sao_params is not None:
+            qt["rec_y"] = sao_ops.apply_frame(
+                qt["rec_y"], sao_params, 32, 0).astype(np.uint8)
+            qt["rec_u"] = sao_ops.apply_frame(
+                qt["rec_u"], sao_params, 16, 1).astype(np.uint8)
+            qt["rec_v"] = sao_ops.apply_frame(
+                qt["rec_v"], sao_params, 16, 2).astype(np.uint8)
 
         slice_nal = self._serialize_qt_slice(qt, poc, is_anchor,
-                                             ref_pocs)
+                                             ref_pocs, sao_params)
         if cfg.temporal_mvp:
             self._store_motion(qt, poc, ref_pocs)
         rec = tuple(qt[k].astype(np.int32)
@@ -621,11 +640,55 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
                 deblock=not cfg.deblocking_disabled, lam=lam)
             return {k: t.cpu().numpy() for k, t in qt.items()}
 
+    # video_codecs_tpu/models/hevc/inter_qt.py:666
+    def _sao_decide_qt(self, origs, qt, lam):
+        """Per-CTB32 SAO decision for the qt B path: classification +
+        stats batched on the encoder's device (`_sao_stats`: the CUDA
+        kernel on the card, one launch per plane), tiny per-CTU offset
+        search on host (TEncSampleAdaptiveOffset::decideBlkParams
+        analog; chroma shares type/EO-class per the sao() syntax)."""
+        cfg = self.cfg
+        if not lam:
+            lam = 0.85 * 2.0 ** ((cfg.qp - 12) / 3.0)
+        n_ctb = cfg.ctbs_x * cfg.ctbs_y
+        stats = []
+        with torch.inference_mode():
+            for comp, ctb in ((0, 32), (1, 16), (2, 16)):
+                o = _pad_to(np.asarray(origs[comp], np.uint8), ctb)
+                r = _pad_to(np.asarray(qt["rec_y" if comp == 0 else
+                                          ("rec_u" if comp == 1 else
+                                           "rec_v")], np.uint8), ctb)
+                stats.append([a.cpu().numpy() for a in _sao_stats(
+                    to_device(o, self.device), to_device(r, self.device),
+                    ctb)])
+        params = [[None] * 3 for _ in range(n_ctb)]
+        for by in range(cfg.ctbs_y):
+            for bx in range(cfg.ctbs_x):
+                i = by * cfg.ctbs_x + bx
+                ec, es, bc, bsum = stats[0]
+                params[i][0] = sao_ops.decide_from_stats(
+                    ec[:, :, by, bx], es[:, :, by, bx], bc[:, by, bx],
+                    bsum[:, by, bx], lam)
+                ec, es, bc, bsum = stats[1]
+                cb = sao_ops.decide_from_stats(
+                    ec[:, :, by, bx], es[:, :, by, bx], bc[:, by, bx],
+                    bsum[:, by, bx], lam)
+                ec, es, bc, bsum = stats[2]
+                if cb.type_idx == sao_ops.SAO_EO:
+                    cr = sao_ops.decide_eo_from_stats(
+                        ec[:, :, by, bx], es[:, :, by, bx],
+                        cb.eo_class, lam)
+                elif cb.type_idx == sao_ops.SAO_BO:
+                    cr = sao_ops.decide_bo_from_stats(
+                        bc[:, by, bx], bsum[:, by, bx], lam)
+                else:
+                    cr = sao_ops.SaoParam()
+                params[i][1], params[i][2] = cb, cr
+        return params
+
     # video_codecs_tpu/models/hevc/inter_qt.py:713
     def _serialize_qt_slice(self, qt, poc, is_anchor, ref_pocs,
                             sao_params=None) -> bytes:
-        if sao_params is not None:
-            raise NotImplementedError("SAO syntax is not ported")
         cfg = self.cfg
         rps = getattr(self, "_cur_rps", None)
         if rps is None:
@@ -648,6 +711,9 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
         i = 0
         for cy in range(0, cfg.height, 32):
             for cx in range(0, cfg.width, 32):
+                if sao_params is not None:
+                    ic.encode_sao_ctu(enc, sao_params, i, cx // 32,
+                                      cy // 32, cfg.ctbs_x, 0)
                 self._code_qt_node(enc, st, cx, cy, 5)
                 i += 1
                 enc.encode_terminate(1 if i == n_ctbs else 0)

@@ -4,8 +4,10 @@ stream headers, the picture-hash SEI and the intra decoder's NAL loop.
 The port's copy of the part of video_codecs_tpu/models/hevc/intra_codec.py
 that the all-intra quadtree path needs; each function keeps its name and
 a comment gives the original's line.  Cut: the flat CTB16 encoder and
-decoder bodies (mode decision, slice coding, SAO, WPP and tiles), which
-wait for a later slice; `IntraDecoder` keeps its NAL loop and hash check,
+decoder bodies (mode decision, slice coding, SAO decision and apply,
+WPP and tiles), which wait for a later slice; the CTU's sao() syntax
+(`encode_sao_ctu`, `decode_sao_ctu`) is carried for the RA quadtree
+path; `IntraDecoder` keeps its NAL loop and hash check,
 and the quadtree decoder supplies `_decode_slice`.  `code_tb_np` raises
 NotImplementedError for rdoq="full" (the host full RDOQ is not ported).
 """
@@ -22,6 +24,7 @@ from video_codecs_tpu_torch.entropy import bitstream as bs
 from video_codecs_tpu_torch.entropy import cabac, ctx, native, residual
 from video_codecs_tpu_torch.models.hevc import headers
 from video_codecs_tpu_torch.ops import quant as quant_ops
+from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
 from video_codecs_tpu_torch.utils import rom
 from video_codecs_tpu_torch.utils.device import to_device
@@ -128,6 +131,92 @@ class CtuData:
     levels_y: np.ndarray | None
     levels_cb: np.ndarray | None
     levels_cr: np.ndarray | None
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:143
+def encode_sao_ctu(enc, params, i, bx, by, bw, tx0):
+    """sao() syntax for one CTU (spec 7.3.8.3)."""
+    left_same = (bx > tx0 and
+                 all(params[i - 1][c].key() == params[i][c].key()
+                     for c in range(3)))
+    if bx > tx0:
+        enc.encode_bin(ctx.off("sao_merge"), 1 if left_same else 0)
+        if left_same:
+            return
+    up_same = (by > 0 and
+               all(params[i - bw][c].key() == params[i][c].key()
+                   for c in range(3)))
+    if by > 0:
+        enc.encode_bin(ctx.off("sao_merge"), 1 if up_same else 0)
+        if up_same:
+            return
+    for c in range(3):
+        p = params[i][c]
+        if c < 2:  # type coded for luma (c==0) and chroma (c==1)
+            enc.encode_bin(ctx.off("sao_type"),
+                           0 if p.type_idx == sao_ops.SAO_OFF else 1)
+            if p.type_idx != sao_ops.SAO_OFF:
+                enc.encode_bypass(
+                    1 if p.type_idx == sao_ops.SAO_EO else 0)
+        if p.type_idx == sao_ops.SAO_OFF:
+            continue
+        for k in range(4):
+            mag = abs(p.offsets[k])
+            for _ in range(mag):
+                enc.encode_bypass(1)
+            if mag < 7:
+                enc.encode_bypass(0)
+        if p.type_idx == sao_ops.SAO_BO:
+            for k in range(4):
+                if p.offsets[k]:
+                    enc.encode_bypass(1 if p.offsets[k] < 0 else 0)
+            enc.encode_bypass_bins(p.band_position, 5)
+        elif c < 2:
+            enc.encode_bypass_bins(p.eo_class, 2)
+
+
+# video_codecs_tpu/models/hevc/intra_codec.py:183
+def decode_sao_ctu(dec, params, i, bx, by, bw, tx0):
+    if bx > tx0 and dec.decode_bin(ctx.off("sao_merge")):
+        params[i] = [params[i - 1][c] for c in range(3)]
+        return
+    if by > 0 and dec.decode_bin(ctx.off("sao_merge")):
+        params[i] = [params[i - bw][c] for c in range(3)]
+        return
+    out = []
+    for c in range(3):
+        if c < 2:
+            if dec.decode_bin(ctx.off("sao_type")):
+                type_idx = (sao_ops.SAO_EO if dec.decode_bypass()
+                            else sao_ops.SAO_BO)
+            else:
+                type_idx = sao_ops.SAO_OFF
+        else:
+            type_idx = out[1].type_idx
+        if type_idx == sao_ops.SAO_OFF:
+            out.append(sao_ops.SaoParam())
+            continue
+        mags = []
+        for k in range(4):
+            m = 0
+            while m < 7 and dec.decode_bypass():
+                m += 1
+            mags.append(m)
+        if type_idx == sao_ops.SAO_BO:
+            offs = []
+            for k in range(4):
+                if mags[k]:
+                    neg = dec.decode_bypass()
+                    offs.append(-mags[k] if neg else mags[k])
+                else:
+                    offs.append(0)
+            pos = dec.decode_bypass_bins(5)
+            out.append(sao_ops.SaoParam(type_idx, 0, pos, tuple(offs)))
+        else:
+            ec = (dec.decode_bypass_bins(2) if c < 2
+                  else out[1].eo_class)
+            out.append(sao_ops.SaoParam(type_idx, ec, 0, tuple(mags)))
+    params[i] = out
 
 
 # video_codecs_tpu/models/hevc/intra_codec.py:230
