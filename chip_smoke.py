@@ -6,7 +6,8 @@
 Drives the port's main paths through its hand-written CUDA kernels, the
 SAD surface and the SAO statistics: the H.264 device P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
-then on) and the HEVC low-delay P row at 832x480, in phases:
+then on), the HEVC low-delay P row at 832x480, and both HEVC rows with
+HM's TZSearch and the LD-P row under rate control, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build both kernels at once, one nvcc each, from
@@ -81,12 +82,34 @@ then on) and the HEVC low-delay P row at 832x480, in phases:
      d. encode a 96x64 clip with a scene cut (intra blocks in its P
         pictures) at 4 references on the card and on the CPU and
         require byte-equal streams;
-  9. require that nothing of the JAX package was imported.
+  9. HM's motion search and rate control:
+     a. sad-kernel-r64: hold the SAD kernel against its plain version at
+        the search range 64 surfaces of TZSearch and the full search
+        (n=16 B=1,560: the LD-P picture; n=16 B=8,040 and n=8 B=32,160:
+        the 1080p picture and its CU8 tree) and time it beside its
+        bound, the plain version and `torch.cdist`;
+     b. hevc-ldp-tz: bench_ldp_480 with `me_method="tz"` (BASELINE's
+        config 2, HM's FastSearch 1 at SearchRange 64) as in 8b-c: one
+        SAD launch per reference (26), every hash OK, the SHA-1 the JAX
+        package's with the spec AMVP list (LDP_TZ_SHA1);
+     c. hevc-ra-tz: the GOP of 7b with `me_method="tz"`: one SAD launch
+        per list and reference (15), every hash OK, RA_TZ_SHA1;
+     d. hevc-ldp-rc: bench_ldp_480 (pyramid ME) with a RateLambdaControl
+        at 2 Mb/s setting each picture's QP: the QPs, bits and kbps
+        against the target, every hash OK, LDP_RC_SHA1; then pictures
+        0-4 encoded, the state written with `checkpoint.save`, read
+        back with `checkpoint.load`, and pictures 5-8 encoded from it:
+        the resumed NALs must be the JAX package's resumed run's
+        (RC_RESUMED_SHA1), and whether they equal pictures 5-8 of the
+        one run is printed;
+ 10. require that nothing of the JAX package was imported.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the main paths'
-encodes (the line before gives each path's), the SAD kernel's RA
-per-B-picture times and bound and the SAO kernel's per 1080p picture.
+encodes (a line before gives each path's), the SAD kernel's RA pyramid
+per-B-picture times and bound and the SAO kernel's per 1080p picture;
+the search range 64 surfaces' times print on a JSON line of their own
+before them.
 """
 
 from __future__ import annotations
@@ -98,19 +121,26 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.entropy import bitstream as hevc_bs
 from video_codecs_tpu_torch.models.h264 import inter_dev
 from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
+from video_codecs_tpu_torch.models.hevc import checkpoint
 from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
 from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
+from video_codecs_tpu_torch.models.hevc import ratectrl
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
 
+# Files this script writes (the resumed run's checkpoint), in the
+# repository's build directory.
+BUILD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
 SAO_SRC = "video_codecs_tpu_torch/csrc/sao_stats.cu"
@@ -135,6 +165,22 @@ RA_SAO_SHA1 = "48bee427dce04acf683246853f7ce746599d1127"
 # its picture hashes from POC 2 on in either package's decoder.
 LDP_W, LDP_H, LDP_PICTURES, LDP_SR = 832, 480, 9, 64
 LDP_BYTES, LDP_SHA1 = 172528, "321996139e1d64922af23de231bf6dd498493e12"
+# HM's motion search and rate control (scripts/jax_reference_sha1.py
+# --ldp-tz --ra-tz --ldp-rc, the JAX package on the CPU; the LD-P runs
+# with the spec AMVP list, all 9 hashes OK in the JAX package's decoder):
+# bench_ldp_480 with TZSearch (as the JAX package writes it: 173,411
+# bytes, SHA-1 2b554799..., hashes fail from POC 2 on), the RA GOP with
+# TZSearch, and bench_ldp_480's pyramid run under a RateLambdaControl at
+# RC_BPS: its QPs, bytes and SHA-1, and those of pictures 5-8 resumed
+# from a checkpoint of pictures 0-4 (the resumed pictures' NALs, Annex B).
+LDP_TZ_BYTES, LDP_TZ_SHA1 = 173413, "4fc4fc4db26c698e6782bbcbabc60182478e8e1b"
+RA_TZ_BYTES, RA_TZ_SHA1 = 314555, "6da8f0df6691e6e0e86b5802cd61840cb78ed3c6"
+RC_BPS = 2_000_000
+LDP_RC_BYTES, LDP_RC_SHA1 = 185151, "51771df4d0137e4389fb0405dfd93e1f8842ff74"
+LDP_RC_QPS = [30, 32, 34, 36, 38, 40, 42, 44, 46]
+RC_RESUME_AT = 5
+RC_RESUMED_BYTES = 15567
+RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
@@ -695,20 +741,32 @@ def _sao_counts(params) -> str:
     return "SAO CTBs OFF/BO/EO " + ", ".join(out)
 
 
-def phase_hevc_ra(sao: bool = False) -> tuple[int, int]:
-    """Phase 7b-c (and 7f with sao): the RA GOP-8 headline at 1920x1072 on
-    the card, decoded by the port's GeneralDecoder.  Returns the SAD- and
-    SAO-kernel launches of the encode."""
+def sad_launches_per_search(me_method: str) -> int:
+    """SAD-kernel launches of one integer search: the pyramid's pooled
+    stage and two +-3 windows, or TZ's / the full search's one surface."""
+    return 3 if me_method == "pyr" else 1
+
+
+def phase_hevc_ra(sao: bool = False,
+                  me_method: str = "pyr") -> tuple[int, int]:
+    """Phase 7b-c (7f with sao, 9b with me_method="tz"): the RA GOP-8
+    headline at 1920x1072 on the card, decoded by the port's
+    GeneralDecoder.  Returns the SAD- and SAO-kernel launches of the
+    encode."""
     w, h = HEVC_W, HEVC_H
-    tag = "hevc-ra-sao" if sao else "hevc-ra"
+    tag = ("hevc-ra-sao" if sao else "hevc-ra") + \
+        ("" if me_method == "pyr" else f"-{me_method}")
+    k = sad_launches_per_search(me_method)
+    search = "pyramid" if me_method == "pyr" else \
+        "TZSearch (HM FastSearch 1)"
     frames = synth_clip(w, h, RA_PICTURES, seed=5)
     print(f"[{tag}] {w}x{h} QP{HEVC_QP} GOP-8 random access, "
           f"{RA_PICTURES} pictures (POC 0..{RA_PICTURES - 1}: IDR, anchor "
-          f"P at 8, B at 4 2 1 3 6 5 7); SR{RA_SR} pyramid ME, CU8 tree off, "
-          "TMVP, full RDOQ in the B pictures, 1 reference per list; SAO "
-          + ("on" if sao else "off"))
+          f"P at 8, B at 4 2 1 3 6 5 7); SR{RA_SR} {search} ME, CU8 tree "
+          "off, TMVP, full RDOQ in the B pictures, 1 reference per list; "
+          "SAO " + ("on" if sao else "off"))
     enc = inter_qt.QtDeviceRandomAccessEncoder(
-        ra_cfg(w, h, sao=sao), search_range=RA_SR, me_method="pyr",
+        ra_cfg(w, h, sao=sao), search_range=RA_SR, me_method=me_method,
         cu8=False, num_refs_active=1, device="cuda")
     log, restore = _ra_instrument(enc)
     ss.sad_surface.launches = 0
@@ -743,10 +801,10 @@ def phase_hevc_ra(sao: bool = False) -> tuple[int, int]:
                    f"{4 * int(qt['split8'].sum())}")
             other = (e["total"] - e["device"] - e["host"] -
                      e.get("sao", 0.0))
-            want += 3 * (2 if e["kind"] == "B" else 1)
-            check(e["launches"] == (6 if e["kind"] == "B" else 3),
+            want += k * (2 if e["kind"] == "B" else 1)
+            check(e["launches"] == k * (2 if e["kind"] == "B" else 1),
                   f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
-                  f"(want 3 per list and reference)")
+                  f"(want {k} per list and reference)")
             check(e["sao_launches"] == (3 if sao else 0),
                   f"POC {e['poc']}: {e['sao_launches']} SAO-kernel "
                   f"launches (want {3 if sao else 0})")
@@ -774,7 +832,8 @@ def phase_hevc_ra(sao: bool = False) -> tuple[int, int]:
           f"({len(frames) / t_enc:.3f} fps); SAD-kernel launches {launches}"
           f", SAO-kernel launches {sao_launches}; SHA-1 {sha}")
     ref_bytes, ref_sha = ((RA_SAO_BYTES, RA_SAO_SHA1) if sao
-                          else (RA_BYTES, RA_SHA1))
+                          else (RA_TZ_BYTES, RA_TZ_SHA1)
+                          if me_method == "tz" else (RA_BYTES, RA_SHA1))
     check((len(stream), sha) == (ref_bytes, ref_sha),
           f"RA stream {len(stream)} bytes SHA-1 {sha}, the JAX package's "
           f"is {ref_bytes} bytes {ref_sha}")
@@ -949,27 +1008,50 @@ def _ldp_instrument(enc):
     return log
 
 
-def phase_hevc_ldp() -> int:
-    """Phase 8b-c: bench_ldp_480 on the card, decoded by the port's
-    GeneralDecoder and held to the JAX package's stream.  Returns the
-    SAD-kernel launches of the encode."""
+def _ldp_expected(me_method: str, rc: bool) -> tuple[int, str, str]:
+    """(bytes, SHA-1, what) of the JAX package's stream for an LD-P run."""
+    if rc:
+        return (LDP_RC_BYTES, LDP_RC_SHA1,
+                "the spec AMVP list and the same controller")
+    if me_method == "tz":
+        return LDP_TZ_BYTES, LDP_TZ_SHA1, "the spec AMVP list"
+    return LDP_BYTES, LDP_SHA1, "the spec AMVP list"
+
+
+def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
+    """Phase 8b-c (9a with me_method="tz", 9c with rc): bench_ldp_480 on
+    the card, decoded by the port's GeneralDecoder and held to the JAX
+    package's stream.  With rc a `RateLambdaControl` at RC_BPS sets each
+    picture's QP instead of HM's LD-P ladder.  Returns the SAD-kernel
+    launches of the encode and the per-picture log."""
     w, h = LDP_W, LDP_H
+    tag = "hevc-ldp" + ("" if me_method == "pyr" else f"-{me_method}") + \
+        ("-rc" if rc else "")
+    k = sad_launches_per_search(me_method)
     frames = bench_synth_clip(w, h, LDP_PICTURES)
-    print(f"[hevc-ldp] {w}x{h} low-delay P, {LDP_PICTURES} pictures of "
-          "bench.py's clip (seed 42): IDR + 8 P, QP 32 with HM's LD-P "
-          f"ladder, 4 references, merge 5, TMVP, SBH, SR{LDP_SR} pyramid ME, "
-          "full RDOQ in the P pictures")
+    search = "pyramid" if me_method == "pyr" else \
+        "TZSearch (HM FastSearch 1)"
+    qps = (f"RateLambdaControl at {RC_BPS / 1e6:g} Mb/s (base QP 32)" if rc
+           else "QP 32 with HM's LD-P ladder")
+    print(f"[{tag}] {w}x{h} low-delay P, {LDP_PICTURES} pictures of "
+          f"bench.py's clip (seed 42): IDR + 8 P, {qps}, 4 references, "
+          f"merge 5, TMVP, SBH, SR{LDP_SR} {search} ME, full RDOQ in the P "
+          "pictures")
     enc = hevc_inter_dev.DeviceLowDelayEncoder(
-        ldp_cfg(w, h), search_range=LDP_SR, device="cuda")
+        ldp_cfg(w, h), search_range=LDP_SR, me_method=me_method,
+        device="cuda")
+    controller = ratectrl.RateLambdaControl(RC_BPS, 30.0, w, h,
+                                            base_qp=32) if rc else None
     log = _ldp_instrument(enc)
     ss.sad_surface.launches = 0
     t0 = time.perf_counter()
-    stream, recons = enc.encode_sequence_ldp(frames)
+    stream, recons = enc.encode_sequence_ldp(frames, controller)
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
+        e["bytes"] = nbytes
         p = psnr(frames[e["poc"]][0], e["rec"][0])
         check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
         if e["kind"] == "I":
@@ -980,24 +1062,35 @@ def phase_hevc_ldp() -> int:
                 for b in row:
                     cnt["intra" if b.pred_mode == 1 else "skip" if b.skip
                         else "merge" if b.merge else "amvp"] += 1
-            blocks = " / ".join(f"{k} {v}" for k, v in cnt.items())
-            want += 3 * e["refs"]
-            check(e["launches"] == 3 * e["refs"],
+            blocks = " / ".join(f"{k_} {v}" for k_, v in cnt.items())
+            want += k * e["refs"]
+            check(e["launches"] == k * e["refs"],
                   f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
-                  f"(want 3 per reference, {e['refs']} references)")
+                  f"(want {k} per reference, {e['refs']} references)")
         other = e["total"] - e["device"] - e["host"]
-        print(f"[hevc-ldp] POC {e['poc']} ({e['kind']}, QP {e['qp']}, "
+        print(f"[{tag}] POC {e['poc']} ({e['kind']}, QP {e['qp']}, "
               f"{e['refs']} refs): device phase {e['device'] * 1e3:.1f} ms,"
               f" host phase {e['host'] * 1e3:.1f} ms, other "
-              f"{other * 1e3:.1f} ms; {nbytes} bytes, Y-PSNR {p:.2f} dB; "
-              f"blocks {blocks}; SAD-kernel launches {e['launches']}")
-    check(launches == want == 78, f"{launches} SAD-kernel launches in the "
-                                  f"run, want {want} = 78")
+              f"{other * 1e3:.1f} ms; {nbytes} bytes ({nbytes * 8} bits), "
+              f"Y-PSNR {p:.2f} dB; blocks {blocks}; SAD-kernel launches "
+              f"{e['launches']}")
+    check(launches == want == k * 26,
+          f"{launches} SAD-kernel launches in the run, want {want} = "
+          f"{k * 26}")
     kbps = len(stream) * 8 * 30 / len(frames) / 1000
     sha = hashlib.sha1(stream).hexdigest()
-    print(f"[hevc-ldp] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
+    print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
           f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
           f"SAD-kernel launches {launches}; SHA-1 {sha}")
+    if rc:
+        check(enc.frame_qps == LDP_RC_QPS,
+              f"rate-controlled QPs {enc.frame_qps}, the JAX package's "
+              f"are {LDP_RC_QPS}")
+        print(f"[{tag}] QPs {enc.frame_qps} (the JAX package's); "
+              f"{kbps:.1f} kbps achieved against the {RC_BPS / 1e3:.0f} "
+              f"kbps target ({kbps / (RC_BPS / 1e3):.2f}x); the IDR "
+              f"{log[0]['bytes'] * 8} bits against "
+              f"{RC_BPS / 30:.0f} bits a picture")
 
     t0 = time.perf_counter()
     dec = hevc_decoder.GeneralDecoder()
@@ -1010,14 +1103,80 @@ def phase_hevc_ldp() -> int:
         for c in range(3):
             check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
                   f"decoded picture {i} plane {c} != encoder recon")
-    print(f"[hevc-ldp] the port's GeneralDecoder: hash SEI OK on all "
+    print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
           f"{len(frames)} pictures, pictures equal the encoder's, "
           f"{t_dec:.2f} s")
-    check((len(stream), sha) == (LDP_BYTES, LDP_SHA1),
+    ref_bytes, ref_sha, what = _ldp_expected(me_method, rc)
+    check((len(stream), sha) == (ref_bytes, ref_sha),
           f"LD-P stream {len(stream)} bytes SHA-1 {sha}, the JAX "
-          f"package's (spec AMVP list) is {LDP_BYTES} bytes {LDP_SHA1}")
-    print("[hevc-ldp] the stream is the JAX package's with the spec AMVP "
-          "list, byte for byte (SHA-1)")
+          f"package's ({what}) is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's with {what}, byte for "
+          "byte (SHA-1)")
+    return launches, log
+
+
+def phase_ldp_rc_resume(one_run: list) -> int:
+    """Phase 9d: the rate-controlled run stopped after picture
+    RC_RESUME_AT - 1, its state written with `checkpoint.save` and read
+    back with `checkpoint.load`, and pictures RC_RESUME_AT.. encoded from
+    it by a new encoder and a new controller.  The resumed NALs must be
+    the JAX package's resumed run's; whether they also equal those
+    pictures of the one run is printed (the state keeps only the newest
+    picture, so the resumed run starts with one reference and the
+    reference promises no such equality).  Returns the SAD-kernel
+    launches of both encodes."""
+    w, h = LDP_W, LDP_H
+    frames = bench_synth_clip(w, h, LDP_PICTURES)
+    path = BUILD_DIR / "ldp_rc_state.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+
+    def encoder():
+        return (hevc_inter_dev.DeviceLowDelayEncoder(
+                    ldp_cfg(w, h), search_range=LDP_SR, device="cuda"),
+                ratectrl.RateLambdaControl(RC_BPS, 30.0, w, h, base_qp=32))
+
+    enc, rc = encoder()
+    ss.sad_surface.launches = 0
+    t0 = time.perf_counter()
+    _, _, state = enc.encode_frames(frames[:RC_RESUME_AT], None, rc)
+    checkpoint.save(state, str(path))
+    t1 = time.perf_counter()
+    enc, rc = encoder()
+    loaded = checkpoint.load(str(path))
+    check(loaded.poc == RC_RESUME_AT and loaded.rc == state.rc and all(
+        np.array_equal(a, b) for a, b in zip(loaded.ref, state.ref)),
+        "checkpoint.load did not give back the saved state")
+    nals, recons, _ = enc.encode_frames(frames[RC_RESUME_AT:], loaded, rc)
+    t2 = time.perf_counter()
+    launches = ss.sad_surface.launches
+    n_first = sum(min(p, 4) for p in range(RC_RESUME_AT))
+    n_second = sum(min(p + 1, 4) for p in range(LDP_PICTURES - RC_RESUME_AT))
+    want = 3 * (n_first + n_second)
+    check(launches == want, f"{launches} SAD-kernel launches in the two "
+                            f"resumed encodes, want {want}")
+    resumed = hevc_bs.annexb(nals)
+    sha = hashlib.sha1(resumed).hexdigest()
+    same = [e["nals"] for e in one_run[RC_RESUME_AT:]] == [
+        nals[2 * i:2 * i + 2] for i in range(LDP_PICTURES - RC_RESUME_AT)]
+    print(f"[hevc-ldp-rc] resume: pictures 0-{RC_RESUME_AT - 1} encoded "
+          f"({t1 - t0:.2f} s), the state (POC {loaded.poc}, the newest "
+          f"picture's planes, {len(loaded.rc) - 1} controller values) "
+          f"written with checkpoint.save ({path.stat().st_size} bytes) and "
+          f"read back; pictures {RC_RESUME_AT}-{LDP_PICTURES - 1} encoded "
+          f"from it by a new encoder and controller ({t2 - t1:.2f} s): QPs "
+          f"{enc.frame_qps}, {len(resumed)} bytes, SHA-1 {sha}; "
+          f"SAD-kernel launches {launches}")
+    check(enc.frame_qps == LDP_RC_QPS[RC_RESUME_AT:],
+          f"resumed QPs {enc.frame_qps}, want {LDP_RC_QPS[RC_RESUME_AT:]}")
+    for i, r in enumerate(recons):
+        p = psnr(frames[RC_RESUME_AT + i][0], r[0])
+        check(np.isfinite(p) and p > 20, f"implausible Y-PSNR {p}")
+    check((len(resumed), sha) == (RC_RESUMED_BYTES, RC_RESUMED_SHA1),
+          f"resumed NALs {len(resumed)} bytes SHA-1 {sha}, the JAX "
+          f"package's are {RC_RESUMED_BYTES} bytes {RC_RESUMED_SHA1}")
+    print(f"[hevc-ldp-rc] the resumed NALs are the JAX package's resumed "
+          f"run's, byte for byte (SHA-1); equal to pictures "
+          f"{RC_RESUME_AT}-{LDP_PICTURES - 1} of the one run: {same}")
     return launches
 
 
@@ -1058,6 +1217,55 @@ def phase_ldp_cuda_vs_cpu() -> None:
           f"hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
 
 
+def phase_sad_r64() -> list:
+    """Phase 9 (first): the kernel against its plain version at the
+    search range 64 surfaces that TZ and the full search take, exactly,
+    timed beside its bound, the plain version and `torch.cdist`: the
+    LD-P picture's blocks (n=16, B=1,560, one launch per reference), the
+    1080p picture's (n=16, B=8,040, one per list and reference) and the
+    1080p CU8 tree's (n=8, B=32,160).  Returns one row per shape."""
+    rng = np.random.default_rng(2028)
+    rows = []
+    for what, n, b in (("LD-P 832x480", 16, LDP_W * LDP_H // 256),
+                       ("RA 1920x1072", 16, HEVC_W * HEVC_H // 256),
+                       ("RA 1920x1072 CU8", 8, HEVC_W * HEVC_H // 64)):
+        r = 64
+        cur = torch.from_numpy(rng.integers(0, 256, (b, n, n),
+                                            dtype=np.uint8)).cuda()
+        win = torch.from_numpy(rng.integers(
+            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.uint8)).cuda()
+        got = ss.sad_surface(cur, win, n, r)
+        torch.cuda.synchronize()
+        want = ss.sad_surface_ref(cur, win, n, r)
+        err = int((got - want).abs().max())
+        check(err == 0, f"kernel != plain at n={n} B={b} r={r} "
+                        f"(max abs err {err})")
+        del got
+        lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
+        del want
+        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=11)
+        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
+                        warm=1)
+        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        bound, nbytes, ops = sad_bound(n, b, r)
+        by = "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES \
+            else "bytes"
+        gdiff = ops / 2e9
+        print(f"[sad-kernel-r64] {what}: n={n} B={b} r={r}: equal (max abs "
+              f"err 0); kernel {ms:.4f} ms ({gdiff:.2f} G abs-diffs, "
+              f"{gdiff / ms * 1e3:.0f} G/s), bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G ops, {by}), "
+              f"{bound / ms:.1%} of it ({ms / bound:.2f}x); plain "
+              f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
+              f"{lib_err:g})")
+        rows.append(dict(what=what, n=n, b=b, r=r, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
+        del cur, win
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
@@ -1082,19 +1290,29 @@ def main() -> None:
     sk = phase_sao_kernel()
     ra_sao_sad, sao_launches = phase_hevc_ra(sao=True)
     phase_ldp_kernel()
-    ldp_launches = phase_hevc_ldp()
+    ldp_launches, _ = phase_hevc_ldp()
     phase_ldp_cuda_vs_cpu()
+    r64 = phase_sad_r64()
+    ldp_tz, _ = phase_hevc_ldp(me_method="tz")
+    ra_tz, _ = phase_hevc_ra(me_method="tz")
+    ldp_rc, rc_log = phase_hevc_ldp(rc=True)
+    rc_resumed = phase_ldp_rc_resume(rc_log)
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported")
 
-    launches = ra_launches + ra_sao_sad + ldp_launches
+    launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_tz + ra_tz +
+                ldp_rc + rc_resumed)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
-          f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, together "
-          f"{launches}; its times and bound below are the RA path's per B "
-          f"picture. sao_stats launches: RA GOP with SAO {sao_launches}; "
-          "its times and bound are per 1080p picture (3 planes)")
+          f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P TZ run "
+          f"{ldp_tz}, RA TZ GOP {ra_tz}, LD-P rate-controlled run {ldp_rc} "
+          f"and its resumed run {rc_resumed}, together {launches}; its "
+          "times and bound below are the RA pyramid path's per B picture "
+          "(the search range 64 surfaces' on the next line). sao_stats "
+          f"launches: RA GOP with SAO {sao_launches}; its times and bound "
+          "are per 1080p picture (3 planes)")
+    print(json.dumps({"sad_surface_r64": r64}))
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "
           "the kernels' build included")
 

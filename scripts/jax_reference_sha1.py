@@ -1,7 +1,8 @@
 """Bytes and SHA-1 of the JAX package's streams that chip_smoke.py holds
 the port's to, computed with the JAX package on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] [--no-ldp]
+    JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
+        [--ldp-tz] [--ra-tz] [--ldp-rc] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -13,7 +14,17 @@ its picture-hash results printed.  --ra adds the HEVC RA GOP-8 of
 chip_smoke.py's phase 7 (1920x1072, its clip and settings), which takes
 about five minutes; --ra-sao the same GOP with SAO on (`cfg.sao=True`,
 HM's RA main tool set), chip_smoke.py's `[hevc-ra-sao]` phase; --no-ldp
-skips the LD-P streams.  This is a tool for the reference side: it imports
+skips the LD-P streams.  HM's motion search and rate control
+(chip_smoke.py's `[hevc-ldp-tz]`, `[hevc-ra-tz]` and `[hevc-ldp-rc]`):
+--ldp-tz is the LD-P pair with `me_method="tz"` (HM's FastSearch 1 at
+SearchRange 64), --ra-tz the RA GOP with `me_method="tz"`, and --ldp-rc
+the LD-P pair with the pyramid search and a `RateLambdaControl` at
+2 Mb/s (each picture's QP printed), then, with the spec AMVP list, the
+same controller's run resumed from a checkpoint: pictures 0-4 encoded,
+the state written with `checkpoint.save` and read back with
+`checkpoint.load`, pictures 5-8 encoded from it by a new encoder and a
+new controller; the SHA-1 of the resumed pictures' NALs (Annex B) is
+printed.  This is a tool for the reference side: it imports
 the JAX package, and the port's `motion` module only for the repaired
 function.
 """
@@ -22,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import io
 import os
 import sys
 import time
@@ -32,10 +44,14 @@ sys.path.insert(0, REPO)
 
 import bench  # noqa: E402
 import chip_smoke  # noqa: E402
+from video_codecs_tpu.entropy import bitstream  # noqa: E402
+from video_codecs_tpu.models.hevc import checkpoint  # noqa: E402
 from video_codecs_tpu.models.hevc import decoder, headers  # noqa: E402
 from video_codecs_tpu.models.hevc import inter_jax, inter_qt  # noqa: E402
-from video_codecs_tpu.models.hevc import motion  # noqa: E402
+from video_codecs_tpu.models.hevc import motion, ratectrl  # noqa: E402
 from video_codecs_tpu_torch.models.hevc import motion as tmotion  # noqa: E402
+
+AMVP_AS_WRITTEN = motion.amvp_candidates
 
 
 def report(what: str, stream: bytes, n: int, t: float) -> None:
@@ -47,21 +63,57 @@ def report(what: str, stream: bytes, n: int, t: float) -> None:
           f"{dec.hash_status}", flush=True)
 
 
-def ldp() -> None:
+def ldp_cfg():
+    return headers.HevcConfig(width=832, height=480, qp=32, num_refs=4,
+                              merge_cands=5, temporal_mvp=True,
+                              sign_data_hiding=True)
+
+
+def rate_control():
+    """chip_smoke.py's `[hevc-ldp-rc]` controller: 2 Mb/s at 30 fps."""
+    return ratectrl.RateLambdaControl(chip_smoke.RC_BPS, 30.0, 832, 480,
+                                      base_qp=32)
+
+
+def ldp(me_method: str = "pyr", rc: bool = False) -> None:
     frames = bench.synth_clip(832, 480, 9)
-    for what, amvp in (("ldp as written", motion.amvp_candidates),
-                       ("ldp spec AMVP", tmotion.amvp_candidates)):
+    tag = "ldp" + ("" if me_method == "pyr" else f" {me_method}") + \
+        (" rc" if rc else "")
+    for what, amvp in ((f"{tag} as written", AMVP_AS_WRITTEN),
+                       (f"{tag} spec AMVP", tmotion.amvp_candidates)):
         motion.amvp_candidates = amvp
-        cfg = headers.HevcConfig(width=832, height=480, qp=32, num_refs=4,
-                                 merge_cands=5, temporal_mvp=True,
-                                 sign_data_hiding=True)
-        enc = inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)
+        enc = inter_jax.DeviceLowDelayEncoder(ldp_cfg(), search_range=64,
+                                              me_method=me_method)
         t0 = time.time()
-        stream, _ = enc.encode_sequence_ldp(frames)
+        stream, _ = enc.encode_sequence_ldp(
+            frames, rate_control() if rc else None)
         report(what, stream, len(frames), time.time() - t0)
+        print(f"{what}: QPs {enc.frame_qps}", flush=True)
+    motion.amvp_candidates = AMVP_AS_WRITTEN
 
 
-def ra(sao: bool = False) -> None:
+def ldp_rc_resumed() -> None:
+    """Pictures 0-4, a checkpoint through save/load, pictures 5-8 from
+    it (spec AMVP list)."""
+    frames = bench.synth_clip(832, 480, 9)
+    motion.amvp_candidates = tmotion.amvp_candidates
+    t0 = time.time()
+    enc = inter_jax.DeviceLowDelayEncoder(ldp_cfg(), search_range=64)
+    _, _, state = enc.encode_frames(frames[:5], None, rate_control())
+    buf = io.BytesIO()
+    checkpoint.save(state, buf)
+    buf.seek(0)
+    enc = inter_jax.DeviceLowDelayEncoder(ldp_cfg(), search_range=64)
+    nals, _, _ = enc.encode_frames(frames[5:], checkpoint.load(buf),
+                                   rate_control())
+    resumed = bitstream.annexb(nals)
+    print(f"ldp rc resumed at POC 5 spec AMVP: {len(resumed)} bytes, "
+          f"SHA-1 {hashlib.sha1(resumed).hexdigest()}, QPs "
+          f"{enc.frame_qps}, {time.time() - t0:.1f} s", flush=True)
+    motion.amvp_candidates = AMVP_AS_WRITTEN
+
+
+def ra(sao: bool = False, me_method: str = "pyr") -> None:
     w, h = chip_smoke.HEVC_W, chip_smoke.HEVC_H
     frames = chip_smoke.synth_clip(w, h, chip_smoke.RA_PICTURES, seed=5)
     cfg = headers.HevcConfig(
@@ -70,12 +122,13 @@ def ra(sao: bool = False) -> None:
         rdoq="lite", merge_cands=5, hash_sei=True, temporal_mvp=True,
         sao=sao)
     enc = inter_qt.QtDeviceRandomAccessEncoder(
-        cfg, search_range=chip_smoke.RA_SR, me_method="pyr", cu8=False,
+        cfg, search_range=chip_smoke.RA_SR, me_method=me_method, cu8=False,
         num_refs_active=1)
     t0 = time.time()
     stream, _ = enc.encode_sequence_ra(frames)
-    report("ra 1080p sao" if sao else "ra 1080p", stream, len(frames),
-           time.time() - t0)
+    report("ra 1080p" + (" sao" if sao else "") +
+           ("" if me_method == "pyr" else f" {me_method}"), stream,
+           len(frames), time.time() - t0)
 
 
 def main() -> None:
@@ -84,6 +137,13 @@ def main() -> None:
                     help="also the 1080p RA GOP of chip_smoke phase 7")
     ap.add_argument("--ra-sao", action="store_true",
                     help="also that GOP with SAO on (phase hevc-ra-sao)")
+    ap.add_argument("--ldp-tz", action="store_true",
+                    help="the LD-P streams with TZSearch (hevc-ldp-tz)")
+    ap.add_argument("--ra-tz", action="store_true",
+                    help="the RA GOP with TZSearch (hevc-ra-tz)")
+    ap.add_argument("--ldp-rc", action="store_true",
+                    help="the rate-controlled LD-P streams and the resumed "
+                         "run (hevc-ldp-rc)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -95,6 +155,13 @@ def main() -> None:
         ra()
     if args.ra_sao:
         ra(sao=True)
+    if args.ldp_tz:
+        ldp(me_method="tz")
+    if args.ra_tz:
+        ra(me_method="tz")
+    if args.ldp_rc:
+        ldp(rc=True)
+        ldp_rc_resumed()
 
 
 if __name__ == "__main__":

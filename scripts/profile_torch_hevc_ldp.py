@@ -19,12 +19,16 @@ reconstruction wavefront and the deblock:
     unprofiled wall (1 - busy / wall);
 then the kernels with the most device time in the P picture.
 
+--me-method tz (or full, auto) encodes and profiles the same pictures
+with HM's TZSearch (or full search) in place of the pyramid.
+
 Usage (needs a CUDA card):
-    python scripts/profile_torch_hevc_ldp.py
+    python scripts/profile_torch_hevc_ldp.py [--me-method pyr]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -47,6 +51,10 @@ from video_codecs_tpu_torch.utils.device import to_device  # noqa: E402
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--me-method", default="pyr",
+                    choices=inter_dev.ME_METHODS)
+    me = ap.parse_args().me_method
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -55,7 +63,8 @@ def main() -> None:
     w, h, sr = chip_smoke.LDP_W, chip_smoke.LDP_H, chip_smoke.LDP_SR
     frames = chip_smoke.bench_synth_clip(w, h, 5)
     enc = inter_dev.DeviceLowDelayEncoder(chip_smoke.ldp_cfg(w, h),
-                                          search_range=sr, device="cuda")
+                                          search_range=sr, me_method=me,
+                                          device="cuda")
     calls = {}
     phase = enc._device_phase
 
@@ -84,7 +93,7 @@ def main() -> None:
              up(col_refpoc), torch.tensor(ref_pocs, dtype=torch.int32),
              poc, col_poc]
     kw = dict(qp=qp, w=w, h=h, n_refs=len(refs), search_range=sr, sbh=True,
-              rdoq=True, tmvp=True, deblock=True, lam=lam)
+              rdoq=True, tmvp=True, me_method=me, deblock=True, lam=lam)
     out = {}
 
     def p_phase():
@@ -97,6 +106,7 @@ def main() -> None:
         intra = out["pred_mode"] == 1
         print(f"{torch.cuda.get_device_name(0)}; {w}x{h} P picture POC {poc}"
               f" (QP {qp}, lambda {lam:.3f}, {len(refs)} references, "
+              f"me_method {me!r}, "
               f"{int(intra.sum())} intra blocks), device phase with the copy "
               "back (planes already on the card)")
         report("whole P device phase", wall, launches, busy)
@@ -110,6 +120,9 @@ def main() -> None:
 
         def me_all():
             for r in range(refs_y.shape[0]):
+                if me != "pyr":
+                    me_ops.motion_search(refs_y[r], cur, x0, y0, 16, sr, me)
+                    continue
                 imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
                                                  sr)
                 mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0,

@@ -18,8 +18,12 @@ chroma), and the CU32 tree pass:
     unprofiled wall (1 - busy / wall);
 then the kernels with the most device time in the whole picture.
 
+--me-method tz (or full, auto) runs the same picture with HM's
+TZSearch (or full search) in place of the pyramid.
+
 Usage (needs a CUDA card):
     python scripts/profile_torch_hevc_ra.py [--width 1920 --height 1072]
+        [--me-method pyr]
 """
 
 from __future__ import annotations
@@ -72,7 +76,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=chip_smoke.HEVC_W)
     ap.add_argument("--height", type=int, default=chip_smoke.HEVC_H)
+    ap.add_argument("--me-method", default="pyr",
+                    choices=inter_dev.ME_METHODS)
     args = ap.parse_args()
+    me = args.me_method
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     w, h = args.width, args.height
@@ -81,7 +88,7 @@ def main() -> None:
     qp, poc = cfg.qp, 4
     frames = chip_smoke.synth_clip(w, h, 9, seed=5)
     enc = inter_qt.QtDeviceRandomAccessEncoder(
-        cfg, search_range=sr, me_method="pyr", cu8=False, device="cuda")
+        cfg, search_range=sr, me_method=me, cu8=False, device="cuda")
     lam = inter_dev._gop_lambda(enc, poc)
     dev = torch.device("cuda")
 
@@ -92,7 +99,7 @@ def main() -> None:
     args6 = [up(np.stack([frames[r][c]])) for r in (0, 8) for c in range(3)]
     tf = enc._tmvp_fields(8, poc, [[0], [8]])
     kw = dict(qp=qp, w=w, h=h, has_l1=True, search_range=sr, sbh=True,
-              rdoq=True, me_method="pyr", deblock=False, allow_intra=False,
+              rdoq=True, me_method=me, deblock=False, allow_intra=False,
               merge_eval="best4", lam=lam, rqt=True, cu8=False,
               tmvp_fields=tf, no_backward=False)
     qkw = dict(qp=qp, w=w, h=h, has_l1=True, sbh=True, rdoq=True,
@@ -110,7 +117,8 @@ def main() -> None:
         n0 = ss.sad_surface.launches
         wall, launches, busy, prof = measure(whole)
         print(f"{torch.cuda.get_device_name(0)}; {w}x{h} QP{qp} B picture "
-              f"(POC {poc}, lambda {lam:.3f}), device phase with the copy "
+              f"(POC {poc}, lambda {lam:.3f}, me_method {me!r}), device "
+              "phase with the copy "
               f"back (planes already on the card); SAD-kernel launches per "
               f"picture: {(ss.sad_surface.launches - n0) // 2}")
         report("whole device phase", wall, launches, busy)
@@ -129,7 +137,7 @@ def main() -> None:
             ref = args6[3 * lx][0].int()
             report(f"b_me_one list {lx} (n=16)", *measure(
                 lambda ref=ref: inter_dev.b_me_one(ref, blk, x0, y0, sr,
-                                                   "pyr"))[:3])
+                                                   me))[:3])
         report("decide_modes_device", *measure(
             lambda: encoder_dev.decide_modes_device(yi, qp, bw, bh))[:3])
         rng = np.random.default_rng(1)

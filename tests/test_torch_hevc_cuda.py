@@ -1,4 +1,5 @@
-"""The HEVC all-intra quadtree and the RA B-picture device phase on the
+"""The HEVC all-intra quadtree, the RA B-picture and LD-P P-picture
+device phases (with the pyramid search and with HM's TZSearch) on the
 card against the same port on the CPU.
 
 Needs an NVIDIA GPU (the `cuda` marker; the cases skip where none is
@@ -55,12 +56,7 @@ def _ra_clip(w, h, n, seed):
             for f in range(n)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cu8,refs,tmvp", [(False, 1, True), (True, 2, False)])
-def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
-    """The RA B-picture device phase (encode_b_frame_dev + qt_merge_dev,
-    SAD surfaces from the kernel on the card) against the CPU's at
-    96x64: every key of every picture's dict, and the stream."""
+def _ra_card_vs_cpu(cu8, refs, tmvp, me_method="pyr"):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from video_codecs_tpu_torch.models.hevc import inter_qt
@@ -75,8 +71,8 @@ def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
                                  rdoq="lite", merge_cands=5,
                                  temporal_mvp=tmvp)
         enc = inter_qt.QtDeviceRandomAccessEncoder(
-            cfg, search_range=64, cu8=cu8, num_refs_active=refs,
-            device=dev)
+            cfg, search_range=64, me_method=me_method, cu8=cu8,
+            num_refs_active=refs, device=dev)
         dicts = []
         phase = enc._device_phase
 
@@ -97,14 +93,29 @@ def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
             np.testing.assert_array_equal(g[k], c[k],
                                           err_msg=f"picture {i}: {k}")
     assert gs == cs
+    return gl
 
 
 @pytest.mark.cuda
-def test_ldp_card_equals_cpu():
-    """The LD-P encoder (flat device IDR, encode_p_frame_dev with SAD
-    surfaces from the kernel, the intra wavefront) at bench_ldp_480's
-    settings on 96x64: every P picture's dict and the stream equal the
-    CPU's, and intra blocks went through the wavefront."""
+@pytest.mark.parametrize("cu8,refs,tmvp", [(False, 1, True), (True, 2, False)])
+def test_ra_device_phase_card_equals_cpu(cu8, refs, tmvp):
+    """The RA B-picture device phase (encode_b_frame_dev + qt_merge_dev,
+    SAD surfaces from the kernel on the card) against the CPU's at
+    96x64: every key of every picture's dict, and the stream."""
+    _ra_card_vs_cpu(cu8, refs, tmvp)
+
+
+@pytest.mark.cuda
+def test_ra_tz_card_equals_cpu():
+    """The same with HM's TZSearch at search range 64 in both trees (the
+    CU8 tree's per-8 search too): one surface per search."""
+    launches = _ra_card_vs_cpu(True, 1, True, me_method="tz")
+    # 4 B/P pictures of a 5-picture GOP-8 run: P at 4 (L0), B at 2, 1, 3
+    # (L0 and L1), two trees each
+    assert launches == 2 * (1 + 2 + 2 + 2)
+
+
+def _ldp_card_vs_cpu(me_method):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from chip_smoke import cut_clip
@@ -117,6 +128,7 @@ def test_ldp_card_equals_cpu():
                                  merge_cands=5, temporal_mvp=True,
                                  sign_data_hiding=True)
         enc = inter_dev.DeviceLowDelayEncoder(cfg, search_range=64,
+                                              me_method=me_method,
                                               device=dev)
         dicts = []
         phase = enc._device_phase
@@ -131,10 +143,27 @@ def test_ldp_card_equals_cpu():
         stream = enc.encode_sequence_ldp(frames)[0]
         out[dev] = (dicts, stream, ss.sad_surface.launches - n0)
     (gd, gs, gl), (cd, cs, cl) = out["cuda"], out["cpu"]
-    assert cl == 0 and gl == 3 * (1 + 2 + 3 + 4)
+    per_search = 3 if me_method == "pyr" else 1
+    assert cl == 0 and gl == per_search * (1 + 2 + 3 + 4)
     for i, (g, c) in enumerate(zip(gd, cd)):
         for k in c:
             np.testing.assert_array_equal(g[k], c[k],
                                           err_msg=f"picture {i}: {k}")
     assert sum(int((d["pred_mode"] == 1).sum()) for d in cd) > 0
     assert gs == cs
+
+
+@pytest.mark.cuda
+def test_ldp_card_equals_cpu():
+    """The LD-P encoder (flat device IDR, encode_p_frame_dev with SAD
+    surfaces from the kernel, the intra wavefront) at bench_ldp_480's
+    settings on 96x64: every P picture's dict and the stream equal the
+    CPU's, and intra blocks went through the wavefront."""
+    _ldp_card_vs_cpu("pyr")
+
+
+@pytest.mark.cuda
+def test_ldp_tz_card_equals_cpu():
+    """The same with HM's TZSearch at search range 64: one SAD surface
+    per reference."""
+    _ldp_card_vs_cpu("tz")

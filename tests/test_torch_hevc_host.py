@@ -97,9 +97,10 @@ _COPIES = {
          "bi_average"},
         {"gather_window", "_filter2"}),
     "ops/me.py": ("ops/me.py", set(),
-                  {"_sad_at_points", "_sad_best_around", "_pool4",
-                   "pyramid_search", "_refine"},
-                  {"_u8", "_span_offsets", "integer_search"}),
+                  {"integer_search", "_sad_at_points", "tz_search",
+                   "_sad_best_around", "_pool4", "pyramid_search",
+                   "_refine", "motion_search"},
+                  {"_u8", "_span_offsets", "_pick"}),
     "models/hevc/inter_dev.py": (
         "models/hevc/inter_jax.py", set(),
         {"scale_mv_dev", "mvd_bits_dev", "_shift_grid", "_scatter_blocks",
@@ -115,8 +116,8 @@ _COPIES = {
                                  set()),
     "models/hevc/inter_codec.py": (
         "models/hevc/inter_codec.py",
-        {"write_p_slice_header", "LowDelayEncoder.encode_sequence_ldp",
-         "LowDelayEncoder.encode_frames", "LowDelayEncoder.encode_p_frame",
+        {"write_p_slice_header", "LowDelayEncoder.encode_frames",
+         "LowDelayEncoder.encode_p_frame",
          "LowDelayEncoder._encode_p_slice", "LowDelayEncoder._encode_p_ctu"},
         set(), set()),
     "models/hevc/checkpoint.py": ("models/hevc/checkpoint.py", set(), set(),

@@ -170,8 +170,12 @@ def test_b_me_one(n):
         jnp.asarray(ref), jnp.asarray(cur), x0, y0, 64, "pyr", n)
     for a, b in zip(got, want):
         _eq(a, b)
-    with pytest.raises(NotImplementedError):
-        tinter.b_me_one(T(ref), T(cur), T(x0), T(y0), 16, "tz", n=n)
+    # HM's TZSearch at search range 16 (range 64: test_torch_hevc_me.py)
+    got = tinter.b_me_one(T(ref), T(cur), T(x0), T(y0), 16, "tz", n=n)
+    want = jax.jit(jinter.b_me_one, static_argnums=(4, 5, 6))(
+        jnp.asarray(ref), jnp.asarray(cur), x0, y0, 16, "tz", n)
+    for a, b in zip(got, want):
+        _eq(a, b)
 
 
 # ---- intra mode decision and TB coding ------------------------------------

@@ -202,12 +202,14 @@ def test_intra_wavefront_with_intra_blocks():
 
 # ---- whole LD-P streams and their device stages ----------------------------
 
-def _run(monkeypatch, w, h, frames, spec_amvp=False, **cfg_kw):
-    """Encode `frames` with both encoders (LD ladder on, SR64 pyramid),
-    recording the JAX encoder's device stages; check streams, decoder and
-    stage parity.  spec_amvp: the reference's own stream must fail a
-    picture hash, and the port's must equal the one it writes with the
-    spec's AMVP list.  Returns the recorded P-picture dicts."""
+def _run(monkeypatch, w, h, frames, spec_amvp=False, me_method="pyr",
+         **cfg_kw):
+    """Encode `frames` with both encoders (LD ladder on, SR64, the
+    pyramid search unless me_method says otherwise), recording the JAX
+    encoder's device stages; check streams, decoder and stage parity.
+    spec_amvp: the reference's own stream must fail a picture hash, and
+    the port's must equal the one it writes with the spec's AMVP list.
+    Returns the recorded P-picture dicts."""
     calls = {"idr": [], "p": []}
     orig_i, orig_p = jenc.encode_frame_jit, jinter.encode_p_frame_dev
 
@@ -226,10 +228,12 @@ def _run(monkeypatch, w, h, frames, spec_amvp=False, **cfg_kw):
     monkeypatch.setattr(jenc, "encode_frame_jit", rec_i)
     monkeypatch.setattr(jinter, "encode_p_frame_dev", rec_p)
     jenc_ = jinter.DeviceLowDelayEncoder(_cfg(jheaders, w, h, **cfg_kw),
-                                         search_range=64)
+                                         search_range=64,
+                                         me_method=me_method)
     js, _ = jenc_.encode_sequence_ldp(frames)
     tenc_ = tinter.DeviceLowDelayEncoder(_cfg(theaders, w, h, **cfg_kw),
-                                         search_range=64, device="cpu")
+                                         search_range=64,
+                                         me_method=me_method, device="cpu")
     ts, trec = tenc_.encode_sequence_ldp(frames)
     assert tenc_.frame_qps == jenc_.frame_qps == [32, 37, 36, 37, 33][
         :len(frames)]
@@ -241,8 +245,8 @@ def _run(monkeypatch, w, h, frames, spec_amvp=False, **cfg_kw):
         monkeypatch.setattr(jmotion, "amvp_candidates",
                             tmotion.amvp_candidates)
         js, _ = jinter.DeviceLowDelayEncoder(
-            _cfg(jheaders, w, h, **cfg_kw),
-            search_range=64).encode_sequence_ldp(frames)
+            _cfg(jheaders, w, h, **cfg_kw), search_range=64,
+            me_method=me_method).encode_sequence_ldp(frames)
     assert ts == js
     dec = tdec.GeneralDecoder()
     out = dec.decode(ts)
@@ -282,6 +286,21 @@ def test_ldp_four_refs_tmvp_merge5_sbh(monkeypatch):
     assert sum(int((d["ref_idx"] > 0).sum()) for d in st) > 0
 
 
+def test_ldp_tz_four_refs(monkeypatch):
+    """HM's TZSearch (FastSearch 1, SearchRange 64: BASELINE's config 2)
+    at bench_ldp_480's settings and clip at 96x64, 5 pictures, every
+    encode_p_frame_dev dict recorded and compared.  With TZ's motion
+    fields the reference's AMVP fault does not strike this clip (its
+    stream decodes hash OK), so the port's stream is the JAX encoder's
+    as written; at 832x480 it strikes, and chip_smoke.py holds the card
+    to the stream with the spec AMVP list."""
+    w, h = 96, 64
+    st = _run(monkeypatch, w, h, synth_clip(w, h, 5, seed=0),
+              me_method="tz", num_refs=4, merge_cands=5,
+              temporal_mvp=True, sign_data_hiding=True)
+    assert sum(int((d["ref_idx"] > 0).sum()) for d in st) > 0
+
+
 def test_amvp_without_a_neighbour_follows_the_spec():
     """A block on the left edge (no A neighbour) whose B0 points to
     another reference than B1: the spec makes the unscaled B1 the first
@@ -308,17 +327,23 @@ def test_ldp_cut_options_raise():
     with pytest.raises(ValueError):
         tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64, tile_columns=2),
                                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64), me_method="tz",
+    with pytest.raises(ValueError):              # no such search
+        tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64), me_method="hex",
                                      device="cpu")
     enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64))
     assert enc.device == torch.device("cuda")     # the card by default
     frames = cut_clip(64, 64, 2)
-    enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64), device="cpu")
-    with pytest.raises(ValueError):
-        enc.encode_sequence_ldp(frames, rate_control=object())
-    with pytest.raises(ValueError):
-        enc.encode_frames(frames, start_state=object())
+    # set after construction, timing SEI and the long-term IDR still
+    # stop the picture loop, with or without a controller or a state
+    for opt in ("timing_sei", "long_term_idr"):
+        enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64),
+                                           device="cpu")
+        setattr(enc.cfg, opt, True)
+        with pytest.raises(ValueError):
+            enc.encode_sequence_ldp(frames)
+        with pytest.raises(ValueError):
+            enc.encode_frames(frames, start_state=tpc.checkpoint.capture(
+                1, frames[0]))
     with pytest.raises(NotImplementedError):      # the host CTB loop
         tic.IntraEncoder(_cfg(theaders, 64, 64), device="cpu").encode_frame(
             *frames[0])

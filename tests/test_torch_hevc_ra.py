@@ -194,12 +194,27 @@ def test_ra_headline_settings_tmvp(monkeypatch):
          temporal_mvp=True)
 
 
+def test_ra_tz_cu8(monkeypatch):
+    """HM's TZSearch at search range 64 in both trees: the per-16 search
+    and the CU8 tree's per-8 one (`b_me_one(..., n=8)`), TMVP on.  Three
+    pictures (IDR, the anchor P at POC 2, the B at POC 1) hold every slice
+    type and both temporal layers' lambdas."""
+    w, h = 96, 64
+    _run(monkeypatch, w, h, clip(w, h, 3, seed=21),
+         dict(search_range=64, me_method="tz", cu8=True),
+         temporal_mvp=True)
+
+
 def test_ra_cut_options_raise():
     cfg = _cfg(theaders, 64, 64, sao=True)       # SAO is ported
     assert tqt.QtDeviceRandomAccessEncoder(cfg).device == torch.device("cuda")
-    with pytest.raises(NotImplementedError):
+    for m in ("tz", "full", "auto"):             # HM's searches are ported
+        assert tqt.QtDeviceRandomAccessEncoder(
+            _cfg(theaders, 64, 64), me_method=m,
+            device="cpu").me_method == m
+    with pytest.raises(ValueError):              # no such search
         tqt.QtDeviceRandomAccessEncoder(_cfg(theaders, 64, 64),
-                                        me_method="tz", device="cpu")
+                                        me_method="hex", device="cpu")
     enc = tqt.QtDeviceRandomAccessEncoder(_cfg(theaders, 64, 64))
     assert enc.device == torch.device("cuda")     # the card by default
     assert enc._qt_intra.device == torch.device("cuda")

@@ -37,8 +37,8 @@ Module map (port -> JAX counterpart):
   ops/sao.py                 ops/sao.py (whole; sao_stats_dev as
                              sao_stats / sao_stats_ref)
     + csrc/sao_stats.cu        the Hopper kernel for it
-  ops/me.py                  ops/me.py (integer_search, pyramid_search,
-                             _refine)
+  ops/me.py                  ops/me.py (integer_search, tz_search,
+                             pyramid_search, _refine, motion_search)
   ops/h264_dev.py            ops/h264_jax.py
   models/h264/dpb.py         models/h264/dpb.py (sliding window)
   models/h264/intra_codec.py models/h264/intra_codec.py (baseline CAVLC)
@@ -73,8 +73,9 @@ Module map (port -> JAX counterpart):
                              QuadtreeIntraDecoder, QuadtreeFastEncoder)
   models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole;
     motion_hm.py               amvp_candidates repaired to the spec)
-  models/hevc/checkpoint.py  models/hevc/checkpoint.py (EncoderState,
-                             capture)
+  models/hevc/checkpoint.py  models/hevc/checkpoint.py (whole)
+  models/hevc/ratectrl.py    models/hevc/ratectrl.py (the picture-level
+                             controllers)
   models/hevc/inter_codec.py, models/hevc/inter_codec.py, bframe_codec.py,
     bframe_codec.py,           ra_codec.py (the LD-P host P coder; the RA
     ra_codec.py                encoder's chain of bases and helpers)

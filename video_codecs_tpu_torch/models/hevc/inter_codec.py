@@ -8,12 +8,16 @@ function keeps its name and a comment gives the original's line.  The
 P pictures are coded by the device engine
 (models/hevc/inter_dev.DeviceLowDelayEncoder); this module's
 `encode_p_frame`, the host decision loop, raises NotImplementedError.
-Cut, raising ValueError where a caller asks for them: resuming from a
-checkpoint state, rate control, HRD timing SEI, the long-term IDR
-reference, weighted prediction, cu_qp_delta and SAO.  Not ported: the
-P-slice parser and `LowDelayDecoder` (the port decodes with
-models/hevc/decoder.GeneralDecoder), the weighted-prediction estimate
-and the single-candidate flat MV predictors.
+`encode_frames` takes a picture-level rate controller
+(models/hevc/ratectrl.py) and resumes from a checkpoint state
+(models/hevc/checkpoint.py).  Cut, raising ValueError where a caller asks
+for them: HRD timing SEI (it needs the SEI messages of
+models/hevc/sei.py), the long-term IDR reference (it needs long-term
+references in the port's decoder), weighted prediction, cu_qp_delta and
+SAO.  Not ported: the P-slice parser and `LowDelayDecoder` (the port
+decodes with models/hevc/decoder.GeneralDecoder), the
+weighted-prediction estimate and the single-candidate flat MV
+predictors.
 """
 
 from __future__ import annotations
@@ -118,7 +122,8 @@ class LowDelayEncoder(ic.IntraEncoder):
 
     # video_codecs_tpu/models/hevc/inter_codec.py:341
     def encode_sequence_ldp(self, frames, rate_control=None):
-        """IPPP encode; returns (annexb stream, recons)."""
+        """IPPP encode; optional rate controller (models.hevc.ratectrl)
+        drives per-picture QP through slice_qp_delta."""
         nals = self.stream_headers()
         frame_nals, recons, _ = self.encode_frames(frames, None, rate_control)
         nals.extend(frame_nals)
@@ -126,11 +131,10 @@ class LowDelayEncoder(ic.IntraEncoder):
 
     # video_codecs_tpu/models/hevc/inter_codec.py:349
     def encode_frames(self, frames, start_state=None, rate_control=None):
-        """Encode pictures; returns (nal list, recons, final EncoderState).
-        The picture QP follows `qp_schedule` when an encoder sets one."""
-        if start_state is not None or rate_control is not None:
-            raise ValueError("resuming from a state and rate control are "
-                             "not ported")
+        """Encode pictures, optionally resuming from a checkpoint state;
+        returns (nal list, recons, final EncoderState).  The picture QP
+        comes from the rate controller's `pick_qp()` when one is given,
+        else from `qp_schedule` when an encoder sets one."""
         if self.cfg.timing_sei or self.cfg.long_term_idr:
             raise ValueError("timing SEI and the long-term IDR reference "
                              "are not ported")
@@ -138,12 +142,24 @@ class LowDelayEncoder(ic.IntraEncoder):
         recons = []
         dpb: list[tuple] = []    # [(poc, planes, MotionField)] newest first
         poc0 = 0
+        if start_state is not None:
+            poc0 = start_state.poc
+            dpb = list(getattr(start_state, "dpb", ()) or ())
+            if not dpb and start_state.ref is not None:
+                bw = self.cfg.width // 16
+                bh = self.cfg.height // 16
+                dpb = [(poc0 - 1, start_state.ref,
+                        motion.MotionField.empty(bw, bh, poc0 - 1))]
+            checkpoint.restore_rc(start_state, rate_control)
         self.frame_qps: list[int] = []
         for k, (y, u, v) in enumerate(frames):
             poc = poc0 + k
-            sched = getattr(self, "qp_schedule", None)
-            if sched is not None:
-                self.cfg.qp = sched(poc)
+            if rate_control is not None:
+                self.cfg.qp = rate_control.pick_qp()
+            else:
+                sched = getattr(self, "qp_schedule", None)
+                if sched is not None:
+                    self.cfg.qp = sched(poc)
             self.frame_qps.append(self.cfg.qp)
             if poc == 0:
                 frame_nals, rec = self.encode_frame(y, u, v)
@@ -151,6 +167,14 @@ class LowDelayEncoder(ic.IntraEncoder):
                 mf = motion.MotionField.empty(bw, bh, poc)
             else:
                 frame_nals, rec, mf = self.encode_p_frame(y, u, v, dpb, poc)
+            if rate_control is not None:
+                # the picture's bits and its luma MAD, in float64 numpy
+                # as the reference computes them (a summation order of
+                # its own could move a later round() in pick_qp)
+                bits = 8 * sum(len(n) for n in frame_nals)
+                mad = float(np.mean(np.abs(
+                    rec[0].astype(np.float64) - y.astype(np.float64))))
+                rate_control.update(bits, mad)
             nals.extend(frame_nals)
             recons.append(rec)
             dpb.insert(0, (poc, rec, mf))

@@ -14,11 +14,14 @@ the options the CTB32 quadtree encoder runs (models/hevc/inter_qt.py):
 blocks.  `hm_lambda` and `_gop_lambda` are the port's copies of the host
 lambda ladder.
 
+The integer motion search is the pyramid or, through
+`ops/me.motion_search`, HM's full search, TZSearch or "auto" (the
+reference's dispatch, inter_jax.py:225-236 and :462-476).
 Cut, raising NotImplementedError: `encode_b_frame_dev`'s
 `allow_intra=True`, `merge_eval="first"` and `deblock=True` (the flat
-hier-B/RA path), `me_fields` / `gx_blk0` (the multichip dryrun's
-tile-sharded inputs) and motion searches other than the pyramid; the
-options `DeviceLowDelayEncoder` refuses raise ValueError.
+hier-B/RA path) and `me_fields` / `gx_blk0` (the multichip dryrun's
+tile-sharded inputs); the options `DeviceLowDelayEncoder` refuses raise
+ValueError.
 
 Float32 in the reference's order.  The decisions compare float32 costs
 J = D + lambda * R, so each is the reference's float32 expression as
@@ -51,6 +54,10 @@ from video_codecs_tpu_torch.utils.device import to_device
 
 MODE_INTER, MODE_INTRA = 0, 1
 INF = 1 << 30
+#: integer motion searches: the pyramid, HM's full search (FastSearch 0),
+#: TZSearch (FastSearch 1) and "auto" (full up to search range 12, TZ
+#: beyond), as in ops/me.motion_search
+ME_METHODS = ("pyr", "full", "tz", "auto")
 
 
 def _i32(v, device) -> torch.Tensor:
@@ -230,10 +237,6 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
     in any integer dtype); col_*: collocated picture motion field (TMVP
     source), [bh, bw]; ref_pocs: [R] int32; poc, col_poc: ints.  Returns
     the reference's dict of field maps + coef/recon planes."""
-    if me_method != "pyr":
-        raise NotImplementedError(
-            f"encode_p_frame_dev: me_method={me_method!r} is not ported "
-            "(pyr only)")
     dev = y.device
     bw, bh = w // 16, h // 16
     nb = bw * bh
@@ -251,13 +254,17 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
     # ---- 1. motion search per reference ----
     mvx_r, mvy_r, satd_r = [], [], []
     for r in range(n_refs):
-        imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
-                                         search_range)
-        mvx, mvy = imx * 4, imy * 4
-        mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0, mvx, mvy,
-                                     16, 2)
-        mvx, mvy, satd = me_ops._refine(refs_y[r], cur, x0, y0, mvx,
-                                        mvy, 16, 1)
+        if me_method == "pyr":
+            imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
+                                             search_range)
+            mvx, mvy = imx * 4, imy * 4
+            mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0, mvx, mvy,
+                                         16, 2)
+            mvx, mvy, satd = me_ops._refine(refs_y[r], cur, x0, y0, mvx,
+                                            mvy, 16, 1)
+        else:
+            mvx, mvy, satd = me_ops.motion_search(
+                refs_y[r], cur, x0, y0, 16, search_range, me_method)
         mvx_r.append(mvx)
         mvy_r.append(mvy)
         satd_r.append(satd)
@@ -441,17 +448,19 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
 # video_codecs_tpu/models/hevc/inter_jax.py:462
 def b_me_one(ref_y, cur, x0, y0, search_range: int, me_method: str,
              n: int = 16):
-    """Per-list ME of one B picture against one reference: pyramid
-    integer search + half/quarter SATD refinement.
+    """Per-list ME of one B picture against one reference: integer search
+    (the pyramid, or `me_ops.motion_search`'s full / TZ / auto) +
+    half/quarter SATD refinement.
 
     Returns quarter-pel (mvx, mvy, satd), each [B]."""
-    if me_method != "pyr":
-        raise NotImplementedError(
-            f"b_me_one: me_method={me_method!r} is not ported (pyr only)")
-    imx, imy = me_ops.pyramid_search(ref_y, cur, x0, y0, n, search_range)
-    mvx, mvy = imx * 4, imy * 4
-    mvx, mvy, _ = me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 2)
-    return me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 1)
+    if me_method == "pyr":
+        imx, imy = me_ops.pyramid_search(ref_y, cur, x0, y0, n,
+                                         search_range)
+        mvx, mvy = imx * 4, imy * 4
+        mvx, mvy, _ = me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 2)
+        return me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 1)
+    return me_ops.motion_search(ref_y, cur, x0, y0, n, search_range,
+                                me_method)
 
 
 def _to4(a, n):
@@ -1091,10 +1100,9 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
                                  "ported")
         if cfg.tile_columns != 1:
             raise ValueError("DeviceLowDelayEncoder: tiles are not ported")
-        if me_method != "pyr":
-            raise NotImplementedError(
-                f"DeviceLowDelayEncoder: me_method={me_method!r} is not "
-                "ported (pyr only)")
+        if me_method not in ME_METHODS:
+            raise ValueError(f"DeviceLowDelayEncoder: me_method "
+                             f"{me_method!r} is not one of {ME_METHODS}")
         super().__init__(cfg, search_range, me_method)
         self.ld_ladder = ld_ladder
         self.device = torch.device(device)

@@ -17,10 +17,10 @@ returns numpy), then, with `cfg.sao`, the SAO decision (`_sao_decide_qt`:
 per-CTB statistics on the device through the CUDA kernel of
 `ops/sao.sao_stats`, three launches a picture, and the reference's
 offset search on the host) and its apply to the recon, then the host
-serializer and the picture-hash SEI.  Cut, raising NotImplementedError at
-construction: any `me_method` other than "pyr"; the intra candidate of B
-pictures is off on this path, as in the reference (`allow_intra=False`,
-inter_qt.py:657).
+serializer and the picture-hash SEI.  `me_method` is "pyr" (the
+pyramid), "full", "tz" (HM's TZSearch) or "auto", at n = 16 and, in the
+CU8 tree, n = 8.  The intra candidate of B pictures is off on this path,
+as in the reference (`allow_intra=False`, inter_qt.py:657).
 
 Float32: the tree decision compares `d + round(lam * r)` in float32 and
 the residual CU32 cost `(d + lam * (20 + bits)).astype(int32)`, the
@@ -450,10 +450,10 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
         assert cfg.log2_ctb == 5 and cfg.log2_min_cb == 3 and \
             cfg.log2_max_tb == 5, "qt inter build is CTB32 (quadtree SPS)"
         assert cfg.width % 16 == 0 and cfg.height % 16 == 0
-        if me_method != "pyr":
-            raise NotImplementedError(
-                f"QtDeviceRandomAccessEncoder: me_method={me_method!r} is "
-                "not ported (pyr only)")
+        if me_method not in inter_dev.ME_METHODS:
+            raise ValueError(f"QtDeviceRandomAccessEncoder: me_method "
+                             f"{me_method!r} is not one of "
+                             f"{inter_dev.ME_METHODS}")
         cfg.tt_depth_inter = 1     # CU32 residuals code an RQT split
         self.cu8 = cu8
         #: active refs per list (HM GOPEntry num_ref_pics_active uses 2;

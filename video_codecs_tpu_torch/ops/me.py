@@ -1,19 +1,24 @@
 """Motion estimation: integer search and quarter-pel refinement.
 
-Counterpart of video_codecs_tpu/ops/me.py: `integer_search` (:23-45), the
-hierarchical `pyramid_search` (:210-250) with `_pool4` and
-`_sad_best_around`, `_sad_at_points` (the plain gather path) and the
-SATD refinement `_refine` (:253-269).
+Counterpart of video_codecs_tpu/ops/me.py: `integer_search` (:23-45),
+HM's TZSearch `tz_search` (:82-157) with its candidate rings
+`_tz_points`, the hierarchical `pyramid_search` (:210-250) with `_pool4`
+and `_sad_best_around`, `_sad_at_points` (the plain gather path), the
+SATD refinement `_refine` (:253-269) and `motion_search` (:271), which
+runs "full" (HM's FastSearch 0), "tz" (FastSearch 1) or "auto" (full up
+to search range 12, TZ beyond) and then the refinement.
 
-Every exhaustive SAD grid comes from `sad_surface` (the Hopper kernel on
-CUDA tensors, which takes the 8-bit samples as they are; 4x4-pooled
-planes are rounded means, so they stay within 0..255 too): a surface,
-then the cost, then `torch.argmin`, which returns the first minimum -- the
-row-major (dy outer, dx inner) order in which the reference's chunked
-loops keep the first minimum (argmin within a chunk, strict `<` across
-chunks and windows).  So the winner is the reference's exactly.
-Cut: `tz_search` and `motion_search` (the "tz"/"full"/"auto" methods),
-which no port encoder calls.
+Every SAD comes from `sad_surface` (the Hopper kernel on CUDA tensors,
+which takes the 8-bit samples as they are; 4x4-pooled planes are rounded
+means, so they stay within 0..255 too): one surface over the whole
+window, then the cost, then `torch.argmin`, which returns the first
+minimum -- the row-major (dy outer, dx inner) order in which the
+reference's chunked loops keep the first minimum (argmin within a chunk,
+strict `<` across chunks and windows).  So the winner is the reference's
+exactly.  TZSearch reads each of its stages' candidates out of one
++-search_range surface instead of gathering [B, P, n, n] patches: every
+SAD is an integer sum, so the value read is the one the reference's
+gather sums.
 """
 
 from __future__ import annotations
@@ -42,17 +47,18 @@ def _span_offsets(r: int) -> np.ndarray:
     return np.abs(np.arange(2 * r + 1) - r).astype(np.int32)
 
 
+# video_codecs_tpu/ops/me.py:23
 def integer_search(ref: torch.Tensor, cur: torch.Tensor, x0: torch.Tensor,
                    y0: torch.Tensor, n: int,
                    search_range: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Full integer-pel search around (0, 0) for every block.
 
-    ref: [H, W], cur: [B, n, n], both uint8 (or both int32 on the CPU);
+    ref: [H, W], cur: [B, n, n], 8-bit samples in any integer dtype;
     returns (mvx, mvy) int-pel [B]."""
     r = search_range
     span = 2 * r + 1
-    win = gather_window(ref, x0 - r, y0 - r, n + 2 * r, n + 2 * r)
-    sad = sad_surface(cur.contiguous(), win, n, r)
+    win = gather_window(_u8(ref), x0 - r, y0 - r, n + 2 * r, n + 2 * r)
+    sad = sad_surface(_u8(cur), win, n, r)
     # small centre bias like HM's mv-cost: prefer shorter MVs on ties
     d = _span_offsets(r)
     mv_cost = const((d[:, None] + d[None, :]).reshape(-1), ref.device)
@@ -78,6 +84,105 @@ def _sad_at_points(win: torch.Tensor, cur: torch.Tensor, pts: np.ndarray,
     patches = win.int()[:, rows, cols]                       # [B, P, n, n]
     return (patches - cur.int()[:, None]).abs().sum((-2, -1),
                                                     dtype=torch.int32)
+
+
+# video_codecs_tpu/ops/me.py:61
+def _tz_points(search_range: int) -> tuple[np.ndarray, np.ndarray]:
+    """Fixed TZSearch candidate set: 8-point diamond rings at power-of-two
+    distances (TEncSearch xTZ8PointDiamondSearch :332-656) plus the center.
+    Returns (points [P,2], ring_distance [P])."""
+    pts = [(0, 0)]
+    dist = [0]
+    d = 1
+    while d <= search_range:
+        if d == 1:
+            ring = [(0, -1), (-1, 0), (1, 0), (0, 1)]
+        else:
+            h = d // 2
+            ring = [(0, -d), (-h, -h), (h, -h), (-d, 0), (d, 0),
+                    (-h, h), (h, h), (0, d)]
+        for p in ring:
+            pts.append(p)
+            dist.append(d)
+        d *= 2
+    return np.array(pts, np.int32), np.array(dist, np.int32)
+
+
+def _pick(cost: torch.Tensor, *vals: torch.Tensor):
+    """First minimum of cost [B, P] per block: (its cost, and each of
+    vals [B, P] or [P] at it)."""
+    k = torch.argmin(cost, dim=1, keepdim=True)
+    out = [torch.gather(cost, 1, k)[:, 0]]
+    for v in vals:
+        out.append(torch.gather(v, 1, k)[:, 0] if v.ndim == 2
+                   else v[k[:, 0]])
+    return out
+
+
+# video_codecs_tpu/ops/me.py:82
+def tz_search(ref: torch.Tensor, cur: torch.Tensor, x0, y0, n: int,
+              search_range: int,
+              raster_stride: int = 5) -> tuple[torch.Tensor, torch.Tensor]:
+    """TZSearch as fixed-shape stages over one SAD surface (the
+    reference's TEncSearch::xTZSearch :3881 twin).
+
+    The +-search_range window of every block goes through `sad_surface`
+    once; each stage reads its candidates' SADs out of that surface at
+    (mvy + r, mvx + r) and adds the |mvx| + |mvy| cost:
+      1. star: the 8-point diamond rings at distances 1, 2, 4 .. r around
+         (0, 0) (`_tz_points(r)`), one argmin;
+      2. raster: the stride-5 grid arange(-r, r + 1, 5) squared, taken
+         where its best cost is strictly lower than stage 1's;
+      3. three star-refinement rounds (the reference's docstring says
+         two; its code, `for _ in range(3)`, runs three): the rings of
+         `_tz_points(8)` around the running best, clipped to [-r, r]
+         (a clipped candidate can repeat; the first in ring order wins),
+         each round taken where strictly lower.
+    ref: [H, W], cur: [B, n, n], 8-bit samples in any integer dtype.
+    Returns integer-pel (mvx, mvy) [B] int32."""
+    r = search_range
+    span = 2 * r + 1
+    dev = ref.device
+    win = gather_window(_u8(ref), x0 - r, y0 - r, n + 2 * r, n + 2 * r)
+    sad = sad_surface(_u8(cur), win, n, r).reshape(-1, span * span)
+    del win
+
+    def fixed(pts):
+        """(cost [B, P], mvx [P], mvy [P]) of fixed candidates."""
+        idx = const((pts[:, 1] + r) * span + pts[:, 0] + r, dev,
+                    torch.int64)
+        mv_cost = const(np.abs(pts[:, 0]) + np.abs(pts[:, 1]), dev)
+        return (sad[:, idx] + mv_cost[None, :], const(pts[:, 0], dev),
+                const(pts[:, 1], dev))
+
+    # --- stage 1: diamond rings around the zero MV ---
+    pts1, _ = _tz_points(r)
+    bcost, bx, by = _pick(*fixed(pts1))
+
+    # --- stage 2: raster (taken where strictly better) ---
+    grid = np.arange(-r, r + 1, raster_stride, dtype=np.int32)
+    gx, gy = np.meshgrid(grid, grid, indexing="xy")
+    pts2 = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1)
+    cost2, x2, y2 = _pick(*fixed(pts2))
+    use_raster = cost2 < bcost
+    bx = torch.where(use_raster, x2, bx)
+    by = torch.where(use_raster, y2, by)
+    bcost = torch.where(use_raster, cost2, bcost)
+
+    # --- stage 3: star refinement around the running best ---
+    pts3, _ = _tz_points(8)
+    p3x, p3y = const(pts3[:, 0], dev), const(pts3[:, 1], dev)
+    for _ in range(3):
+        cand_x = (bx[:, None] + p3x[None, :]).clamp(-r, r)
+        cand_y = (by[:, None] + p3y[None, :]).clamp(-r, r)
+        idx = ((cand_y + r) * span + cand_x + r).long()
+        cost = torch.gather(sad, 1, idx) + cand_x.abs() + cand_y.abs()
+        c, kx, ky = _pick(cost, cand_x, cand_y)
+        better = c < bcost
+        bx = torch.where(better, kx, bx)
+        by = torch.where(better, ky, by)
+        bcost = torch.where(better, c, bcost)
+    return bx.int(), by.int()
 
 
 # video_codecs_tpu/ops/me.py:175
@@ -170,3 +275,25 @@ def _refine(ref, cur, x0, y0, mvx, mvy, n, step):
         mvx = torch.where(better, cand_x[:, k], mvx)
         mvy = torch.where(better, cand_y[:, k], mvy)
     return mvx, mvy, best
+
+
+# video_codecs_tpu/ops/me.py:271
+def motion_search(ref: torch.Tensor, cur: torch.Tensor, x0, y0, n: int,
+                  search_range: int = 8, method: str = "auto"):
+    """Integer + half + quarter search; returns (mvx, mvy) quarter-pel [B]
+    and the final SATD.
+
+    method: "full" = exhaustive window (HM FastSearch:0), "tz" = TZSearch
+    stages (FastSearch:1), "auto" = full for small ranges where the whole
+    window is cheaper than the TZ stages, TZ beyond.  As in the
+    reference, any method but "tz" after "auto" runs the full search."""
+    if method == "auto":
+        method = "full" if search_range <= 12 else "tz"
+    if method == "tz":
+        imx, imy = tz_search(ref, cur, x0, y0, n, search_range)
+    else:
+        imx, imy = integer_search(ref, cur, x0, y0, n, search_range)
+    mvx, mvy = imx * 4, imy * 4
+    mvx, mvy, _ = _refine(ref, cur, x0, y0, mvx, mvy, n, 2)
+    mvx, mvy, satd = _refine(ref, cur, x0, y0, mvx, mvy, n, 1)
+    return mvx, mvy, satd
