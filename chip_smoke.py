@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through its hand-written CUDA kernels, the
-SAD surface and the SAO statistics: the H.264 device P-slice engine at
+SAD surface, the SAO statistics and the full RDOQ: the H.264 device
+P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
 then on), the HEVC low-delay P row at 832x480, and both HEVC rows with
 HM's TZSearch and the LD-P row under rate control, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build both kernels at once, one nvcc each, from
-     video_codecs_tpu_torch/csrc/sad_surface.cu and sao_stats.cu;
+  2. build the three kernels at once, one nvcc each, from
+     video_codecs_tpu_torch/csrc/sad_surface.cu, sao_stats.cu and
+     rdoq.cu;
   3. hold the kernel against its plain PyTorch version at the slice's
      shapes (and at search range 32), exactly, and time the kernel, the
      plain version and one PyTorch call for the same function
@@ -24,7 +26,16 @@ HM's TZSearch and the LD-P row under rate control, in phases:
   5. run the same P picture on the card and on the CPU (plain SAD) at
      search ranges 16 and 32 and a small clip's whole stream on both, and
      report where they differ (motion fields must agree exactly);
-  6. hevc-intra: encode one 416x240 picture through the port's HEVC
+  6. rdoq-kernel: hold the full-RDOQ kernel against its plain version
+     (`rdoq_dev_ref`) on the same CUDA tensors at the paths' shapes --
+     the 1080p B picture's TU16 luma, TU8 chroma, RQT TU8 luma and TU4
+     chroma (slice type 0, with the rate), the 1080p IDR's TU8, TU16 and
+     TU32 trials (slice type 2, with the rate) and the LD-P P picture's
+     TU16 luma and TU8 chroma (B = 1,560) -- on the forward transform of
+     the seeded clips' residuals with an all-zero block and two at the
+     coefficient clamp: levels exactly, rates bit for bit; time the
+     kernel, the plain version and the bound at each shape;
+     hevc-intra: encode one 416x240 picture through the port's HEVC
      all-intra CTB32 quadtree (`QuadtreeFastEncoder`) on the card and on
      the CPU and require equal state dicts and equal NAL bytes (the 1080p
      IDR now runs as the first picture of phase 7's GOP);
@@ -41,8 +52,9 @@ HM's TZSearch and the LD-P row under rate control, in phases:
         per picture the device phase (the IDR's quadtree, or
         encode_b_frame_dev + qt_merge_dev, with the copy back) and the
         host phase (CABAC serializer, hash SEI, TMVP store), with bytes,
-        kbps, Y-PSNR, CU counts and the SAD kernel's launches (3 per list
-        and reference: 6 per B picture, 3 for the anchor P);
+        kbps, Y-PSNR, CU counts, the SAD kernel's launches (3 per list
+        and reference: 6 per B picture, 3 for the anchor P) and the RDOQ
+        kernel's (none of them may run the plain `rdoq_dev_ref`);
      c. decode the stream with the port's GeneralDecoder: every picture
         hash must match and the pictures must equal the encoder's; the
         stream's SHA-1 must be the JAX package's for the same clip and
@@ -50,7 +62,8 @@ HM's TZSearch and the LD-P row under rate control, in phases:
      d. encode small GOPs (96x64: 9 pictures at the headline settings,
         5 pictures with the CU8 tree and 2 references per list; 112x80:
         9 pictures with SAO, partial edge CTBs) on the card and on the
-        CPU and require byte-equal streams;
+        CPU and require byte-equal streams (the card's through the RDOQ
+        kernel, the CPU's through its plain version);
      e. sao-kernel: hold the SAO-statistics kernel against its plain
         version, all four outputs exactly, at the 1080p picture's padded
         planes (luma 1920x1088 at CTB 32, each chroma 960x544 at CTB 16)
@@ -74,7 +87,8 @@ HM's TZSearch and the LD-P row under rate control, in phases:
         device phase (the flat IDR, or encode_p_frame_dev, with the copy
         back, synchronised), the host phase (`_reconcile`, CABAC slice,
         hash SEI), the QP, bytes, Y-PSNR, intra / skip / merge / AMVP
-        block counts and the SAD launches (3 per reference, 78 in all);
+        block counts, the SAD launches (3 per reference, 78 in all) and
+        the RDOQ kernel's;
      c. decode with the port's GeneralDecoder (every hash OK, pictures
         equal the encoder's) and require the stream's SHA-1 to be the
         JAX package's with its AMVP predictor list repaired as the port
@@ -107,9 +121,10 @@ HM's TZSearch and the LD-P row under rate control, in phases:
 Any failed check exits non-zero.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the main paths'
 encodes (a line before gives each path's), the SAD kernel's RA pyramid
-per-B-picture times and bound and the SAO kernel's per 1080p picture;
-the search range 64 surfaces' times print on a JSON line of their own
-before them.
+per-B-picture times and bound, the SAO kernel's per 1080p picture and
+the RDOQ kernel's for the 1080p B picture's TU16 luma call; the search
+range 64 surfaces' and the RDOQ shapes' times print on JSON lines of
+their own before them.
 """
 
 from __future__ import annotations
@@ -135,8 +150,10 @@ from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
 from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ratectrl
+from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
+from video_codecs_tpu_torch.ops import transform as tr_ops
 
 # Files this script writes (the resumed run's checkpoint), in the
 # repository's build directory.
@@ -145,6 +162,8 @@ KERNEL_SRC = "video_codecs_tpu_torch/csrc/sad_surface.cu"
 REPLACES = "video_codecs_tpu/ops/pallas_sad.py:32"
 SAO_SRC = "video_codecs_tpu_torch/csrc/sao_stats.cu"
 SAO_REPLACES = "video_codecs_tpu/ops/sao.py:127"
+RDOQ_SRC = "video_codecs_tpu_torch/csrc/rdoq.cu"
+RDOQ_REPLACES = "video_codecs_tpu/ops/rdoq_jax.py:227"
 W, H, QP, SR = 1280, 720, 28, 16
 # The 1080p headline (bench.py:84-107): picture size, QP, search range
 # and GOP length.
@@ -182,8 +201,51 @@ RC_RESUME_AT = 5
 RC_RESUMED_BYTES = 15567
 RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
-# operations/s on 8-bit integers, the type of the SAD kernel's inputs.
+# operations/s on 8-bit integers, the type of the SAD kernel's inputs,
+# and on float32 outside the tensor cores, the RDOQ costs' type.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
+PEAK_F32 = 67e12
+
+
+# Calls of the plain RDOQ (`rdoq_dev_ref`) by the device its coefficients
+# lie on, counted by the wrapper `count_rdoq_ref` installs.
+RDOQ_REF_CALLS = {"cuda": 0, "cpu": 0}
+
+
+def count_rdoq_ref() -> None:
+    """Count every call of `rdoq_dev_ref` (the wrapper `rdoq_dev` reaches
+    it through the module's name) in RDOQ_REF_CALLS."""
+    ref = rdoq_ops.rdoq_dev_ref
+
+    def counted(coeff, *a, **kw):
+        RDOQ_REF_CALLS[coeff.device.type] += 1
+        return ref(coeff, *a, **kw)
+
+    rdoq_ops.rdoq_dev_ref = counted
+
+
+def rdoq_routes(fn):
+    """(fn's result, RDOQ-kernel launches, plain-version calls on CUDA
+    tensors, on CPU tensors) of one call of fn()."""
+    k0 = rdoq_ops.rdoq_dev.launches
+    g0, c0 = RDOQ_REF_CALLS["cuda"], RDOQ_REF_CALLS["cpu"]
+    out = fn()
+    return (out, rdoq_ops.rdoq_dev.launches - k0,
+            RDOQ_REF_CALLS["cuda"] - g0, RDOQ_REF_CALLS["cpu"] - c0)
+
+
+def check_rdoq_routes(what: str, card: tuple, cpu: tuple) -> str:
+    """The card's run launched the RDOQ kernel and never its plain version;
+    the CPU's ran the plain version and launched nothing.  card and cpu
+    are rdoq_routes' counts; returns them as words."""
+    check(card[0] > 0 and card[1] == 0,
+          f"{what}: on the card {card[0]} RDOQ-kernel launches and "
+          f"{card[1]} plain-version calls (want > 0 and 0)")
+    check(cpu[0] == 0 and cpu[2] > 0,
+          f"{what}: on the CPU {cpu[0]} RDOQ-kernel launches and "
+          f"{cpu[2]} plain-version calls (want 0 and > 0)")
+    return (f"RDOQ kernel {card[0]} launches on the card, plain version "
+            f"{cpu[2]} calls on the CPU")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -314,15 +376,16 @@ def build_kernels() -> None:
     """Phase 2: one nvcc for each kernel's source, all started together,
     then load each library."""
     t0 = time.perf_counter()
+    mods = (ss, sao_ops, rdoq_ops)
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        builds = list(pool.map(lambda m: m.build(), (ss, sao_ops)))
-    for mod, (so, build_s, log) in zip((ss, sao_ops), builds):
+        builds = list(pool.map(lambda m: m.build(), mods))
+    for mod, (so, build_s, log) in zip(mods, builds):
         mod._load()
         print(f"[build] {so.name}: nvcc {build_s:.2f} s (0 = cached)")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] both kernels built and loaded in "
+    print(f"[build] all three kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -465,6 +528,121 @@ def hevc_cfg(w: int, h: int):
         log2_max_tb=5, sign_data_hiding=True, rdoq="lite", hash_sei=True)
 
 
+def rdoq_coeffs(cur: np.ndarray, ref: np.ndarray | None,
+                log2: int) -> torch.Tensor:
+    """[B, n, n] int32 coefficients on the card for every n x n block of a
+    plane: the port's forward transform of cur - ref (ref None: cur less
+    each block's rounded mean, an intra DC residual), then block 0 zeroed
+    and blocks 1 and 2 set to the coefficient clamp (32,767; then
+    alternating rows of -32,768 and 32,767)."""
+    n = 1 << log2
+    h, w = (d // n * n for d in cur.shape)
+    res = cur[:h, :w].astype(np.int32)
+    if ref is not None:
+        res = res - ref[:h, :w].astype(np.int32)
+    blk = res.reshape(h // n, n, w // n, n).transpose(0, 2, 1, 3).reshape(
+        -1, n, n)
+    if ref is None:
+        blk = blk - np.round(blk.mean(axis=(1, 2), keepdims=True)).astype(
+            np.int32)
+    co = tr_ops.forward_transform(torch.from_numpy(
+        np.ascontiguousarray(blk)).cuda(), log2)    # strided, as on the path
+    co[0] = 0
+    co[1] = 32767
+    co[2, ::2] = -32768
+    co[2, 1::2] = 32767
+    return co
+
+
+# Float32 operations per position of csrc/rdoq.cu: the level-0
+# distortion (2), the level-0 cost (1), two candidate costs (4 each), the
+# significance cost (1), the CG sums (2), the last-position total with
+# its prefix and suffix sums (9) and the rate's final distortion (4).
+RDOQ_OPS_PER_POS = 27
+
+
+def rdoq_bound(b: int, log2: int, rate: bool,
+               table_bytes: int) -> tuple[float, float, float]:
+    """(ms, bytes, operations) the card needs at least for one RDOQ call:
+    int32 coefficients read once, int32 levels written once, the float32
+    rates written once (with the rate), the tables read once; the float32
+    operations at the card's float32 rate."""
+    nn = 1 << (2 * log2)
+    nbytes = 8 * b * nn + (4 * b if rate else 0) + table_bytes
+    ops = RDOQ_OPS_PER_POS * b * nn
+    return max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3, nbytes, ops
+
+
+def phase_rdoq_kernel() -> list:
+    """Phase 6 (first): the full-RDOQ kernel against `rdoq_dev_ref` on the
+    same CUDA tensors at the paths' shapes, levels exactly and rates bit
+    for bit, each timed beside its bound and the plain version.  Returns
+    one row per shape, the 1080p B picture's TU16 luma call first."""
+    ra = synth_clip(HEVC_W, HEVC_H, 2, seed=5)
+    ldp = bench_synth_clip(LDP_W, LDP_H, 2)
+    idr = np.pad(ra[0][0], ((0, 16), (0, 0)), mode="edge")   # 1920x1088
+    qb, qi, ql = HEVC_QP + 2, HEVC_QP, 37        # a B picture's, IDR, LD-P
+    # (what, cur, ref, log2, luma, slice type, rate, qp)
+    shapes = [
+        ("1080p B TU16 luma", ra[1][0], ra[0][0], 4, True, 0, True, qb),
+        ("1080p B TU8 chroma", ra[1][1], ra[0][1], 3, False, 0, True, qb),
+        ("1080p B RQT TU8 luma", ra[1][0], ra[0][0], 3, True, 0, True, qb),
+        ("1080p B RQT TU4 chroma", ra[1][1], ra[0][1], 2, False, 0, True,
+         qb),
+        ("1080p IDR TU8 trial", idr, None, 3, True, 2, True, qi),
+        ("1080p IDR TU16 trial", idr, None, 4, True, 2, True, qi),
+        ("1080p IDR TU32 trial", idr, None, 5, True, 2, True, qi),
+        ("LD-P P TU16 luma", ldp[1][0], ldp[0][0], 4, True, 0, False, ql),
+        ("LD-P P TU8 chroma", ldp[1][1], ldp[0][1], 3, False, 0, False, ql),
+    ]
+    rows = []
+    for what, cur, ref, log2, luma, st, rate, qp in shapes:
+        co = rdoq_coeffs(cur, ref, log2)
+        b = co.shape[0]
+        kw = dict(lam=0.57 * 2.0 ** ((qp - 12) / 3.0), is_luma=luma,
+                  slice_type=st, return_rate=rate)
+        got = rdoq_ops.rdoq_dev(co, qp, log2, **kw)
+        torch.cuda.synchronize()
+        want = rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw)
+        (g, gb), (w_, wb) = (got, want) if rate else ((got, None),
+                                                      (want, None))
+        err = int((g - w_).abs().max())
+        same_bits = gb is None or torch.equal(gb.view(torch.int32),
+                                              wb.view(torch.int32))
+        check(err == 0 and same_bits,
+              f"RDOQ kernel != plain at {what} B={b} (levels max abs err "
+              f"{err}, rates bitwise equal {same_bits})")
+        ev = cuda_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw), reps=11)
+        dev = kernel_device_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw),
+                               "rdoq_kernel")
+        ms = ev if dev is None else dev
+        plain = cuda_ms(lambda: rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw),
+                        reps=3, warm=1)
+        tab, rl = rdoq_ops._kernel_tables(qp, log2, luma, st, 0, co.device)
+        bound, nbytes, ops = rdoq_bound(b, log2, rate,
+                                        4 * (tab.numel() + rl.numel()))
+        by = "operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES \
+            else "bytes"
+        nz = float((g != 0).float().mean())
+        print(f"[rdoq-kernel] {what}: B={b} QP{qp} slice type {st}"
+              f"{', with the rate' if rate else ''}: levels equal (max abs "
+              f"err 0){', rates bitwise equal' if rate else ''}, "
+              f"{nz:.2%} of levels nonzero; kernel "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'} "
+              f"(profiler), {ev:.4f} ms a wrapper call (CUDA events); bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+              f"float32 ops, {by}), {bound / ms:.2%} of it; plain "
+              f"{plain:.2f} ms ({plain / ms:.0f}x the kernel)")
+        rows.append(dict(what=what, b=b, log2=log2, qp=qp, ms=ms,
+                         event_ms=ev, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, library_ms=None, max_abs_err=err))
+        del co, got, want
+    torch.cuda.empty_cache()
+    print("[rdoq-kernel] no single PyTorch call computes RDOQ (library_ms "
+          "null)")
+    return rows
+
+
 def phase_hevc_intra() -> None:
     """Phase 6: the HEVC all-intra quadtree on the card against the CPU.
     The 1080p IDR now runs inside the RA GOP of phase 7."""
@@ -474,20 +652,24 @@ def phase_hevc_intra() -> None:
     sw, sh = 416, 240                    # the repo's bench_intra_qt size
     y, u, v = synth_clip(sw, sh, 1, seed=9)[0]
     res = {}
+    routes = {}
     for dev in ("cuda", "cpu"):
         e = quadtree_codec.QuadtreeFastEncoder(hevc_cfg(sw, sh), device=dev)
         t0 = time.perf_counter()
-        st = {k: a.cpu().numpy() for k, a in e._dispatch(y, u, v).items()}
+        st, *routes[dev] = rdoq_routes(lambda: {
+            k: a.cpu().numpy() for k, a in e._dispatch(y, u, v).items()})
         res[dev] = (st, e.serialize_frame(st)[0],
                     time.perf_counter() - t0)
     (g, gn, tg), (c, cn, tc) = res["cuda"], res["cpu"]
+    routed = check_rdoq_routes(f"hevc-intra {sw}x{sh}", routes["cuda"],
+                               routes["cpu"])
     diff = {k: int((g[k] != c[k]).sum()) for k in g
             if not np.array_equal(g[k], c[k])}
     check(not diff, f"cuda != cpu at {sw}x{sh}: elements differing per "
                     f"key {diff}")
     check(gn == cn, f"cuda and cpu NAL bytes differ at {sw}x{sh}")
     print(f"[hevc-intra] {sw}x{sh} picture on the card and on the CPU: all "
-          f"{len(g)} state keys equal, NAL bytes equal "
+          f"{len(g)} state keys equal, NAL bytes equal ({routed}) "
           f"({sum(len(n) for n in gn if n)} bytes); cuda {tg:.2f} s, "
           f"cpu {tc:.2f} s")
 
@@ -665,8 +847,9 @@ def _ra_instrument(enc):
     copy back, synchronised), the host phase (CABAC serializer, hash SEI,
     TMVP store), with SAO the decision (`_sao_decide_qt`) and within it
     the statistics on the card (`inter_qt._sao_stats`, synchronised, which
-    this patches until the returned restore() is called), and the SAD and
-    SAO kernels' launches; keep each picture's maps and SAO parameters."""
+    this patches until the returned restore() is called), and the SAD,
+    SAO and RDOQ kernels' launches; keep each picture's maps and SAO
+    parameters."""
     log, cur = [], {}
 
     def timed(name, fn, sync=False):
@@ -675,6 +858,7 @@ def _ra_instrument(enc):
                 torch.cuda.synchronize()
             n0 = ss.sad_surface.launches
             s0 = sao_ops.sao_stats.launches
+            r0 = rdoq_ops.rdoq_dev.launches
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             if name == "sao_stats":
@@ -685,6 +869,8 @@ def _ra_instrument(enc):
                     ss.sad_surface.launches - n0
                 cur["sao_launches"] = cur.get("sao_launches", 0) + \
                     sao_ops.sao_stats.launches - s0
+                cur["rdoq"] = cur.get("rdoq", 0) + \
+                    rdoq_ops.rdoq_dev.launches - r0
             if name in ("device", "sao"):
                 cur["qt" if name == "device" else "sao_params"] = out
             return out
@@ -711,6 +897,7 @@ def _ra_instrument(enc):
         qi = enc._qt_intra
         torch.cuda.synchronize()
         n0 = ss.sad_surface.launches
+        r0 = rdoq_ops.rdoq_dev.launches
         t0 = time.perf_counter()
         st = {k: t.cpu() for k, t in qi._dispatch(y, u, v).items()}
         t1 = time.perf_counter()
@@ -719,6 +906,7 @@ def _ra_instrument(enc):
         log.append(dict(poc=0, kind="I", device=t1 - t0, host=t2 - t1,
                         total=t2 - t0, nals=nals, rec=rec,
                         launches=ss.sad_surface.launches - n0,
+                        rdoq=rdoq_ops.rdoq_dev.launches - r0,
                         depth8=st["depth8"].numpy()))
         return nals, rec
 
@@ -748,11 +936,11 @@ def sad_launches_per_search(me_method: str) -> int:
 
 
 def phase_hevc_ra(sao: bool = False,
-                  me_method: str = "pyr") -> tuple[int, int]:
+                  me_method: str = "pyr") -> tuple[int, int, int]:
     """Phase 7b-c (7f with sao, 9b with me_method="tz"): the RA GOP-8
     headline at 1920x1072 on the card, decoded by the port's
-    GeneralDecoder.  Returns the SAD- and SAO-kernel launches of the
-    encode."""
+    GeneralDecoder.  Returns the SAD-, SAO- and RDOQ-kernel launches of
+    the encode."""
     w, h = HEVC_W, HEVC_H
     tag = ("hevc-ra-sao" if sao else "hevc-ra") + \
         ("" if me_method == "pyr" else f"-{me_method}")
@@ -771,6 +959,8 @@ def phase_hevc_ra(sao: bool = False,
     log, restore = _ra_instrument(enc)
     ss.sad_surface.launches = 0
     sao_ops.sao_stats.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
     t0 = time.perf_counter()
     try:
         stream, recons = enc.encode_sequence_ra(frames)
@@ -779,6 +969,9 @@ def phase_hevc_ra(sao: bool = False,
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
     sao_launches = sao_ops.sao_stats.launches
+    rdoq_launches = rdoq_ops.rdoq_dev.launches
+    check(RDOQ_REF_CALLS["cuda"] == 0,
+          f"the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on the card")
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
@@ -808,6 +1001,7 @@ def phase_hevc_ra(sao: bool = False,
             check(e["sao_launches"] == (3 if sao else 0),
                   f"POC {e['poc']}: {e['sao_launches']} SAO-kernel "
                   f"launches (want {3 if sao else 0})")
+        check(e["rdoq"] > 0, f"POC {e['poc']}: no RDOQ-kernel launch")
         if sao and e["kind"] != "I":
             cus += (f"; SAO {e['sao'] * 1e3:.1f} ms (statistics on the card "
                     f"{e['sao_stats'] * 1e3:.1f} ms, {e['sao_launches']} "
@@ -818,7 +1012,8 @@ def phase_hevc_ra(sao: bool = False,
               f"{e['device'] * 1e3:.1f} ms, host phase {e['host'] * 1e3:.1f}"
               f" ms, other {other * 1e3:.1f} ms; {nbytes} bytes, "
               f"{nbytes * 8 * 30 / 1000:.1f} kbps at 30 fps, Y-PSNR "
-              f"{p:.2f} dB; {cus}; SAD-kernel launches {e['launches']}")
+              f"{p:.2f} dB; {cus}; SAD-kernel launches {e['launches']}, "
+              f"RDOQ-kernel launches {e['rdoq']}")
     check(launches == want, f"{launches} SAD-kernel launches in the GOP, "
                             f"want {want}")
     check(sao_launches == (24 if sao else 0),
@@ -830,7 +1025,8 @@ def phase_hevc_ra(sao: bool = False,
     print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, mean "
           f"Y-PSNR {y_psnr:.3f} dB, encode {t_enc:.2f} s "
           f"({len(frames) / t_enc:.3f} fps); SAD-kernel launches {launches}"
-          f", SAO-kernel launches {sao_launches}; SHA-1 {sha}")
+          f", SAO-kernel launches {sao_launches}, RDOQ-kernel launches "
+          f"{rdoq_launches} (the plain version 0 times); SHA-1 {sha}")
     ref_bytes, ref_sha = ((RA_SAO_BYTES, RA_SAO_SHA1) if sao
                           else (RA_TZ_BYTES, RA_TZ_SHA1)
                           if me_method == "tz" else (RA_BYTES, RA_SHA1))
@@ -854,7 +1050,7 @@ def phase_hevc_ra(sao: bool = False,
     print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
           f"{len(frames)} pictures, pictures equal the encoder's, "
           f"{t_dec:.2f} s")
-    return launches, sao_launches
+    return launches, sao_launches, rdoq_launches
 
 
 def phase_ra_cuda_vs_cpu() -> None:
@@ -871,15 +1067,19 @@ def phase_ra_cuda_vs_cpu() -> None:
     for what, w, h, n, kw, cfg_kw in runs:
         frames = synth_clip(w, h, n, seed=17)
         res = {}
+        routes = {}
         for dev in ("cuda", "cpu"):
             enc = inter_qt.QtDeviceRandomAccessEncoder(
                 ra_cfg(w, h, **cfg_kw), device=dev, **kw)
             s0 = sao_ops.sao_stats.launches
             t0 = time.perf_counter()
-            res[dev] = (enc.encode_sequence_ra(frames)[0],
-                        time.perf_counter() - t0,
+            stream, *routes[dev] = rdoq_routes(
+                lambda: enc.encode_sequence_ra(frames)[0])
+            res[dev] = (stream, time.perf_counter() - t0,
                         sao_ops.sao_stats.launches - s0)
         (g, tg, gl), (c, tc, cl) = res["cuda"], res["cpu"]
+        routed = check_rdoq_routes(f"RA {what}", routes["cuda"],
+                                   routes["cpu"])
         want = 3 * (n - 1) if cfg_kw.get("sao") else 0
         check((gl, cl) == (want, 0),
               f"RA {what}: SAO-kernel launches {gl} on the card, {cl} on "
@@ -890,7 +1090,8 @@ def phase_ra_cuda_vs_cpu() -> None:
         dec.decode(g)
         check(dec.hash_status == [True] * n, f"RA {what}: hash mismatch")
         print(f"[ra-cuda-vs-cpu] {what}: streams byte-equal ({len(g)} "
-              f"bytes), hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
+              f"bytes), hash OK; {routed}; cuda {tg:.2f} s, cpu "
+              f"{tc:.2f} s")
 
 
 def ldp_cfg(w: int, h: int):
@@ -954,8 +1155,8 @@ def phase_ldp_kernel() -> dict:
 def _ldp_instrument(enc):
     """Time each picture of an LD-P encode: the device phase (upload,
     device work, copy back, synchronised), the host phase (`_reconcile`,
-    CABAC slice, hash SEI) and the SAD-kernel launches; keep each
-    picture's block decisions."""
+    CABAC slice, hash SEI) and the SAD- and RDOQ-kernel launches; keep
+    each picture's block decisions."""
     log, cur = [], {}
 
     def timed(name, fn, sync=False):
@@ -963,11 +1164,14 @@ def _ldp_instrument(enc):
             if sync:
                 torch.cuda.synchronize()
             n0 = ss.sad_surface.launches
+            r0 = rdoq_ops.rdoq_dev.launches
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
             cur["launches"] = cur.get("launches", 0) + \
                 ss.sad_surface.launches - n0
+            cur["rdoq"] = cur.get("rdoq", 0) + \
+                rdoq_ops.rdoq_dev.launches - r0
             cur[fn.__name__] = out
             return out
         return run
@@ -986,12 +1190,13 @@ def _ldp_instrument(enc):
                         total=time.perf_counter() - t0, nals=nals, rec=rec,
                         info=cur["_reconcile"], **{
                             k: cur[k] for k in ("device", "host",
-                                                "launches")}))
+                                                "launches", "rdoq")}))
         return nals, rec, mf
 
     def idr(y, u, v, *a, **kw):
         torch.cuda.synchronize()
         n0 = ss.sad_surface.launches
+        r0 = rdoq_ops.rdoq_dev.launches
         t0 = time.perf_counter()
         st = {k: t.cpu() for k, t in enc._dispatch(y, u, v).items()}
         t1 = time.perf_counter()
@@ -1000,7 +1205,8 @@ def _ldp_instrument(enc):
         log.append(dict(poc=0, kind="I", qp=enc.cfg.qp, refs=0,
                         device=t1 - t0, host=t2 - t1, total=t2 - t0,
                         nals=nals, rec=rec,
-                        launches=ss.sad_surface.launches - n0))
+                        launches=ss.sad_surface.launches - n0,
+                        rdoq=rdoq_ops.rdoq_dev.launches - r0))
         return nals, rec
 
     enc.encode_p_frame = p_frame
@@ -1023,7 +1229,8 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
     the card, decoded by the port's GeneralDecoder and held to the JAX
     package's stream.  With rc a `RateLambdaControl` at RC_BPS sets each
     picture's QP instead of HM's LD-P ladder.  Returns the SAD-kernel
-    launches of the encode and the per-picture log."""
+    launches of the encode, the per-picture log and the RDOQ-kernel
+    launches."""
     w, h = LDP_W, LDP_H
     tag = "hevc-ldp" + ("" if me_method == "pyr" else f"-{me_method}") + \
         ("-rc" if rc else "")
@@ -1044,10 +1251,15 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
                                             base_qp=32) if rc else None
     log = _ldp_instrument(enc)
     ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
     t0 = time.perf_counter()
     stream, recons = enc.encode_sequence_ldp(frames, controller)
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
+    rdoq_launches = rdoq_ops.rdoq_dev.launches
+    check(RDOQ_REF_CALLS["cuda"] == 0,
+          f"the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on the card")
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
@@ -1064,6 +1276,7 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
                         else "merge" if b.merge else "amvp"] += 1
             blocks = " / ".join(f"{k_} {v}" for k_, v in cnt.items())
             want += k * e["refs"]
+            check(e["rdoq"] > 0, f"POC {e['poc']}: no RDOQ-kernel launch")
             check(e["launches"] == k * e["refs"],
                   f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
                   f"(want {k} per reference, {e['refs']} references)")
@@ -1073,7 +1286,7 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
               f" host phase {e['host'] * 1e3:.1f} ms, other "
               f"{other * 1e3:.1f} ms; {nbytes} bytes ({nbytes * 8} bits), "
               f"Y-PSNR {p:.2f} dB; blocks {blocks}; SAD-kernel launches "
-              f"{e['launches']}")
+              f"{e['launches']}, RDOQ-kernel launches {e['rdoq']}")
     check(launches == want == k * 26,
           f"{launches} SAD-kernel launches in the run, want {want} = "
           f"{k * 26}")
@@ -1081,7 +1294,8 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
     sha = hashlib.sha1(stream).hexdigest()
     print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
           f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
-          f"SAD-kernel launches {launches}; SHA-1 {sha}")
+          f"SAD-kernel launches {launches}, RDOQ-kernel launches "
+          f"{rdoq_launches} (the plain version 0 times); SHA-1 {sha}")
     if rc:
         check(enc.frame_qps == LDP_RC_QPS,
               f"rate-controlled QPs {enc.frame_qps}, the JAX package's "
@@ -1112,7 +1326,7 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
           f"package's ({what}) is {ref_bytes} bytes {ref_sha}")
     print(f"[{tag}] the stream is the JAX package's with {what}, byte for "
           "byte (SHA-1)")
-    return launches, log
+    return launches, log, rdoq_launches
 
 
 def phase_ldp_rc_resume(one_run: list) -> int:
@@ -1123,8 +1337,8 @@ def phase_ldp_rc_resume(one_run: list) -> int:
     the JAX package's resumed run's; whether they also equal those
     pictures of the one run is printed (the state keeps only the newest
     picture, so the resumed run starts with one reference and the
-    reference promises no such equality).  Returns the SAD-kernel
-    launches of both encodes."""
+    reference promises no such equality).  Returns the SAD- and
+    RDOQ-kernel launches of both encodes."""
     w, h = LDP_W, LDP_H
     frames = bench_synth_clip(w, h, LDP_PICTURES)
     path = BUILD_DIR / "ldp_rc_state.npz"
@@ -1137,6 +1351,8 @@ def phase_ldp_rc_resume(one_run: list) -> int:
 
     enc, rc = encoder()
     ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
     t0 = time.perf_counter()
     _, _, state = enc.encode_frames(frames[:RC_RESUME_AT], None, rc)
     checkpoint.save(state, str(path))
@@ -1149,6 +1365,10 @@ def phase_ldp_rc_resume(one_run: list) -> int:
     nals, recons, _ = enc.encode_frames(frames[RC_RESUME_AT:], loaded, rc)
     t2 = time.perf_counter()
     launches = ss.sad_surface.launches
+    rdoq_launches = rdoq_ops.rdoq_dev.launches
+    check(rdoq_launches > 0 and RDOQ_REF_CALLS["cuda"] == 0,
+          f"the resumed encodes: {rdoq_launches} RDOQ-kernel launches, the "
+          f"plain version {RDOQ_REF_CALLS['cuda']} times on the card")
     n_first = sum(min(p, 4) for p in range(RC_RESUME_AT))
     n_second = sum(min(p + 1, 4) for p in range(LDP_PICTURES - RC_RESUME_AT))
     want = 3 * (n_first + n_second)
@@ -1165,7 +1385,8 @@ def phase_ldp_rc_resume(one_run: list) -> int:
           f"read back; pictures {RC_RESUME_AT}-{LDP_PICTURES - 1} encoded "
           f"from it by a new encoder and controller ({t2 - t1:.2f} s): QPs "
           f"{enc.frame_qps}, {len(resumed)} bytes, SHA-1 {sha}; "
-          f"SAD-kernel launches {launches}")
+          f"SAD-kernel launches {launches}, RDOQ-kernel launches "
+          f"{rdoq_launches}")
     check(enc.frame_qps == LDP_RC_QPS[RC_RESUME_AT:],
           f"resumed QPs {enc.frame_qps}, want {LDP_RC_QPS[RC_RESUME_AT:]}")
     for i, r in enumerate(recons):
@@ -1177,7 +1398,7 @@ def phase_ldp_rc_resume(one_run: list) -> int:
     print(f"[hevc-ldp-rc] the resumed NALs are the JAX package's resumed "
           f"run's, byte for byte (SHA-1); equal to pictures "
           f"{RC_RESUME_AT}-{LDP_PICTURES - 1} of the one run: {same}")
-    return launches
+    return launches, rdoq_launches
 
 
 def phase_ldp_cuda_vs_cpu() -> None:
@@ -1185,7 +1406,7 @@ def phase_ldp_cuda_vs_cpu() -> None:
     the CPU, with intra blocks in its P pictures: byte-equal streams."""
     w, h, n = 96, 64, 5
     frames = cut_clip(w, h, n)
-    res = {}
+    res, routes = {}, {}
     for dev in ("cuda", "cpu"):
         enc = hevc_inter_dev.DeviceLowDelayEncoder(
             ldp_cfg(w, h), search_range=LDP_SR, device=dev)
@@ -1199,9 +1420,11 @@ def phase_ldp_cuda_vs_cpu() -> None:
 
         enc._device_phase = keep
         t0 = time.perf_counter()
-        res[dev] = (enc.encode_sequence_ldp(frames)[0],
-                    time.perf_counter() - t0, modes)
+        stream, *routes[dev] = rdoq_routes(
+            lambda: enc.encode_sequence_ldp(frames)[0])
+        res[dev] = (stream, time.perf_counter() - t0, modes)
     (g, tg, gm), (c, tc, cm) = res["cuda"], res["cpu"]
+    routed = check_rdoq_routes("LD-P 96x64", routes["cuda"], routes["cpu"])
     intra = [int((m == 1).sum()) for m in gm]
     check(all(np.array_equal(a, b) for a, b in zip(gm, cm)),
           "LD-P 96x64: card and CPU block modes differ")
@@ -1214,7 +1437,7 @@ def phase_ldp_cuda_vs_cpu() -> None:
     print(f"[ldp-cuda-vs-cpu] 96x64, 5 pictures, 4 references, scene cut "
           f"at 3: intra blocks per P picture {intra} (through the "
           f"wavefront on the card); streams byte-equal ({len(g)} bytes), "
-          f"hash OK; cuda {tg:.2f} s, cpu {tc:.2f} s")
+          f"hash OK; {routed}; cuda {tg:.2f} s, cpu {tc:.2f} s")
 
 
 def phase_sad_r64() -> list:
@@ -1280,23 +1503,25 @@ def main() -> None:
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} card(s)")
 
     build_kernels()
+    count_rdoq_ref()
     phase_kernel()
     phase_encode_720p()
     phase_cuda_vs_cpu()
+    rq = phase_rdoq_kernel()
     phase_hevc_intra()
     k = phase_ra_kernel()
-    ra_launches, _ = phase_hevc_ra()
+    ra_launches, _, ra_rdoq = phase_hevc_ra()
     phase_ra_cuda_vs_cpu()
     sk = phase_sao_kernel()
-    ra_sao_sad, sao_launches = phase_hevc_ra(sao=True)
+    ra_sao_sad, sao_launches, ra_sao_rdoq = phase_hevc_ra(sao=True)
     phase_ldp_kernel()
-    ldp_launches, _ = phase_hevc_ldp()
+    ldp_launches, _, ldp_rdoq = phase_hevc_ldp()
     phase_ldp_cuda_vs_cpu()
     r64 = phase_sad_r64()
-    ldp_tz, _ = phase_hevc_ldp(me_method="tz")
-    ra_tz, _ = phase_hevc_ra(me_method="tz")
-    ldp_rc, rc_log = phase_hevc_ldp(rc=True)
-    rc_resumed = phase_ldp_rc_resume(rc_log)
+    ldp_tz, _, ldp_tz_rdoq = phase_hevc_ldp(me_method="tz")
+    ra_tz, _, ra_tz_rdoq = phase_hevc_ra(me_method="tz")
+    ldp_rc, rc_log, ldp_rc_rdoq = phase_hevc_ldp(rc=True)
+    rc_resumed, resumed_rdoq = phase_ldp_rc_resume(rc_log)
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
@@ -1312,7 +1537,18 @@ def main() -> None:
           "(the search range 64 surfaces' on the next line). sao_stats "
           f"launches: RA GOP with SAO {sao_launches}; its times and bound "
           "are per 1080p picture (3 planes)")
+    rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_tz_rdoq +
+                     ra_tz_rdoq + ldp_rc_rdoq + resumed_rdoq)
+    r = rq[0]
+    print(f"[kernels] rdoq_dev launches: RA GOP {ra_rdoq}, RA GOP with SAO "
+          f"{ra_sao_rdoq}, LD-P run {ldp_rdoq}, LD-P TZ run {ldp_tz_rdoq}, "
+          f"RA TZ GOP {ra_tz_rdoq}, LD-P rate-controlled run {ldp_rc_rdoq} "
+          f"and its resumed run {resumed_rdoq}, together {rdoq_launches}; "
+          f"the plain version ran 0 times in them; its times and bound are "
+          f"the {r['what']} call's (B={r['b']}; every shape on the next "
+          "line)")
     print(json.dumps({"sad_surface_r64": r64}))
+    print(json.dumps({"rdoq_dev_shapes": rq}))
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "
           "the kernels' build included")
 
@@ -1326,7 +1562,12 @@ def main() -> None:
         "replaces": SAO_REPLACES, "launches": sao_launches,
         "max_abs_err": sk["max_abs_err"], "ms": sk["ms"],
         "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
-        "bound_by": sk["bound_by"], "library_ms": sk["library_ms"]}]}))
+        "bound_by": sk["bound_by"], "library_ms": sk["library_ms"]}, {
+        "name": "rdoq_dev", "route": "cuda", "source": RDOQ_SRC,
+        "replaces": RDOQ_REPLACES, "launches": rdoq_launches,
+        "max_abs_err": max(x["max_abs_err"] for x in rq), "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

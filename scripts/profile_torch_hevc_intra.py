@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -35,20 +36,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 from video_codecs_tpu_torch.models.hevc import encoder_qt_dev as eq  # noqa: E402
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp  # noqa: E402
+from video_codecs_tpu_torch.ops import rdoq_dev  # noqa: E402
 from video_codecs_tpu_torch.ops import deblock as deblock_ops  # noqa: E402
 
 
 def measure(fn):
     """(wall ms, launches, busy ms, profile) of fn(): the wall of an
-    unprofiled synchronised run, then one run under the profiler."""
+    unprofiled synchronised run, then one run under the profiler, whose
+    RDOQ-kernel launches `measure.rdoq` keeps for `report`."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    r0 = rdoq_dev.rdoq_dev.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    measure.rdoq = rdoq_dev.rdoq_dev.launches - r0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation]
     busy = sum(e.device_time for e in kern) / 1e3
@@ -57,7 +62,8 @@ def measure(fn):
 
 def report(name, wall, launches, busy):
     print(f"  {name:<28} wall {wall:9.1f} ms, {launches:7d} kernels, "
-          f"device busy {busy:8.2f} ms, idle share {1 - busy / wall:.3f}")
+          f"device busy {busy:8.2f} ms, idle share {1 - busy / wall:.3f}, "
+          f"RDOQ launches {measure.rdoq}")
 
 
 def main() -> None:
@@ -67,6 +73,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     w, h = args.width, args.height
     cfg = chip_smoke.hevc_cfg(w, h)
     qp = cfg.qp

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -47,20 +48,24 @@ from video_codecs_tpu_torch.models.hevc import inter_dev  # noqa: E402
 from video_codecs_tpu_torch.models.hevc import inter_qt  # noqa: E402
 from video_codecs_tpu_torch.models.hevc.intra_codec import (  # noqa: E402
     chroma_qp)
+from video_codecs_tpu_torch.ops import rdoq_dev  # noqa: E402
 from video_codecs_tpu_torch.ops import sad_surface as ss  # noqa: E402
 
 
 def measure(fn):
     """(wall ms, launches, busy ms, profile) of fn(): the wall of an
-    unprofiled synchronised run, then one run under the profiler."""
+    unprofiled synchronised run, then one run under the profiler, whose
+    RDOQ-kernel launches `measure.rdoq` keeps for `report`."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    r0 = rdoq_dev.rdoq_dev.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    measure.rdoq = rdoq_dev.rdoq_dev.launches - r0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation]
     busy = sum(e.device_time for e in kern) / 1e3
@@ -69,7 +74,8 @@ def measure(fn):
 
 def report(name, wall, launches, busy):
     print(f"  {name:<30} wall {wall:9.1f} ms, {launches:7d} kernels, "
-          f"device busy {busy:8.2f} ms, idle share {1 - busy / wall:.3f}")
+          f"device busy {busy:8.2f} ms, idle share {1 - busy / wall:.3f}, "
+          f"RDOQ launches {measure.rdoq}")
 
 
 def main() -> None:
@@ -82,6 +88,9 @@ def main() -> None:
     me = args.me_method
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     w, h = args.width, args.height
     sr = chip_smoke.RA_SR
     cfg = chip_smoke.ra_cfg(w, h)

@@ -18,7 +18,7 @@ entry points `DeviceH264Encoder`, `QuadtreeFastEncoder`,
 `QtDeviceRandomAccessEncoder`, `DeviceLowDelayEncoder` and the flat
 `IntraEncoder` run on the card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel
-(and for its SAO-statistics XLA loop).  A
+(and for its SAO-statistics and full-RDOQ XLA loops).  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
 
@@ -62,7 +62,9 @@ Module map (port -> JAX counterpart):
   ops/intra.py               ops/intra.py
   ops/deblock.py             ops/deblock.py (scalar-QP BS deblocking)
   ops/rdoq.py                ops/rdoq.py (fractional-bit table)
-  ops/rdoq_dev.py            ops/rdoq_jax.py (rdoq_dev)
+  ops/rdoq_dev.py            ops/rdoq_jax.py (rdoq_dev as rdoq_dev /
+                             rdoq_dev_ref)
+    + csrc/rdoq.cu             the Hopper kernel for it
   models/hevc/encoder_dev.py models/hevc/encoder_jax.py (helpers and
                              the flat CTB16 intra encoder encode_frame)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)

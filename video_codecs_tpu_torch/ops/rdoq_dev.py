@@ -15,7 +15,16 @@ snapshot for the rates (HM's estBits), over [B, N, N] coefficient blocks:
 
 The rate tables (`_tables`, `_tables_np`) are the port's copies of the
 reference's host functions (each keeps its name and a comment gives the
-original's line); the device code is plain PyTorch on any device.
+original's line).  The reference's device loop becomes two functions:
+`rdoq_dev_ref`, the plain PyTorch version (the loop as torch ops on any
+device, about 40 launches a position), and `rdoq_dev`, which launches
+the hand-written Hopper kernel csrc/rdoq.cu for a CUDA tensor (one
+launch a call) and runs `rdoq_dev_ref` for a CPU tensor.  There is no
+other path: a CUDA tensor goes through the kernel or raises.  The kernel
+is built with nvcc at first use into build/torch_kernels/ as
+ops/sad_surface.py builds its own (a plain-C shared library loaded with
+ctypes, keyed by the source's hash), and computes what `rdoq_dev_ref`
+computes, bit for bit.
 
 Float32 in the reference's order.  The costs are float32, and the
 decisions compare them, so every float32 operation is the reference's,
@@ -34,7 +43,9 @@ end of `rdoq_dev`).  So the CPU and the card give the same bits.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,11 +55,18 @@ from video_codecs_tpu_torch.entropy import residual
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops.quant import fma32
 from video_codecs_tpu_torch.ops.rdoq import ENTROPY_BITS, _SCALE_BITS
+from video_codecs_tpu_torch.ops.sad_surface import build_library
 from video_codecs_tpu_torch.utils import rom
-from video_codecs_tpu_torch.utils.device import const
+from video_codecs_tpu_torch.utils.device import const, to_device
 
 _BYPASS = 1 << _SCALE_BITS
 _INF = 1e30
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "rdoq.cu"
+# Transform sizes the kernel is instantiated for (log2 of N).
+KERNEL_LOG2 = (2, 3, 4, 5)
+
+_LIB = None
 
 # video_codecs_tpu/ops/rdoq_jax.py:50
 @functools.lru_cache(maxsize=None)
@@ -235,6 +253,24 @@ def _rate_level_dev(level, one_b, abs_b, rice, c1_idx, c2_idx):
     return rate.int()
 
 
+def _quant_params(qp: int, log2_size: int, lam: float, bit_depth: int,
+                  device):
+    """(q_bits, scale, lam_bits, es): the quantiser's shift and scale and
+    the float32 lambda per fractional bit and distortion scale, as 0-d
+    tensors on `device`."""
+    per, rem = qp // 6, qp % 6
+    q_bits = rom.QUANT_SHIFT + per + quant_ops.transform_shift(
+        log2_size, bit_depth)
+    scale = int(rom.QUANT_SCALES[rem])
+    lam_td = float(lam) * float(4 ** (15 - bit_depth - log2_size))
+    err_scale = 1.0 / (float(scale) * float(scale))
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return q_bits, scale, f32(lam_td / (1 << _SCALE_BITS)), f32(err_scale)
+
+
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis, left to right (float32 as it comes)."""
     acc = x[..., 0]
@@ -274,11 +310,14 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 # video_codecs_tpu/ops/rdoq_jax.py:227
-def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
-             scan_type: int = rom.SCAN_DIAG, is_luma: bool = True,
-             slice_type: int = 2, bit_depth: int = 8,
-             allow_all_zero: bool = True, return_rate: bool = False):
-    """Full RDOQ of [B, N, N] int32 coefficient blocks -> levels.
+def rdoq_dev_ref(coeff: torch.Tensor, qp: int, log2_size: int, *,
+                 lam: float, scan_type: int = rom.SCAN_DIAG,
+                 is_luma: bool = True, slice_type: int = 2,
+                 bit_depth: int = 8, allow_all_zero: bool = True,
+                 return_rate: bool = False):
+    """Plain PyTorch full RDOQ of [B, N, N] integer coefficient blocks ->
+    levels, on tensors of any device (the reference's `rdoq_dev` written
+    out as torch ops).
 
     With return_rate=True also returns the estimated CABAC rate of the
     emitted levels per block ([B] float32 bits), the rate the quadtree
@@ -290,19 +329,8 @@ def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
     td = _tables_dev(qp, log2_size, bool(is_luma), slice_type, scan_type,
                      dev)
     tn = _tables_np(qp, log2_size, bool(is_luma), slice_type, scan_type)
-
-    per, rem = qp // 6, qp % 6
-    q_bits = rom.QUANT_SHIFT + per + quant_ops.transform_shift(
-        log2_size, bit_depth)
-    scale = int(rom.QUANT_SCALES[rem])
-    lam_td = float(lam) * float(4 ** (15 - bit_depth - log2_size))
-    err_scale = 1.0 / (float(scale) * float(scale))
-
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
-
-    lam_bits = f32(lam_td / (1 << _SCALE_BITS))
-    es = f32(err_scale)
+    q_bits, scale, lam_bits, es = _quant_params(qp, log2_size, lam,
+                                                bit_depth, dev)
 
     b = coeff.shape[0]
     flat = coeff.reshape(b, nn)
@@ -480,3 +508,104 @@ def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
         dist_sum = _row_sum(dist_fin)
     bits = (chosen_total - dist_sum) * inv
     return out, bits.clamp(min=0.0)
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile csrc/rdoq.cu (`sad_surface.build_library`)."""
+    return build_library(_SRC, "vct_rdoq")
+
+
+def _load() -> ctypes.CDLL:
+    """The built library, with its entry point's C signature declared:
+    vct_rdoq(coeff, s_b, s_y, s_x, out, bits, num_blocks, log2_size, tab,
+    rate_last, q_bits, scale, lam_bits, es, inv, is_luma, allow_all_zero,
+    stream)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        fn = lib.vct_rdoq
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 +
+                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
+                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 +
+                       [ctypes.c_float] * 3 + [ctypes.c_int] * 2 +
+                       [ctypes.c_void_p])
+        _LIB = lib
+    return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(qp: int, log2_size: int, is_luma: bool, slice_type: int,
+                   scan_type: int, device: torch.device):
+    """The kernel's tables on `device`: one int32 buffer holding `scan`,
+    `sig_cg_tab`, `gt1_flat`, `gt2_tab`, `cg_bits`, `cg_rev`, `ngr_rev` and
+    `ngb_rev` of `_tables_np`, flattened in that order (csrc/rdoq.cu reads
+    them at those offsets), and the float32 last-position rates."""
+    t = _tables_np(qp, log2_size, is_luma, slice_type, scan_type)
+    tab = np.concatenate([np.asarray(t[k], np.int32).ravel() for k in (
+        "scan", "sig_cg_tab", "gt1_flat", "gt2_tab", "cg_bits", "cg_rev",
+        "ngr_rev", "ngb_rev")])
+    return (to_device(tab, device, torch.int32),
+            to_device(t["rate_last"], device, torch.float32))
+
+
+# video_codecs_tpu/ops/rdoq_jax.py:227
+def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
+             scan_type: int = rom.SCAN_DIAG, is_luma: bool = True,
+             slice_type: int = 2, bit_depth: int = 8,
+             allow_all_zero: bool = True, return_rate: bool = False):
+    """Full RDOQ of [B, N, N] int32 coefficient blocks -> levels.
+
+    With return_rate=True also returns the estimated CABAC rate of the
+    emitted levels per block ([B] float32 bits), the rate the quadtree
+    decision charges.
+
+    CUDA tensors (int32, any strides, log2_size in KERNEL_LOG2) go through
+    the Hopper kernel csrc/rdoq.cu, one launch counted in
+    `rdoq_dev.launches`; CPU tensors through `rdoq_dev_ref`."""
+    n = 1 << log2_size
+    if coeff.dim() != 3 or tuple(coeff.shape[1:]) != (n, n):
+        raise ValueError(f"rdoq_dev: coefficients {tuple(coeff.shape)} are "
+                         f"not [B, {n}, {n}] blocks")
+    kw = dict(lam=lam, scan_type=scan_type, is_luma=is_luma,
+              slice_type=slice_type, bit_depth=bit_depth,
+              allow_all_zero=allow_all_zero, return_rate=return_rate)
+    if coeff.device.type == "cpu":
+        return rdoq_dev_ref(coeff, qp, log2_size, **kw)
+    if coeff.device.type != "cuda":
+        raise ValueError(f"rdoq_dev: no kernel for {coeff.device}")
+    if coeff.dtype != torch.int32:
+        raise TypeError(f"rdoq_dev kernel takes int32 coefficients, got "
+                        f"{coeff.dtype}")
+    if log2_size not in KERNEL_LOG2:
+        raise ValueError(f"rdoq_dev kernel takes log2_size in "
+                         f"{KERNEL_LOG2}, got {log2_size}")
+    dev = coeff.device
+    b = coeff.shape[0]
+    out = torch.empty((b, n, n), dtype=torch.int32, device=dev)
+    bits = (torch.empty(b, dtype=torch.float32, device=dev) if return_rate
+            else None)
+    if b:
+        tab, rate_last = _kernel_tables(qp, log2_size, bool(is_luma),
+                                        slice_type, scan_type, dev)
+        # the float32 scalars on the host, as rdoq_dev_ref forms them
+        q_bits, scale, lam_bits, es = _quant_params(qp, log2_size, lam,
+                                                    bit_depth, "cpu")
+        inv = 1.0 / (lam_bits * (1 << _SCALE_BITS))
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.vct_rdoq(
+                coeff.data_ptr(), *coeff.stride(), out.data_ptr(),
+                None if bits is None else bits.data_ptr(), b, log2_size,
+                tab.data_ptr(), rate_last.data_ptr(), q_bits, scale,
+                lam_bits.item(), es.item(), inv.item(), int(bool(is_luma)),
+                int(bool(allow_all_zero)), stream)
+        if err != 0:
+            raise RuntimeError(f"rdoq_dev kernel launch failed: cudaError "
+                               f"{err}")
+        rdoq_dev.launches += 1
+    return (out, bits) if return_rate else out
+
+
+rdoq_dev.launches = 0

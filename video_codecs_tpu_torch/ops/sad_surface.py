@@ -45,28 +45,34 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the SAD-surface kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile csrc/sad_surface.cu for sm_90a unless a library of the same
-    source and flags exists.  Returns (library, build seconds, compiler
-    output); seconds is 0.0 when the library was already built."""
-    tag = hashlib.blake2b(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode(),
+def build_library(src: Path, stem: str) -> tuple[Path, float, str]:
+    """Compile one kernel source for sm_90a into build/torch_kernels/
+    lib<stem>_<hash>.so unless a library of the same source and flags
+    exists.  Returns (library, build seconds, compiler output); seconds
+    is 0.0 when the library was already built."""
+    tag = hashlib.blake2b(src.read_bytes() + " ".join(NVCC_FLAGS).encode(),
                           digest_size=8).hexdigest()
-    so = _BUILD_DIR / f"libvct_sad_surface_{tag}.so"
+    so = _BUILD_DIR / f"lib{stem}_{tag}.so"
     if so.exists():
         return so, 0.0, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
     return so, time.perf_counter() - t0, res.stdout + res.stderr
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile csrc/sad_surface.cu (`build_library`)."""
+    return build_library(_SRC, "vct_sad_surface")
 
 
 def _load() -> ctypes.CDLL:

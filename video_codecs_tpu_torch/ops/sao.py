@@ -30,17 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from video_codecs_tpu_torch.ops.sad_surface import (NVCC_FLAGS, _BUILD_DIR,
-                                                    _nvcc)
+from video_codecs_tpu_torch.ops.sad_surface import build_library
 
 SAO_OFF, SAO_BO, SAO_EO = 0, 1, 2
 
@@ -163,24 +158,8 @@ def decide_ctu(orig: np.ndarray, rec: np.ndarray, x0: int, y0: int,
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile csrc/sao_stats.cu for sm_90a unless a library of the same
-    source and flags exists.  Returns (library, build seconds, compiler
-    output); seconds is 0.0 when the library was already built."""
-    tag = hashlib.blake2b(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode(),
-                          digest_size=8).hexdigest()
-    so = _BUILD_DIR / f"libvct_sao_stats_{tag}.so"
-    if so.exists():
-        return so, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, time.perf_counter() - t0, res.stdout + res.stderr
+    """Compile csrc/sao_stats.cu (`sad_surface.build_library`)."""
+    return build_library(_SRC, "vct_sao_stats")
 
 
 def _load() -> ctypes.CDLL:
