@@ -573,11 +573,18 @@ def rdoq_bound(b: int, log2: int, rate: bool,
     return max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3, nbytes, ops
 
 
-def phase_rdoq_kernel() -> list:
-    """Phase 6 (first): the full-RDOQ kernel against `rdoq_dev_ref` on the
-    same CUDA tensors at the paths' shapes, levels exactly and rates bit
-    for bit, each timed beside its bound and the plain version.  Returns
-    one row per shape, the 1080p B picture's TU16 luma call first."""
+# RDOQ calls per RA B picture at each of phase_rdoq_kernel's B-picture
+# shapes (inter_dev.encode_b_frame_dev and inter_qt.qt_merge_dev): TU16
+# luma twice, TU8 chroma four times, the RQT's TU8 luma once and TU4
+# chroma twice, 9 launches.
+RA_B_RDOQ_CALLS = {"1080p B TU16 luma": 2, "1080p B TU8 chroma": 4,
+                   "1080p B RQT TU8 luma": 1, "1080p B RQT TU4 chroma": 2}
+
+
+def rdoq_shapes() -> list:
+    """The RDOQ calls of the paths, on the card: (what, coefficients,
+    log2, is_luma, slice type, with the rate, qp), the 1080p B picture's
+    TU16 luma call first."""
     ra = synth_clip(HEVC_W, HEVC_H, 2, seed=5)
     ldp = bench_synth_clip(LDP_W, LDP_H, 2)
     idr = np.pad(ra[0][0], ((0, 16), (0, 0)), mode="edge")   # 1920x1088
@@ -595,12 +602,24 @@ def phase_rdoq_kernel() -> list:
         ("LD-P P TU16 luma", ldp[1][0], ldp[0][0], 4, True, 0, False, ql),
         ("LD-P P TU8 chroma", ldp[1][1], ldp[0][1], 3, False, 0, False, ql),
     ]
+    return [(what, rdoq_coeffs(cur, ref, log2), log2, luma, st, rate, qp)
+            for what, cur, ref, log2, luma, st, rate, qp in shapes]
+
+
+def rdoq_lam(qp: int) -> float:
+    return 0.57 * 2.0 ** ((qp - 12) / 3.0)
+
+
+def phase_rdoq_kernel() -> list:
+    """Phase 6 (first): the full-RDOQ kernel against `rdoq_dev_ref` on the
+    same CUDA tensors at the paths' shapes, levels exactly and rates bit
+    for bit, each timed beside its bound and the plain version.  Returns
+    one row per shape, the 1080p B picture's TU16 luma call first."""
     rows = []
-    for what, cur, ref, log2, luma, st, rate, qp in shapes:
-        co = rdoq_coeffs(cur, ref, log2)
+    for what, co, log2, luma, st, rate, qp in rdoq_shapes():
         b = co.shape[0]
-        kw = dict(lam=0.57 * 2.0 ** ((qp - 12) / 3.0), is_luma=luma,
-                  slice_type=st, return_rate=rate)
+        kw = dict(lam=rdoq_lam(qp), is_luma=luma, slice_type=st,
+                  return_rate=rate)
         got = rdoq_ops.rdoq_dev(co, qp, log2, **kw)
         torch.cuda.synchronize()
         want = rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw)
@@ -638,6 +657,12 @@ def phase_rdoq_kernel() -> list:
                          bound_by=by, library_ms=None, max_abs_err=err))
         del co, got, want
     torch.cuda.empty_cache()
+    per_b = {k: sum(RA_B_RDOQ_CALLS.get(r["what"], 0) * r[k] for r in rows)
+             for k in ("ms", "event_ms", "bound_ms")}
+    print(f"[rdoq-kernel] per 1080p RA B picture "
+          f"({sum(RA_B_RDOQ_CALLS.values())} calls at the B shapes above): "
+          f"kernel {per_b['ms']:.4f} ms, wrapper calls "
+          f"{per_b['event_ms']:.4f} ms, bound {per_b['bound_ms']:.4f} ms")
     print("[rdoq-kernel] no single PyTorch call computes RDOQ (library_ms "
           "null)")
     return rows
@@ -775,14 +800,13 @@ def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
     return statistics.median(times) / 1e3 if times else None
 
 
-def phase_sao_kernel() -> dict:
-    """Phase 7e: the SAO-statistics kernel against its plain version at
-    the RA SAO path's padded planes, exactly, timed beside its bound; the
-    totals are per 1080p picture (luma + two chroma planes, 3 launches)."""
+def sao_planes() -> list:
+    """(what, orig, rec, ctb, timed) on the card: the RA SAO path's padded
+    planes of a 1080p picture (timed) and of 112x80, rec within +-3 of
+    orig."""
     y, u, v = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
     rng = np.random.default_rng(2027)
-    pic = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
-    max_err = 0.0
+    planes = []
     for what, plane, ctb, timed in (
             ("1080p luma", y, 32, True), ("1080p Cb", u, 16, True),
             ("1080p Cr", v, 16, True), ("112x80 luma", y[:80, :112], 32,
@@ -791,20 +815,32 @@ def phase_sao_kernel() -> dict:
         o = inter_qt._pad_to(np.ascontiguousarray(plane), ctb)
         r = np.clip(o.astype(np.int16) + rng.integers(-3, 4, o.shape),
                     0, 255).astype(np.uint8)
-        to = torch.from_numpy(np.ascontiguousarray(o)).cuda()
-        tr = torch.from_numpy(r).cuda()
+        planes.append((what, torch.from_numpy(np.ascontiguousarray(o)).cuda(),
+                       torch.from_numpy(r).cuda(), ctb, timed))
+    return planes
+
+
+def phase_sao_kernel() -> dict:
+    """Phase 7e: the SAO-statistics kernel against its plain version at
+    the RA SAO path's padded planes, exactly, timed beside its bound; the
+    totals are per 1080p picture (luma + two chroma planes, 3 launches)."""
+    pic = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    max_err = 0.0
+    for what, to, tr, ctb, timed in sao_planes():
         got = sao_ops.sao_stats(to, tr, ctb)
         torch.cuda.synchronize()
         want = sao_ops.sao_stats_ref(to, tr, ctb)
-        check(all(g.dtype == w_.dtype and g.shape == w_.shape
+        check(all(g.dtype == w_.dtype and g.shape == w_.shape and
+                  g.stride() == w_.contiguous().stride()
                   for g, w_ in zip(got, want)),
-              f"SAO kernel outputs' dtypes or shapes differ ({what})")
+              f"SAO kernel outputs' dtypes, shapes or strides differ "
+              f"({what})")
         err = max(float((g.double() - w_.double()).abs().max())
                   for g, w_ in zip(got, want))
-        check(err == 0, f"SAO kernel != plain at {what} {o.shape} "
-                        f"(max abs err {err})")
+        check(err == 0, f"SAO kernel != plain at {what} "
+                        f"{tuple(to.shape)} (max abs err {err})")
         max_err = max(max_err, err)
-        hp, wp = o.shape
+        hp, wp = to.shape
         if not timed:
             print(f"[sao-kernel] {what} ({wp}x{hp} padded, CTB {ctb}): "
                   "all four outputs equal")

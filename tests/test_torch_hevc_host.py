@@ -69,7 +69,8 @@ _COPIES = {
     "ops/rdoq_dev.py": ("ops/rdoq_jax.py", set(),
                         {"_tables_dev", "_floor_log2", "_rate_level_dev",
                          "rdoq_dev"}, {"_seq_sum", "_row_sum", "_cumsum",
-                                       "_quant_params", "rdoq_dev_ref",
+                                       "_quant_params", "_quant_scalars",
+                                       "_kernel_scalars", "rdoq_dev_ref",
                                        "build", "_load", "_kernel_tables"}),
     "models/hevc/encoder_dev.py": ("models/hevc/encoder_jax.py", set(),
                                    {"gather_refs", "_extract_blocks",

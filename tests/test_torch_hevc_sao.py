@@ -361,6 +361,39 @@ def test_sao_kernel_matches_plain_on_card(ctb, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,ctb,h,w", [
+    ("one_bin", 16, 64, 96), ("one_bin", 32, 128, 192),
+    ("random", 16, 48, 80), ("random", 32, 96, 160),
+    ("one_ctb", 16, 16, 16), ("one_ctb", 32, 32, 32)])
+def test_sao_kernel_crowded_and_spread_bins(kind, ctb, h, w):
+    """Planes for the kernel's per-lane bins: a flat rec, where every
+    sample of a CTB lands in EO category 0 and one band (every lane of a
+    warp on one bin); uniform noise in orig and rec, where the lanes spread
+    over all bins; and a plane of one CTB (a strip of one CTB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
+    rng = np.random.default_rng(ctb * 31 + h)
+    o = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    if kind == "one_bin":
+        r = np.full((h, w), 141, np.uint8)
+    elif kind == "random":
+        r = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    else:
+        o, r = _planes(ctb, h, w)
+    to, tr = torch.from_numpy(o).cuda(), torch.from_numpy(r).cuda()
+    got = tsao.sao_stats(to, tr, ctb)
+    torch.cuda.synchronize()
+    want = tsao.sao_stats_ref(to, tr, ctb)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert g.stride() == w_.contiguous().stride()
+        assert torch.equal(g, w_)
+    if kind == "one_bin":
+        assert int(got[0][:, 0].sum()) == 4 * h * w     # EO category 0
+        assert int(got[2][141 >> 3].sum()) == h * w     # one band
+
+
+@pytest.mark.cuda
 def test_sao_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
@@ -371,3 +404,18 @@ def test_sao_kernel_refuses_what_it_does_not_take():
         tsao.sao_stats(z.int(), z.int(), 32)
     with pytest.raises(ValueError):
         tsao.sao_stats(z.t()[:, :16], z.t()[:, :16], 16)
+
+
+@pytest.mark.cuda
+def test_sao_kernel_refuses_a_misaligned_orig():
+    """The kernel reads orig in aligned 32-bit words: a plane that starts
+    off a 4-byte boundary is refused, not read wrong."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
+    o, r = _planes(5, 32, 64)
+    buf = torch.zeros(32 * 64 + 1, dtype=torch.uint8, device="cuda")
+    to = buf[1:].view(32, 64)
+    to.copy_(torch.from_numpy(o).cuda())
+    assert to.is_contiguous() and to.data_ptr() % 4
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tsao.sao_stats(to, torch.from_numpy(r).cuda(), 32)

@@ -134,6 +134,28 @@ def test_kernel_tables_layout(log2, luma, st):
     assert rate_last.dtype == torch.float32
 
 
+@pytest.mark.parametrize("log2", [2, 3, 4, 5])
+def test_kernel_scalars_equal_quant_params(log2):
+    """The float32 scalars the wrapper caches for the kernel are, bit for
+    bit, the ones `_quant_params` and `rdoq_dev_ref` form as tensors."""
+    def bits(v):
+        return np.float32(v).view(np.int32).item()
+
+    for qp in range(52):
+        for lam in (_lam(qp), _lam(qp) * 0.85, 1.0):
+            for bit_depth in (8, 10):
+                q_bits, scale, lam_bits, es = trdoq._quant_params(
+                    qp, log2, lam, bit_depth, "cpu")
+                inv = 1.0 / (lam_bits * (1 << 15))
+                got = trdoq._kernel_scalars(qp, log2, lam, bit_depth)
+                assert got[:2] == (q_bits, scale)
+                assert all(isinstance(v, float) for v in got[2:])
+                for g, w in zip(got[2:], (lam_bits, es, inv)):
+                    assert w.dtype == torch.float32
+                    assert bits(g) == w.view(torch.int32).item()
+                    assert np.float32(g).item() == g   # exactly a float32
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.mark.cuda
@@ -211,3 +233,83 @@ def test_cuda_call_never_reaches_the_plain_version(monkeypatch):
         trdoq.rdoq_dev(co.float(), 30, 4, lam=_lam(30))
     empty = trdoq.rdoq_dev(co[:0], 30, 4, lam=_lam(30), return_rate=True)
     assert empty[0].shape == (0, 16, 16) and empty[1].shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,log2,luma,slice_type", [
+    (1, 4, True, 0), (31, 3, False, 0), (33, 2, False, 0),
+    (33, 5, True, 2), (8045, 4, True, 0)])
+def test_kernel_ragged_batches(b, log2, luma, slice_type):
+    """Batches that are not a multiple of a warp's 32 TUs: the lanes past
+    the end read and write nothing."""
+    _need_card()
+    co = _blocks(b * 7 + log2, log2, b, amp=50).cuda()
+    for qp in (27, 37):
+        for return_rate in (True, False):
+            kw = dict(lam=_lam(qp), is_luma=luma, slice_type=slice_type,
+                      return_rate=return_rate)
+            got = trdoq.rdoq_dev(co, qp, log2, **kw)
+            torch.cuda.synchronize()
+            _assert_same(got, trdoq.rdoq_dev_ref(co, qp, log2, **kw),
+                         return_rate)
+
+
+def _lockstep_batch(log2: int, st: int, seed: int) -> torch.Tensor:
+    """A batch in which neighbouring TUs end their chains at different
+    places: TU k of each group of NN + 3 has its last significant
+    coefficient at scan position k (random coefficients before it, zeros
+    after), interleaved with all-zero TUs and TUs at the clamps
+    (+32,767; alternating -32,768 and +32,767)."""
+    n = 1 << log2
+    nn = n * n
+    scan = trdoq._tables_np(30, log2, True, 0, st)["scan"]
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for last in range(nn):
+        flat = np.zeros(nn, np.int32)
+        flat[scan[:last]] = rng.integers(-600, 601, last)
+        flat[scan[last]] = rng.choice([-1, 1]) * rng.integers(400, 2001)
+        blocks.append(flat.reshape(n, n))
+        k = len(blocks) % 3
+        if k == 0:
+            blocks.append(np.zeros((n, n), np.int32))
+        elif k == 1:
+            blocks.append(np.full((n, n), 32767, np.int32))
+        else:
+            clamp = np.full((n, n), 32767, np.int32)
+            clamp[::2] = -32768
+            blocks.append(clamp)
+    return torch.from_numpy(np.stack(blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2,st", [(2, 0), (2, 1), (3, 2), (4, 0), (5, 0)])
+def test_kernel_lanes_end_their_chains_apart(log2, st):
+    """Every possible last position, all-zero blocks and blocks at the
+    clamps side by side in one warp."""
+    _need_card()
+    co = _lockstep_batch(log2, st, 300 + log2).cuda()
+    for qp in (22, 32, 42):
+        for slice_type in (0, 2):
+            for allow_all_zero in (True, False):
+                kw = dict(lam=_lam(qp), scan_type=st, slice_type=slice_type,
+                          allow_all_zero=allow_all_zero, return_rate=True)
+                got = trdoq.rdoq_dev(co, qp, log2, **kw)
+                torch.cuda.synchronize()
+                _assert_same(got, trdoq.rdoq_dev_ref(co, qp, log2, **kw),
+                             True)
+
+
+@pytest.mark.cuda
+def test_kernel_tu32_idr_batch_with_rate():
+    """The 1080p IDR's TU32 trial: B = 2,040, slice type 2, with the rate
+    (the largest shared-memory opt-in)."""
+    _need_card()
+    co = _blocks(2040, 5, 2040, amp=60)
+    co[5::37] = 0
+    co = co.cuda()
+    for qp in (27, 32):
+        kw = dict(lam=_lam(qp), slice_type=2, return_rate=True)
+        got = trdoq.rdoq_dev(co, qp, 5, **kw)
+        torch.cuda.synchronize()
+        _assert_same(got, trdoq.rdoq_dev_ref(co, qp, 5, **kw), True)

@@ -23,90 +23,192 @@
 // 3.35 TB/s: bound by bytes.  A few integer operations per sample (under
 // 30 M a picture) are far below the card's integer rate.
 //
-// Design.  One CTA per CTB.  It stages the CTB's rec samples with a
-// one-sample halo in shared memory, the halo clamped to the plane (the
-// reference's edge pad; those neighbours matter only where the mask
-// zeroes the category).  Each thread classifies one or more samples and
-// adds to 52 shared bins (4 classes x 5 categories, 32 bands) with one
-// shared atomic per bin: the count and the difference travel packed in
-// one int, diff * 2048 + 1.  A CTB holds at most 1,024 samples with
-// |diff| <= 255, so the packed sum stays within +-535 M and the count
-// below 2048: both are exact, and integer atomics are order-free.  The
-// float32 sums written at the end are integers below 2^24, exact in
-// float32 in any order, so the kernel, the plain version and XLA agree
-// bit for bit.  Nothing is carried between CTAs.
+// Design.  One CTA per strip of CTBs side by side in a CTB row (4 at CTB
+// 16, 2 at CTB 32), 128 threads: each CTB gets 2 * CTB threads, each lane
+// one column of its CTB and every other row in it, CTB / 2 samples.  Fewer,
+// wider CTAs than one per CTB, and each bin's outputs of the strip's CTBs
+// are neighbours in memory, so the stores coalesce: with one CTA per CTB,
+// launching the CTAs and scattering their 104 stores each set a chroma
+// plane's time, whatever the sample loop cost (PERF.md).  The CTA stages
+// the strip's rec samples with a one-sample halo in shared memory, the halo
+// clamped to the plane (the reference's edge pad; those neighbours matter
+// only where the mask zeroes the category), and its orig samples; every
+// thread issues all its loads before it waits for any.  A sample's count
+// and difference travel packed in one int, diff * 2048 + 1.  On real
+// content most samples of a CTB share EO category 0 and a few bands, so the
+// lanes of a warp mostly hit the same bin: shared atomics serialise on it,
+// and grouping the lanes by bin first (__match_any_sync and
+// __reduce_add_sync) measured twice as slow (PERF.md).  So every lane keeps
+// its own bins, bin b of lane l at word 32 b + l: its updates are plain
+// adds in its own bank, with no atomic and no conflict whatever bins the
+// lanes hit.  A sample adds to three bins: one of 25 for the pair of signs
+// (s0, s1) of EO classes 0 and 1 (s = sign(c - a) + sign(c - b), -2..2),
+// one of 25 for classes 2 and 3, and its band's; the classes' own bins are
+// the pair bins' margins, taken at the end.  The classification runs
+// without a branch (the plane-edge masks are ands, the signs clamps).  Then
+// each warp folds its lanes' bins, lane l summing bins l, l + 32 and l + 64
+// over the 32 lanes in a rotated order (lane l reads lane (i + l) mod 32 at
+// step i, 32 banks again), and the CTA adds each CTB's warps, takes the
+// margins and writes the strip's outputs bin by bin.  A CTB holds at most
+// 1,024 samples with |diff| <= 255, so every packed sum, a lane's, a
+// warp's, a margin or the CTB's, stays within +-535 M and the count below
+// 2048: both are exact, and integer sums are order-free.  The float32 sums
+// written at the end are integers below 2^24, exact in float32 in any
+// order, so the kernel, the plain version and XLA agree bit for bit.
+// Nothing is carried between CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kEoBins = 4 * 5;           // EO class x category
-constexpr int kBins = kEoBins + 32;      // then the 32 bands
+constexpr int kEoBins = 4 * 5;           // EO class x category (outputs)
+constexpr int kOutBins = kEoBins + 32;   // then the 32 bands
+constexpr int kPairBins = 25;            // (s, s') of two EO classes
+constexpr int kBins = 2 * kPairBins + 32;  // the lanes' bins
 constexpr int kCountBits = 11;           // count < 2048 in the low bits
 
-__device__ __forceinline__ int sgn(int v) { return (v > 0) - (v < 0); }
+// sign of a difference of two samples, as a clamp
+__device__ __forceinline__ int sgn(int v) { return min(max(v, -1), 1); }
 
-// spec edgeIdx: s = -2 -> 1, -1 -> 2, 0 -> 0, 1 -> 3, 2 -> 4
-__device__ __forceinline__ int category(int s) {
-  return s == 0 ? 0 : (s < 0 ? s + 3 : s + 2);
-}
 
 template <int CTB>
-__global__ void __launch_bounds__(kThreads) sao_stats_kernel(
+struct Strip {
+  static constexpr int kCtbs = CTB == 16 ? 4 : 2;       // CTBs per CTA
+  static constexpr int kCtbThreads = 2 * CTB;
+  static constexpr int kThreads = kCtbs * kCtbThreads;  // 128
+  static constexpr int kWarpsPerCtb = kCtbThreads / 32;
+  static constexpr int kT = CTB + 2;                     // tile rows
+  static constexpr int kTw = kCtbs * CTB + 2;            // tile columns
+  static constexpr int kOw = kCtbs * CTB;                // orig columns
+  static constexpr int kTileLoads = (kT * kTw + kThreads - 1) / kThreads;
+  static constexpr int kOrigWords = CTB * kOw / 4 / kThreads;  // per thread
+  static_assert(CTB * kOw % (4 * kThreads) == 0, "whole orig words");
+};
+
+template <int CTB>
+__global__ void __launch_bounds__(Strip<CTB>::kThreads) sao_stats_kernel(
     const uint8_t* __restrict__ orig, const uint8_t* __restrict__ rec,
     int h, int w, int* __restrict__ eo_count, float* __restrict__ eo_sum,
     int* __restrict__ bo_count, float* __restrict__ bo_sum) {
-  constexpr int T = CTB + 2;
-  __shared__ uint8_t tile[T * T];
-  __shared__ int bins[kBins];
-  const int bx = blockIdx.x, by = blockIdx.y;
-  const int cx = gridDim.x, cy = gridDim.y;
-  const int x0 = bx * CTB, y0 = by * CTB;
-  for (int i = threadIdx.x; i < kBins; i += kThreads) bins[i] = 0;
-  for (int i = threadIdx.x; i < T * T; i += kThreads) {
-    const int y = min(max(y0 + i / T - 1, 0), h - 1);
-    const int x = min(max(x0 + i % T - 1, 0), w - 1);
-    tile[i] = rec[(size_t)y * w + x];
+  using S = Strip<CTB>;
+  constexpr int T = S::kT, TW = S::kTw, OW = S::kOw, K = S::kCtbs;
+  constexpr int kThreads = S::kThreads, kWarps = kThreads / 32;
+  constexpr int kSamples = CTB / 2;                      // per lane
+  __shared__ uint8_t tile[T * TW];
+  __shared__ __align__(4) uint8_t orig_tile[CTB * OW];
+  __shared__ int bins[kWarps][kBins * 32];   // [warp][bin][lane]
+  __shared__ int totals[kWarps][kBins];
+  const int cx = w / CTB, cy = gridDim.y;
+  const int by = blockIdx.y, bx0 = blockIdx.x * K;       // first CTB
+  const int x0 = bx0 * CTB, y0 = by * CTB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = threadIdx.x / S::kCtbThreads;            // the CTB in strip
+  const int u = threadIdx.x % S::kCtbThreads;
+  const int lx = j * CTB + u % CTB, ly0 = u / CTB;       // ly0: 0, 1
+  int* mine = bins[warp] + lane;             // this lane's bins, stride 32
+  // every load of the CTA issued before any is waited for, into
+  // registers: the strip's orig samples (words, aligned: x0 and w are
+  // multiples of 4), then its rec tile with the halo, clamped to the plane
+  // (a strip past the plane's right edge reads its last samples again, and
+  // writes nothing out for those CTBs)
+  uint32_t o[S::kOrigWords];
+  int r[S::kTileLoads];
+#pragma unroll
+  for (int i = 0; i < S::kOrigWords; ++i) {
+    const int k = threadIdx.x + i * kThreads;          // word of the strip
+    const int y = y0 + k / (OW / 4);
+    const int x = min(x0 + 4 * (k % (OW / 4)), w - 4);
+    o[i] = *reinterpret_cast<const uint32_t*>(orig + (size_t)y * w + x);
+  }
+#pragma unroll
+  for (int i = 0; i < S::kTileLoads; ++i) {
+    const int k = min(threadIdx.x + i * kThreads, T * TW - 1);
+    const int y = min(max(y0 + k / TW - 1, 0), h - 1);
+    const int x = min(max(x0 + k % TW - 1, 0), w - 1);
+    r[i] = rec[(size_t)y * w + x];
+  }
+#pragma unroll
+  for (int b = 0; b < kBins; ++b) mine[32 * b] = 0;
+#pragma unroll
+  for (int i = 0; i < S::kOrigWords; ++i)
+    reinterpret_cast<uint32_t*>(orig_tile)[threadIdx.x + i * kThreads] = o[i];
+#pragma unroll
+  for (int i = 0; i < S::kTileLoads; ++i) {
+    const int k = threadIdx.x + i * kThreads;
+    if (k < T * TW) tile[k] = (uint8_t)r[i];
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < CTB * CTB; k += kThreads) {
-    const int ly = k / CTB, lx = k % CTB;
-    const int y = y0 + ly, x = x0 + lx;
-    const uint8_t* t = tile + (ly + 1) * T + (lx + 1);
-    const int c = t[0];
-    const int v = (int(orig[(size_t)y * w + x]) - c) * (1 << kCountBits) + 1;
-    const bool row = x > 0 && x + 1 < w;     // both horizontal neighbours
-    const bool col = y > 0 && y + 1 < h;     // both vertical neighbours
+  // both horizontal neighbours inside the plane: one column per lane
+  const int row = x0 + lx > 0 && x0 + lx + 1 < w ? -1 : 0;
+  // the lane's column and its neighbours, three tile rows at a time: the
+  // row below one sample is the row above the next
+  const uint8_t* col0 = tile + ly0 * TW + lx;
+  int ul = col0[0], uc = col0[1], ur = col0[2];
+#pragma unroll
+  for (int i = 0; i < kSamples; ++i) {
+    const int ly = ly0 + 2 * i, y = y0 + ly;
+    const uint8_t* t = col0 + (2 * i + 1) * TW;
+    const int ml = t[0], c = t[1], mr = t[2];
+    const int dl = t[TW], dc = t[TW + 1], dr = t[TW + 2];
+    const int v = (int(orig_tile[ly * OW + lx]) - c) * (1 << kCountBits) + 1;
+    const int col = y > 0 && y + 1 < h ? -1 : 0;   // both vertical ones
     // EO classes (ops/sao.py EO_NEIGHBORS): 0 horizontal, 1 vertical,
     // 2 135 degrees (up-left, down-right), 3 45 degrees (up-right,
-    // down-left)
-    const int c0 = row ? category(sgn(c - t[-1]) + sgn(c - t[1])) : 0;
-    const int c1 = col ? category(sgn(c - t[-T]) + sgn(c - t[T])) : 0;
-    const int c2 = row && col
-        ? category(sgn(c - t[-T - 1]) + sgn(c - t[T + 1])) : 0;
-    const int c3 = row && col
-        ? category(sgn(c - t[-T + 1]) + sgn(c - t[T - 1])) : 0;
-    atomicAdd(&bins[0 * 5 + c0], v);
-    atomicAdd(&bins[1 * 5 + c1], v);
-    atomicAdd(&bins[2 * 5 + c2], v);
-    atomicAdd(&bins[3 * 5 + c3], v);
-    atomicAdd(&bins[kEoBins + (c >> 3)], v);
+    // down-left); s = 0 (category 0) where a neighbour is outside
+    const int s0 = (sgn(c - ml) + sgn(c - mr)) & row;
+    const int s1 = (sgn(c - uc) + sgn(c - dc)) & col;
+    const int s2 = (sgn(c - ul) + sgn(c - dr)) & row & col;
+    const int s3 = (sgn(c - ur) + sgn(c - dl)) & row & col;
+    ul = dl;
+    uc = dc;
+    ur = dr;
+    mine[32 * ((s0 + 2) * 5 + s1 + 2)] += v;
+    mine[32 * (kPairBins + (s2 + 2) * 5 + s3 + 2)] += v;
+    mine[32 * (2 * kPairBins + (c >> 3))] += v;
+  }
+  __syncwarp();
+  const int* warp_bins = bins[warp];
+  for (int b = lane; b < kBins; b += 32) {
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum += warp_bins[32 * b + ((i + lane) & 31)];
+    totals[warp][b] = sum;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kBins; i += kThreads) {
-    const int packed = bins[i];
-    const int n = packed & ((1 << kCountBits) - 1);
-    const float s = (float)((packed - n) / (1 << kCountBits));
-    if (i < kEoBins) {
-      const size_t o = ((size_t)i * cy + by) * cx + bx;
-      eo_count[o] = n;
-      eo_sum[o] = s;
+  // the strip's outputs bin by bin, the CTBs of a bin side by side
+  for (int i = threadIdx.x; i < kOutBins * K; i += kThreads) {
+    const int b = i / K, jj = i % K, bx = bx0 + jj;
+    if (bx >= cx) continue;
+    const int* tot = totals[jj * S::kWarpsPerCtb];
+    int packed = 0;
+    if (b < kEoBins) {
+      // class k's category cat: the margin of its pair over the other
+      // class's 5 signs, at s + 2 = (2, 0, 1, 3, 4)[cat] (edgeIdx)
+      const int k = b / 5, cat = b % 5;
+      const int sv = cat == 0 ? 2 : cat < 3 ? cat - 1 : cat;
+      const int pair = (k >> 1) * kPairBins;
+      for (int q = 0; q < 5; ++q) {
+        const int pb = pair + ((k & 1) ? q * 5 + sv : sv * 5 + q);
+#pragma unroll
+        for (int m = 0; m < S::kWarpsPerCtb; ++m)
+          packed += tot[m * kBins + pb];
+      }
     } else {
-      const size_t o = ((size_t)(i - kEoBins) * cy + by) * cx + bx;
+#pragma unroll
+      for (int m = 0; m < S::kWarpsPerCtb; ++m)
+        packed += tot[m * kBins + 2 * kPairBins + b - kEoBins];
+    }
+    const int n = packed & ((1 << kCountBits) - 1);
+    const float sum = (float)((packed - n) / (1 << kCountBits));
+    if (b < kEoBins) {
+      const size_t o = ((size_t)b * cy + by) * cx + bx;
+      eo_count[o] = n;
+      eo_sum[o] = sum;
+    } else {
+      const size_t o = ((size_t)(b - kEoBins) * cy + by) * cx + bx;
       bo_count[o] = n;
-      bo_sum[o] = s;
+      bo_sum[o] = sum;
     }
   }
 }
@@ -114,8 +216,9 @@ __global__ void __launch_bounds__(kThreads) sao_stats_kernel(
 template <int CTB>
 int launch(const void* orig, const void* rec, void* eo_count, void* eo_sum,
            void* bo_count, void* bo_sum, int h, int w, cudaStream_t stream) {
-  const dim3 grid(w / CTB, h / CTB);
-  sao_stats_kernel<CTB><<<grid, kThreads, 0, stream>>>(
+  constexpr int K = Strip<CTB>::kCtbs;
+  const dim3 grid((w / CTB + K - 1) / K, h / CTB);
+  sao_stats_kernel<CTB><<<grid, Strip<CTB>::kThreads, 0, stream>>>(
       (const uint8_t*)orig, (const uint8_t*)rec, h, w, (int*)eo_count,
       (float*)eo_sum, (int*)bo_count, (float*)bo_sum);
   return (int)cudaGetLastError();
@@ -125,14 +228,16 @@ int launch(const void* orig, const void* rec, void* eo_count, void* eo_sum,
 
 // orig, rec: uint8 [h, w]; eo_count int32 / eo_sum float32 [4, 5, h/ctb,
 // w/ctb]; bo_count int32 / bo_sum float32 [32, h/ctb, w/ctb].  Returns the
-// launch's cudaError (cudaErrorInvalidValue for a ctb other than 16 or 32
-// or a plane that is not a CTB multiple).
+// launch's cudaError (cudaErrorInvalidValue for a ctb other than 16 or 32,
+// a plane that is not a CTB multiple or an orig not 4-byte aligned).
 extern "C" int vct_sao_stats_u8(const void* orig, const void* rec,
                                 void* eo_count, void* eo_sum, void* bo_count,
                                 void* bo_sum, int h, int w, int ctb,
                                 void* stream) {
   if (ctb != 16 && ctb != 32) return (int)cudaErrorInvalidValue;
   if (h < 0 || w < 0 || h % ctb || w % ctb) return (int)cudaErrorInvalidValue;
+  // orig is read in aligned 32-bit words
+  if ((uintptr_t)orig % 4) return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return 0;
   if (ctb == 32)
     return launch<32>(orig, rec, eo_count, eo_sum, bo_count, bo_sum, h, w,

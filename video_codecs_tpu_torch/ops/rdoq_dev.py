@@ -55,7 +55,8 @@ from video_codecs_tpu_torch.entropy import residual
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops.quant import fma32
 from video_codecs_tpu_torch.ops.rdoq import ENTROPY_BITS, _SCALE_BITS
-from video_codecs_tpu_torch.ops.sad_surface import build_library
+from video_codecs_tpu_torch.ops.sad_surface import (build_library,
+                                                    launch_stream)
 from video_codecs_tpu_torch.utils import rom
 from video_codecs_tpu_torch.utils.device import const, to_device
 
@@ -253,22 +254,44 @@ def _rate_level_dev(level, one_b, abs_b, rice, c1_idx, c2_idx):
     return rate.int()
 
 
-def _quant_params(qp: int, log2_size: int, lam: float, bit_depth: int,
-                  device):
-    """(q_bits, scale, lam_bits, es): the quantiser's shift and scale and
-    the float32 lambda per fractional bit and distortion scale, as 0-d
-    tensors on `device`."""
+def _quant_scalars(qp: int, log2_size: int, lam: float, bit_depth: int):
+    """(q_bits, scale, lam_td, err_scale): the quantiser's shift and
+    scale, and lambda per fractional bit and the distortion scale as
+    Python (float64) numbers, before their rounding to float32."""
     per, rem = qp // 6, qp % 6
     q_bits = rom.QUANT_SHIFT + per + quant_ops.transform_shift(
         log2_size, bit_depth)
     scale = int(rom.QUANT_SCALES[rem])
     lam_td = float(lam) * float(4 ** (15 - bit_depth - log2_size))
     err_scale = 1.0 / (float(scale) * float(scale))
+    return q_bits, scale, lam_td / (1 << _SCALE_BITS), err_scale
+
+
+def _quant_params(qp: int, log2_size: int, lam: float, bit_depth: int,
+                  device):
+    """(q_bits, scale, lam_bits, es): the quantiser's shift and scale and
+    the float32 lambda per fractional bit and distortion scale, as 0-d
+    tensors on `device`."""
+    q_bits, scale, lam_bits, es = _quant_scalars(qp, log2_size, lam,
+                                                 bit_depth)
 
     def f32(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
 
-    return q_bits, scale, f32(lam_td / (1 << _SCALE_BITS)), f32(err_scale)
+    return q_bits, scale, f32(lam_bits), f32(es)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_scalars(qp: int, log2_size: int, lam: float, bit_depth: int):
+    """(q_bits, scale, lam_bits, es, inv) as the kernel takes them: the
+    float32 values `_quant_params` and `rdoq_dev_ref` form, held as Python
+    floats (exact: each is a float32), so that a call builds no tensor
+    and reads none back.  inv = 1 / (lam_bits * 2^15) in float32."""
+    q_bits, scale, lam_bits, es = _quant_scalars(qp, log2_size, lam,
+                                                 bit_depth)
+    lam32 = np.float32(lam_bits)
+    inv = np.float32(1.0) / (lam32 * np.float32(1 << _SCALE_BITS))
+    return q_bits, scale, float(lam32), float(np.float32(es)), float(inv)
 
 
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -567,11 +590,12 @@ def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
     if coeff.dim() != 3 or tuple(coeff.shape[1:]) != (n, n):
         raise ValueError(f"rdoq_dev: coefficients {tuple(coeff.shape)} are "
                          f"not [B, {n}, {n}] blocks")
-    kw = dict(lam=lam, scan_type=scan_type, is_luma=is_luma,
-              slice_type=slice_type, bit_depth=bit_depth,
-              allow_all_zero=allow_all_zero, return_rate=return_rate)
     if coeff.device.type == "cpu":
-        return rdoq_dev_ref(coeff, qp, log2_size, **kw)
+        return rdoq_dev_ref(coeff, qp, log2_size, lam=lam,
+                            scan_type=scan_type, is_luma=is_luma,
+                            slice_type=slice_type, bit_depth=bit_depth,
+                            allow_all_zero=allow_all_zero,
+                            return_rate=return_rate)
     if coeff.device.type != "cuda":
         raise ValueError(f"rdoq_dev: no kernel for {coeff.device}")
     if coeff.dtype != torch.int32:
@@ -588,19 +612,14 @@ def rdoq_dev(coeff: torch.Tensor, qp: int, log2_size: int, *, lam: float,
     if b:
         tab, rate_last = _kernel_tables(qp, log2_size, bool(is_luma),
                                         slice_type, scan_type, dev)
-        # the float32 scalars on the host, as rdoq_dev_ref forms them
-        q_bits, scale, lam_bits, es = _quant_params(qp, log2_size, lam,
-                                                    bit_depth, "cpu")
-        inv = 1.0 / (lam_bits * (1 << _SCALE_BITS))
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.vct_rdoq(
-                coeff.data_ptr(), *coeff.stride(), out.data_ptr(),
-                None if bits is None else bits.data_ptr(), b, log2_size,
-                tab.data_ptr(), rate_last.data_ptr(), q_bits, scale,
-                lam_bits.item(), es.item(), inv.item(), int(bool(is_luma)),
-                int(bool(allow_all_zero)), stream)
+        q_bits, scale, lam_bits, es, inv = _kernel_scalars(
+            qp, log2_size, lam, bit_depth)
+        err = _load().vct_rdoq(
+            coeff.data_ptr(), *coeff.stride(), out.data_ptr(),
+            None if bits is None else bits.data_ptr(), b, log2_size,
+            tab.data_ptr(), rate_last.data_ptr(), q_bits, scale, lam_bits,
+            es, inv, int(bool(is_luma)), int(bool(allow_all_zero)),
+            launch_stream(dev))
         if err != 0:
             raise RuntimeError(f"rdoq_dev kernel launch failed: cudaError "
                                f"{err}")

@@ -70,6 +70,19 @@ def build_library(src: Path, stem: str) -> tuple[Path, float, str]:
     return so, time.perf_counter() - t0, res.stdout + res.stderr
 
 
+def launch_stream(dev: torch.device) -> int:
+    """The raw handle of `dev`'s current CUDA stream, for a launch through
+    ctypes.  The wrappers of csrc/rdoq.cu and csrc/sao_stats.cu call it
+    once per launch, so it builds no torch.cuda.Stream object; a tensor on
+    another card than the current one is refused (no wrapper switches
+    cards)."""
+    current = torch.cuda.current_device()
+    if dev.index is not None and dev.index != current:
+        raise ValueError(f"kernel launch: {dev} is not the current card "
+                         f"(cuda:{current})")
+    return torch._C._cuda_getCurrentRawStream(current)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile csrc/sad_surface.cu (`build_library`)."""
     return build_library(_SRC, "vct_sad_surface")

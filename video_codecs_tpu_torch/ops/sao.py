@@ -35,7 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from video_codecs_tpu_torch.ops.sad_surface import build_library
+from video_codecs_tpu_torch.ops.sad_surface import (build_library,
+                                                    launch_stream)
 
 SAO_OFF, SAO_BO, SAO_EO = 0, 1, 2
 
@@ -230,9 +231,10 @@ def sao_stats(orig: torch.Tensor, rec: torch.Tensor, ctb: int):
     ctb): (eo_count [4,5,cy,cx] i32, eo_sum [4,5,cy,cx] f32, bo_count
     [32,cy,cx] i32, bo_sum [32,cy,cx] f32).
 
-    CUDA tensors (uint8, contiguous, ctb in KERNEL_CTBS) go through the
-    Hopper kernel csrc/sao_stats.cu, counted in `sao_stats.launches`; CPU
-    tensors through `sao_stats_ref`."""
+    CUDA tensors (uint8, contiguous, ctb in KERNEL_CTBS, orig 4-byte
+    aligned) go through the Hopper kernel csrc/sao_stats.cu, counted in
+    `sao_stats.launches`; CPU tensors through `sao_stats_ref`.  The four
+    outputs are views of one allocation."""
     if orig.shape != rec.shape or orig.dim() != 2:
         raise ValueError(f"sao_stats: orig {tuple(orig.shape)} / rec "
                          f"{tuple(rec.shape)} are not one plane's")
@@ -256,18 +258,19 @@ def sao_stats(orig: torch.Tensor, rec: torch.Tensor, ctb: int):
         raise ValueError("sao_stats kernel takes contiguous tensors")
     cy, cx = h // ctb, w // ctb
     dev = rec.device
-    eo_count = torch.empty((4, 5, cy, cx), dtype=torch.int32, device=dev)
-    eo_sum = torch.empty((4, 5, cy, cx), dtype=torch.float32, device=dev)
-    bo_count = torch.empty((32, cy, cx), dtype=torch.int32, device=dev)
-    bo_sum = torch.empty((32, cy, cx), dtype=torch.float32, device=dev)
+    # the four outputs are views of one allocation: EO counts, EO sums,
+    # band counts, band sums, each contiguous
+    m = cy * cx
+    buf = torch.empty(104 * m, dtype=torch.int32, device=dev)
+    eo_count = buf[:20 * m].view(4, 5, cy, cx)
+    eo_sum = buf[20 * m:40 * m].view(torch.float32).view(4, 5, cy, cx)
+    bo_count = buf[40 * m:72 * m].view(32, cy, cx)
+    bo_sum = buf[72 * m:].view(torch.float32).view(32, cy, cx)
     if h and w:
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.vct_sao_stats_u8(
-                orig.data_ptr(), rec.data_ptr(), eo_count.data_ptr(),
-                eo_sum.data_ptr(), bo_count.data_ptr(), bo_sum.data_ptr(),
-                h, w, ctb, stream)
+        err = _load().vct_sao_stats_u8(
+            orig.data_ptr(), rec.data_ptr(), eo_count.data_ptr(),
+            eo_sum.data_ptr(), bo_count.data_ptr(), bo_sum.data_ptr(), h, w,
+            ctb, launch_stream(dev))
         if err != 0:
             raise RuntimeError(f"sao_stats kernel launch failed: cudaError "
                                f"{err}")
