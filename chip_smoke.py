@@ -7,8 +7,9 @@ Drives the port's main paths through its hand-written CUDA kernels, the
 SAD surface, the SAO statistics and the full RDOQ: the H.264 device
 P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
-then on), the HEVC low-delay P row at 832x480, and both HEVC rows with
-HM's TZSearch and the LD-P row under rate control, in phases:
+then on), the HEVC low-delay P row at 832x480, both HEVC rows with
+HM's TZSearch, the LD-P row under rate control, and the flat CTB16
+random-access and hierarchical-B engines at 1920x1072, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -116,7 +117,29 @@ HM's TZSearch and the LD-P row under rate control, in phases:
         the resumed NALs must be the JAX package's resumed run's
         (RC_RESUMED_SHA1), and whether they equal pictures 5-8 of the
         one run is printed;
- 10. require that nothing of the JAX package was imported.
+ 10. the flat CTB16 B engines (scripts/diag_ra_gap.py's settings: QP 32,
+     SBH, SR64 pyramid ME, one merge candidate, the intra candidate,
+     deblocking, full RDOQ, MD5 hash SEI):
+     a. hevc-flat-ra: `inter_dev.DeviceRandomAccessEncoder` over phase
+        7's 9 pictures (GOP-8), per picture the device phase (the flat
+        IDR, or the upload, encode_b_frame_dev and the copy back,
+        synchronised), the host phase (`_reconcile_b`, CABAC slice, hash
+        SEI), bytes, Y-PSNR, intra / skip / merge / AMVP / bi blocks,
+        the SAD launches (3 per list, 45 in all) and the RDOQ kernel's
+        (3 per inter picture, 24); every hash OK in the port's
+        GeneralDecoder and the JAX package's SHA-1 (FLAT_RA_SHA1);
+     b. hevc-hierb: `inter_dev.DeviceHierarchicalBEncoder` over the
+        first 5 of those pictures (I0 P2 B1 P4 B3) as in a (18 SAD and
+        12 RDOQ launches, HIERB_SHA1);
+     c. flat-ra-cuda-vs-cpu: the flat RA GOP at 96x64 over 9 pictures on
+        the card and on the CPU, byte-equal streams;
+ 11. require that nothing of the JAX package was imported.
+
+Kernel times come from torch.profiler alone (asked up to three times);
+where it records none the time is "not measured" (null in the JSON
+line, with the reason), left out of any per-picture sum, and no share
+of the bound is printed.  A wrapper call's CUDA-event time prints
+beside the kernel's, never in its place.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the main paths'
@@ -197,6 +220,16 @@ RA_TZ_BYTES, RA_TZ_SHA1 = 314555, "6da8f0df6691e6e0e86b5802cd61840cb78ed3c6"
 RC_BPS = 2_000_000
 LDP_RC_BYTES, LDP_RC_SHA1 = 185151, "51771df4d0137e4389fb0405dfd93e1f8842ff74"
 LDP_RC_QPS = [30, 32, 34, 36, 38, 40, 42, 44, 46]
+# The flat CTB16 B engines at scripts/diag_ra_gap.py's settings on phase
+# 7's clip (scripts/jax_reference_sha1.py --flat-ra --hierb, the JAX
+# package on the CPU; every hash OK in both packages' GeneralDecoders):
+# the RA GOP-8 over its 9 pictures and the hierarchical-B run over its
+# first HIERB_PICTURES (I0 P2 B1 P4 B3).
+HIERB_PICTURES = 5
+FLAT_RA_BYTES = 344846
+FLAT_RA_SHA1 = "c837e7b257cb85bd937dbaac2d3c05e499795ded"
+HIERB_BYTES = 351522
+HIERB_SHA1 = "1535391b4838b43c8e6c1bddc90530ae624706b9"
 RC_RESUME_AT = 5
 RC_RESUMED_BYTES = 15567
 RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
@@ -206,6 +239,9 @@ RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
 PEAK_F32 = 67e12
 
+
+# The card's name and power limit as nvidia-smi gives them (main sets it).
+CARD = ""
 
 # Calls of the plain RDOQ (`rdoq_dev_ref`) by the device its coefficients
 # lie on, counted by the wrapper `count_rdoq_ref` installs.
@@ -413,20 +449,21 @@ def phase_kernel() -> dict:
         if b < 100:                      # the ragged case: checked only
             print(f"[sad] n={n} B={b} r={r}: equal")
             continue
-        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r))
-        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
-                        warm=1)
-        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        tm = sad_times(cur, win, n, r, reps=7)
+        ms, plain, lib = tm["ms"], tm["plain_ms"], tm["library_ms"]
         bound, nbytes, ops = sad_bound(n, b, r)
         gdiff = ops / 2e9
-        print(f"[sad] n={n} B={b} r={r}: equal; kernel {ms:.3f} ms "
-              f"({gdiff:.2f} G abs-diffs, {gdiff / ms * 1e3:.0f} G/s), "
-              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.2f} G ops), {bound / ms:.1%} of it; plain "
-              f"{plain:.3f} ms ({bound / plain:.2%}); torch.cdist "
-              f"{lib:.3f} ms ({bound / lib:.2%}, max abs err {lib_err:g})")
+        rate = "" if ms is None else f", {gdiff / ms * 1e3:.0f} G/s"
+        print(f"[sad] n={n} B={b} r={r}: equal; kernel {kms(ms, 3)} "
+              f"(profiler{', ' + tm['note'] if tm['note'] else ''}; "
+              f"{gdiff:.2f} G abs-diffs{rate}), {tm['event_ms']:.3f} ms a "
+              f"wrapper call (CUDA events); bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G ops), "
+              f"{of_bound(bound, ms)}; plain {plain:.3f} ms "
+              f"({bound / plain:.2%}); torch.cdist {lib:.3f} ms "
+              f"({bound / lib:.2%}, max abs err {lib_err:g})")
         if r == SR:
-            pic["ms"] += ms
+            add_kernel_ms(pic, 1, ms, tm["note"], f"n={n}")
             pic["plain_ms"] += plain
             pic["library_ms"] += lib
             pic["bytes"] += nbytes
@@ -436,10 +473,11 @@ def phase_kernel() -> dict:
     pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
                        pic["bytes"] / PEAK_BYTES else "bytes")
     print(f"[sad] per 720p P picture at SR{SR} (n=16 + n=8): kernel "
-          f"{pic['ms']:.3f} ms, bound {pic['bound_ms']:.4f} ms "
-          f"({pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"{kms(pic['ms'], 3)}, bound {pic['bound_ms']:.4f} ms "
+          f"({pic['bound_by']}), {of_bound(pic['bound_ms'], pic['ms'])}; "
           f"plain {pic['plain_ms']:.3f} ms; torch.cdist "
-          f"{pic['library_ms']:.3f} ms")
+          f"{pic['library_ms']:.3f} ms"
+          f"{'; ' + pic['note'] if pic.get('note') else ''}")
     pic["max_abs_err"] = max_err
     return pic
 
@@ -632,9 +670,8 @@ def phase_rdoq_kernel() -> list:
               f"RDOQ kernel != plain at {what} B={b} (levels max abs err "
               f"{err}, rates bitwise equal {same_bits})")
         ev = cuda_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw), reps=11)
-        dev = kernel_device_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw),
-                               "rdoq_kernel")
-        ms = ev if dev is None else dev
+        ms, note = kernel_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw),
+                             "rdoq_kernel")
         plain = cuda_ms(lambda: rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw),
                         reps=3, warm=1)
         tab, rl = rdoq_ops._kernel_tables(qp, log2, luma, st, 0, co.device)
@@ -646,22 +683,29 @@ def phase_rdoq_kernel() -> list:
         print(f"[rdoq-kernel] {what}: B={b} QP{qp} slice type {st}"
               f"{', with the rate' if rate else ''}: levels equal (max abs "
               f"err 0){', rates bitwise equal' if rate else ''}, "
-              f"{nz:.2%} of levels nonzero; kernel "
-              f"{'not measured' if dev is None else f'{dev:.4f} ms'} "
-              f"(profiler), {ev:.4f} ms a wrapper call (CUDA events); bound "
-              f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
-              f"float32 ops, {by}), {bound / ms:.2%} of it; plain "
-              f"{plain:.2f} ms ({plain / ms:.0f}x the kernel)")
+              f"{nz:.2%} of levels nonzero; kernel {kms(ms)} (profiler"
+              f"{', ' + note if note else ''}), {ev:.4f} ms a wrapper call "
+              f"(CUDA events); bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} G float32 ops, {by}), "
+              f"{of_bound(bound, ms)}; plain {plain:.2f} ms"
+              f"{'' if ms is None else f' ({plain / ms:.0f}x the kernel)'}")
         rows.append(dict(what=what, b=b, log2=log2, qp=qp, ms=ms,
                          event_ms=ev, plain_ms=plain, bound_ms=bound,
-                         bound_by=by, library_ms=None, max_abs_err=err))
+                         bound_by=by, library_ms=None, max_abs_err=err,
+                         note=note or None))
         del co, got, want
     torch.cuda.empty_cache()
-    per_b = {k: sum(RA_B_RDOQ_CALLS.get(r["what"], 0) * r[k] for r in rows)
+    b_rows = [r for r in rows if r["what"] in RA_B_RDOQ_CALLS]
+    timed = [r for r in b_rows if r["ms"] is not None]
+    per_b = {k: sum(RA_B_RDOQ_CALLS[r["what"]] * r[k] for r in timed)
              for k in ("ms", "event_ms", "bound_ms")}
-    print(f"[rdoq-kernel] per 1080p RA B picture "
-          f"({sum(RA_B_RDOQ_CALLS.values())} calls at the B shapes above): "
-          f"kernel {per_b['ms']:.4f} ms, wrapper calls "
+    left_out = [r["what"] for r in b_rows if r["ms"] is None]
+    calls = sum(RA_B_RDOQ_CALLS[r["what"]] for r in timed)
+    gone = ("; left out, kernel not measured: " + ", ".join(left_out)
+            if left_out else "")
+    print(f"[rdoq-kernel] per 1080p RA B picture ({calls} of "
+          f"{sum(RA_B_RDOQ_CALLS.values())} calls at the B shapes above"
+          f"{gone}): kernel {per_b['ms']:.4f} ms, wrapper calls "
           f"{per_b['event_ms']:.4f} ms, bound {per_b['bound_ms']:.4f} ms")
     print("[rdoq-kernel] no single PyTorch call computes RDOQ (library_ms "
           "null)")
@@ -743,18 +787,18 @@ def phase_ra_kernel() -> dict:
             print(f"[ra-sad] n={n} B={b} r={r} (CU8 tree): equal")
             continue
         lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
-        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=21)
-        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
-                        warm=1)
-        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        tm = sad_times(cur, win, n, r)
+        ms, plain, lib = tm["ms"], tm["plain_ms"], tm["library_ms"]
         bound, nbytes, ops = sad_bound(n, b, r)
-        print(f"[ra-sad] n={n} B={b} r={r}: equal; kernel {ms:.4f} ms, "
+        print(f"[ra-sad] n={n} B={b} r={r}: equal; kernel {kms(ms)} "
+              f"(profiler{', ' + tm['note'] if tm['note'] else ''}), "
+              f"{tm['event_ms']:.4f} ms a wrapper call (CUDA events); "
               f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.3f} G ops), {bound / ms:.1%} of it; plain "
+              f"{ops / 1e9:.3f} G ops), {of_bound(bound, ms)}; plain "
               f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
               f"{lib_err:g})")
         k = 2 * (1 if i == 0 else 2)     # per B picture: 2 lists
-        pic["ms"] += k * ms
+        add_kernel_ms(pic, k, ms, tm["note"], f"n={n} r={r}")
         pic["plain_ms"] += k * plain
         pic["library_ms"] += k * lib
         pic["bytes"] += k * nbytes
@@ -764,10 +808,11 @@ def phase_ra_kernel() -> dict:
     pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
                        pic["bytes"] / PEAK_BYTES else "bytes")
     print(f"[ra-sad] per 1080p B picture at SR{RA_SR} (2 lists x (quarter "
-          f"stage + 2 windows), 6 launches): kernel {pic['ms']:.4f} ms, "
+          f"stage + 2 windows), 6 launches): kernel {kms(pic['ms'])}, "
           f"bound {pic['bound_ms']:.4f} ms ({pic['bound_by']}), "
-          f"{pic['bound_ms'] / pic['ms']:.1%} of it; plain "
-          f"{pic['plain_ms']:.3f} ms; torch.cdist {pic['library_ms']:.3f} ms")
+          f"{of_bound(pic['bound_ms'], pic['ms'])}; plain "
+          f"{pic['plain_ms']:.3f} ms; torch.cdist {pic['library_ms']:.3f} ms"
+          f"{'; ' + pic['note'] if pic.get('note') else ''}")
     pic["max_abs_err"] = max_err
     return pic
 
@@ -786,7 +831,7 @@ def sao_bound(h: int, w: int, ctb: int) -> tuple[float, float, float]:
 def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
     """Median device time in ms of the kernels called `name` that reps
     calls of fn() launch, from torch.profiler; None if the profiler saw
-    none."""
+    none (kernel_ms asks again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -798,6 +843,57 @@ def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
     times = [e.device_time for e in prof.events()
              if e.device_type == DeviceType.CUDA and name in e.name]
     return statistics.median(times) / 1e3 if times else None
+
+
+def kernel_ms(fn, name: str, reps: int = 21,
+              tries: int = 3) -> tuple[float | None, str]:
+    """(kernel time in ms, "") from kernel_device_ms, asked up to `tries`
+    times, or (None, the reason) when no profiler session recorded a
+    kernel called `name`.  A wrapper call's CUDA-event time is never
+    taken for the kernel's: it holds the wrapper's host work too."""
+    for _ in range(tries):
+        ms = kernel_device_ms(fn, name, reps)
+        if ms is not None:
+            return ms, ""
+    return None, f"torch.profiler recorded no {name} in {tries} tries"
+
+
+def of_bound(bound: float, ms: float | None) -> str:
+    """The kernel time's share of its bound, from a kernel time only."""
+    if ms is None:
+        return "share of the bound not measured"
+    return f"{bound / ms:.1%} of it"
+
+
+def kms(ms: float | None, digits: int = 4) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def sad_times(cur, win, n: int, r: int, reps: int = 21) -> dict:
+    """The SAD kernel's time from the profiler (`ms`, None with `note`
+    when unrecorded), one wrapper call's from CUDA events (`event_ms`),
+    the plain version's and torch.cdist's."""
+    ms, note = kernel_ms(lambda: ss.sad_surface(cur, win, n, r),
+                         "sad_surface_u8", reps)
+    return dict(ms=ms, note=note,
+                event_ms=cuda_ms(lambda: ss.sad_surface(cur, win, n, r),
+                                 reps=reps),
+                plain_ms=cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r),
+                                 reps=3, warm=1),
+                library_ms=cuda_ms(lambda: sad_cdist(cur, win, n, r),
+                                   reps=3, warm=1))
+
+
+def add_kernel_ms(pic: dict, k: float, ms: float | None, note: str,
+                  what: str) -> None:
+    """Add k kernel times to a per-picture total; an unrecorded one makes
+    the total None, with the reason in pic["note"]."""
+    if ms is None:
+        pic["ms"] = None
+        pic["note"] = "; ".join(filter(None, (pic.get("note"),
+                                              f"{what}: {note}")))
+    elif pic["ms"] is not None:
+        pic["ms"] += k * ms
 
 
 def sao_planes() -> list:
@@ -846,19 +942,18 @@ def phase_sao_kernel() -> dict:
                   "all four outputs equal")
             continue
         ev = cuda_ms(lambda: sao_ops.sao_stats(to, tr, ctb), reps=21)
-        dev = kernel_device_ms(lambda: sao_ops.sao_stats(to, tr, ctb),
-                               "sao_stats_kernel")
-        ms = ev if dev is None else dev
+        ms, note = kernel_ms(lambda: sao_ops.sao_stats(to, tr, ctb),
+                             "sao_stats_kernel")
         plain = cuda_ms(lambda: sao_ops.sao_stats_ref(to, tr, ctb), reps=3,
                         warm=1)
         bound, nbytes, ops = sao_bound(hp, wp, ctb)
         print(f"[sao-kernel] {what} ({wp}x{hp} padded, CTB {ctb}, "
               f"{(hp // ctb) * (wp // ctb)} CTBs): all four outputs equal; "
-              f"kernel {'not measured' if dev is None else f'{dev:.4f} ms'} "
-              f"(profiler), {ev:.4f} ms a wrapper call (CUDA events); "
-              f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
-              f"{bound / ms:.1%} of it; plain {plain:.3f} ms")
-        pic["ms"] += ms
+              f"kernel {kms(ms)} (profiler{', ' + note if note else ''}), "
+              f"{ev:.4f} ms a wrapper call (CUDA events); bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+              f"{of_bound(bound, ms)}; plain {plain:.3f} ms")
+        add_kernel_ms(pic, 1, ms, note, what)
         pic["event_ms"] += ev
         pic["plain_ms"] += plain
         pic["bytes"] += nbytes
@@ -868,11 +963,12 @@ def phase_sao_kernel() -> dict:
     pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
                        pic["bytes"] / PEAK_BYTES else "bytes")
     print(f"[sao-kernel] per 1080p picture (3 launches): kernel "
-          f"{pic['ms']:.4f} ms ({pic['event_ms']:.4f} ms in wrapper calls), "
+          f"{kms(pic['ms'])} ({pic['event_ms']:.4f} ms in wrapper calls), "
           f"bound {pic['bound_ms']:.4f} ms ({pic['bytes'] / 1e6:.2f} MB, "
-          f"{pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"{pic['bound_by']}), {of_bound(pic['bound_ms'], pic['ms'])}; "
           f"plain {pic['plain_ms']:.3f} ms; no single PyTorch call computes "
-          "these statistics (library_ms null)")
+          "these statistics (library_ms null)"
+          f"{'; ' + pic['note'] if pic.get('note') else ''}")
     pic["library_ms"] = None
     pic["max_abs_err"] = max_err
     return pic
@@ -1159,18 +1255,18 @@ def phase_ldp_kernel() -> dict:
                         f"(max abs err {err})")
         max_err = max(max_err, err)
         lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
-        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=21)
-        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
-                        warm=1)
-        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        tm = sad_times(cur, win, n, r)
+        ms, plain, lib = tm["ms"], tm["plain_ms"], tm["library_ms"]
         bound, nbytes, ops = sad_bound(n, b, r)
-        print(f"[ldp-sad] n={n} B={b} r={r}: equal; kernel {ms:.4f} ms, "
+        print(f"[ldp-sad] n={n} B={b} r={r}: equal; kernel {kms(ms)} "
+              f"(profiler{', ' + tm['note'] if tm['note'] else ''}), "
+              f"{tm['event_ms']:.4f} ms a wrapper call (CUDA events); "
               f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e9:.3f} G ops), {bound / ms:.1%} of it; plain "
+              f"{ops / 1e9:.3f} G ops), {of_bound(bound, ms)}; plain "
               f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
               f"{lib_err:g})")
         k = 4 * (1 if i == 0 else 2)     # per P picture: 4 references
-        pic["ms"] += k * ms
+        add_kernel_ms(pic, k, ms, tm["note"], f"n={n} r={r}")
         pic["plain_ms"] += k * plain
         pic["library_ms"] += k * lib
         pic["bytes"] += k * nbytes
@@ -1180,21 +1276,20 @@ def phase_ldp_kernel() -> dict:
     pic["bound_by"] = ("operations" if pic["ops"] / PEAK_OPS >=
                        pic["bytes"] / PEAK_BYTES else "bytes")
     print(f"[ldp-sad] per 832x480 P picture at 4 references (12 launches): "
-          f"kernel {pic['ms']:.4f} ms, bound {pic['bound_ms']:.4f} ms "
-          f"({pic['bound_by']}), {pic['bound_ms'] / pic['ms']:.1%} of it; "
+          f"kernel {kms(pic['ms'])}, bound {pic['bound_ms']:.4f} ms "
+          f"({pic['bound_by']}), {of_bound(pic['bound_ms'], pic['ms'])}; "
           f"plain {pic['plain_ms']:.3f} ms; torch.cdist "
-          f"{pic['library_ms']:.3f} ms")
+          f"{pic['library_ms']:.3f} ms"
+          f"{'; ' + pic['note'] if pic.get('note') else ''}")
     pic["max_abs_err"] = max_err
     return pic
 
 
-def _ldp_instrument(enc):
-    """Time each picture of an LD-P encode: the device phase (upload,
-    device work, copy back, synchronised), the host phase (`_reconcile`,
-    CABAC slice, hash SEI) and the SAD- and RDOQ-kernel launches; keep
-    each picture's block decisions."""
-    log, cur = [], {}
-
+def _timer(cur: dict):
+    """timed(name, fn, sync): fn wrapped to add its host-clock seconds to
+    cur[name] (after a synchronise when sync), its SAD- and RDOQ-kernel
+    launches to cur["launches"] and cur["rdoq"], and to keep its result
+    as cur[fn.__name__]."""
     def timed(name, fn, sync=False):
         def run(*a, **kw):
             if sync:
@@ -1211,6 +1306,16 @@ def _ldp_instrument(enc):
             cur[fn.__name__] = out
             return out
         return run
+    return timed
+
+
+def _ldp_instrument(enc):
+    """Time each picture of an LD-P encode: the device phase (upload,
+    device work, copy back, synchronised), the host phase (`_reconcile`,
+    CABAC slice, hash SEI) and the SAD- and RDOQ-kernel launches; keep
+    each picture's block decisions."""
+    log, cur = [], {}
+    timed = _timer(cur)
 
     enc._device_phase = timed("device", enc._device_phase, sync=True)
     for name in ("_reconcile", "_encode_p_slice", "_hash_sei"):
@@ -1502,27 +1607,230 @@ def phase_sad_r64() -> list:
         del got
         lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
         del want
-        ms = cuda_ms(lambda: ss.sad_surface(cur, win, n, r), reps=11)
-        plain = cuda_ms(lambda: ss.sad_surface_ref(cur, win, n, r), reps=3,
-                        warm=1)
-        lib = cuda_ms(lambda: sad_cdist(cur, win, n, r), reps=3, warm=1)
+        tm = sad_times(cur, win, n, r, reps=11)
+        ms, plain, lib = tm["ms"], tm["plain_ms"], tm["library_ms"]
         bound, nbytes, ops = sad_bound(n, b, r)
         by = "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES \
             else "bytes"
         gdiff = ops / 2e9
+        rate = "" if ms is None else (f", {gdiff / ms * 1e3:.0f} G/s; "
+                                      f"{ms / bound:.2f}x the bound")
         print(f"[sad-kernel-r64] {what}: n={n} B={b} r={r}: equal (max abs "
-              f"err 0); kernel {ms:.4f} ms ({gdiff:.2f} G abs-diffs, "
-              f"{gdiff / ms * 1e3:.0f} G/s), bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G ops, {by}), "
-              f"{bound / ms:.1%} of it ({ms / bound:.2f}x); plain "
+              f"err 0); kernel {kms(ms)} (profiler"
+              f"{', ' + tm['note'] if tm['note'] else ''}; {gdiff:.2f} G "
+              f"abs-diffs{rate}), {tm['event_ms']:.4f} ms a wrapper call "
+              f"(CUDA events); bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} G ops, {by}), {of_bound(bound, ms)}; plain "
               f"{plain:.3f} ms; torch.cdist {lib:.3f} ms (max abs err "
               f"{lib_err:g})")
-        rows.append(dict(what=what, n=n, b=b, r=r, ms=ms, plain_ms=plain,
+        rows.append(dict(what=what, n=n, b=b, r=r, ms=ms,
+                         event_ms=tm["event_ms"], plain_ms=plain,
                          library_ms=lib, bound_ms=bound, bound_by=by,
-                         max_abs_err=err))
+                         max_abs_err=err, note=tm["note"] or None))
         del cur, win
         torch.cuda.empty_cache()
     return rows
+
+
+def flat_cfg(w: int, h: int, reorder: int):
+    """scripts/diag_ra_gap.py's settings of the flat CTB16 B engines: QP
+    32, SBH, CTB = CU = TU 16, one merge candidate, no TMVP, deblocking
+    and the MD5 hash SEI on (the HevcConfig defaults)."""
+    return hevc_headers.HevcConfig(width=w, height=h, qp=HEVC_QP,
+                                   reorder_pics=reorder,
+                                   sign_data_hiding=True)
+
+
+def flat_encoder(kind: str, w: int, h: int, device: str):
+    """The flat RA GOP-8 ("ra") or hierarchical-B ("hierb") engine at
+    search range 64 with the pyramid ME, and its encode call."""
+    if kind == "ra":
+        enc = hevc_inter_dev.DeviceRandomAccessEncoder(
+            flat_cfg(w, h, 3), search_range=RA_SR, device=device)
+        return enc, enc.encode_sequence_ra
+    enc = hevc_inter_dev.DeviceHierarchicalBEncoder(
+        flat_cfg(w, h, 1), search_range=RA_SR, device=device)
+    return enc, enc.encode_sequence_rab
+
+
+def _flat_instrument(enc):
+    """Time each picture of a flat B-engine encode: the device phase
+    (`inter_dev._b_device_phase`: upload, encode_b_frame_dev, copy back,
+    synchronised; the IDR's flat intra dispatch and copy back), the host
+    phase (`_reconcile_b`, CABAC slice, hash SEI; the IDR's serializer)
+    and the SAD- and RDOQ-kernel launches; keep each picture's block
+    grid.  The module functions are patched until restore() is called."""
+    log, cur = [], {}
+    timed = _timer(cur)
+    mod = hevc_inter_dev
+
+    keep = mod._b_device_phase, mod._reconcile_b
+    mod._b_device_phase = timed("device", keep[0], sync=True)
+    mod._reconcile_b = timed("host", keep[1])
+    for name in ("_encode_b_slice", "_hash_sei"):
+        setattr(enc, name, timed("host", getattr(enc, name)))
+    orig_b = enc._encode_b_frame
+
+    def b_frame(frame, poc, refs, is_anchor):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec = orig_b(frame, poc, refs, is_anchor)
+        log.append(dict(poc=poc, kind="P" if is_anchor else "B",
+                        lists=len(refs), total=time.perf_counter() - t0,
+                        nals=nals, rec=rec, info=cur["_reconcile_b"], **{
+                            k: cur[k] for k in ("device", "host",
+                                                "launches", "rdoq")}))
+        return nals, rec
+
+    def idr(y, u, v, *a, **kw):
+        torch.cuda.synchronize()
+        n0 = ss.sad_surface.launches
+        r0 = rdoq_ops.rdoq_dev.launches
+        t0 = time.perf_counter()
+        st = {k: t.cpu() for k, t in enc._dispatch(y, u, v).items()}
+        t1 = time.perf_counter()
+        nals, rec = enc.serialize_frame(st)
+        t2 = time.perf_counter()
+        log.append(dict(poc=0, kind="I", lists=0, device=t1 - t0,
+                        host=t2 - t1, total=t2 - t0, nals=nals, rec=rec,
+                        info=None, launches=ss.sad_surface.launches - n0,
+                        rdoq=rdoq_ops.rdoq_dev.launches - r0))
+        return nals, rec
+
+    def restore():
+        mod._b_device_phase, mod._reconcile_b = keep
+
+    enc._encode_b_frame = b_frame
+    enc.encode_frame = idr
+    return log, restore
+
+
+def phase_hevc_flat(kind: str) -> tuple[int, int]:
+    """Phase 10 (hevc-flat-ra, hevc-hierb): the flat CTB16 B engines at
+    1920x1072 on the card, decoded by the port's GeneralDecoder and held
+    to the JAX package's stream.  Returns the SAD- and RDOQ-kernel
+    launches of the encode."""
+    w, h = HEVC_W, HEVC_H
+    tag = "hevc-flat-ra" if kind == "ra" else "hevc-hierb"
+    frames = synth_clip(w, h, RA_PICTURES, seed=5)
+    if kind == "ra":
+        order = ("GOP-8 random access (DeviceRandomAccessEncoder), 9 "
+                 "pictures: IDR, anchor P at 8, B at 4 2 1 3 6 5 7")
+    else:
+        frames = frames[:HIERB_PICTURES]
+        order = ("2-level hierarchical B (DeviceHierarchicalBEncoder), "
+                 f"{HIERB_PICTURES} pictures: I0 P2 B1 P4 B3")
+    print(f"[{tag}] {w}x{h} QP{HEVC_QP} {order}; flat CTB = CU = TU 16, "
+          f"SR{RA_SR} pyramid ME, one merge candidate, intra blocks in "
+          "the inter pictures, deblocking, full RDOQ in the inter "
+          f"pictures, SBH, MD5 hash SEI; card {CARD}")
+    enc, encode = flat_encoder(kind, w, h, "cuda")
+    log, restore = _flat_instrument(enc)
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
+    t0 = time.perf_counter()
+    try:
+        stream, recons = encode(frames)
+    finally:
+        restore()
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    rdoq_launches = rdoq_ops.rdoq_dev.launches
+    check(RDOQ_REF_CALLS["cuda"] == 0,
+          f"the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on the card")
+    want = 0
+    for e in log:
+        nbytes = sum(len(n) for n in e["nals"] if n)
+        p = psnr(frames[e["poc"]][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        if e["kind"] == "I":
+            blocks = f"{(w // 16) * (h // 16)} intra (IDR)"
+            check(e["launches"] == 0 and e["rdoq"] == 0,
+                  f"POC 0: {e['launches']} SAD and {e['rdoq']} RDOQ "
+                  "launches in the IDR (want 0 and 0)")
+        else:
+            cnt = dict(intra=0, skip=0, merge=0, amvp=0, bi=0)
+            for row in e["info"]:
+                for b in row:
+                    cnt["intra" if b.pred_mode == 1 else "skip" if b.skip
+                        else "merge" if b.merge else "amvp"] += 1
+                    cnt["bi"] += int(b.pred_mode == 0 and b.inter_dir == 3)
+            blocks = " / ".join(f"{k_} {v}" for k_, v in cnt.items())
+            want += 3 * e["lists"]
+            check(e["launches"] == 3 * e["lists"],
+                  f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
+                  f"(want 3 per list, {e['lists']} lists)")
+            check(e["rdoq"] == 3,
+                  f"POC {e['poc']}: {e['rdoq']} RDOQ-kernel launches (want "
+                  "3: TU16 luma, TU8 Cb, TU8 Cr)")
+        other = e["total"] - e["device"] - e["host"]
+        print(f"[{tag}] POC {e['poc']} ({e['kind']}): device phase "
+              f"{e['device'] * 1e3:.1f} ms, host phase "
+              f"{e['host'] * 1e3:.1f} ms, other {other * 1e3:.1f} ms; "
+              f"{nbytes} bytes, Y-PSNR {p:.2f} dB; blocks {blocks}; "
+              f"SAD-kernel launches {e['launches']}, RDOQ-kernel launches "
+              f"{e['rdoq']}")
+    n_inter = len(frames) - 1
+    check(launches == want == (45 if kind == "ra" else 18),
+          f"{launches} SAD-kernel launches in the run, want {want}")
+    check(rdoq_launches == 3 * n_inter,
+          f"{rdoq_launches} RDOQ-kernel launches, want {3 * n_inter}")
+    kbps = len(stream) * 8 * 30 / len(frames) / 1000
+    sha = hashlib.sha1(stream).hexdigest()
+    y_psnr = np.mean([psnr(f[0], r[0]) for f, r in zip(frames, recons)])
+    print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, mean "
+          f"Y-PSNR {y_psnr:.3f} dB, encode {t_enc:.2f} s "
+          f"({len(frames) / t_enc:.3f} fps); SAD-kernel launches {launches},"
+          f" RDOQ-kernel launches {rdoq_launches} (the plain version 0 "
+          f"times); SHA-1 {sha}")
+    ref_bytes, ref_sha = ((FLAT_RA_BYTES, FLAT_RA_SHA1) if kind == "ra"
+                          else (HIERB_BYTES, HIERB_SHA1))
+    check((len(stream), sha) == (ref_bytes, ref_sha),
+          f"{tag} stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+          f"package's is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's, byte for byte "
+          "(SHA-1)")
+    t0 = time.perf_counter()
+    dec = hevc_decoder.GeneralDecoder()
+    out = dec.decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(dec.hash_status == [True] * len(frames),
+          f"picture hash SEI mismatch: {dec.hash_status}")
+    check(len(out) == len(frames), "decoder returned a wrong picture count")
+    for i, (r, o) in enumerate(zip(recons, out)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
+                  f"decoded picture {i} plane {c} != encoder recon")
+    print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
+          f"{len(frames)} pictures, pictures equal the encoder's, "
+          f"{t_dec:.2f} s")
+    return launches, rdoq_launches
+
+
+def phase_flat_ra_cuda_vs_cpu() -> None:
+    """Phase 10 (flat-ra-cuda-vs-cpu): the flat RA GOP-8 at 96x64 over 9
+    pictures on the card and on the CPU: byte-equal streams, the card's
+    through the RDOQ kernel, the CPU's through its plain version."""
+    w, h, n = 96, 64, 9
+    frames = synth_clip(w, h, n, seed=17)
+    res, routes = {}, {}
+    for dev in ("cuda", "cpu"):
+        enc, encode = flat_encoder("ra", w, h, dev)
+        t0 = time.perf_counter()
+        stream, *routes[dev] = rdoq_routes(lambda: encode(frames)[0])
+        res[dev] = (stream, time.perf_counter() - t0)
+    (g, tg), (c, tc) = res["cuda"], res["cpu"]
+    routed = check_rdoq_routes("flat RA 96x64", routes["cuda"],
+                               routes["cpu"])
+    check(g == c, f"flat RA 96x64: card and CPU streams differ ({len(g)} "
+                  f"/ {len(c)} bytes)")
+    dec = hevc_decoder.GeneralDecoder()
+    dec.decode(g)
+    check(dec.hash_status == [True] * n, "flat RA 96x64: hash mismatch")
+    print(f"[flat-ra-cuda-vs-cpu] 96x64, 9 pictures: streams byte-equal "
+          f"({len(g)} bytes), hash OK; {routed}; cuda {tg:.2f} s, cpu "
+          f"{tc:.2f} s")
 
 
 def main() -> None:
@@ -1533,7 +1841,9 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} card(s)")
@@ -1558,28 +1868,34 @@ def main() -> None:
     ra_tz, _, ra_tz_rdoq = phase_hevc_ra(me_method="tz")
     ldp_rc, rc_log, ldp_rc_rdoq = phase_hevc_ldp(rc=True)
     rc_resumed, resumed_rdoq = phase_ldp_rc_resume(rc_log)
+    flat_ra, flat_ra_rdoq = phase_hevc_flat("ra")
+    hierb, hierb_rdoq = phase_hevc_flat("hierb")
+    phase_flat_ra_cuda_vs_cpu()
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported")
 
     launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_tz + ra_tz +
-                ldp_rc + rc_resumed)
+                ldp_rc + rc_resumed + flat_ra + hierb)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
           f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P TZ run "
           f"{ldp_tz}, RA TZ GOP {ra_tz}, LD-P rate-controlled run {ldp_rc} "
-          f"and its resumed run {rc_resumed}, together {launches}; its "
+          f"and its resumed run {rc_resumed}, flat RA GOP {flat_ra}, flat "
+          f"hierarchical-B run {hierb}, together {launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
           f"launches: RA GOP with SAO {sao_launches}; its times and bound "
           "are per 1080p picture (3 planes)")
     rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_tz_rdoq +
-                     ra_tz_rdoq + ldp_rc_rdoq + resumed_rdoq)
+                     ra_tz_rdoq + ldp_rc_rdoq + resumed_rdoq + flat_ra_rdoq +
+                     hierb_rdoq)
     r = rq[0]
     print(f"[kernels] rdoq_dev launches: RA GOP {ra_rdoq}, RA GOP with SAO "
           f"{ra_sao_rdoq}, LD-P run {ldp_rdoq}, LD-P TZ run {ldp_tz_rdoq}, "
           f"RA TZ GOP {ra_tz_rdoq}, LD-P rate-controlled run {ldp_rc_rdoq} "
-          f"and its resumed run {resumed_rdoq}, together {rdoq_launches}; "
+          f"and its resumed run {resumed_rdoq}, flat RA GOP {flat_ra_rdoq}, "
+          f"flat hierarchical-B run {hierb_rdoq}, together {rdoq_launches}; "
           f"the plain version ran 0 times in them; its times and bound are "
           f"the {r['what']} call's (B={r['b']}; every shape on the next "
           "line)")
@@ -1593,17 +1909,20 @@ def main() -> None:
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}, {
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        "ms_note": k.get("note")}, {
         "name": "sao_stats", "route": "cuda", "source": SAO_SRC,
         "replaces": SAO_REPLACES, "launches": sao_launches,
         "max_abs_err": sk["max_abs_err"], "ms": sk["ms"],
         "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
-        "bound_by": sk["bound_by"], "library_ms": sk["library_ms"]}, {
+        "bound_by": sk["bound_by"], "library_ms": sk["library_ms"],
+        "ms_note": sk.get("note")}, {
         "name": "rdoq_dev", "route": "cuda", "source": RDOQ_SRC,
         "replaces": RDOQ_REPLACES, "launches": rdoq_launches,
         "max_abs_err": max(x["max_abs_err"] for x in rq), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None}]}))
+        "bound_by": r["bound_by"], "library_ms": None,
+        "ms_note": r["note"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

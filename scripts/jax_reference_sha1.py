@@ -2,7 +2,7 @@
 the port's to, computed with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
-        [--ldp-tz] [--ra-tz] [--ldp-rc] [--no-ldp]
+        [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -24,9 +24,16 @@ same controller's run resumed from a checkpoint: pictures 0-4 encoded,
 the state written with `checkpoint.save` and read back with
 `checkpoint.load`, pictures 5-8 encoded from it by a new encoder and a
 new controller; the SHA-1 of the resumed pictures' NALs (Annex B) is
-printed.  This is a tool for the reference side: it imports
-the JAX package, and the port's `motion` module only for the repaired
-function.
+printed.  The flat CTB16 B engines (chip_smoke.py's `[hevc-flat-ra]`
+and `[hevc-hierb]`, scripts/diag_ra_gap.py's settings: QP 32, SBH,
+SR64 pyramid ME, one merge candidate, no TMVP, MD5 hash SEI):
+--flat-ra is `inter_jax.DeviceRandomAccessEncoder` over phase 7's 9
+pictures (GOP-8, reorder_pics 3), --hierb `DeviceHierarchicalBEncoder`
+over their first 5 (I0 P2 B1 P4 B3, reorder_pics 1); each stream is
+also decoded by the port's GeneralDecoder (spec merge and AMVP).  This
+is a tool for the reference side: it imports the JAX package, the
+port's `motion` module for the repaired function and the port's
+decoder for the flat streams' second opinion.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from video_codecs_tpu.models.hevc import checkpoint  # noqa: E402
 from video_codecs_tpu.models.hevc import decoder, headers  # noqa: E402
 from video_codecs_tpu.models.hevc import inter_jax, inter_qt  # noqa: E402
 from video_codecs_tpu.models.hevc import motion, ratectrl  # noqa: E402
+from video_codecs_tpu_torch.models.hevc import decoder as tdecoder  # noqa: E402
 from video_codecs_tpu_torch.models.hevc import motion as tmotion  # noqa: E402
 
 AMVP_AS_WRITTEN = motion.amvp_candidates
@@ -131,6 +139,33 @@ def ra(sao: bool = False, me_method: str = "pyr") -> None:
            len(frames), time.time() - t0)
 
 
+def flat(kind: str) -> None:
+    """The flat CTB16 RA GOP-8 ("ra") or hierarchical-B ("hierb") run of
+    chip_smoke.py, decoded by both packages' GeneralDecoders."""
+    w, h = chip_smoke.HEVC_W, chip_smoke.HEVC_H
+    frames = chip_smoke.synth_clip(w, h, chip_smoke.RA_PICTURES, seed=5)
+    cfg = headers.HevcConfig(width=w, height=h, qp=chip_smoke.HEVC_QP,
+                             reorder_pics=3 if kind == "ra" else 1,
+                             sign_data_hiding=True)
+    t0 = time.time()
+    if kind == "ra":
+        enc = inter_jax.DeviceRandomAccessEncoder(
+            cfg, search_range=chip_smoke.RA_SR)
+        stream, _ = enc.encode_sequence_ra(frames)
+    else:
+        frames = frames[:chip_smoke.HIERB_PICTURES]
+        enc = inter_jax.DeviceHierarchicalBEncoder(
+            cfg, search_range=chip_smoke.RA_SR)
+        stream, _ = enc.encode_sequence_rab(frames)
+    what = "flat ra 1080p" if kind == "ra" else "hierb 1080p"
+    report(what, stream, len(frames), time.time() - t0)
+    dec = tdecoder.GeneralDecoder()
+    dec.decode(stream)
+    print(f"{what}: the port's GeneralDecoder hash OK "
+          f"{sum(dec.hash_status)} of {len(frames)}: {dec.hash_status}",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -144,6 +179,10 @@ def main() -> None:
     ap.add_argument("--ldp-rc", action="store_true",
                     help="the rate-controlled LD-P streams and the resumed "
                          "run (hevc-ldp-rc)")
+    ap.add_argument("--flat-ra", action="store_true",
+                    help="the flat CTB16 RA GOP-8 (hevc-flat-ra)")
+    ap.add_argument("--hierb", action="store_true",
+                    help="the flat hierarchical-B run (hevc-hierb)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -162,6 +201,10 @@ def main() -> None:
     if args.ldp_rc:
         ldp(rc=True)
         ldp_rc_resumed()
+    if args.flat_ra:
+        flat("ra")
+    if args.hierb:
+        flat("hierb")
 
 
 if __name__ == "__main__":

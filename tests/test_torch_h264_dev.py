@@ -169,6 +169,17 @@ def test_port_runs_without_jax(tmp_path):
         assert dec.hash_status == [True]
         assert all(np.array_equal(hrec[0][c], hout[0][c]) for c in range(3))
         assert encoder_qt_dev.CTB == 32
+        from video_codecs_tpu_torch.models.hevc import decoder, inter_dev
+        bcfg = headers.HevcConfig(width=48, height=32, qp=32,
+                                  reorder_pics=1, sign_data_hiding=True)
+        hb = inter_dev.DeviceHierarchicalBEncoder(bcfg, search_range=8,
+                                                  device="cpu")
+        bstream, brec = hb.encode_sequence_rab(frames)
+        gdec = decoder.GeneralDecoder()
+        bout = gdec.decode(bstream)
+        assert gdec.hash_status == [True] * 3
+        assert all(np.array_equal(r[c], o[c])
+                   for r, o in zip(brec, bout) for c in range(3))
         bad = [m for m in sys.modules
                if m in ("jax", "video_codecs_tpu")
                or m.startswith(("jax.", "video_codecs_tpu."))

@@ -105,14 +105,19 @@ _COPIES = {
                    "_refine", "motion_search"},
                   {"_u8", "_span_offsets", "_pick"}),
     "models/hevc/inter_dev.py": (
-        "models/hevc/inter_jax.py", set(),
+        "models/hevc/inter_jax.py",
+        {"_device_b_frame", "DeviceHierarchicalBEncoder.__init__",
+         "DeviceHierarchicalBEncoder.encode_frame",
+         "DeviceRandomAccessEncoder.__init__",
+         "DeviceRandomAccessEncoder.encode_frame"},
         {"scale_mv_dev", "mvd_bits_dev", "_shift_grid", "_scatter_blocks",
          "_intra_wavefront", "encode_p_frame_dev", "b_me_one",
          "encode_b_frame_dev", "DeviceLowDelayEncoder.__init__",
          "DeviceLowDelayEncoder.encode_p_frame",
          "DeviceLowDelayEncoder.encode_frame"},
         {"_i32", "_round_cost", "_round_const", "_persum", "_sum2x2",
-         "_to4", "_from4", "_ssef", "DeviceLowDelayEncoder._device_phase"}),
+         "_to4", "_from4", "_ssef", "DeviceLowDelayEncoder._device_phase",
+         "bs_maps_b_dev", "_check_flat_b", "_b_device_phase"}),
     "models/hevc/motion.py": ("models/hevc/motion.py", {"amvp_candidates"},
                               set(), set()),
     "models/hevc/motion_hm.py": ("models/hevc/motion_hm.py", set(), set(),
@@ -125,7 +130,8 @@ _COPIES = {
         set(), set()),
     "models/hevc/checkpoint.py": ("models/hevc/checkpoint.py", set(), set(),
                                   set()),
-    "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py", set(),
+    "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py",
+                                    {"HierarchicalBEncoder._encode_b_frame"},
                                     set(), set()),
     "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py", set(), set(),
                                 set()),

@@ -219,12 +219,12 @@ def test_ra_cut_options_raise():
     assert enc.device == torch.device("cuda")     # the card by default
     assert enc._qt_intra.device == torch.device("cuda")
     z = torch.zeros((64, 64), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):      # intra candidates
+    with pytest.raises(NotImplementedError):      # tile-sharded inputs
         tinter.encode_b_frame_dev(
             z, z[::2, ::2], z[::2, ::2], z, z[::2, ::2], z[::2, ::2],
             z, z[::2, ::2], z[::2, ::2], qp=32, w=64, h=64, has_l1=False,
             search_range=8, sbh=True, rdoq=True, deblock=False,
-            allow_intra=True, merge_eval="best4")
+            allow_intra=False, merge_eval="best4", me_fields=[])
 
 
 @pytest.mark.parametrize("feature", ["tile_columns", "wpp",

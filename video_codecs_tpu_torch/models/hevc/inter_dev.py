@@ -1,5 +1,5 @@
-"""The device phases of the HEVC inter encoders and the low-delay P
-encoder.
+"""The device phases of the HEVC inter encoders and the low-delay P,
+hierarchical-B and random-access encoders on the flat CTB16 toolset.
 
 Counterpart of video_codecs_tpu/models/hevc/inter_jax.py: the MV helpers
 (`scale_mv_dev`, `mvd_bits_dev`, `_shift_grid`, `_scatter_blocks`), the
@@ -8,20 +8,24 @@ pipeline `encode_p_frame_dev` and the LD-P encoder
 `DeviceLowDelayEncoder` (device phase, spec merge/AMVP reconciliation
 `_reconcile`, HM's LD-P QP/lambda ladder), the per-list motion search
 `b_me_one` and the per-16 B/anchor-P decision `encode_b_frame_dev` with
-the options the CTB32 quadtree encoder runs (models/hevc/inter_qt.py):
-`merge_eval="best4"`, the RQT, the CU8 tree, the device TMVP candidate,
-`no_backward` and `[R, H, W]` multi-reference stacks, without intra
-blocks.  `hm_lambda` and `_gop_lambda` are the port's copies of the host
-lambda ladder.
+the options of the flat path (`merge_eval="first"`, the intra candidate,
+deblocking with `bs_maps_b_dev`) and of the CTB32 quadtree encoder
+(models/hevc/inter_qt.py: `merge_eval="best4"`, the RQT, the CU8 tree,
+the device TMVP candidate, `no_backward` and `[R, H, W]` multi-reference
+stacks, without intra blocks), and the flat B engines
+`DeviceHierarchicalBEncoder` and `DeviceRandomAccessEncoder` (device
+phase `_b_device_phase`, spec merge/AMVP reconciliation `_reconcile_b`,
+`_device_b_frame`).  `hm_lambda` and `_gop_lambda` are the port's copies
+of the host lambda ladder.
 
 The integer motion search is the pyramid or, through
 `ops/me.motion_search`, HM's full search, TZSearch or "auto" (the
 reference's dispatch, inter_jax.py:225-236 and :462-476).
-Cut, raising NotImplementedError: `encode_b_frame_dev`'s
-`allow_intra=True`, `merge_eval="first"` and `deblock=True` (the flat
-hier-B/RA path) and `me_fields` / `gx_blk0` (the multichip dryrun's
-tile-sharded inputs); the options `DeviceLowDelayEncoder` refuses raise
-ValueError.
+Cut, raising NotImplementedError: `encode_b_frame_dev`'s `me_fields` /
+`gx_blk0` (the multichip dryrun's tile-sharded inputs); the options the
+encoders refuse raise ValueError, among them what the reference codes on
+its host path (SAO, tiles) and, on the flat B engines, what it writes
+wrongly (TMVP, MaxNumMergeCand > 1 in the RA header).
 
 Float32 in the reference's order.  The decisions compare float32 costs
 J = D + lambda * R, so each is the reference's float32 expression as
@@ -40,9 +44,11 @@ import math
 import numpy as np
 import torch
 
+from video_codecs_tpu_torch.models.hevc import bframe_codec as bc
 from video_codecs_tpu_torch.models.hevc import encoder_dev
 from video_codecs_tpu_torch.models.hevc import inter_codec as pc
 from video_codecs_tpu_torch.models.hevc import motion
+from video_codecs_tpu_torch.models.hevc import ra_codec as ra
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
@@ -445,6 +451,31 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
 # The B-frame pipeline (hierarchical-B / RA toolset)
 # ---------------------------------------------------------------------------
 
+def bs_maps_b_dev(pm, cby, dirg, m0x, m0y, m1x, m1y):
+    """Deblocking BS maps of the flat B path from the final per-16
+    fields ([bh, bw] each): the reference's inline twin of
+    bframe_codec._bs_maps_b (inter_jax.py:1127-1151).  Returns (bs_ver
+    [bw - 1, bh], bs_hor [bh - 1, bw]) as int32 tensors."""
+    intra = pm == MODE_INTRA
+
+    def bs_pair(sl_a, sl_b):
+        intra2 = intra[sl_a] | intra[sl_b]
+        da = dirg[sl_a]
+        diff_dir = da != dirg[sl_b]
+        d0 = ((m0x[sl_a] - m0x[sl_b]).abs() >= 4) | \
+            ((m0y[sl_a] - m0y[sl_b]).abs() >= 4)
+        d1 = ((m1x[sl_a] - m1x[sl_b]).abs() >= 4) | \
+            ((m1y[sl_a] - m1y[sl_b]).abs() >= 4)
+        use0 = (da & 1) > 0
+        mv_diff = torch.where(da == 3, d0 | d1, torch.where(use0, d0, d1))
+        one = cby[sl_a] | cby[sl_b] | diff_dir | mv_diff
+        return torch.where(intra2, 2, torch.where(one, 1, 0)).int()
+
+    bs_ver = bs_pair(np.s_[:, :-1], np.s_[:, 1:]).T
+    bs_hor = bs_pair(np.s_[:-1, :], np.s_[1:, :])
+    return bs_ver, bs_hor
+
+
 # video_codecs_tpu/models/hevc/inter_jax.py:462
 def b_me_one(ref_y, cur, x0, y0, search_range: int, me_method: str,
              n: int = 16):
@@ -499,21 +530,20 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     the tensors' device.  Reference planes are [R, H, W] stacks (ME per
     list and reference; the cheapest reference wins per block) or 2-D
     planes (one reference per list).  Returns the reference's dict of
-    per-16 decisions, per-8 CU8 fields, levels and reconstruction."""
-    if allow_intra:
-        raise NotImplementedError(
-            "encode_b_frame_dev: allow_intra=True (intra blocks in inter "
-            "pictures) is not ported")
-    if merge_eval != "best4":
-        raise NotImplementedError(
-            f"encode_b_frame_dev: merge_eval={merge_eval!r} is not ported")
+    per-16 decisions, per-8 CU8 fields, levels and reconstruction.
+
+    merge_eval "first" is the flat path's single merge candidate (the
+    first available neighbour A1/B1, else zero MVs), "best4" the CTB32
+    path's merge-5 approximation; allow_intra adds the intra candidate
+    (its blocks coded on the wavefront); deblock filters the recon with
+    the BS maps of the final motion field at block 16."""
+    if merge_eval not in ("first", "best4"):
+        raise ValueError(
+            f"encode_b_frame_dev: merge_eval={merge_eval!r} is not one of "
+            "'first', 'best4'")
     if me_fields is not None or gx_blk0 is not None:
         raise NotImplementedError(
             "encode_b_frame_dev: tile-sharded inputs are not ported")
-    if deblock:
-        raise NotImplementedError(
-            "encode_b_frame_dev: deblock=True (the flat 16x16 path) is not "
-            "ported; qt_merge_dev deblocks")
     dev = y.device
     bw, bh = w // 16, h // 16
     nb = bw * bh
@@ -630,9 +660,11 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
         prov_mv1x = prov_mv1y = zr
         prov_r1 = zr
 
-    # ---- merge approximation of the merge-5 list: A1/B1/B0/B2
-    # [+ TMVP] + zero with their merge_idx rates; the host re-derives the
-    # spec list per PU and codes the real index ----
+    # ---- merge approximation: twin of derive_merge ("first", flat path:
+    # the host codes a single candidate, so only the first available
+    # neighbour A1/B1 is codeable) or of the merge-5 list ("best4", qt
+    # path: A1/B1/B0/B2 [+ TMVP] + zero with their merge_idx rates; the
+    # host re-derives the spec list per PU and codes the real index) ----
     def grid(a):
         return a.reshape(bh, bw)
 
@@ -653,87 +685,120 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
 
     by_i = torch.arange(bh, device=dev).repeat_interleave(bw)
     bx_i = torch.arange(bw, device=dev).repeat(bh)
-    mcands = []
-    for dx, dy in ((-1, 0), (0, -1), (1, -1), (-1, -1)):
-        ys_ = by_i + dy
-        xs_ = bx_i + dx
-        ok = (ys_ >= 0) & (ys_ < bh) & (xs_ >= 0) & (xs_ < bw) & \
-            ((dy < 0) | (dx < 0))
-        mcands.append(tuple(
-            _shift_grid(grid(f), dx, dy, fill).reshape(nb)
-            for f, fill in ((prov_dir, fb_dir), (prov_mv0x, 0),
-                            (prov_mv0y, 0), (prov_mv1x, 0),
-                            (prov_mv1y, 0), (prov_r0, 0),
-                            (prov_r1, 0))) + (ok,))
-    if tmvp_fields is not None:
-        # temporal candidate approximation (spec 8.5.3.2.8-9 via the
-        # compressed 16x16 collocated field): bottom-right col block
-        # when inside the picture and the same CTB row, else center; MV
-        # from the selected col list scaled to refIdx 0
-        (cinter, c0x_, c0y_, c1x_, c1y_, cpf0, cpf1, crp0, crp1,
-         cpoc, curpoc, tp0, tp1) = tmvp_fields
-        cinter = cinter.reshape(nb)
-        c0x_, c0y_ = c0x_.reshape(nb), c0y_.reshape(nb)
-        c1x_, c1y_ = c1x_.reshape(nb), c1y_.reshape(nb)
-        cpf0, cpf1 = cpf0.reshape(nb), cpf1.reshape(nb)
-        crp0, crp1 = crp0.reshape(nb), crp1.reshape(nb)
-        use_br = ((bx_i + 1 < bw) & (by_i + 1 < bh) & ((by_i % 2) == 0) &
-                  _shift_grid(grid(cinter), 1, 1, False).reshape(nb))
+    if merge_eval == "best4":
+        mcands = []
+        for dx, dy in ((-1, 0), (0, -1), (1, -1), (-1, -1)):
+            ys_ = by_i + dy
+            xs_ = bx_i + dx
+            ok = (ys_ >= 0) & (ys_ < bh) & (xs_ >= 0) & (xs_ < bw) & \
+                ((dy < 0) | (dx < 0))
+            mcands.append(tuple(
+                _shift_grid(grid(f), dx, dy, fill).reshape(nb)
+                for f, fill in ((prov_dir, fb_dir), (prov_mv0x, 0),
+                                (prov_mv0y, 0), (prov_mv1x, 0),
+                                (prov_mv1y, 0), (prov_r0, 0),
+                                (prov_r1, 0))) + (ok,))
+        if tmvp_fields is not None:
+            # temporal candidate approximation (spec 8.5.3.2.8-9 via the
+            # compressed 16x16 collocated field): bottom-right col block
+            # when inside the picture and the same CTB row, else center; MV
+            # from the selected col list scaled to refIdx 0
+            (cinter, c0x_, c0y_, c1x_, c1y_, cpf0, cpf1, crp0, crp1,
+             cpoc, curpoc, tp0, tp1) = tmvp_fields
+            cinter = cinter.reshape(nb)
+            c0x_, c0y_ = c0x_.reshape(nb), c0y_.reshape(nb)
+            c1x_, c1y_ = c1x_.reshape(nb), c1y_.reshape(nb)
+            cpf0, cpf1 = cpf0.reshape(nb), cpf1.reshape(nb)
+            crp0, crp1 = crp0.reshape(nb), crp1.reshape(nb)
+            use_br = ((bx_i + 1 < bw) & (by_i + 1 < bh) & ((by_i % 2) == 0) &
+                      _shift_grid(grid(cinter), 1, 1, False).reshape(nb))
 
-        def pick(f, fill=0):
-            return torch.where(use_br,
-                               _shift_grid(grid(f), 1, 1, fill).reshape(nb),
-                               f)
+            def pick(f, fill=0):
+                shifted = _shift_grid(grid(f), 1, 1, fill).reshape(nb)
+                return torch.where(use_br, shifted, f)
 
-        a_int = pick(cinter, False)
-        a0x, a0y = pick(c0x_), pick(c0y_)
-        a1x, a1y = pick(c1x_), pick(c1y_)
-        a_pf0, a_pf1 = pick(cpf0, False), pick(cpf1, False)
-        a_rp0, a_rp1 = pick(crp0), pick(crp1)
-        # listCol: L1 if col has no L0, L0 if no L1; else the
-        # no-backward/collocated_from_l0 rule (col list 1 here)
-        tmv = []
-        for lx, tpoc in ((0, tp0), (1, tp1)):
-            fixed_col = lx if no_backward else 0  # col_from_l0=0
-            lcol = torch.where(~a_pf0, 1, torch.where(~a_pf1, 0,
-                                                      fixed_col))
-            cmx = torch.where(lcol == 0, a0x, a1x)
-            cmy = torch.where(lcol == 0, a0y, a1y)
-            crp = torch.where(lcol == 0, a_rp0, a_rp1)
-            sx, sy = scale_mv_dev(cmx, cmy, _i32(curpoc, dev) -
-                                  _i32(tpoc, dev), _i32(cpoc, dev) - crp)
-            tmv.append((sx, sy))
-        t_dir = torch.where(a_int, fb_dir, 0).int()
-        mcands.append((t_dir, tmv[0][0], tmv[0][1],
-                       tmv[1][0], tmv[1][1], zr, zr,
-                       a_int & (t_dir > 0)))
-    mcands.append((torch.full((nb,), fb_dir, dtype=torch.int32,
-                              device=dev), zr, zr, zr, zr, zr, zr,
-                   torch.ones(nb, dtype=torch.bool, device=dev)))
-    cost_mrg = torch.full((nb,), INF, dtype=torch.int32, device=dev)
-    mrg_dir = torch.full((nb,), fb_dir, dtype=torch.int32, device=dev)
-    mrg_mv0x = mrg_mv0y = mrg_mv1x = mrg_mv1y = zr
-    mrg_r0 = mrg_r1 = zr
-    for idx, (cd, c0x, c0y, c1x, c1y, cr0, cr1, ok) in \
-            enumerate(mcands):
-        pred = mrg_pred(cd, c0x, c0y, c1x, c1y, cr0, cr1)
-        c = cost_ops.hadamard_satd_8x8(cur, pred) + _round_const(
-            sl * (2 + idx))
-        c = torch.where(ok, c, INF)
-        better = c < cost_mrg
-        cost_mrg = torch.where(better, c, cost_mrg)
-        mrg_dir = torch.where(better, cd, mrg_dir)
-        mrg_mv0x = torch.where(better, c0x, mrg_mv0x)
-        mrg_mv0y = torch.where(better, c0y, mrg_mv0y)
-        mrg_mv1x = torch.where(better, c1x, mrg_mv1x)
-        mrg_mv1y = torch.where(better, c1y, mrg_mv1y)
-        mrg_r0 = torch.where(better, cr0, mrg_r0)
-        mrg_r1 = torch.where(better, cr1, mrg_r1)
+            a_int = pick(cinter, False)
+            a0x, a0y = pick(c0x_), pick(c0y_)
+            a1x, a1y = pick(c1x_), pick(c1y_)
+            a_pf0, a_pf1 = pick(cpf0, False), pick(cpf1, False)
+            a_rp0, a_rp1 = pick(crp0), pick(crp1)
+            # listCol: L1 if col has no L0, L0 if no L1; else the
+            # no-backward/collocated_from_l0 rule (col list 1 here)
+            tmv = []
+            for lx, tpoc in ((0, tp0), (1, tp1)):
+                fixed_col = lx if no_backward else 0  # col_from_l0=0
+                lcol = torch.where(~a_pf0, 1, torch.where(~a_pf1, 0,
+                                                          fixed_col))
+                cmx = torch.where(lcol == 0, a0x, a1x)
+                cmy = torch.where(lcol == 0, a0y, a1y)
+                crp = torch.where(lcol == 0, a_rp0, a_rp1)
+                sx, sy = scale_mv_dev(cmx, cmy, _i32(curpoc, dev) -
+                                      _i32(tpoc, dev), _i32(cpoc, dev) - crp)
+                tmv.append((sx, sy))
+            t_dir = torch.where(a_int, fb_dir, 0).int()
+            mcands.append((t_dir, tmv[0][0], tmv[0][1],
+                           tmv[1][0], tmv[1][1], zr, zr,
+                           a_int & (t_dir > 0)))
+        mcands.append((torch.full((nb,), fb_dir, dtype=torch.int32,
+                                  device=dev), zr, zr, zr, zr, zr, zr,
+                       torch.ones(nb, dtype=torch.bool, device=dev)))
+        cost_mrg = torch.full((nb,), INF, dtype=torch.int32, device=dev)
+        mrg_dir = torch.full((nb,), fb_dir, dtype=torch.int32, device=dev)
+        mrg_mv0x = mrg_mv0y = mrg_mv1x = mrg_mv1y = zr
+        mrg_r0 = mrg_r1 = zr
+        for idx, (cd, c0x, c0y, c1x, c1y, cr0, cr1, ok) in \
+                enumerate(mcands):
+            pred = mrg_pred(cd, c0x, c0y, c1x, c1y, cr0, cr1)
+            c = cost_ops.hadamard_satd_8x8(cur, pred) + _round_const(
+                sl * (2 + idx))
+            c = torch.where(ok, c, INF)
+            better = c < cost_mrg
+            cost_mrg = torch.where(better, c, cost_mrg)
+            mrg_dir = torch.where(better, cd, mrg_dir)
+            mrg_mv0x = torch.where(better, c0x, mrg_mv0x)
+            mrg_mv0y = torch.where(better, c0y, mrg_mv0y)
+            mrg_mv1x = torch.where(better, c1x, mrg_mv1x)
+            mrg_mv1y = torch.where(better, c1y, mrg_mv1y)
+            mrg_r0 = torch.where(better, cr0, mrg_r0)
+            mrg_r1 = torch.where(better, cr1, mrg_r1)
+    else:
+        def pick(field, fallback):
+            left = _shift_grid(grid(field), -1, 0, 0)
+            above = _shift_grid(grid(field), 0, -1, 0)
+            out = torch.where(grid(bx_i) > 0, left,
+                              torch.where(grid(by_i) > 0, above, fallback))
+            return out.reshape(nb)
 
-    # ---- intra candidate: the modes are an output (allow_intra is
-    # False on this path, so the candidate never wins) ----
+        # fallback blocks carry zero MVs
+        is_fb = (bx_i == 0) & (by_i == 0)
+
+        def pick0(field):
+            return torch.where(is_fb, 0, pick(field, 0))
+
+        mrg_dir = torch.where(is_fb, fb_dir, pick(prov_dir, fb_dir)).int()
+        mrg_mv0x = pick0(prov_mv0x)
+        mrg_mv0y = pick0(prov_mv0y)
+        mrg_mv1x = pick0(prov_mv1x)
+        mrg_mv1y = pick0(prov_mv1y)
+        mrg_r0 = pick0(prov_r0)
+        mrg_r1 = pick0(prov_r1)
+        pred_mrg = mrg_pred(mrg_dir, mrg_mv0x, mrg_mv0y, mrg_mv1x,
+                            mrg_mv1y, mrg_r0, mrg_r1)
+        cost_mrg = cost_ops.hadamard_satd_8x8(cur, pred_mrg) + \
+            _round_const(sl * 2)
+
+    # ---- intra candidate (orig-neighbour sweep); without allow_intra
+    # (the CTB32 qt path: z-scan intra availability) the modes are only
+    # an output and the candidate never wins ----
     intra_modes = encoder_dev.decide_modes_device(yi, qp, bw, bh)
-    cost_intra = torch.full((nb,), INF, dtype=torch.int32, device=dev)
+    if allow_intra:
+        refs_o = encoder_dev.gather_refs(yi, x0, y0, 16)
+        pred_i = intra_ops.predict_intra(
+            refs_o, intra_modes.reshape(nb)[:, None], 4)[:, 0]
+        cost_intra = cost_ops.hadamard_satd_8x8(cur, pred_i) + \
+            _round_const(sl * 9)
+    else:
+        cost_intra = torch.full((nb,), INF, dtype=torch.int32, device=dev)
 
     # ---- decision (host tie-break order) ----
     use_intra = cost_intra <= torch.minimum(cost_mrg, cost_expl)
@@ -1008,6 +1073,16 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     rec_y_pl, rec_u_pl, rec_v_pl, coef_y, coef_u, coef_v = planes
     cbf_y, cbf_u, cbf_v = cbfs
 
+    # ---- BS maps (twin of bframe_codec._bs_maps_b) + deblock ----
+    if deblock:
+        bs_ver, bs_hor = bs_maps_b_dev(
+            pred_mode.reshape(bh, bw), cbf_y.reshape(bh, bw),
+            fin_dir.reshape(bh, bw), fin_mv0x.reshape(bh, bw),
+            fin_mv0y.reshape(bh, bw), fin_mv1x.reshape(bh, bw),
+            fin_mv1y.reshape(bh, bw))
+        rec_y_pl, rec_u_pl, rec_v_pl = deblock_ops.deblock_420_bs(
+            rec_y_pl, rec_u_pl, rec_v_pl, qp, bs_ver, bs_hor, block=16)
+
     def i16(c):
         return c.clamp(-32768, 32767).to(torch.int16)
 
@@ -1278,3 +1353,232 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
                     b.mvd = mvds[b.mvp_idx]
                 info[by][bx] = b
         return info
+
+
+# ---------------------------------------------------------------------------
+# The flat CTB16 hierarchical-B / random-access encoders: device phase +
+# host reconciliation (bframe_codec / ra_codec syntax) and CABAC
+# ---------------------------------------------------------------------------
+
+L0, L1 = bc.L0, bc.L1
+
+
+# video_codecs_tpu/models/hevc/inter_jax.py:1381
+def _reconcile_b(st, bw, bh, ref_poc, poc, is_anchor):
+    """Build the BBlock grid for a device-encoded B/anchor picture:
+    spec-exact merge/AMVP syntax reproducing the device-decided final
+    motion field (bframe_codec.derive_merge / derive_amvp_b, shared with
+    the decoder).  Where the device's approximate merge differs from the
+    real single merge candidate, the MV is coded explicitly — always
+    conformant, approximation only ever costs bits."""
+    info: list[list[bc.BBlock | None]] = [[None] * bw for _ in range(bh)]
+    pmod = st["pred_mode"]
+    idir = st["inter_dir"]
+    m0x, m0y = st["mv0x"], st["mv0y"]
+    m1x, m1y = st["mv1x"], st["mv1y"]
+    cbf_y, cbf_cb, cbf_cr = st["cbf_y"], st["cbf_cb"], st["cbf_cr"]
+    coef_y, coef_u, coef_v = st["coef_y"], st["coef_u"], st["coef_v"]
+    imodes = st["intra_mode"]
+
+    for by in range(bh):
+        for bx in range(bw):
+            b = bc.BBlock()
+            xx, yy = bx * 16, by * 16
+            b.cbf_y = bool(cbf_y[by, bx])
+            b.cbf_cb = bool(cbf_cb[by, bx])
+            b.cbf_cr = bool(cbf_cr[by, bx])
+            if b.cbf_y:
+                b.levels_y = coef_y[yy:yy + 16, xx:xx + 16].astype(np.int32)
+            if b.cbf_cb:
+                b.levels_cb = coef_u[yy // 2:yy // 2 + 8,
+                                     xx // 2:xx // 2 + 8].astype(np.int32)
+            if b.cbf_cr:
+                b.levels_cr = coef_v[yy // 2:yy // 2 + 8,
+                                     xx // 2:xx // 2 + 8].astype(np.int32)
+            if pmod[by, bx] == MODE_INTRA:
+                b.pred_mode = bc.MODE_INTRA
+                b.intra_mode = int(imodes[by, bx])
+                info[by][bx] = b
+                continue
+            b.pred_mode = bc.MODE_INTER
+            d = int(idir[by, bx])
+            mv = {}
+            if d & 1:
+                mv[L0] = (int(m0x[by, bx]), int(m0y[by, bx]))
+            if d & 2:
+                mv[L1] = (int(m1x[by, bx]), int(m1y[by, bx]))
+            b.inter_dir = d
+            b.mv = mv
+            mdir, mmv = bc.derive_merge(info, bx, by, bw, bh,
+                                        is_b_slice=not is_anchor)
+            no_res = not (b.cbf_y or b.cbf_cb or b.cbf_cr)
+            if mdir == d and all(tuple(mmv[lx]) == mv[lx] for lx in mv):
+                b.merge = True
+                if no_res:
+                    b.skip = True
+            else:
+                b.merge = False
+                if d == 3:
+                    b.mvp_idx = {}
+                    b.mvd = {}
+                    for lx in (L0, L1):
+                        amvp = bc.derive_amvp_b(info, bx, by, bw, bh, lx,
+                                                poc, ref_poc)
+                        mvds = [(mv[lx][0] - p[0], mv[lx][1] - p[1])
+                                for p in amvp]
+                        bits = [pc.mvd_bits_estimate(x) for x in mvds]
+                        mi = 0 if bits[0] <= bits[1] else 1
+                        b.mvp_idx[lx] = mi
+                        b.mvd[lx] = mvds[mi]
+                else:
+                    lx = L0 if d & 1 else L1
+                    amvp = bc.derive_amvp_b(info, bx, by, bw, bh, lx,
+                                            poc, ref_poc)
+                    mvds = [(mv[lx][0] - p[0], mv[lx][1] - p[1])
+                            for p in amvp]
+                    bits = [pc.mvd_bits_estimate(x) for x in mvds]
+                    b.mvp_idx = 0 if bits[0] <= bits[1] else 1
+                    b.mvd = mvds[b.mvp_idx]
+            info[by][bx] = b
+    return info
+
+
+def _check_flat_b(name, cfg, me_method):
+    """The configurations the reference codes on its host path or
+    mis-codes on the flat B engines raise ValueError."""
+    if cfg.sao:
+        raise ValueError(
+            f"{name}: sao is not ported: with SAO on, the reference codes "
+            "the IDR on its host CTB loop (IntraEncoder.encode_frame, a "
+            "device-to-host fallback, inter_jax.py:1546-1550 and "
+            ":1564-1568) and the B pictures with the host "
+            "_sao_decide_apply, which the port does not carry")
+    if cfg.tile_columns != 1:
+        raise ValueError(f"{name}: tiles are not ported")
+    for opt in ("wpp", "weighted_pred", "cu_qp_delta", "timing_sei",
+                "long_term_idr"):
+        if getattr(cfg, opt):
+            raise ValueError(f"{name}: {opt} is not ported")
+    if cfg.temporal_mvp:
+        raise ValueError(
+            f"{name}: temporal_mvp: the flat B coder ignores the temporal "
+            "candidate in its merge and AMVP derivations, so the "
+            "reference's stream does not decode")
+    if not (cfg.log2_ctb == cfg.log2_min_cb == cfg.log2_max_tb == 4):
+        raise ValueError(f"{name}: the flat engines code CTB = CU = TU "
+                         "16 (log2_ctb = log2_min_cb = log2_max_tb = 4)")
+    if me_method not in ME_METHODS:
+        raise ValueError(f"{name}: me_method {me_method!r} is not one of "
+                         f"{ME_METHODS}")
+
+
+def _b_device_phase(enc, y, u, v, r0, r1, has_l1, lam) -> dict:
+    """Upload the picture and its list references (one per list; the L0
+    planes stand in for L1 in anchors), run `encode_b_frame_dev` with
+    the flat path's options on the encoder's device and copy the dict
+    back as numpy (the copy synchronises)."""
+    cfg = enc.cfg
+    with torch.inference_mode():
+        def up(a):
+            return to_device(np.asarray(a, np.uint8), enc.device)
+
+        st = encode_b_frame_dev(
+            *(up(p) for p in (y, u, v)), *(up(p) for p in r0),
+            *(up(p) for p in r1),
+            qp=cfg.qp, w=cfg.width, h=cfg.height, has_l1=has_l1,
+            search_range=enc.search_range, sbh=cfg.sign_data_hiding,
+            rdoq=True, me_method=enc.me_method,
+            deblock=not cfg.deblocking_disabled, lam=lam)
+        return {k: t.cpu().numpy() for k, t in st.items()}
+
+
+# video_codecs_tpu/models/hevc/inter_jax.py:1498
+def _device_b_frame(enc, frame, poc, refs, is_anchor):
+    """Shared device B/anchor picture path: run encode_b_frame_dev, then
+    host reconciliation + CABAC with the encoder's own serializer."""
+    cfg = enc.cfg
+    y, u, v = frame
+    bw, bh = cfg.width // 16, cfg.height // 16
+    ref_poc = {lx: rp for lx, (rp, _) in refs.items()}
+    has_l1 = L1 in refs
+    r0 = refs[L0][1]
+    r1 = refs[L1][1] if has_l1 else r0
+
+    st = _b_device_phase(enc, y, u, v, r0, r1, has_l1,
+                         _gop_lambda(enc, poc))
+
+    info = _reconcile_b(st, bw, bh, ref_poc, poc, is_anchor)
+    rec_y = st["rec_y"].astype(np.int32)
+    rec_u = st["rec_u"].astype(np.int32)
+    rec_v = st["rec_v"].astype(np.int32)
+    slice_nal = enc._encode_b_slice(info, poc, is_anchor, ref_poc,
+                                    poc - ref_poc[L0], None)
+    sei_nal = enc._hash_sei(rec_y, rec_u, rec_v)
+    return [slice_nal, sei_nal], (rec_y, rec_u, rec_v)
+
+
+# video_codecs_tpu/models/hevc/inter_jax.py:1538
+class DeviceHierarchicalBEncoder(bc.HierarchicalBEncoder):
+    """2-level hierarchical-B encoder (I0, anchor P pictures two apart,
+    one non-reference B between) with the per-picture pixel pipeline on
+    a torch device (the card unless the caller passes device="cpu"): the
+    IDR through the flat CTB16 device intra encoder, each B / anchor P
+    picture through `encode_b_frame_dev` with the flat path's options
+    (single merge candidate, intra candidate, deblock at block 16), then
+    the host reconciliation, slice writer and picture-hash SEI.  What
+    the reference diverts to its host path or mis-codes raises
+    ValueError here (`_check_flat_b`)."""
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1542
+    def __init__(self, cfg, search_range: int = 64,
+                 me_method: str = "pyr", *, device="cuda") -> None:
+        _check_flat_b("DeviceHierarchicalBEncoder", cfg, me_method)
+        super().__init__(cfg, search_range, me_method)
+        self.device = torch.device(device)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1546
+    def encode_frame(self, y, u, v, *args, **kwargs):
+        """IDR pictures via the flat CTB16 device intra encoder."""
+        return self.encode_frame_fast(y, u, v)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1552
+    def _encode_b_frame(self, frame, poc, refs, is_anchor):
+        return _device_b_frame(self, frame, poc, refs, is_anchor)
+
+
+# video_codecs_tpu/models/hevc/inter_jax.py:1556
+class DeviceRandomAccessEncoder(ra.RandomAccessEncoder):
+    """GOP-driven RA encoder (GOPEntry tables, BASELINE config 3
+    structure) on the flat CTB16 toolset, with the per-picture pixel
+    pipeline on a torch device (the card unless the caller passes
+    device="cpu"), as `DeviceHierarchicalBEncoder`; each picture's slice
+    carries the GOP entry's RPS and QP, and its lambda is HM's ladder
+    (`_gop_lambda`).  `cfg.merge_cands` must be 1: the flat CU writer
+    codes no merge_idx, while the RA slice header signals
+    MaxNumMergeCand from the configuration."""
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1560
+    def __init__(self, cfg, gop: tuple = ra.GOP8_RA,
+                 search_range: int = 64, me_method: str = "pyr", *,
+                 device="cuda") -> None:
+        _check_flat_b("DeviceRandomAccessEncoder", cfg, me_method)
+        if cfg.merge_cands != 1:
+            raise ValueError(
+                "DeviceRandomAccessEncoder: merge_cands must be 1: the flat "
+                "CU writer codes no merge_idx (bframe_codec._encode_b_ctu) "
+                "while the slice header signals MaxNumMergeCand")
+        super().__init__(cfg, gop, search_range, me_method)
+        self.device = torch.device(device)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1564
+    def encode_frame(self, y, u, v, *args, **kwargs):
+        """IDR pictures via the flat CTB16 device intra encoder."""
+        return self.encode_frame_fast(y, u, v)
+
+    # video_codecs_tpu/models/hevc/inter_jax.py:1570
+    def _encode_b_frame(self, frame, poc, refs, is_anchor):
+        # tag reference-ness for the NAL type (RandomAccessEncoder logic)
+        e = next((e for e in self.gop
+                  if (poc - e.poc) % self.gop_size == 0), None)
+        self._cur_is_ref = e is None or e.temporal_id < 3
+        return _device_b_frame(self, frame, poc, refs, is_anchor)

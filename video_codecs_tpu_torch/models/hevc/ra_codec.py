@@ -1,12 +1,14 @@
 """Random-access hierarchical-B GOP loop: GOPEntry tables, the RA
-slice header and the coding-order loop `encode_sequence_ra`.
+slice header, the coding-order loop `encode_sequence_ra`, the flat
+16x16 RA slice writer `_encode_b_slice` and `_encode_b_frame`, which
+tags the picture's reference-ness for its NAL type.
 
 The port's copy of the part of video_codecs_tpu/models/hevc/ra_codec.py
-that the random-access quadtree encoder (models/hevc/inter_qt.py) runs;
-each function keeps its name and a comment gives the original's line.
-Cut: the HM cfg parser `parse_gop_entries`, the flat 16x16 RA slice
-writer `_encode_b_slice` and `_encode_b_frame` (the quadtree encoder
-overrides the latter), `parse_ra_slice_header` and `RandomAccessDecoder`
+that the random-access encoders (the CTB32 quadtree one of
+models/hevc/inter_qt.py and the flat CTB16 one of
+models/hevc/inter_dev.py) run; each function keeps its name and a
+comment gives the original's line.  Cut: the HM cfg parser
+`parse_gop_entries`, `parse_ra_slice_header` and `RandomAccessDecoder`
 (the port decodes with models/hevc/decoder.py).
 """
 
@@ -15,8 +17,10 @@ from __future__ import annotations
 import dataclasses
 
 from video_codecs_tpu_torch.entropy import bitstream as bs
+from video_codecs_tpu_torch.entropy import cabac, ctx
 from video_codecs_tpu_torch.models.hevc import bframe_codec as bc
 from video_codecs_tpu_torch.models.hevc import headers
+from video_codecs_tpu_torch.models.hevc import intra_codec as ic
 
 L0, L1 = 0, 1
 NAL_TRAIL_N, NAL_TRAIL_R = 0, 1
@@ -186,3 +190,37 @@ class RandomAccessEncoder(bc.HierarchicalBEncoder):
             gop_start += self.gop_size
         cfg.qp = base_qp
         return bs.annexb(nals), [recons[k] for k in sorted(recons)]
+
+    # video_codecs_tpu/models/hevc/ra_codec.py:258
+    def _encode_b_slice(self, info, poc, is_anchor, ref_poc, neg_delta=2,
+                        sao_params=None):
+        rps = getattr(self, "_cur_rps", None)
+        if rps is None:
+            return super()._encode_b_slice(info, poc, is_anchor, ref_poc,
+                                           neg_delta, sao_params)
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        neg, pos = rps
+        w = write_ra_slice_header(cfg, poc, 1 if is_anchor else 0,
+                                  cfg.qp, neg, pos)
+        init_row = ctx.P if is_anchor else ctx.B
+        enc = cabac.CabacEncoder(w, ctx.init_states(init_row, cfg.qp))
+        for by in range(bh):
+            for bx in range(bw):
+                if sao_params is not None:
+                    ic.encode_sao_ctu(enc, sao_params, by * bw + bx,
+                                      bx, by, bw, 0)
+                self._encode_b_ctu(enc, info, bx, by, bw, bh, is_anchor)
+                last = by == bh - 1 and bx == bw - 1
+                enc.encode_terminate(1 if last else 0)
+        enc.finish_slice()
+        nal_type = NAL_TRAIL_R if self._cur_is_ref else NAL_TRAIL_N
+        return bs.nal_unit(nal_type, w.data())
+
+    # video_codecs_tpu/models/hevc/ra_codec.py:283
+    def _encode_b_frame(self, frame, poc, refs, is_anchor):
+        # tag reference-ness for the NAL type before serialization
+        e = next((e for e in self.gop
+                  if (poc - e.poc) % self.gop_size == 0), None)
+        self._cur_is_ref = e is None or e.temporal_id < 3
+        return super()._encode_b_frame(frame, poc, refs, is_anchor)
