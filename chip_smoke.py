@@ -7,9 +7,11 @@ Drives the port's main paths through its hand-written CUDA kernels, the
 SAD surface, the SAO statistics and the full RDOQ: the H.264 device
 P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
-then on), the HEVC low-delay P row at 832x480, both HEVC rows with
-HM's TZSearch, the LD-P row under rate control, and the flat CTB16
-random-access and hierarchical-B engines at 1920x1072, in phases:
+then on), the HEVC low-delay P row at 832x480 (as it is, with SAO, and
+with timing SEI and the long-term IDR), both HEVC rows with HM's
+TZSearch, the LD-P row under rate control, and the flat CTB16
+random-access (SAO off, then on) and hierarchical-B engines at
+1920x1072, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -97,6 +99,24 @@ random-access and hierarchical-B engines at 1920x1072, in phases:
      d. encode a 96x64 clip with a scene cut (intra blocks in its P
         pictures) at 4 references on the card and on the CPU and
         require byte-equal streams;
+     e. sao-kernel (flat shapes): hold the SAO-statistics kernel against
+        its plain version at the flat engines' planes (luma CTB 16,
+        chroma CTB 8: 832x480 / 416x240 and 1920x1072 / 960x536) and
+        time it beside its bound and the plain version;
+     f. hevc-ldp-sao: bench_ldp_480 with SAO (HM's LD-P main tool set):
+        the IDR on the flat device encoder with the SAO decision and the
+        Python slice writer, every picture's SAO from 3 sao_stats
+        launches (27 in all, the plain version 0 times); per picture the
+        device phase, the host phase, the SAO statistics' kernel time
+        (profiler) and host clock and the SAO decision and apply; every
+        hash OK, the SHA-1 the JAX package's with the spec AMVP list
+        (LDP_SAO_SHA1);
+     g. hevc-ldp-conf: bench_ldp_480 with HRD timing SEI, the IDR as the
+        one long-term reference and no TMVP: 3 SAD launches per P
+        picture (24), the prefix SEI read back (a buffering period on
+        the first AU, picture timing on all, the CPB removal delay
+        advancing), every hash OK with POC 0 the long-term reference of
+        every P picture, the SHA-1 the JAX package's (LDP_CONF_SHA1);
   9. HM's motion search and rate control:
      a. sad-kernel-r64: hold the SAD kernel against its plain version at
         the search range 64 surfaces of TZSearch and the full search
@@ -133,6 +153,13 @@ random-access and hierarchical-B engines at 1920x1072, in phases:
         12 RDOQ launches, HIERB_SHA1);
      c. flat-ra-cuda-vs-cpu: the flat RA GOP at 96x64 over 9 pictures on
         the card and on the CPU, byte-equal streams;
+     d. hevc-flat-ra-sao: a with SAO: 27 sao_stats launches and the SAO
+        split per picture as in 8f, every hash OK (no JAX SHA-1: the JAX
+        package's host SAO decision would take hours at 1080p; the CPU
+        tests hold the 64x48 SAO GOP to its stream);
+     e. flat-ra-cuda-vs-cpu-sao: c with SAO, byte-equal streams, the
+        card's through the SAO kernel (27 launches), the CPU's through
+        its plain version;
  11. require that nothing of the JAX package was imported.
 
 Kernel times come from torch.profiler alone (asked up to three times);
@@ -146,8 +173,8 @@ line before it lists the kernels, with the launches of the main paths'
 encodes (a line before gives each path's), the SAD kernel's RA pyramid
 per-B-picture times and bound, the SAO kernel's per 1080p picture and
 the RDOQ kernel's for the 1080p B picture's TU16 luma call; the search
-range 64 surfaces' and the RDOQ shapes' times print on JSON lines of
-their own before them.
+range 64 surfaces', the RDOQ shapes' and the SAO kernel's flat shapes'
+times print on JSON lines of their own before them.
 """
 
 from __future__ import annotations
@@ -159,6 +186,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -171,8 +199,10 @@ from video_codecs_tpu_torch.models.hevc import checkpoint
 from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
 from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
+from video_codecs_tpu_torch.models.hevc import intra_codec as hevc_intra_codec
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ratectrl
+from video_codecs_tpu_torch.models.hevc import sei as sei_mod
 from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
@@ -230,6 +260,16 @@ FLAT_RA_BYTES = 344846
 FLAT_RA_SHA1 = "c837e7b257cb85bd937dbaac2d3c05e499795ded"
 HIERB_BYTES = 351522
 HIERB_SHA1 = "1535391b4838b43c8e6c1bddc90530ae624706b9"
+# The LD-P row with SAO (HM's encoder_lowdelay_P_main.cfg tool set) and
+# a conferencing sender's LD-P (HRD timing SEI, every P picture predicted
+# from the IDR as a long-term reference, no TMVP): the JAX package's
+# streams with the spec AMVP list (scripts/jax_reference_sha1.py
+# --ldp-sao --ldp-conf, on the CPU; every hash OK in both packages'
+# decoders).
+LDP_SAO_BYTES = 175630
+LDP_SAO_SHA1 = "6852ef4e35e6615941a9dce5ba1405d1b28907c6"
+LDP_CONF_BYTES = 211034
+LDP_CONF_SHA1 = "7b0e7524abeb3c6612be87ed35b392de1d2cc1e2"
 RC_RESUME_AT = 5
 RC_RESUMED_BYTES = 15567
 RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
@@ -238,6 +278,9 @@ RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
 # and on float32 outside the tensor cores, the RDOQ costs' type.
 PEAK_BYTES, PEAK_OPS = 3.35e12, 1979e12
 PEAK_F32 = 67e12
+# Seconds a per-picture torch.profiler session waits after it starts
+# before the work it records.
+PROFILER_SETTLE_S = 0.02
 
 
 # The card's name and power limit as nvidia-smi gives them (main sets it).
@@ -246,6 +289,8 @@ CARD = ""
 # Calls of the plain RDOQ (`rdoq_dev_ref`) by the device its coefficients
 # lie on, counted by the wrapper `count_rdoq_ref` installs.
 RDOQ_REF_CALLS = {"cuda": 0, "cpu": 0}
+# The same for the plain SAO statistics (`sao_stats_ref`, `count_sao_ref`).
+SAO_REF_CALLS = {"cuda": 0, "cpu": 0}
 
 
 def count_rdoq_ref() -> None:
@@ -258,6 +303,18 @@ def count_rdoq_ref() -> None:
         return ref(coeff, *a, **kw)
 
     rdoq_ops.rdoq_dev_ref = counted
+
+
+def count_sao_ref() -> None:
+    """Count every call of `sao_stats_ref` (the wrapper `sao_stats`
+    reaches it through the module's name) in SAO_REF_CALLS."""
+    ref = sao_ops.sao_stats_ref
+
+    def counted(orig, rec, ctb):
+        SAO_REF_CALLS[rec.device.type] += 1
+        return ref(orig, rec, ctb)
+
+    sao_ops.sao_stats_ref = counted
 
 
 def rdoq_routes(fn):
@@ -974,6 +1031,206 @@ def phase_sao_kernel() -> dict:
     return pic
 
 
+def phase_sao_kernel_flat() -> tuple[list, dict]:
+    """Phase 8 (sao-kernel, flat shapes): the SAO-statistics kernel
+    against its plain version at the flat CTB16 engines' planes (luma at
+    CTB 16, chroma at CTB 8: 832x480 and 416x240 of the LD-P row, 1920x1072
+    and 960x536 of the flat 1080p engines), rec within +-3 of orig, all
+    four outputs exactly, each timed beside its bound and the plain
+    version.  Returns the rows and the per-picture totals (LD-P and flat
+    1080p, 3 launches each)."""
+    rng = np.random.default_rng(2029)
+    ldp = bench_synth_clip(LDP_W, LDP_H, 1)[0]
+    flat = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
+    rows, pics = [], {}
+    for pic_name, planes in (("832x480", ldp), ("1920x1072", flat)):
+        pic = dict(ms=0.0, event_ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+        for comp, plane in zip(("luma", "Cb", "Cr"), planes):
+            ctb = 16 if comp == "luma" else 8
+            o = np.ascontiguousarray(plane)
+            r = np.clip(o.astype(np.int16) + rng.integers(-3, 4, o.shape),
+                        0, 255).astype(np.uint8)
+            to, tr = torch.from_numpy(o).cuda(), torch.from_numpy(r).cuda()
+            got = sao_ops.sao_stats(to, tr, ctb)
+            torch.cuda.synchronize()
+            want = sao_ops.sao_stats_ref(to, tr, ctb)
+            err = max(float((g.double() - w_.double()).abs().max())
+                      for g, w_ in zip(got, want))
+            check(err == 0 and all(g.dtype == w_.dtype and
+                                   g.shape == w_.shape
+                                   for g, w_ in zip(got, want)),
+                  f"SAO kernel != plain at {pic_name} {comp} CTB {ctb} "
+                  f"(max abs err {err})")
+            ev = cuda_ms(lambda: sao_ops.sao_stats(to, tr, ctb), reps=21)
+            ms, note = kernel_ms(lambda: sao_ops.sao_stats(to, tr, ctb),
+                                 "sao_stats_kernel")
+            plain = cuda_ms(lambda: sao_ops.sao_stats_ref(to, tr, ctb),
+                            reps=3, warm=1)
+            hp, wp = o.shape
+            bound, nbytes, ops = sao_bound(hp, wp, ctb)
+            what = f"{pic_name} {comp}"
+            print(f"[sao-kernel] flat {what} ({wp}x{hp}, CTB {ctb}, "
+                  f"{(hp // ctb) * (wp // ctb)} CTBs): all four outputs "
+                  f"equal; kernel {kms(ms)} (profiler"
+                  f"{', ' + note if note else ''}), {ev:.4f} ms a wrapper "
+                  f"call (CUDA events); bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.2f} MB), {of_bound(bound, ms)}; plain "
+                  f"{plain:.3f} ms")
+            rows.append(dict(what=what, h=hp, w=wp, ctb=ctb, ms=ms,
+                             event_ms=ev, plain_ms=plain, bound_ms=bound,
+                             bound_by="bytes", max_abs_err=err,
+                             note=note or None))
+            add_kernel_ms(pic, 1, ms, note, what)
+            pic["event_ms"] += ev
+            pic["plain_ms"] += plain
+            pic["bytes"] += nbytes
+            pic["ops"] += ops
+        pic["bound_ms"] = max(pic["bytes"] / PEAK_BYTES,
+                              pic["ops"] / PEAK_OPS) * 1e3
+        print(f"[sao-kernel] flat {pic_name} picture (3 launches): kernel "
+              f"{kms(pic['ms'])} ({pic['event_ms']:.4f} ms in wrapper "
+              f"calls), bound {pic['bound_ms']:.4f} ms "
+              f"({pic['bytes'] / 1e6:.2f} MB), "
+              f"{of_bound(pic['bound_ms'], pic['ms'])}; plain "
+              f"{pic['plain_ms']:.3f} ms"
+              f"{'; ' + pic['note'] if pic.get('note') else ''}")
+        pics[pic_name] = pic
+    return rows, pics
+
+
+def _sao_timer(enc, cur: dict) -> None:
+    """Wrap enc._sao_decide_apply (the flat engines' SAO decision and
+    apply): per picture its host clock, within it the three statistics
+    calls' (`sao_stats`, synchronised: for the call, intra_codec's name
+    `sao_ops` points at a copy of the module's namespace with the timed
+    function, so that the module's own counter stays its), the kernel's
+    device time from a torch.profiler session around the call (None when
+    the session recorded fewer kernels than were launched), the
+    sao_stats launches and the plain version's calls on the card; keep
+    the parameters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    stats = sao_ops.sao_stats
+    orig = enc._sao_decide_apply
+
+    def stats_timed(o, r, ctb):
+        t0 = time.perf_counter()
+        out = stats(o, r, ctb)
+        torch.cuda.synchronize()
+        cur["sao_stats"] = cur.get("sao_stats", 0.0) + \
+            time.perf_counter() - t0
+        return out
+
+    timed_ops = types.SimpleNamespace(**vars(sao_ops))
+    timed_ops.sao_stats = stats_timed
+
+    def run(origs, recs):
+        torch.cuda.synchronize()
+        n0, p0 = stats.launches, SAO_REF_CALLS["cuda"]
+        hevc_intra_codec.sao_ops = timed_ops
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # kernels launched right as a session starts can go
+                # unrecorded (all three of every 832x480 picture's did)
+                time.sleep(PROFILER_SETTLE_S)
+                t0 = time.perf_counter()
+                params, outs = orig(origs, recs)
+                t1 = time.perf_counter()
+        finally:
+            hevc_intra_codec.sao_ops = sao_ops
+        n = stats.launches - n0
+        times = [e.device_time for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and
+                 "sao_stats_kernel" in e.name]
+        cur["sao"] = cur.get("sao", 0.0) + t1 - t0
+        cur["sao_kernel_ms"] = sum(times) / 1e3 if len(times) == n else None
+        cur["sao_recorded"] = len(times)
+        cur["sao_launches"] = n
+        cur["sao_ref"] = SAO_REF_CALLS["cuda"] - p0
+        cur["sao_params"] = params
+        return params, outs
+
+    enc._sao_decide_apply = run
+
+
+def _sao_idr(enc, log: list, cur: dict, timed, **fields):
+    """enc.encode_frame for an IDR with SAO (`IntraEncoder.encode_frame`:
+    the flat device encoder, the SAO decision, the Python slice writer)
+    wrapped to log the picture: the device phase (`_dispatch`,
+    synchronised), the host phase (`_encode_slice`, hash SEI) and the SAO
+    decision (`_sao_timer`)."""
+    dispatch = enc._dispatch
+
+    def dispatch_synced(y, u, v):
+        out = dispatch(y, u, v)
+        torch.cuda.synchronize()
+        return out
+
+    enc._dispatch = timed("device", dispatch_synced, sync=True)
+    enc._encode_slice = timed("host", enc._encode_slice)
+    orig = enc.encode_frame
+
+    def idr(y, u, v, *a, **kw):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec = orig(y, u, v)
+        log.append(dict(poc=0, kind="I", qp=enc.cfg.qp, refs=0, lists=0,
+                        total=time.perf_counter() - t0, nals=nals, rec=rec,
+                        info=None, **fields, **_picture_fields(cur)))
+        return nals, rec
+
+    return idr
+
+
+def _picture_fields(cur: dict) -> dict:
+    """The per-picture timings, launches and SAO parameters of `cur`
+    (without the stages' other results)."""
+    return {k: cur[k] for k in (
+        "device", "host", "launches", "rdoq", "sao", "sao_stats",
+        "sao_kernel_ms", "sao_recorded", "sao_launches", "sao_ref",
+        "sao_params")
+        if k in cur}
+
+
+def _sao_summary(log: list, launches: int) -> str:
+    """A SAO run's launches and its mean per-picture split as words."""
+    n = len(log)
+
+    def mean_ms(key):
+        return sum(e[key] for e in log) / n * 1e3
+
+    kern = [e["sao_kernel_ms"] for e in log]
+    return (f"sao_stats launches {launches} ({launches / n:g} a picture; "
+            "the plain version 0 times on the card); mean per picture: "
+            f"device phase {mean_ms('device'):.1f} ms, host phase "
+            f"{mean_ms('host'):.1f} ms, SAO statistics: kernel "
+            f"{kms(None if None in kern else sum(kern) / n)} (profiler), "
+            f"{mean_ms('sao_stats'):.1f} ms on the host clock; SAO "
+            "decision and apply "
+            f"{mean_ms('sao') - mean_ms('sao_stats'):.1f} ms (the encode's "
+            "time includes one profiler session a picture around the SAO "
+            "decision)")
+
+
+def _sao_line(e: dict) -> str:
+    """One picture's SAO split as words, after checking its launches."""
+    _check_sao_picture(e)
+    seen = ("" if e["sao_kernel_ms"] is not None else
+            f": it recorded {e['sao_recorded']} of the kernels")
+    return (f"SAO statistics: kernel {kms(e['sao_kernel_ms'])} "
+            f"(profiler{seen}), {e['sao_stats'] * 1e3:.1f} ms on the host "
+            "clock "
+            f"({e['sao_launches']} launches); SAO decision and apply "
+            f"{(e['sao'] - e['sao_stats']) * 1e3:.1f} ms; "
+            f"{_sao_counts(e['sao_params'])}")
+
+
+def _check_sao_picture(e: dict) -> None:
+    check(e["sao_launches"] == 3 and e["sao_ref"] == 0,
+          f"POC {e['poc']}: {e['sao_launches']} sao_stats launches and "
+          f"{e['sao_ref']} plain-version calls on the card (want 3 and 0)")
+
+
 def _ra_instrument(enc):
     """Time each picture of an RA encode: the device phase (device work +
     copy back, synchronised), the host phase (CABAC serializer, hash SEI,
@@ -1309,11 +1566,11 @@ def _timer(cur: dict):
     return timed
 
 
-def _ldp_instrument(enc):
+def _ldp_instrument(enc, sao: bool = False):
     """Time each picture of an LD-P encode: the device phase (upload,
     device work, copy back, synchronised), the host phase (`_reconcile`,
-    CABAC slice, hash SEI) and the SAD- and RDOQ-kernel launches; keep
-    each picture's block decisions."""
+    CABAC slice, hash SEI), with SAO the decision (`_sao_timer`), and the
+    SAD- and RDOQ-kernel launches; keep each picture's block decisions."""
     log, cur = [], {}
     timed = _timer(cur)
 
@@ -1329,9 +1586,7 @@ def _ldp_instrument(enc):
         log.append(dict(poc=poc, kind="P", qp=enc.cfg.qp,
                         refs=min(len(dpb), enc.cfg.num_refs),
                         total=time.perf_counter() - t0, nals=nals, rec=rec,
-                        info=cur["_reconcile"], **{
-                            k: cur[k] for k in ("device", "host",
-                                                "launches", "rdoq")}))
+                        info=cur["_reconcile"], **_picture_fields(cur)))
         return nals, rec, mf
 
     def idr(y, u, v, *a, **kw):
@@ -1351,12 +1606,21 @@ def _ldp_instrument(enc):
         return nals, rec
 
     enc.encode_p_frame = p_frame
-    enc.encode_frame = idr
+    if sao:
+        _sao_timer(enc, cur)
+        enc.encode_frame = _sao_idr(enc, log, cur, timed)
+    else:
+        enc.encode_frame = idr
     return log
 
 
-def _ldp_expected(me_method: str, rc: bool) -> tuple[int, str, str]:
+def _ldp_expected(me_method: str, rc: bool,
+                  variant: str = "") -> tuple[int, str, str]:
     """(bytes, SHA-1, what) of the JAX package's stream for an LD-P run."""
+    if variant == "sao":
+        return LDP_SAO_BYTES, LDP_SAO_SHA1, "the spec AMVP list"
+    if variant == "conf":
+        return LDP_CONF_BYTES, LDP_CONF_SHA1, "the spec AMVP list"
     if rc:
         return (LDP_RC_BYTES, LDP_RC_SHA1,
                 "the spec AMVP list and the same controller")
@@ -1365,42 +1629,95 @@ def _ldp_expected(me_method: str, rc: bool) -> tuple[int, str, str]:
     return LDP_BYTES, LDP_SHA1, "the spec AMVP list"
 
 
-def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
+def ldp_variant_cfg(w: int, h: int, variant: str):
+    """ldp_cfg with `variant`'s options: "sao" HM's LD-P main tool set
+    (SAO on); "conf" a conferencing sender's HRD timing SEI and long-term
+    IDR reference, without TMVP (the long-term mode's terms)."""
+    cfg = ldp_cfg(w, h)
+    if variant == "sao":
+        cfg.sao = True
+    elif variant == "conf":
+        cfg.timing_sei = True
+        cfg.long_term_idr = True
+        cfg.temporal_mvp = False
+    return cfg
+
+
+def _check_conf_sei(stream: bytes, n: int) -> str:
+    """The conferencing stream's prefix SEI read back with the port's
+    parser: one buffering period on the first AU, picture timing on every
+    AU with au_cpb_removal_delay_minus1 advancing."""
+    aus = [sei_mod.parse_sei_rbsp(hevc_bs.strip_emulation_prevention(
+        nal[2:])) for nal in hevc_bs.split_annexb(stream)
+        if (nal[0] >> 1) & 0x3F == hevc_bs.NAL_PREFIX_SEI]
+    check(len(aus) == n, f"{len(aus)} prefix SEI NAL units, want {n}")
+    delays = []
+    for k, au in enumerate(aus):
+        bp = [m for m in au if isinstance(m, sei_mod.BufferingPeriod)]
+        pt = [m for m in au if isinstance(m, sei_mod.PictureTiming)]
+        check(len(bp) == (1 if k == 0 else 0) and len(pt) == 1,
+              f"AU {k}: {len(bp)} buffering periods and {len(pt)} picture "
+              "timings")
+        delays.append(pt[0].au_cpb_removal_delay_minus1)
+    check(delays == [0] + list(range(n - 1)),
+          f"au_cpb_removal_delay_minus1 {delays}")
+    bp0 = aus[0][0]
+    return (f"prefix SEI read back: buffering period on AU 0 "
+            f"(initial_cpb_removal_delay {bp0.initial_cpb_removal_delay}), "
+            f"picture timing on all {n} AUs, au_cpb_removal_delay_minus1 "
+            f"{delays}")
+
+
+def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False,
+                   variant: str = ""):
     """Phase 8b-c (9a with me_method="tz", 9c with rc): bench_ldp_480 on
     the card, decoded by the port's GeneralDecoder and held to the JAX
     package's stream.  With rc a `RateLambdaControl` at RC_BPS sets each
-    picture's QP instead of HM's LD-P ladder.  Returns the SAD-kernel
-    launches of the encode, the per-picture log and the RDOQ-kernel
-    launches."""
+    picture's QP instead of HM's LD-P ladder; `variant` "sao" and "conf"
+    are phases hevc-ldp-sao and hevc-ldp-conf (`ldp_variant_cfg`).
+    Returns the SAD-kernel launches of the encode, the per-picture log,
+    the RDOQ-kernel launches and the sao_stats launches."""
     w, h = LDP_W, LDP_H
     tag = "hevc-ldp" + ("" if me_method == "pyr" else f"-{me_method}") + \
-        ("-rc" if rc else "")
+        ("-rc" if rc else "") + (f"-{variant}" if variant else "")
+    sao = variant == "sao"
     k = sad_launches_per_search(me_method)
     frames = bench_synth_clip(w, h, LDP_PICTURES)
     search = "pyramid" if me_method == "pyr" else \
         "TZSearch (HM FastSearch 1)"
     qps = (f"RateLambdaControl at {RC_BPS / 1e6:g} Mb/s (base QP 32)" if rc
            else "QP 32 with HM's LD-P ladder")
+    tools = {"": "4 references, merge 5, TMVP",
+             "sao": "4 references, merge 5, TMVP, SAO (luma CTB 16, chroma "
+                    "CTB 8)",
+             "conf": "one long-term reference (the IDR), merge 5, no TMVP, "
+                     "buffering-period and picture-timing SEI"}[variant]
     print(f"[{tag}] {w}x{h} low-delay P, {LDP_PICTURES} pictures of "
-          f"bench.py's clip (seed 42): IDR + 8 P, {qps}, 4 references, "
-          f"merge 5, TMVP, SBH, SR{LDP_SR} {search} ME, full RDOQ in the P "
-          "pictures")
+          f"bench.py's clip (seed 42): IDR + 8 P, {qps}, {tools}, SBH, "
+          f"SR{LDP_SR} {search} ME, full RDOQ in the P pictures; card "
+          f"{CARD}")
     enc = hevc_inter_dev.DeviceLowDelayEncoder(
-        ldp_cfg(w, h), search_range=LDP_SR, me_method=me_method,
-        device="cuda")
+        ldp_variant_cfg(w, h, variant), search_range=LDP_SR,
+        me_method=me_method, device="cuda")
     controller = ratectrl.RateLambdaControl(RC_BPS, 30.0, w, h,
                                             base_qp=32) if rc else None
-    log = _ldp_instrument(enc)
+    log = _ldp_instrument(enc, sao=sao)
     ss.sad_surface.launches = 0
     rdoq_ops.rdoq_dev.launches = 0
+    sao_ops.sao_stats.launches = 0
     RDOQ_REF_CALLS["cuda"] = 0
+    SAO_REF_CALLS["cuda"] = 0
     t0 = time.perf_counter()
     stream, recons = enc.encode_sequence_ldp(frames, controller)
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
     rdoq_launches = rdoq_ops.rdoq_dev.launches
+    sao_launches = sao_ops.sao_stats.launches
     check(RDOQ_REF_CALLS["cuda"] == 0,
           f"the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on the card")
+    check(SAO_REF_CALLS["cuda"] == 0,
+          f"the plain SAO statistics ran {SAO_REF_CALLS['cuda']} times on "
+          "the card")
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
@@ -1421,22 +1738,30 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
             check(e["launches"] == k * e["refs"],
                   f"POC {e['poc']}: {e['launches']} SAD-kernel launches "
                   f"(want {k} per reference, {e['refs']} references)")
-        other = e["total"] - e["device"] - e["host"]
+        other = e["total"] - e["device"] - e["host"] - e.get("sao", 0.0)
+        sao_words = "; " + _sao_line(e) if sao else ""
         print(f"[{tag}] POC {e['poc']} ({e['kind']}, QP {e['qp']}, "
               f"{e['refs']} refs): device phase {e['device'] * 1e3:.1f} ms,"
               f" host phase {e['host'] * 1e3:.1f} ms, other "
               f"{other * 1e3:.1f} ms; {nbytes} bytes ({nbytes * 8} bits), "
               f"Y-PSNR {p:.2f} dB; blocks {blocks}; SAD-kernel launches "
-              f"{e['launches']}, RDOQ-kernel launches {e['rdoq']}")
-    check(launches == want == k * 26,
+              f"{e['launches']}, RDOQ-kernel launches {e['rdoq']}"
+              f"{sao_words}")
+    n_refs = 8 if variant == "conf" else 26
+    check(launches == want == k * n_refs,
           f"{launches} SAD-kernel launches in the run, want {want} = "
-          f"{k * 26}")
+          f"{k * n_refs}")
+    check(sao_launches == (3 * len(frames) if sao else 0),
+          f"{sao_launches} sao_stats launches in the run")
     kbps = len(stream) * 8 * 30 / len(frames) / 1000
     sha = hashlib.sha1(stream).hexdigest()
+    n = len(frames)
     print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, "
-          f"encode {t_enc:.2f} s ({len(frames) / t_enc:.3f} fps); "
+          f"encode {t_enc:.2f} s ({n / t_enc:.3f} fps); "
           f"SAD-kernel launches {launches}, RDOQ-kernel launches "
           f"{rdoq_launches} (the plain version 0 times); SHA-1 {sha}")
+    if sao:
+        print(f"[{tag}] {_sao_summary(log, sao_launches)}")
     if rc:
         check(enc.frame_qps == LDP_RC_QPS,
               f"rate-controlled QPs {enc.frame_qps}, the JAX package's "
@@ -1446,9 +1771,21 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
               f"kbps target ({kbps / (RC_BPS / 1e3):.2f}x); the IDR "
               f"{log[0]['bytes'] * 8} bits against "
               f"{RC_BPS / 30:.0f} bits a picture")
+    if variant == "conf":
+        print(f"[{tag}] {_check_conf_sei(stream, n)}")
 
     t0 = time.perf_counter()
     dec = hevc_decoder.GeneralDecoder()
+    lt_refs = []
+    if variant == "conf":
+        lt_pocs = dec._lt_pocs
+
+        def lt_counted(hdr):
+            out = lt_pocs(hdr)
+            lt_refs.append(out)
+            return out
+
+        dec._lt_pocs = lt_counted
     out = dec.decode(stream)
     t_dec = time.perf_counter() - t0
     check(dec.hash_status == [True] * len(frames),
@@ -1458,16 +1795,22 @@ def phase_hevc_ldp(me_method: str = "pyr", rc: bool = False):
         for c in range(3):
             check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
                   f"decoded picture {i} plane {c} != encoder recon")
+    lt_words = ""
+    if variant == "conf":
+        check(lt_refs == [[0]] * (n - 1),
+              f"long-term references resolved {lt_refs}, want POC 0 in "
+              "every P picture")
+        lt_words = ", every P picture's long-term reference POC 0"
     print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
-          f"{len(frames)} pictures, pictures equal the encoder's, "
-          f"{t_dec:.2f} s")
-    ref_bytes, ref_sha, what = _ldp_expected(me_method, rc)
+          f"{len(frames)} pictures, pictures equal the encoder's"
+          f"{lt_words}, {t_dec:.2f} s")
+    ref_bytes, ref_sha, what = _ldp_expected(me_method, rc, variant)
     check((len(stream), sha) == (ref_bytes, ref_sha),
           f"LD-P stream {len(stream)} bytes SHA-1 {sha}, the JAX "
           f"package's ({what}) is {ref_bytes} bytes {ref_sha}")
     print(f"[{tag}] the stream is the JAX package's with {what}, byte for "
           "byte (SHA-1)")
-    return launches, log, rdoq_launches
+    return launches, log, rdoq_launches, sao_launches
 
 
 def phase_ldp_rc_resume(one_run: list) -> int:
@@ -1632,34 +1975,36 @@ def phase_sad_r64() -> list:
     return rows
 
 
-def flat_cfg(w: int, h: int, reorder: int):
+def flat_cfg(w: int, h: int, reorder: int, sao: bool = False):
     """scripts/diag_ra_gap.py's settings of the flat CTB16 B engines: QP
     32, SBH, CTB = CU = TU 16, one merge candidate, no TMVP, deblocking
-    and the MD5 hash SEI on (the HevcConfig defaults)."""
+    and the MD5 hash SEI on (the HevcConfig defaults); SAO when asked."""
     return hevc_headers.HevcConfig(width=w, height=h, qp=HEVC_QP,
                                    reorder_pics=reorder,
-                                   sign_data_hiding=True)
+                                   sign_data_hiding=True, sao=sao)
 
 
-def flat_encoder(kind: str, w: int, h: int, device: str):
+def flat_encoder(kind: str, w: int, h: int, device: str,
+                 sao: bool = False):
     """The flat RA GOP-8 ("ra") or hierarchical-B ("hierb") engine at
     search range 64 with the pyramid ME, and its encode call."""
     if kind == "ra":
         enc = hevc_inter_dev.DeviceRandomAccessEncoder(
-            flat_cfg(w, h, 3), search_range=RA_SR, device=device)
+            flat_cfg(w, h, 3, sao), search_range=RA_SR, device=device)
         return enc, enc.encode_sequence_ra
     enc = hevc_inter_dev.DeviceHierarchicalBEncoder(
-        flat_cfg(w, h, 1), search_range=RA_SR, device=device)
+        flat_cfg(w, h, 1, sao), search_range=RA_SR, device=device)
     return enc, enc.encode_sequence_rab
 
 
-def _flat_instrument(enc):
+def _flat_instrument(enc, sao: bool = False):
     """Time each picture of a flat B-engine encode: the device phase
     (`inter_dev._b_device_phase`: upload, encode_b_frame_dev, copy back,
     synchronised; the IDR's flat intra dispatch and copy back), the host
-    phase (`_reconcile_b`, CABAC slice, hash SEI; the IDR's serializer)
-    and the SAD- and RDOQ-kernel launches; keep each picture's block
-    grid.  The module functions are patched until restore() is called."""
+    phase (`_reconcile_b`, CABAC slice, hash SEI; the IDR's serializer),
+    with SAO the decision (`_sao_timer`), and the SAD- and RDOQ-kernel
+    launches; keep each picture's block grid.  The module functions are
+    patched until restore() is called."""
     log, cur = [], {}
     timed = _timer(cur)
     mod = hevc_inter_dev
@@ -1677,9 +2022,8 @@ def _flat_instrument(enc):
         nals, rec = orig_b(frame, poc, refs, is_anchor)
         log.append(dict(poc=poc, kind="P" if is_anchor else "B",
                         lists=len(refs), total=time.perf_counter() - t0,
-                        nals=nals, rec=rec, info=cur["_reconcile_b"], **{
-                            k: cur[k] for k in ("device", "host",
-                                                "launches", "rdoq")}))
+                        nals=nals, rec=rec, info=cur["_reconcile_b"],
+                        **_picture_fields(cur)))
         return nals, rec
 
     def idr(y, u, v, *a, **kw):
@@ -1701,17 +2045,25 @@ def _flat_instrument(enc):
         mod._b_device_phase, mod._reconcile_b = keep
 
     enc._encode_b_frame = b_frame
-    enc.encode_frame = idr
+    if sao:
+        _sao_timer(enc, cur)
+        enc.encode_frame = _sao_idr(enc, log, cur, timed)
+    else:
+        enc.encode_frame = idr
     return log, restore
 
 
-def phase_hevc_flat(kind: str) -> tuple[int, int]:
-    """Phase 10 (hevc-flat-ra, hevc-hierb): the flat CTB16 B engines at
-    1920x1072 on the card, decoded by the port's GeneralDecoder and held
-    to the JAX package's stream.  Returns the SAD- and RDOQ-kernel
-    launches of the encode."""
+def phase_hevc_flat(kind: str, sao: bool = False) -> tuple[int, int, int]:
+    """Phase 10 (hevc-flat-ra, hevc-hierb; hevc-flat-ra-sao with sao):
+    the flat CTB16 B engines at 1920x1072 on the card, decoded by the
+    port's GeneralDecoder and held to the JAX package's stream (with SAO
+    to every hash OK: the JAX package's SHA-1 would take hours of its
+    host SAO decision; the CPU tests and flat-ra-cuda-vs-cpu hold the
+    SAO stream to the JAX package's).  Returns the SAD-, RDOQ- and
+    SAO-kernel launches of the encode."""
     w, h = HEVC_W, HEVC_H
-    tag = "hevc-flat-ra" if kind == "ra" else "hevc-hierb"
+    tag = ("hevc-flat-ra" if kind == "ra" else "hevc-hierb") + \
+        ("-sao" if sao else "")
     frames = synth_clip(w, h, RA_PICTURES, seed=5)
     if kind == "ra":
         order = ("GOP-8 random access (DeviceRandomAccessEncoder), 9 "
@@ -1723,12 +2075,15 @@ def phase_hevc_flat(kind: str) -> tuple[int, int]:
     print(f"[{tag}] {w}x{h} QP{HEVC_QP} {order}; flat CTB = CU = TU 16, "
           f"SR{RA_SR} pyramid ME, one merge candidate, intra blocks in "
           "the inter pictures, deblocking, full RDOQ in the inter "
-          f"pictures, SBH, MD5 hash SEI; card {CARD}")
-    enc, encode = flat_encoder(kind, w, h, "cuda")
-    log, restore = _flat_instrument(enc)
+          f"pictures, SBH, MD5 hash SEI{', SAO' if sao else ''}; card "
+          f"{CARD}")
+    enc, encode = flat_encoder(kind, w, h, "cuda", sao)
+    log, restore = _flat_instrument(enc, sao)
     ss.sad_surface.launches = 0
     rdoq_ops.rdoq_dev.launches = 0
+    sao_ops.sao_stats.launches = 0
     RDOQ_REF_CALLS["cuda"] = 0
+    SAO_REF_CALLS["cuda"] = 0
     t0 = time.perf_counter()
     try:
         stream, recons = encode(frames)
@@ -1737,8 +2092,14 @@ def phase_hevc_flat(kind: str) -> tuple[int, int]:
     t_enc = time.perf_counter() - t0
     launches = ss.sad_surface.launches
     rdoq_launches = rdoq_ops.rdoq_dev.launches
+    sao_launches = sao_ops.sao_stats.launches
     check(RDOQ_REF_CALLS["cuda"] == 0,
           f"the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on the card")
+    check(SAO_REF_CALLS["cuda"] == 0,
+          f"the plain SAO statistics ran {SAO_REF_CALLS['cuda']} times on "
+          "the card")
+    check(sao_launches == (3 * len(frames) if sao else 0),
+          f"{sao_launches} sao_stats launches in the run")
     want = 0
     for e in log:
         nbytes = sum(len(n) for n in e["nals"] if n)
@@ -1764,13 +2125,14 @@ def phase_hevc_flat(kind: str) -> tuple[int, int]:
             check(e["rdoq"] == 3,
                   f"POC {e['poc']}: {e['rdoq']} RDOQ-kernel launches (want "
                   "3: TU16 luma, TU8 Cb, TU8 Cr)")
-        other = e["total"] - e["device"] - e["host"]
+        other = e["total"] - e["device"] - e["host"] - e.get("sao", 0.0)
+        sao_words = "; " + _sao_line(e) if sao else ""
         print(f"[{tag}] POC {e['poc']} ({e['kind']}): device phase "
               f"{e['device'] * 1e3:.1f} ms, host phase "
               f"{e['host'] * 1e3:.1f} ms, other {other * 1e3:.1f} ms; "
               f"{nbytes} bytes, Y-PSNR {p:.2f} dB; blocks {blocks}; "
               f"SAD-kernel launches {e['launches']}, RDOQ-kernel launches "
-              f"{e['rdoq']}")
+              f"{e['rdoq']}{sao_words}")
     n_inter = len(frames) - 1
     check(launches == want == (45 if kind == "ra" else 18),
           f"{launches} SAD-kernel launches in the run, want {want}")
@@ -1784,13 +2146,17 @@ def phase_hevc_flat(kind: str) -> tuple[int, int]:
           f"({len(frames) / t_enc:.3f} fps); SAD-kernel launches {launches},"
           f" RDOQ-kernel launches {rdoq_launches} (the plain version 0 "
           f"times); SHA-1 {sha}")
-    ref_bytes, ref_sha = ((FLAT_RA_BYTES, FLAT_RA_SHA1) if kind == "ra"
-                          else (HIERB_BYTES, HIERB_SHA1))
-    check((len(stream), sha) == (ref_bytes, ref_sha),
-          f"{tag} stream {len(stream)} bytes SHA-1 {sha}, the JAX "
-          f"package's is {ref_bytes} bytes {ref_sha}")
-    print(f"[{tag}] the stream is the JAX package's, byte for byte "
-          "(SHA-1)")
+    if sao:
+        print(f"[{tag}] {_sao_summary(log, sao_launches)}; no JAX SHA-1 "
+              "at this size (see the docstring)")
+    else:
+        ref_bytes, ref_sha = ((FLAT_RA_BYTES, FLAT_RA_SHA1) if kind == "ra"
+                              else (HIERB_BYTES, HIERB_SHA1))
+        check((len(stream), sha) == (ref_bytes, ref_sha),
+              f"{tag} stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+              f"package's is {ref_bytes} bytes {ref_sha}")
+        print(f"[{tag}] the stream is the JAX package's, byte for byte "
+              "(SHA-1)")
     t0 = time.perf_counter()
     dec = hevc_decoder.GeneralDecoder()
     out = dec.decode(stream)
@@ -1805,32 +2171,49 @@ def phase_hevc_flat(kind: str) -> tuple[int, int]:
     print(f"[{tag}] the port's GeneralDecoder: hash SEI OK on all "
           f"{len(frames)} pictures, pictures equal the encoder's, "
           f"{t_dec:.2f} s")
-    return launches, rdoq_launches
+    return launches, rdoq_launches, sao_launches
 
 
-def phase_flat_ra_cuda_vs_cpu() -> None:
+def phase_flat_ra_cuda_vs_cpu(sao: bool = False) -> None:
     """Phase 10 (flat-ra-cuda-vs-cpu): the flat RA GOP-8 at 96x64 over 9
     pictures on the card and on the CPU: byte-equal streams, the card's
-    through the RDOQ kernel, the CPU's through its plain version."""
+    through the RDOQ kernel (and with SAO the SAO-statistics kernel at
+    CTB 16 and 8, a partial strip at chroma's 6 CTBs), the CPU's through
+    their plain versions."""
     w, h, n = 96, 64, 9
     frames = synth_clip(w, h, n, seed=17)
     res, routes = {}, {}
     for dev in ("cuda", "cpu"):
-        enc, encode = flat_encoder("ra", w, h, dev)
+        enc, encode = flat_encoder("ra", w, h, dev, sao)
+        k0 = sao_ops.sao_stats.launches
+        g0, c0 = SAO_REF_CALLS["cuda"], SAO_REF_CALLS["cpu"]
         t0 = time.perf_counter()
         stream, *routes[dev] = rdoq_routes(lambda: encode(frames)[0])
         res[dev] = (stream, time.perf_counter() - t0)
+        routes[dev].append((sao_ops.sao_stats.launches - k0,
+                            SAO_REF_CALLS["cuda"] - g0,
+                            SAO_REF_CALLS["cpu"] - c0))
     (g, tg), (c, tc) = res["cuda"], res["cpu"]
-    routed = check_rdoq_routes("flat RA 96x64", routes["cuda"],
-                               routes["cpu"])
-    check(g == c, f"flat RA 96x64: card and CPU streams differ ({len(g)} "
-                  f"/ {len(c)} bytes)")
+    routed = check_rdoq_routes("flat RA 96x64", routes["cuda"][:3],
+                               routes["cpu"][:3])
+    tag = "flat-ra-cuda-vs-cpu" + ("-sao" if sao else "")
+    if sao:
+        kc, rc_, _ = routes["cuda"][3]
+        kp, _, rp = routes["cpu"][3]
+        check(kc == 3 * n and rc_ == 0 and kp == 0 and rp == 3 * n,
+              f"{tag}: SAO kernel {kc} launches and plain {rc_} calls on "
+              f"the card, {kp} and {rp} on the CPU (want {3 * n}, 0, 0, "
+              f"{3 * n})")
+        routed += (f"; SAO kernel {kc} launches on the card, plain version "
+                   f"{rp} calls on the CPU")
+    check(g == c, f"{tag}: card and CPU streams differ ({len(g)} / "
+                  f"{len(c)} bytes)")
     dec = hevc_decoder.GeneralDecoder()
     dec.decode(g)
-    check(dec.hash_status == [True] * n, "flat RA 96x64: hash mismatch")
-    print(f"[flat-ra-cuda-vs-cpu] 96x64, 9 pictures: streams byte-equal "
-          f"({len(g)} bytes), hash OK; {routed}; cuda {tg:.2f} s, cpu "
-          f"{tc:.2f} s")
+    check(dec.hash_status == [True] * n, f"{tag}: hash mismatch")
+    print(f"[{tag}] 96x64, 9 pictures{', SAO' if sao else ''}: streams "
+          f"byte-equal ({len(g)} bytes), hash OK; {routed}; cuda "
+          f"{tg:.2f} s, cpu {tc:.2f} s")
 
 
 def main() -> None:
@@ -1850,6 +2233,7 @@ def main() -> None:
 
     build_kernels()
     count_rdoq_ref()
+    count_sao_ref()
     phase_kernel()
     phase_encode_720p()
     phase_cuda_vs_cpu()
@@ -1861,46 +2245,62 @@ def main() -> None:
     sk = phase_sao_kernel()
     ra_sao_sad, sao_launches, ra_sao_rdoq = phase_hevc_ra(sao=True)
     phase_ldp_kernel()
-    ldp_launches, _, ldp_rdoq = phase_hevc_ldp()
+    ldp_launches, _, ldp_rdoq, _ = phase_hevc_ldp()
     phase_ldp_cuda_vs_cpu()
+    sao_flat, _ = phase_sao_kernel_flat()
+    ldp_sao, _, ldp_sao_rdoq, ldp_sao_stats = phase_hevc_ldp(variant="sao")
+    ldp_conf, _, ldp_conf_rdoq, _ = phase_hevc_ldp(variant="conf")
     r64 = phase_sad_r64()
-    ldp_tz, _, ldp_tz_rdoq = phase_hevc_ldp(me_method="tz")
+    ldp_tz, _, ldp_tz_rdoq, _ = phase_hevc_ldp(me_method="tz")
     ra_tz, _, ra_tz_rdoq = phase_hevc_ra(me_method="tz")
-    ldp_rc, rc_log, ldp_rc_rdoq = phase_hevc_ldp(rc=True)
+    ldp_rc, rc_log, ldp_rc_rdoq, _ = phase_hevc_ldp(rc=True)
     rc_resumed, resumed_rdoq = phase_ldp_rc_resume(rc_log)
-    flat_ra, flat_ra_rdoq = phase_hevc_flat("ra")
-    hierb, hierb_rdoq = phase_hevc_flat("hierb")
+    flat_ra, flat_ra_rdoq, _ = phase_hevc_flat("ra")
+    hierb, hierb_rdoq, _ = phase_hevc_flat("hierb")
     phase_flat_ra_cuda_vs_cpu()
+    flat_sao, flat_sao_rdoq, flat_sao_stats = phase_hevc_flat("ra", sao=True)
+    phase_flat_ra_cuda_vs_cpu(sao=True)
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported")
 
-    launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_tz + ra_tz +
-                ldp_rc + rc_resumed + flat_ra + hierb)
+    launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_sao +
+                ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
+                hierb + flat_sao)
+    sao_all = sao_launches + ldp_sao_stats + flat_sao_stats
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
-          f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P TZ run "
+          f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P SAO run "
+          f"{ldp_sao}, LD-P conferencing run {ldp_conf}, LD-P TZ run "
           f"{ldp_tz}, RA TZ GOP {ra_tz}, LD-P rate-controlled run {ldp_rc} "
           f"and its resumed run {rc_resumed}, flat RA GOP {flat_ra}, flat "
-          f"hierarchical-B run {hierb}, together {launches}; its "
+          f"hierarchical-B run {hierb}, flat RA GOP with SAO {flat_sao}, "
+          f"together {launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
-          f"launches: RA GOP with SAO {sao_launches}; its times and bound "
-          "are per 1080p picture (3 planes)")
-    rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_tz_rdoq +
-                     ra_tz_rdoq + ldp_rc_rdoq + resumed_rdoq + flat_ra_rdoq +
-                     hierb_rdoq)
+          f"launches: RA GOP with SAO {sao_launches}, LD-P SAO run "
+          f"{ldp_sao_stats}, flat RA GOP with SAO {flat_sao_stats}, "
+          f"together {sao_all} (the plain version 0 times in them); its "
+          "times and bound are per 1080p RA picture (3 planes; the flat "
+          "shapes' on the sao_stats_flat line)")
+    rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_sao_rdoq +
+                     ldp_conf_rdoq + ldp_tz_rdoq + ra_tz_rdoq + ldp_rc_rdoq +
+                     resumed_rdoq + flat_ra_rdoq + hierb_rdoq + flat_sao_rdoq)
     r = rq[0]
     print(f"[kernels] rdoq_dev launches: RA GOP {ra_rdoq}, RA GOP with SAO "
-          f"{ra_sao_rdoq}, LD-P run {ldp_rdoq}, LD-P TZ run {ldp_tz_rdoq}, "
+          f"{ra_sao_rdoq}, LD-P run {ldp_rdoq}, LD-P SAO run {ldp_sao_rdoq}, "
+          f"LD-P conferencing run {ldp_conf_rdoq}, LD-P TZ run "
+          f"{ldp_tz_rdoq}, "
           f"RA TZ GOP {ra_tz_rdoq}, LD-P rate-controlled run {ldp_rc_rdoq} "
           f"and its resumed run {resumed_rdoq}, flat RA GOP {flat_ra_rdoq}, "
-          f"flat hierarchical-B run {hierb_rdoq}, together {rdoq_launches}; "
+          f"flat hierarchical-B run {hierb_rdoq}, flat RA GOP with SAO "
+          f"{flat_sao_rdoq}, together {rdoq_launches}; "
           f"the plain version ran 0 times in them; its times and bound are "
           f"the {r['what']} call's (B={r['b']}; every shape on the next "
           "line)")
     print(json.dumps({"sad_surface_r64": r64}))
     print(json.dumps({"rdoq_dev_shapes": rq}))
+    print(json.dumps({"sao_stats_flat": sao_flat}))
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "
           "the kernels' build included")
 
@@ -1912,7 +2312,7 @@ def main() -> None:
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         "ms_note": k.get("note")}, {
         "name": "sao_stats", "route": "cuda", "source": SAO_SRC,
-        "replaces": SAO_REPLACES, "launches": sao_launches,
+        "replaces": SAO_REPLACES, "launches": sao_all,
         "max_abs_err": sk["max_abs_err"], "ms": sk["ms"],
         "plain_ms": sk["plain_ms"], "bound_ms": sk["bound_ms"],
         "bound_by": sk["bound_by"], "library_ms": sk["library_ms"],

@@ -86,6 +86,9 @@ _TWINS = (
     ("tests/test_inter_jax.py::test_device_hierb_roundtrip",
      "tests/test_torch_hevc_flat_b.py::"
      "test_flat_hierb_64x48_streams_decoder_and_stages"),
+    ("tests/test_inter_jax.py::test_device_ldp_roundtrip[4-True-True]",
+     "tests/test_torch_hevc_sao.py::"
+     "test_general_decoder_decodes_jax_ldp_sao_stream"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared
@@ -98,14 +101,11 @@ _LONG_S = {
     "tests/test_torch_hevc_ra.py::test_ra_headline_settings_tmvp": 193,
     "tests/test_torch_hevc_ldp.py::test_ldp_tz_four_refs": 184,
     "tests/test_torch_hevc_ldp.py::test_ldp_four_refs_tmvp_merge5_sbh": 182,
-    "tests/test_inter_jax.py::test_device_ldp_roundtrip[4-True-True]": 155,
     "tests/test_torch_hevc_ra.py::test_ra_tz_cu8": 134,
     "tests/test_torch_hevc_intra.py::test_quadtree_path_equal"
     "[80x48-qp32-lite]": 91,
     "tests/test_inter_jax.py::test_device_ldp_uses_inter_blocks": 85,
     "tests/test_ratectrl.py::test_hm_ratecontrol_hits_target_30_frames": 83,
-    "tests/test_torch_hevc_sao.py::"
-    "test_general_decoder_decodes_jax_ldp_sao_stream": 83,
     "tests/test_torch_hevc_ldp.py::test_ldp_one_ref_no_tmvp": 83,
     "tests/test_inter_jax.py::test_device_ldp_roundtrip[1-False-False]": 79,
     "tests/test_ra_codec.py::test_ra_gop8_roundtrip_and_order": 67,

@@ -2,7 +2,8 @@
 the port's to, computed with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
-        [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] [--no-ldp]
+        [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
+        [--ldp-sao] [--ldp-conf] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -30,7 +31,14 @@ SR64 pyramid ME, one merge candidate, no TMVP, MD5 hash SEI):
 --flat-ra is `inter_jax.DeviceRandomAccessEncoder` over phase 7's 9
 pictures (GOP-8, reorder_pics 3), --hierb `DeviceHierarchicalBEncoder`
 over their first 5 (I0 P2 B1 P4 B3, reorder_pics 1); each stream is
-also decoded by the port's GeneralDecoder (spec merge and AMVP).  This
+also decoded by the port's GeneralDecoder (spec merge and AMVP).  HM's
+LD-P main tool set and a conferencing sender's stream (chip_smoke.py's
+`[hevc-ldp-sao]` and `[hevc-ldp-conf]`, spec AMVP list only): --ldp-sao
+is the LD-P stream with `cfg.sao=True` (the JAX package codes its IDR on
+the host CTB loop and decides SAO per CTB on the host: about 15-20
+minutes on a CPU), --ldp-conf the LD-P stream with `timing_sei`,
+`long_term_idr` and no TMVP (buffering-period / picture-timing SEI, every
+P picture predicted from the IDR as a long-term reference).  This
 is a tool for the reference side: it imports the JAX package, the
 port's `motion` module for the repaired function and the port's
 decoder for the flat streams' second opinion.
@@ -81,6 +89,25 @@ def rate_control():
     """chip_smoke.py's `[hevc-ldp-rc]` controller: 2 Mb/s at 30 fps."""
     return ratectrl.RateLambdaControl(chip_smoke.RC_BPS, 30.0, 832, 480,
                                       base_qp=32)
+
+
+def ldp_spec(tag: str, **cfg_kw) -> None:
+    """bench_ldp_480 with `cfg_kw` set on its configuration, the spec
+    AMVP list only."""
+    frames = bench.synth_clip(832, 480, 9)
+    motion.amvp_candidates = tmotion.amvp_candidates
+    cfg = ldp_cfg()
+    for k, v in cfg_kw.items():
+        setattr(cfg, k, v)
+    enc = inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)
+    t0 = time.time()
+    stream, _ = enc.encode_sequence_ldp(frames)
+    report(f"{tag} spec AMVP", stream, len(frames), time.time() - t0)
+    dec = tdecoder.GeneralDecoder()
+    dec.decode(stream)
+    print(f"{tag} spec AMVP: the port's GeneralDecoder hash OK "
+          f"{sum(dec.hash_status)} of {len(frames)}", flush=True)
+    motion.amvp_candidates = AMVP_AS_WRITTEN
 
 
 def ldp(me_method: str = "pyr", rc: bool = False) -> None:
@@ -183,6 +210,11 @@ def main() -> None:
                     help="the flat CTB16 RA GOP-8 (hevc-flat-ra)")
     ap.add_argument("--hierb", action="store_true",
                     help="the flat hierarchical-B run (hevc-hierb)")
+    ap.add_argument("--ldp-sao", action="store_true",
+                    help="the LD-P stream with SAO (hevc-ldp-sao)")
+    ap.add_argument("--ldp-conf", action="store_true",
+                    help="the LD-P stream with timing SEI and the long-term "
+                         "IDR reference (hevc-ldp-conf)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -205,6 +237,11 @@ def main() -> None:
         flat("ra")
     if args.hierb:
         flat("hierb")
+    if args.ldp_conf:
+        ldp_spec("ldp conf", timing_sei=True, long_term_idr=True,
+                 temporal_mvp=False)
+    if args.ldp_sao:
+        ldp_spec("ldp sao", sao=True)
 
 
 if __name__ == "__main__":

@@ -245,10 +245,11 @@ def test_flat_b_merge_amvp_and_headers_match():
 
 
 def test_flat_b_cut_options_raise():
-    """What the reference codes on its host path (SAO, tiles) or
-    mis-codes (TMVP, merge_idx under MaxNumMergeCand > 1 in the RA
-    header), and the options the port does not carry, raise ValueError;
-    the engines run on the card by default; the host B coder raises."""
+    """What the reference codes on its host path (tiles) or mis-codes
+    (TMVP, merge_idx under MaxNumMergeCand > 1 in the RA header, timing
+    SEI and the long-term IDR, which its B loop does not write), and the
+    options the port does not carry, raise ValueError; SAO is taken; the
+    engines run on the card by default; the host B coder raises."""
     ok = _cfg(theaders, 64, 48, 3)
     for cls in (tinter.DeviceRandomAccessEncoder,
                 tinter.DeviceHierarchicalBEncoder):
@@ -258,12 +259,14 @@ def test_flat_b_cut_options_raise():
             assert cls(ok, me_method=m, device="cpu").me_method == m
         with pytest.raises(ValueError):
             cls(ok, me_method="hex", device="cpu")
-        for opt, val in (("sao", True), ("tile_columns", 2), ("wpp", True),
+        for opt, val in (("tile_columns", 2), ("wpp", True),
                          ("weighted_pred", True), ("cu_qp_delta", True),
                          ("timing_sei", True), ("long_term_idr", True),
                          ("temporal_mvp", True), ("log2_ctb", 5)):
             with pytest.raises(ValueError):
                 cls(_cfg(theaders, 64, 48, 3, **{opt: val}), device="cpu")
+        assert cls(_cfg(theaders, 64, 48, 3, sao=True),
+                   device="cpu").cfg.sao
     with pytest.raises(ValueError):
         tinter.DeviceRandomAccessEncoder(
             _cfg(theaders, 64, 48, 3, merge_cands=5), device="cpu")

@@ -89,7 +89,7 @@ _COPIES = {
     "models/hevc/intra_codec.py": (
         "models/hevc/intra_codec.py",
         {"code_tb_np", "IntraEncoder.__init__", "IntraEncoder.encode_frame",
-         "IntraEncoder._encode_slice", "IntraEncoder._encode_ctu",
+         "IntraEncoder._sao_decide_apply", "IntraEncoder._encode_slice", "IntraEncoder._encode_ctu",
          "IntraEncoder.encode_frame_fast", "IntraEncoder.serialize_frame",
          "IntraEncoder.encode_sequence"}, set(), {"IntraEncoder._dispatch"}),
     "ops/interp.py": (

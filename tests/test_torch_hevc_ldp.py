@@ -318,8 +318,7 @@ def test_amvp_without_a_neighbour_follows_the_spec():
 
 
 def test_ldp_cut_options_raise():
-    for opt in ("sao", "wpp", "weighted_pred", "cu_qp_delta", "timing_sei",
-                "long_term_idr"):
+    for opt in ("wpp", "weighted_pred", "cu_qp_delta"):
         cfg = _cfg(theaders, 64, 64)
         setattr(cfg, opt, True)
         with pytest.raises(ValueError):
@@ -332,21 +331,24 @@ def test_ldp_cut_options_raise():
                                      device="cpu")
     enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64))
     assert enc.device == torch.device("cuda")     # the card by default
+    for opt in ("sao", "timing_sei", "long_term_idr"):  # ported options
+        cfg = _cfg(theaders, 64, 64)
+        setattr(cfg, opt, True)
+        assert tinter.DeviceLowDelayEncoder(cfg, device="cpu").cfg is cfg
     frames = cut_clip(64, 64, 2)
-    # set after construction, timing SEI and the long-term IDR still
-    # stop the picture loop, with or without a controller or a state
-    for opt in ("timing_sei", "long_term_idr"):
-        enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64),
-                                           device="cpu")
-        setattr(enc.cfg, opt, True)
-        with pytest.raises(ValueError):
-            enc.encode_sequence_ldp(frames)
-        with pytest.raises(ValueError):
-            enc.encode_frames(frames, start_state=tpc.checkpoint.capture(
-                1, frames[0]))
-    with pytest.raises(NotImplementedError):      # the host CTB loop
-        tic.IntraEncoder(_cfg(theaders, 64, 64), device="cpu").encode_frame(
-            *frames[0])
+    # the long-term IDR still stops a resumed picture loop, with or
+    # without a controller (the reference signals the IDR for the
+    # checkpoint's last picture)
+    enc = tinter.DeviceLowDelayEncoder(_cfg(theaders, 64, 64),
+                                       device="cpu")
+    enc.cfg.long_term_idr = True
+    enc.cfg.temporal_mvp = False
+    with pytest.raises(ValueError):
+        enc.encode_frames(frames, start_state=tpc.checkpoint.capture(
+            1, frames[0]))
+    with pytest.raises(ValueError):               # the host CTB loop's RDOQ
+        tic.IntraEncoder(_cfg(theaders, 64, 64, rdoq="lite"),
+                         device="cpu").encode_frame(*frames[0])
     with pytest.raises(NotImplementedError):      # the host P coder
         from video_codecs_tpu_torch.models.hevc import inter_codec
         inter_codec.LowDelayEncoder(_cfg(theaders, 64, 64)).encode_p_frame(

@@ -231,14 +231,21 @@ def test_ra_cut_options_raise():
                                      "weighted_pred", "cu_qp_delta",
                                      "long_term_idr"])
 def test_general_decoder_cut_syntax_raises(feature):
+    """The parameter sets of syntax the decoder does not carry raise;
+    long-term reference pictures, ported since, are parsed."""
     cfg = _cfg(theaders, 64, 64)
     setattr(cfg, feature, 2 if feature == "tile_columns" else True)
     stream = tbs.annexb([
         tbs.nal_unit(tbs.NAL_VPS, theaders.write_vps(cfg)),
         tbs.nal_unit(tbs.NAL_SPS, theaders.write_sps(cfg)),
         tbs.nal_unit(tbs.NAL_PPS, theaders.write_pps(cfg))])
+    dec = tdec.GeneralDecoder()
+    if feature == "long_term_idr":
+        assert dec.decode(stream) == []
+        assert dec.sps.lt_present and dec.sps.lt_refs == []
+        return
     with pytest.raises(NotImplementedError):
-        tdec.GeneralDecoder().decode(stream)
+        dec.decode(stream)
 
 
 def test_ra_runs_without_jax(tmp_path):

@@ -1,6 +1,9 @@
 """Sample adaptive offset (SAO) in the port against the JAX package's, on
 the CPU: the per-CTB statistics, the decisions, the apply, the sao()
-syntax, the RA quadtree encoder with `cfg.sao` and the general decoder.
+syntax, the RA quadtree encoder with `cfg.sao`, the flat CTB16 engines
+with `cfg.sao` (their decision at luma CTB 16 and chroma CTB 8, their IDR
+against the reference's host CTB loop, the LD-P and flat RA streams) and
+the general decoder.
 
 Inputs are made from seeds with numpy and go through the JAX function
 and the port's; tolerance 0 everywhere (the statistics' float32 sums are
@@ -64,7 +67,8 @@ def _key_grid(params):
 # ---- (a) statistics ------------------------------------------------------
 
 @pytest.mark.parametrize("ctb,h,w", [(16, 40, 56), (32, 80, 112),
-                                     (32, 64, 96), (16, 48, 64)])
+                                     (32, 64, 96), (16, 48, 64),
+                                     (8, 24, 32), (8, 44, 60)])
 def test_sao_stats_ref_equals_jax(ctb, h, w):
     """sao_stats_ref against the JAX `sao_stats_dev`, all four outputs,
     dtypes too, on planes `_pad_to` edge-pads to a CTB multiple."""
@@ -307,17 +311,106 @@ def test_ra_sao_stream_equals_jax_and_decodes(monkeypatch):
                                           err_msg=f"picture {k} plane {c}")
 
 
-# ---- (f) the JAX package's LD-P SAO stream in the port's decoder ---------
+# ---- (f) the flat CTB16 engines with SAO ---------------------------------
 
-def test_general_decoder_decodes_jax_ldp_sao_stream():
+def _flat_cfgs(w, h, qp, **kw):
+    from video_codecs_tpu.models.hevc import headers as jheaders
+    return tuple(m.HevcConfig(width=w, height=h, qp=qp, sao=True,
+                              sign_data_hiding=True, **kw)
+                 for m in (jheaders, theaders))
+
+
+def _flat_planes(seed, w, h):
+    """Luma and chroma planes (int32, as the encoders pass them) with
+    coding-like errors; the first chroma CTB of both Cb and Cr holds only
+    bands 12-14 with a bias of +5, so that Cb takes band offsets and Cr's
+    two windows 11 and 12 tie (bands 11 and 15 are empty)."""
+    oy, ry = _planes(seed, h, w)
+    ou, ru = _planes(seed + 100, h // 2, w // 2, noise=3)
+    ov, rv = _planes(seed + 200, h // 2, w // 2, noise=9)
+    rng = np.random.default_rng(seed)
+    for o, r in ((ou, ru), (ov, rv)):
+        r[:8, :8] = rng.integers(96, 120, (8, 8))
+        o[:8, :8] = r[:8, :8] + 5
+    return (tuple(p.astype(np.int32) for p in (oy, ou, ov)),
+            tuple(p.astype(np.int32) for p in (ry, ru, rv)))
+
+
+@pytest.mark.parametrize("w,h,qp", [(64, 48, 32), (96, 64, 27),
+                                    (96, 64, 37)])
+def test_flat_sao_decide_apply_equals_jax(w, h, qp):
+    """`IntraEncoder._sao_decide_apply` of the flat engines (luma CTB 16,
+    chroma CTB 8, Cr following Cb's type and class) from the statistics
+    of `sao_stats` against the reference's host decision from the planes:
+    the same SaoParam CTU by CTU and the same output planes.  At QP 27
+    and 32 the first CTU's Cr band offsets pick the first of two tied
+    windows: the port's decision from statistics with numpy's window sums
+    (`decide_bo_from_stats`) and the reference's left-to-right loop
+    (`_sao_bo_for`) agree there (at QP 37 lambda makes that CTU's Cb take
+    no offset)."""
+    _jsao()
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    jcfg, tcfg = _flat_cfgs(w, h, qp)
+    origs, recs = _flat_planes(qp + w, w, h)
+    jp, jout = jic.IntraEncoder(jcfg)._sao_decide_apply(origs, recs)
+    tp, tout = tic.IntraEncoder(tcfg, device="cpu")._sao_decide_apply(
+        origs, recs)
+    assert _key_grid(tp) == _key_grid(jp)
+    for c in range(3):
+        assert tout[c].dtype == jout[c].dtype
+        np.testing.assert_array_equal(tout[c], jout[c], err_msg=f"plane {c}")
+    kinds = {p3[c].type_idx for p3 in tp for c in range(3)}
+    assert len(kinds) >= 2
+    if qp > 32:
+        return
+    # the tie: Cb takes BO at CTU 0, Cr's windows 11 and 12 cost the same
+    assert tp[0][1].type_idx == tsao.SAO_BO
+    lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    band = recs[2][:8, :8] >> 3
+    assert set(np.unique(band)) == {12, 13, 14}
+    counts = np.bincount(band.reshape(-1), minlength=32)
+    sums = np.bincount(band.reshape(-1), minlength=32, weights=(
+        origs[2][:8, :8] - recs[2][:8, :8]).reshape(-1).astype(np.float64))
+    costs = []
+    for bnd in range(32):
+        cp = tsao._best_offset(sums[bnd], int(counts[bnd]), True, lam)[1]
+        cn = tsao._best_offset(sums[bnd], int(counts[bnd]), False, lam)[1]
+        costs.append(min(cp, cn))
+    win = [sum(costs[p:p + 4]) for p in range(29)]
+    assert win[11] == win[12] == min(win)
+    assert tp[0][2].band_position == 11
+    assert tp[0][2].key() == jic.IntraEncoder._sao_bo_for(
+        origs[2], recs[2], 0, 0, 8, lam).key() == \
+        tsao.decide_bo_from_stats(counts, sums, lam).key()
+
+
+def test_general_decoder_decodes_jax_ldp_sao_stream(monkeypatch):
     """tests/test_inter_jax.py::test_device_ldp_roundtrip's SAO case
     (64x48, 4 references, TMVP, 5 pictures): CTB16 SAO in I and P slices
-    (the JAX package codes this IDR on its host path).  Every hash OK in
-    the port's GeneralDecoder, pictures equal to the JAX recon."""
+    (the JAX package codes this IDR on its host path).  The port's
+    `DeviceLowDelayEncoder` on the CPU writes the same bytes; every
+    picture's SAO parameters are the JAX encoder's, and the port's
+    decision on the JAX encoder's own planes gives the JAX encoder's
+    parameters and output; every hash OK in the port's GeneralDecoder,
+    pictures equal to the JAX recon."""
     pytest.importorskip("jax")
     import test_inter_jax
     from video_codecs_tpu.models.hevc import headers as jheaders
+    from video_codecs_tpu.models.hevc import intra_codec as jic
     from video_codecs_tpu.models.hevc import inter_jax as jinter
+    calls = {"jax": [], "port": []}
+
+    def recorder(cls, key):
+        orig = cls._sao_decide_apply
+
+        def rec(self, origs, recs):
+            params, outs = orig(self, origs, recs)
+            calls[key].append((self.cfg.qp, origs, recs, params, outs))
+            return params, outs
+        monkeypatch.setattr(cls, "_sao_decide_apply", rec)
+
+    recorder(jic.IntraEncoder, "jax")
+    recorder(tic.IntraEncoder, "port")
     w, h = 64, 48
     cfg = jheaders.HevcConfig(width=w, height=h, qp=30, num_refs=4,
                               temporal_mvp=True, sao=True, merge_cands=5,
@@ -325,6 +418,22 @@ def test_general_decoder_decodes_jax_ldp_sao_stream():
     enc = jinter.DeviceLowDelayEncoder(cfg, search_range=16)
     frames = test_inter_jax.clip(w, h, 5)
     stream, recons = enc.encode_sequence_ldp(frames)
+    tstream, _ = tinter.DeviceLowDelayEncoder(
+        theaders.HevcConfig(**vars(cfg)), search_range=16,
+        device="cpu").encode_sequence_ldp(frames)
+    assert tstream == stream
+    assert len(calls["jax"]) == len(calls["port"]) == len(frames)
+    tenc = tic.IntraEncoder(theaders.HevcConfig(**vars(cfg)), device="cpu")
+    for k, (j, t) in enumerate(zip(calls["jax"], calls["port"])):
+        assert j[0] == t[0], k                       # the picture's QP
+        assert _key_grid(t[3]) == _key_grid(j[3]), k
+        tenc.cfg.qp = j[0]
+        params, outs = tenc._sao_decide_apply(j[1], j[2])
+        assert _key_grid(params) == _key_grid(j[3]), k
+        for c in range(3):
+            np.testing.assert_array_equal(outs[c], j[4][c])
+    assert {p.type_idx for call in calls["jax"] for p3 in call[3]
+            for p in p3} == {tsao.SAO_OFF, tsao.SAO_BO, tsao.SAO_EO}
     dec = tdec.GeneralDecoder()
     out = dec.decode(stream)
     assert dec.sps.sao and dec.sps.log2_ctb == 4
@@ -333,10 +442,64 @@ def test_general_decoder_decodes_jax_ldp_sao_stream():
         for c in range(3):
             np.testing.assert_array_equal(np.asarray(r[c]), o[c],
                                           err_msg=f"picture {k} plane {c}")
-    # the port's LD-P encoder refuses SAO, giving the reason
-    with pytest.raises(ValueError, match="host CTB loop"):
-        tinter.DeviceLowDelayEncoder(theaders.HevcConfig(**vars(cfg)),
-                                     device="cpu")
+
+
+def test_flat_ra_sao_gop8_64x48_equals_jax():
+    """The flat RA GOP-8 over 9 pictures with SAO (the settings of
+    tests/test_inter_jax.py::test_device_ra_gop8_roundtrip, whose JAX
+    programs a run's shared cache holds): the port's stream is the JAX
+    package's byte for byte and decodes hash OK in the port."""
+    pytest.importorskip("jax")
+    from test_torch_hevc_ra import clip
+    from video_codecs_tpu.models.hevc import inter_jax as jinter
+    jcfg, tcfg = _flat_cfgs(64, 48, 32, reorder_pics=3)
+    frames = clip(64, 48, 9, seed=5)
+    js, _ = jinter.DeviceRandomAccessEncoder(
+        jcfg, search_range=16).encode_sequence_ra(frames)
+    ts, trec = tinter.DeviceRandomAccessEncoder(
+        tcfg, search_range=16, device="cpu").encode_sequence_ra(frames)
+    assert ts == js
+    dec = tdec.GeneralDecoder()
+    out = dec.decode(ts)
+    assert dec.sps.sao and dec.hash_status == [True] * len(frames)
+    for k, (r, o) in enumerate(zip(trec, out)):
+        for c in range(3):
+            np.testing.assert_array_equal(r[c], o[c],
+                                          err_msg=f"picture {k} plane {c}")
+
+
+@pytest.mark.parametrize("rdoq", [False, "lite", True, "full"])
+def test_sao_idr_equals_jax_host_loop(rdoq):
+    """The SAO IDR of the flat engines: the port's `encode_frame` (the
+    flat device encoder, SAO from the device statistics, the Python slice
+    writer) against the reference's host CTB loop `encode_frame`, bytes
+    and pictures, at 64x48 and 96x64 and two QPs.  RDOQ raises: there the
+    reference's host loop (float64 `rdoq_lite_np`, host full RDOQ) and its
+    device path (float32 RDOQ-lite) write different streams, which the
+    "lite" case shows on this picture without SAO."""
+    pytest.importorskip("jax")
+    import bench
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    for w, h in ((64, 48), (96, 64)):
+        for qp in (27, 37):
+            jcfg, tcfg = _flat_cfgs(w, h, qp, rdoq=rdoq)
+            tenc = tic.IntraEncoder(tcfg, device="cpu")
+            y, u, v = bench.synth_clip(w, h, 1, seed=qp)[0]
+            if rdoq:
+                with pytest.raises(ValueError, match="rdoq"):
+                    tenc.encode_frame(y, u, v)
+                if rdoq == "lite":
+                    jcfg.sao = False
+                    jenc = jic.IntraEncoder(jcfg)
+                    assert jenc.encode_frame(y, u, v)[0][0] != \
+                        jenc.encode_frame_fast(y, u, v)[0][0]
+                return
+            jn, jr = jic.IntraEncoder(jcfg).encode_frame(y, u, v)
+            tn, tr = tenc.encode_frame(y, u, v)
+            assert tn == jn
+            for c in range(3):
+                assert tr[c].dtype == np.int32
+                np.testing.assert_array_equal(tr[c], jr[c])
 
 
 # ---- (g) the kernel on the card --------------------------------------------
@@ -344,7 +507,9 @@ def test_general_decoder_decodes_jax_ldp_sao_stream():
 @pytest.mark.cuda
 @pytest.mark.parametrize("ctb,h,w", [(16, 48, 64), (32, 96, 128),
                                      (16, 16, 16), (32, 1088, 1920),
-                                     (16, 544, 960)])
+                                     (16, 544, 960), (8, 240, 416),
+                                     (8, 536, 960), (16, 480, 832),
+                                     (8, 24, 48), (8, 8, 8)])
 def test_sao_kernel_matches_plain_on_card(ctb, h, w):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
@@ -364,12 +529,14 @@ def test_sao_kernel_matches_plain_on_card(ctb, h, w):
 @pytest.mark.parametrize("kind,ctb,h,w", [
     ("one_bin", 16, 64, 96), ("one_bin", 32, 128, 192),
     ("random", 16, 48, 80), ("random", 32, 96, 160),
-    ("one_ctb", 16, 16, 16), ("one_ctb", 32, 32, 32)])
+    ("one_ctb", 16, 16, 16), ("one_ctb", 32, 32, 32),
+    ("one_bin", 8, 40, 72), ("random", 8, 48, 104), ("one_ctb", 8, 8, 8)])
 def test_sao_kernel_crowded_and_spread_bins(kind, ctb, h, w):
     """Planes for the kernel's per-lane bins: a flat rec, where every
     sample of a CTB lands in EO category 0 and one band (every lane of a
     warp on one bin); uniform noise in orig and rec, where the lanes spread
-    over all bins; and a plane of one CTB (a strip of one CTB)."""
+    over all bins; and a plane of one CTB (a strip of one CTB).  At CTB 8
+    the widths 72 and 104 (9 and 13 CTBs) end in a partial strip."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
     rng = np.random.default_rng(ctb * 31 + h)
@@ -399,7 +566,9 @@ def test_sao_kernel_refuses_what_it_does_not_take():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no interpret mode)")
     z = torch.zeros((32, 32), dtype=torch.uint8, device="cuda")
     with pytest.raises(ValueError):
-        tsao.sao_stats(z, z, 8)
+        tsao.sao_stats(z, z, 4)                   # not a kernel CTB
+    with pytest.raises(ValueError):
+        tsao.sao_stats(z[:, :12], z[:, :12], 8)   # not a CTB 8 multiple
     with pytest.raises(TypeError):
         tsao.sao_stats(z.int(), z.int(), 32)
     with pytest.raises(ValueError):

@@ -20,12 +20,20 @@
 // once: at 1920x1088 luma with CTB32 that is 4.18 MB in and 2,040 CTBs x
 // 104 values x 4 bytes = 0.85 MB out; each 960x544 chroma plane with
 // CTB16 1.04 MB in and 0.85 MB out.  About 8.8 MB a picture, 2.6 us at
-// 3.35 TB/s: bound by bytes.  A few integer operations per sample (under
+// 3.35 TB/s: bound by bytes.  At CTB 8 the outputs outweigh the inputs:
+// a 416x240 chroma plane is 0.20 MB in and 1,560 CTBs x 416 bytes =
+// 0.65 MB out.  A few integer operations per sample (under
 // 30 M a picture) are far below the card's integer rate.
 //
-// Design.  One CTA per strip of CTBs side by side in a CTB row (4 at CTB
-// 16, 2 at CTB 32), 128 threads: each CTB gets 2 * CTB threads, each lane
-// one column of its CTB and every other row in it, CTB / 2 samples.  Fewer,
+// Design.  One CTA per strip of CTBs side by side in a CTB row (2 at CTB
+// 32, 4 at CTB 16 and 8), 128 threads: each CTB gets 2 * CTB threads at
+// CTB 16 and 32, each lane one column of its CTB and every other row in
+// it, CTB / 2 samples; at CTB 8 (the flat CTB16 engines' chroma) a warp,
+// each lane one column and every fourth row, 2 samples, so that a warp
+// never spans two CTBs.  A strip past the plane's right edge (52 chroma
+// CTBs at 832x480 take 13 strips of 4, 6 at 96x64 one of 4 and one of 2)
+// reads the plane's last samples again and writes nothing for the CTBs
+// outside.  Fewer,
 // wider CTAs than one per CTB, and each bin's outputs of the strip's CTBs
 // are neighbours in memory, so the stores coalesce: with one CTA per CTB,
 // launching the CTAs and scattering their 104 stores each set a chroma
@@ -60,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kEoBins = 4 * 5;           // EO class x category (outputs)
@@ -74,16 +84,21 @@ __device__ __forceinline__ int sgn(int v) { return min(max(v, -1), 1); }
 
 template <int CTB>
 struct Strip {
-  static constexpr int kCtbs = CTB == 16 ? 4 : 2;       // CTBs per CTA
-  static constexpr int kCtbThreads = 2 * CTB;
+  static constexpr int kCtbs = CTB == 32 ? 2 : 4;       // CTBs per CTA
+  static constexpr int kCtbThreads = CTB == 8 ? 32 : 2 * CTB;
   static constexpr int kThreads = kCtbs * kCtbThreads;  // 128
   static constexpr int kWarpsPerCtb = kCtbThreads / 32;
+  static constexpr int kRowStep = kCtbThreads / CTB;    // rows between samples
   static constexpr int kT = CTB + 2;                     // tile rows
   static constexpr int kTw = kCtbs * CTB + 2;            // tile columns
   static constexpr int kOw = kCtbs * CTB;                // orig columns
   static constexpr int kTileLoads = (kT * kTw + kThreads - 1) / kThreads;
-  static constexpr int kOrigWords = CTB * kOw / 4 / kThreads;  // per thread
-  static_assert(CTB * kOw % (4 * kThreads) == 0, "whole orig words");
+  // orig is read in aligned words of kOb bytes, a whole number a thread
+  static constexpr int kOb = CTB == 8 ? 2 : 4;
+  static constexpr int kOrigWords = CTB * kOw / kOb / kThreads;
+  using OWord = typename std::conditional<kOb == 2, uint16_t, uint32_t>::type;
+  static_assert(CTB * kOw % (kOb * kThreads) == 0, "whole orig words");
+  static_assert(kWarpsPerCtb >= 1, "a warp spans one CTB");
 };
 
 template <int CTB>
@@ -94,7 +109,9 @@ __global__ void __launch_bounds__(Strip<CTB>::kThreads) sao_stats_kernel(
   using S = Strip<CTB>;
   constexpr int T = S::kT, TW = S::kTw, OW = S::kOw, K = S::kCtbs;
   constexpr int kThreads = S::kThreads, kWarps = kThreads / 32;
-  constexpr int kSamples = CTB / 2;                      // per lane
+  constexpr int kSamples = CTB / S::kRowStep;            // per lane
+  using OWord = typename S::OWord;
+  constexpr int kOb = S::kOb;
   __shared__ uint8_t tile[T * TW];
   __shared__ __align__(4) uint8_t orig_tile[CTB * OW];
   __shared__ int bins[kWarps][kBins * 32];   // [warp][bin][lane]
@@ -105,21 +122,21 @@ __global__ void __launch_bounds__(Strip<CTB>::kThreads) sao_stats_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j = threadIdx.x / S::kCtbThreads;            // the CTB in strip
   const int u = threadIdx.x % S::kCtbThreads;
-  const int lx = j * CTB + u % CTB, ly0 = u / CTB;       // ly0: 0, 1
+  const int lx = j * CTB + u % CTB, ly0 = u / CTB;   // ly0 < kRowStep
   int* mine = bins[warp] + lane;             // this lane's bins, stride 32
   // every load of the CTA issued before any is waited for, into
   // registers: the strip's orig samples (words, aligned: x0 and w are
-  // multiples of 4), then its rec tile with the halo, clamped to the plane
+  // multiples of 8), then its rec tile with the halo, clamped to the plane
   // (a strip past the plane's right edge reads its last samples again, and
   // writes nothing out for those CTBs)
-  uint32_t o[S::kOrigWords];
+  OWord o[S::kOrigWords];
   int r[S::kTileLoads];
 #pragma unroll
   for (int i = 0; i < S::kOrigWords; ++i) {
     const int k = threadIdx.x + i * kThreads;          // word of the strip
-    const int y = y0 + k / (OW / 4);
-    const int x = min(x0 + 4 * (k % (OW / 4)), w - 4);
-    o[i] = *reinterpret_cast<const uint32_t*>(orig + (size_t)y * w + x);
+    const int y = y0 + k / (OW / kOb);
+    const int x = min(x0 + kOb * (k % (OW / kOb)), w - kOb);
+    o[i] = *reinterpret_cast<const OWord*>(orig + (size_t)y * w + x);
   }
 #pragma unroll
   for (int i = 0; i < S::kTileLoads; ++i) {
@@ -132,7 +149,7 @@ __global__ void __launch_bounds__(Strip<CTB>::kThreads) sao_stats_kernel(
   for (int b = 0; b < kBins; ++b) mine[32 * b] = 0;
 #pragma unroll
   for (int i = 0; i < S::kOrigWords; ++i)
-    reinterpret_cast<uint32_t*>(orig_tile)[threadIdx.x + i * kThreads] = o[i];
+    reinterpret_cast<OWord*>(orig_tile)[threadIdx.x + i * kThreads] = o[i];
 #pragma unroll
   for (int i = 0; i < S::kTileLoads; ++i) {
     const int k = threadIdx.x + i * kThreads;
@@ -141,14 +158,19 @@ __global__ void __launch_bounds__(Strip<CTB>::kThreads) sao_stats_kernel(
   __syncthreads();
   // both horizontal neighbours inside the plane: one column per lane
   const int row = x0 + lx > 0 && x0 + lx + 1 < w ? -1 : 0;
-  // the lane's column and its neighbours, three tile rows at a time: the
-  // row below one sample is the row above the next
+  // the lane's column and its neighbours, three tile rows at a time: at a
+  // row step of 2 the row below one sample is the row above the next
   const uint8_t* col0 = tile + ly0 * TW + lx;
   int ul = col0[0], uc = col0[1], ur = col0[2];
 #pragma unroll
   for (int i = 0; i < kSamples; ++i) {
-    const int ly = ly0 + 2 * i, y = y0 + ly;
-    const uint8_t* t = col0 + (2 * i + 1) * TW;
+    const int ly = ly0 + S::kRowStep * i, y = y0 + ly;
+    const uint8_t* t = col0 + (S::kRowStep * i + 1) * TW;
+    if (S::kRowStep != 2) {
+      ul = t[-TW];
+      uc = t[1 - TW];
+      ur = t[2 - TW];
+    }
     const int ml = t[0], c = t[1], mr = t[2];
     const int dl = t[TW], dc = t[TW + 1], dr = t[TW + 2];
     const int v = (int(orig_tile[ly * OW + lx]) - c) * (1 << kCountBits) + 1;
@@ -228,13 +250,13 @@ int launch(const void* orig, const void* rec, void* eo_count, void* eo_sum,
 
 // orig, rec: uint8 [h, w]; eo_count int32 / eo_sum float32 [4, 5, h/ctb,
 // w/ctb]; bo_count int32 / bo_sum float32 [32, h/ctb, w/ctb].  Returns the
-// launch's cudaError (cudaErrorInvalidValue for a ctb other than 16 or 32,
-// a plane that is not a CTB multiple or an orig not 4-byte aligned).
+// launch's cudaError (cudaErrorInvalidValue for a ctb other than 8, 16 or
+// 32, a plane that is not a CTB multiple or an orig not 4-byte aligned).
 extern "C" int vct_sao_stats_u8(const void* orig, const void* rec,
                                 void* eo_count, void* eo_sum, void* bo_count,
                                 void* bo_sum, int h, int w, int ctb,
                                 void* stream) {
-  if (ctb != 16 && ctb != 32) return (int)cudaErrorInvalidValue;
+  if (ctb != 8 && ctb != 16 && ctb != 32) return (int)cudaErrorInvalidValue;
   if (h < 0 || w < 0 || h % ctb || w % ctb) return (int)cudaErrorInvalidValue;
   // orig is read in aligned 32-bit words
   if ((uintptr_t)orig % 4) return (int)cudaErrorInvalidValue;
@@ -242,6 +264,9 @@ extern "C" int vct_sao_stats_u8(const void* orig, const void* rec,
   if (ctb == 32)
     return launch<32>(orig, rec, eo_count, eo_sum, bo_count, bo_sum, h, w,
                       (cudaStream_t)stream);
-  return launch<16>(orig, rec, eo_count, eo_sum, bo_count, bo_sum, h, w,
-                    (cudaStream_t)stream);
+  if (ctb == 16)
+    return launch<16>(orig, rec, eo_count, eo_sum, bo_count, bo_sum, h, w,
+                      (cudaStream_t)stream);
+  return launch<8>(orig, rec, eo_count, eo_sum, bo_count, bo_sum, h, w,
+                   (cudaStream_t)stream);
 }

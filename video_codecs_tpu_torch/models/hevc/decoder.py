@@ -13,11 +13,15 @@ the offsets applied after deblocking, each EO class's category map
 computed once per plane with `ops/sao.apply_ctus`, where the reference
 recomputes it for every CTB) and decoded-picture-hash verification.
 
-Cut, raising NotImplementedError from the parameter sets that enable
-them (no port encoder emits them): PCM, scaling lists, tiles and WPP
-entry points, weighted prediction, long-term reference pictures,
-transform skip and cu_qp_delta.  The branches those flags guard inside
-the CU decode stay as in the reference and are never entered.
+Long-term reference pictures (the low-delay P encoder's long-term IDR)
+are parsed from the SPS and the slice header, resolved to POCs by
+`_lt_pocs` and kept in the DPB past its window; SEI other than the
+picture hash (the HRD timing messages) is skipped.  Cut, raising
+NotImplementedError from the parameter sets that enable them (no port
+encoder emits them): PCM, scaling lists, tiles and WPP entry points,
+weighted prediction, transform skip and cu_qp_delta.  The branches
+those flags guard inside the CU decode stay as in the reference and are
+never entered.
 
 Parity references: hm-16.5rc1/source/Lib/TLibDecoder/TDecCAVLC.cpp
 (parameter-set and slice-header parsing), TDecTop.cpp:820 (picture
@@ -265,7 +269,8 @@ def parse_sps(rbsp: bytes) -> Sps:
     s.lt_present = bool(r.flag())   # long_term_ref_pics_present
     s.lt_refs = []                  # [(poc_lsb, used_by_curr)] SPS-signalled
     if s.lt_present:
-        raise NotImplementedError("GeneralDecoder: long-term references")
+        for _ in range(r.ue()):
+            s.lt_refs.append((r.read(s.log2_max_poc_lsb), bool(r.flag())))
     s.temporal_mvp = bool(r.flag())
     s.strong_intra_smoothing = bool(r.flag())
     if r.flag():                # vui_parameters_present
@@ -393,6 +398,29 @@ def parse_slice_header(rbsp: bytes, nal_type: int, sps: Sps,
         else:
             h.rps = parse_st_rps(r, len(sps.rps_list), sps.rps_list,
                                  slice_header=True)
+        if sps.lt_present:
+            # lt section (spec 7.3.6.1): SPS-indexed entries first, then
+            # slice-signalled ones; delta_poc_msb_cycle_lt is delta-coded
+            # within each group (spec 7.4.7.1 DeltaPocMsbCycleLt)
+            n_sps = r.ue() if sps.lt_refs else 0
+            n_pics = r.ue()
+            prev_cycle = 0
+            for i in range(n_sps + n_pics):
+                if i < n_sps:
+                    idx = 0
+                    if len(sps.lt_refs) > 1:
+                        idx = r.read((len(sps.lt_refs) - 1).bit_length())
+                    lsb, used = sps.lt_refs[idx]
+                else:
+                    lsb = r.read(sps.log2_max_poc_lsb)
+                    used = bool(r.flag())
+                msb_present = bool(r.flag())
+                d = r.ue() if msb_present else 0
+                # TDecCAVLC: the msb-cycle chain advances every entry,
+                # restarting at the first slice-signalled one
+                cycle = d if i in (0, n_sps) else d + prev_cycle
+                prev_cycle = cycle
+                h.lt_entries.append((lsb, used, msb_present, cycle))
         if sps.temporal_mvp:
             h.tmvp = bool(r.flag())
     else:

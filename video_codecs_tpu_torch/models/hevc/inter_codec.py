@@ -9,15 +9,16 @@ P pictures are coded by the device engine
 (models/hevc/inter_dev.DeviceLowDelayEncoder); this module's
 `encode_p_frame`, the host decision loop, raises NotImplementedError.
 `encode_frames` takes a picture-level rate controller
-(models/hevc/ratectrl.py) and resumes from a checkpoint state
-(models/hevc/checkpoint.py).  Cut, raising ValueError where a caller asks
-for them: HRD timing SEI (it needs the SEI messages of
-models/hevc/sei.py), the long-term IDR reference (it needs long-term
-references in the port's decoder), weighted prediction, cu_qp_delta and
-SAO.  Not ported: the P-slice parser and `LowDelayDecoder` (the port
-decodes with models/hevc/decoder.GeneralDecoder), the
-weighted-prediction estimate and the single-candidate flat MV
-predictors.
+(models/hevc/ratectrl.py), resumes from a checkpoint state
+(models/hevc/checkpoint.py), writes the HRD timing SEI of
+models/hevc/sei.py (`cfg.timing_sei`) and keeps the IDR as the one
+long-term reference (`cfg.long_term_idr`; the two cases the reference
+writes wrongly, a picture past POC 255 and a checkpoint resume, raise
+ValueError); the P slice carries the sao() syntax (`cfg.sao`).  Cut:
+weighted prediction and cu_qp_delta.  Not ported: the P-slice parser
+and `LowDelayDecoder` (the port decodes with
+models/hevc/decoder.GeneralDecoder), the weighted-prediction estimate
+and the single-candidate flat MV predictors.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from video_codecs_tpu_torch.entropy import bitstream as bs
 from video_codecs_tpu_torch.entropy import cabac, ctx, residual
 from video_codecs_tpu_torch.models.hevc import checkpoint, headers, motion
 from video_codecs_tpu_torch.models.hevc import intra_codec as ic
+from video_codecs_tpu_torch.models.hevc import sei as sei_mod
 from video_codecs_tpu_torch.utils import rom
 
 DC = 1
@@ -83,14 +85,29 @@ def write_p_slice_header(cfg: headers.HevcConfig, poc: int, n_refs: int = 1):
     w.ue(1)            # slice_type = P
     w.write(poc & 255, 8)  # slice_pic_order_cnt_lsb
     w.flag(0)          # short_term_ref_pic_set_sps_flag
-    # st_ref_pic_set: n_refs negative refs at deltas 1..n_refs
-    w.ue(n_refs)       # num_negative_pics
-    w.ue(0)            # num_positive_pics
-    for _ in range(n_refs):
-        w.ue(0)        # delta_poc_s0_minus1[i]
-        w.flag(1)      # used_by_curr_pic_s0_flag[i]
+    if cfg.long_term_idr:
+        # empty short-term RPS; the single reference is the IDR signalled
+        # as a long-term picture (spec 7.3.6.1 lt section)
+        assert n_refs == 1 and not cfg.temporal_mvp, \
+            "long_term_idr mode: 1 ref, no TMVP"
+        w.ue(0)        # num_negative_pics
+        w.ue(0)        # num_positive_pics
+        w.ue(1)        # num_long_term_pics (num_long_term_sps absent: 0 in SPS)
+        w.write(0, 8)  # poc_lsb_lt = 0 (the IDR)
+        w.flag(1)      # used_by_curr_pic_lt_flag
+        w.flag(0)      # delta_poc_msb_present_flag
+    else:
+        # st_ref_pic_set: n_refs negative refs at deltas 1..n_refs
+        w.ue(n_refs)       # num_negative_pics
+        w.ue(0)            # num_positive_pics
+        for _ in range(n_refs):
+            w.ue(0)        # delta_poc_s0_minus1[i]
+            w.flag(1)      # used_by_curr_pic_s0_flag[i]
     if cfg.temporal_mvp:
         w.flag(1)      # slice_temporal_mvp_enabled_flag
+    if cfg.sao:
+        w.flag(1)      # slice_sao_luma_flag
+        w.flag(1)      # slice_sao_chroma_flag
     if n_refs != 1:    # pps default is 1 active reference
         w.flag(1)      # num_ref_idx_active_override_flag
         w.ue(n_refs - 1)
@@ -134,10 +151,28 @@ class LowDelayEncoder(ic.IntraEncoder):
         """Encode pictures, optionally resuming from a checkpoint state;
         returns (nal list, recons, final EncoderState).  The picture QP
         comes from the rate controller's `pick_qp()` when one is given,
-        else from `qp_schedule` when an encoder sets one."""
-        if self.cfg.timing_sei or self.cfg.long_term_idr:
-            raise ValueError("timing SEI and the long-term IDR reference "
-                             "are not ported")
+        else from `qp_schedule` when an encoder sets one.  With
+        `cfg.long_term_idr` the two cases the reference writes wrongly
+        raise ValueError before anything is coded: a picture past POC
+        255 (the 8-bit POC lsb of the long-term entry wraps, and a
+        decoder then takes POC 256 for the IDR) and a resume from a
+        checkpoint (the entry signals lsb 0 for a reference that is not
+        the IDR)."""
+        frames = list(frames)
+        if self.cfg.long_term_idr:
+            if self.cfg.temporal_mvp:
+                raise ValueError("long_term_idr needs temporal_mvp off "
+                                 "(write_p_slice_header's terms)")
+            if start_state is not None:
+                raise ValueError(
+                    "long_term_idr with a start_state: the reference "
+                    "signals the IDR (poc_lsb_lt 0) for a reference that "
+                    "is the checkpoint's last picture")
+            if len(frames) > 256:
+                raise ValueError(
+                    f"long_term_idr over {len(frames)} pictures: past POC "
+                    "255 the 8-bit poc_lsb_lt of the IDR matches POC 256 "
+                    "too, and the reference signals no MSB")
         nals: list[bytes] = []
         recons = []
         dpb: list[tuple] = []    # [(poc, planes, MotionField)] newest first
@@ -166,7 +201,10 @@ class LowDelayEncoder(ic.IntraEncoder):
                 bw, bh = self.cfg.width // 16, self.cfg.height // 16
                 mf = motion.MotionField.empty(bw, bh, poc)
             else:
-                frame_nals, rec, mf = self.encode_p_frame(y, u, v, dpb, poc)
+                # long_term_idr: the only active reference is the IDR,
+                # kept alive as a long-term picture (oldest DPB entry)
+                refs = [dpb[-1]] if self.cfg.long_term_idr else dpb
+                frame_nals, rec, mf = self.encode_p_frame(y, u, v, refs, poc)
             if rate_control is not None:
                 # the picture's bits and its luma MAD, in float64 numpy
                 # as the reference computes them (a summation order of
@@ -175,10 +213,26 @@ class LowDelayEncoder(ic.IntraEncoder):
                 mad = float(np.mean(np.abs(
                     rec[0].astype(np.float64) - y.astype(np.float64))))
                 rate_control.update(bits, mad)
+            if self.cfg.timing_sei:
+                # HRD SEI prefix: buffering period on the IRAP AU,
+                # pic timing on every AU (TEncGOP xCreate*SEI wiring)
+                msgs: list = []
+                if poc == poc0:
+                    msgs.append(sei_mod.BufferingPeriod(
+                        initial_cpb_removal_delay=90000))
+                msgs.append(sei_mod.PictureTiming(
+                    au_cpb_removal_delay_minus1=max(0, poc - poc0 - 1),
+                    pic_dpb_output_delay=1))
+                frame_nals.insert(0, sei_mod.sei_nal(msgs))
             nals.extend(frame_nals)
             recons.append(rec)
             dpb.insert(0, (poc, rec, mf))
-            del dpb[self.cfg.num_refs:]
+            if self.cfg.long_term_idr:
+                # keep the short-term window plus the long-term IDR tail
+                dpb[:] = dpb[:self.cfg.num_refs] + \
+                    [e for e in dpb[self.cfg.num_refs:] if e[0] == 0]
+            else:
+                del dpb[self.cfg.num_refs:]
         final = checkpoint.capture(poc0 + len(recons),
                                    dpb[0][1] if dpb else None, rate_control)
         final.dpb = tuple(dpb)
@@ -193,7 +247,8 @@ class LowDelayEncoder(ic.IntraEncoder):
             "(inter_dev.DeviceLowDelayEncoder)")
 
     # video_codecs_tpu/models/hevc/inter_codec.py:645
-    def _encode_p_slice(self, info, poc, n_refs: int = 1) -> bytes:
+    def _encode_p_slice(self, info, poc, n_refs: int = 1,
+                        sao_params=None) -> bytes:
         cfg = self.cfg
         bw, bh = cfg.width // 16, cfg.height // 16
         w = write_p_slice_header(cfg, poc, n_refs)
@@ -201,6 +256,9 @@ class LowDelayEncoder(ic.IntraEncoder):
         enc = cabac.CabacEncoder(w, states)
         for by in range(bh):
             for bx in range(bw):
+                if sao_params is not None:
+                    ic.encode_sao_ctu(enc, sao_params, by * bw + bx,
+                                      bx, by, bw, 0)
                 self._encode_p_ctu(enc, info, bx, by, bw, bh, n_refs)
                 last = (by == bh - 1 and bx == bw - 1)
                 enc.encode_terminate(1 if last else 0)

@@ -21,11 +21,17 @@ of the host lambda ladder.
 The integer motion search is the pyramid or, through
 `ops/me.motion_search`, HM's full search, TZSearch or "auto" (the
 reference's dispatch, inter_jax.py:225-236 and :462-476).
-Cut, raising NotImplementedError: `encode_b_frame_dev`'s `me_fields` /
-`gx_blk0` (the multichip dryrun's tile-sharded inputs); the options the
-encoders refuse raise ValueError, among them what the reference codes on
-its host path (SAO, tiles) and, on the flat B engines, what it writes
-wrongly (TMVP, MaxNumMergeCand > 1 in the RA header).
+With `cfg.sao` the three flat engines code the IDR through
+`IntraEncoder.encode_frame` (the reference's host CTB loop, computed on
+the device with the same bytes) and decide SAO in every picture with
+`IntraEncoder._sao_decide_apply` (statistics from the SAO kernel, luma
+CTB 16, chroma CTB 8).  Cut, raising NotImplementedError:
+`encode_b_frame_dev`'s `me_fields` / `gx_blk0` (the multichip dryrun's
+tile-sharded inputs); the options the encoders refuse raise ValueError:
+tiles, WPP, weighted prediction, cu_qp_delta and, on the flat B engines,
+what the reference writes wrongly (TMVP, MaxNumMergeCand > 1 in the RA
+header, timing SEI and the long-term IDR, which its B loop does not
+write).
 
 Float32 in the reference's order.  The decisions compare float32 costs
 J = D + lambda * R, so each is the reference's float32 expression as
@@ -1149,11 +1155,14 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
     device (the card unless the caller passes device="cpu").
 
     Same bitstream toolset as LowDelayEncoder (CTB=CU=PU=16, multi-ref,
-    merge, TMVP); the IDR is the flat CTB16 device intra encoder, each P
-    picture `encode_p_frame_dev`, then the host reconciles the merge/AMVP
-    syntax and writes the slice and the picture-hash SEI.  The
-    configurations the reference diverts to its host path (SAO, tiles)
-    and the options the port does not carry raise ValueError here."""
+    merge, TMVP, SAO, HRD timing SEI, the long-term IDR reference); the
+    IDR is the flat CTB16 device intra encoder, each P picture
+    `encode_p_frame_dev`, then the host reconciles the merge/AMVP syntax
+    and writes the slice and the picture-hash SEI.  With SAO the IDR
+    goes through `IntraEncoder.encode_frame` (the reference's host CTB
+    loop, computed on the device with the same bytes) and every picture
+    through `_sao_decide_apply` (statistics on the device).  Tiles, WPP,
+    weighted prediction and cu_qp_delta raise ValueError here."""
 
     #: HM encoder_lowdelay_P_main.cfg GOP-4 ladder: (QPoffset, QPfactor)
     LD_GOP = ((5, 0.4624), (4, 0.4624), (5, 0.4624), (1, 0.578))
@@ -1162,14 +1171,7 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
     def __init__(self, cfg, search_range: int = 64,
                  me_method: str = "pyr", ld_ladder: bool = True, *,
                  device="cuda") -> None:
-        if cfg.sao:
-            raise ValueError(
-                "DeviceLowDelayEncoder: sao is not ported: with SAO on, the "
-                "reference codes the IDR on its host CTB loop "
-                "(IntraEncoder.encode_frame, a device-to-host fallback, "
-                "inter_jax.py:1295-1300), which the port does not carry")
-        for opt in ("wpp", "weighted_pred", "cu_qp_delta",
-                    "timing_sei", "long_term_idr"):
+        for opt in ("wpp", "weighted_pred", "cu_qp_delta"):
             if getattr(cfg, opt):
                 raise ValueError(f"DeviceLowDelayEncoder: {opt} is not "
                                  "ported")
@@ -1238,6 +1240,12 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
         rec_u = st["rec_u"].astype(np.int32)
         rec_v = st["rec_v"].astype(np.int32)
 
+        sao_params = None
+        if cfg.sao:
+            yv, uv, vv = (p.astype(np.int32) for p in (y, u, v))
+            sao_params, (rec_y, rec_u, rec_v) = self._sao_decide_apply(
+                (yv, uv, vv), (rec_y, rec_u, rec_v))
+
         mf = motion.MotionField.empty(bw, bh, poc)
         inter_m = st["pred_mode"] == MODE_INTER
         mf.inter[:] = inter_m
@@ -1246,7 +1254,7 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
         ref_poc_map = np.array(ref_pocs, np.int32)[st["ref_idx"]]
         mf.ref_poc[:] = np.where(inter_m, ref_poc_map, 0)
 
-        slice_nal = self._encode_p_slice(info, poc, n_refs)
+        slice_nal = self._encode_p_slice(info, poc, n_refs, sao_params)
         sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
         return [slice_nal, sei_nal], (rec_y, rec_u, rec_v), mf
 
@@ -1280,7 +1288,11 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1294
     def encode_frame(self, y, u, v, *args, **kwargs):
-        """IDR pictures via the flat CTB16 device intra encoder."""
+        """IDR pictures via the flat CTB16 device intra encoder; with SAO
+        through `IntraEncoder.encode_frame` (the reference's host CTB
+        loop, here computed on the device with the same bytes)."""
+        if self.cfg.sao:
+            return super().encode_frame(y, u, v, *args, **kwargs)
         return self.encode_frame_fast(y, u, v)
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1302
@@ -1446,19 +1458,18 @@ def _reconcile_b(st, bw, bh, ref_poc, poc, is_anchor):
 def _check_flat_b(name, cfg, me_method):
     """The configurations the reference codes on its host path or
     mis-codes on the flat B engines raise ValueError."""
-    if cfg.sao:
-        raise ValueError(
-            f"{name}: sao is not ported: with SAO on, the reference codes "
-            "the IDR on its host CTB loop (IntraEncoder.encode_frame, a "
-            "device-to-host fallback, inter_jax.py:1546-1550 and "
-            ":1564-1568) and the B pictures with the host "
-            "_sao_decide_apply, which the port does not carry")
     if cfg.tile_columns != 1:
         raise ValueError(f"{name}: tiles are not ported")
-    for opt in ("wpp", "weighted_pred", "cu_qp_delta", "timing_sei",
-                "long_term_idr"):
+    for opt in ("wpp", "weighted_pred", "cu_qp_delta"):
         if getattr(cfg, opt):
             raise ValueError(f"{name}: {opt} is not ported")
+    for opt in ("timing_sei", "long_term_idr"):
+        if getattr(cfg, opt):
+            raise ValueError(
+                f"{name}: {opt}: the reference's B picture loop writes "
+                "neither the buffering-period / picture-timing SEI nor the "
+                "long-term entries its SPS then announces (they are "
+                "LowDelayEncoder.encode_frames' and write_p_slice_header's)")
     if cfg.temporal_mvp:
         raise ValueError(
             f"{name}: temporal_mvp: the flat B coder ignores the temporal "
@@ -1511,8 +1522,13 @@ def _device_b_frame(enc, frame, poc, refs, is_anchor):
     rec_y = st["rec_y"].astype(np.int32)
     rec_u = st["rec_u"].astype(np.int32)
     rec_v = st["rec_v"].astype(np.int32)
+    sao_params = None
+    if cfg.sao:
+        yv, uv, vv = (np.asarray(p).astype(np.int32) for p in (y, u, v))
+        sao_params, (rec_y, rec_u, rec_v) = enc._sao_decide_apply(
+            (yv, uv, vv), (rec_y, rec_u, rec_v))
     slice_nal = enc._encode_b_slice(info, poc, is_anchor, ref_poc,
-                                    poc - ref_poc[L0], None)
+                                    poc - ref_poc[L0], sao_params)
     sei_nal = enc._hash_sei(rec_y, rec_u, rec_v)
     return [slice_nal, sei_nal], (rec_y, rec_u, rec_v)
 
@@ -1538,7 +1554,11 @@ class DeviceHierarchicalBEncoder(bc.HierarchicalBEncoder):
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1546
     def encode_frame(self, y, u, v, *args, **kwargs):
-        """IDR pictures via the flat CTB16 device intra encoder."""
+        """IDR pictures via the flat CTB16 device intra encoder; with SAO
+        through `IntraEncoder.encode_frame` (the reference's host CTB
+        loop, here computed on the device with the same bytes)."""
+        if self.cfg.sao:
+            return super().encode_frame(y, u, v, *args, **kwargs)
         return self.encode_frame_fast(y, u, v)
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1552
@@ -1572,7 +1592,11 @@ class DeviceRandomAccessEncoder(ra.RandomAccessEncoder):
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1564
     def encode_frame(self, y, u, v, *args, **kwargs):
-        """IDR pictures via the flat CTB16 device intra encoder."""
+        """IDR pictures via the flat CTB16 device intra encoder; with SAO
+        through `IntraEncoder.encode_frame` (the reference's host CTB
+        loop, here computed on the device with the same bytes)."""
+        if self.cfg.sao:
+            return super().encode_frame(y, u, v, *args, **kwargs)
         return self.encode_frame_fast(y, u, v)
 
     # video_codecs_tpu/models/hevc/inter_jax.py:1570

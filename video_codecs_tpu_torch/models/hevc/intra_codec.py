@@ -1,17 +1,20 @@
 """HEVC intra host helpers: reference build, MPM, chroma QP, TB coding,
-stream headers, the picture-hash SEI and the intra decoder's NAL loop.
+stream headers, the picture-hash SEI, the flat CTB16 IDR with SAO and
+the intra decoder's NAL loop.
 
-The port's copy of the part of video_codecs_tpu/models/hevc/intra_codec.py
-that the all-intra quadtree path needs; each function keeps its name and
-a comment gives the original's line.  Cut: the flat CTB16 encoder and
-decoder bodies (mode decision, slice coding, SAO decision and apply,
-WPP and tiles), which wait for a later slice; the CTU's sao() syntax
-(`encode_sao_ctu`, `decode_sao_ctu`) is carried for the RA quadtree
-path; `IntraDecoder` keeps its NAL loop and hash check,
-and the quadtree decoder supplies `_decode_slice`.  `code_tb_np` raises
-NotImplementedError for rdoq="full" (the host full RDOQ is not ported).
+The port's copy of video_codecs_tpu/models/hevc/intra_codec.py; each
+function keeps its name and a comment gives the original's line.
+`IntraEncoder.encode_frame` codes the picture on the flat CTB16 device
+encoder and, with `cfg.sao`, decides SAO from the device statistics
+(`_sao_decide_apply`: luma CTB 16, chroma CTB 8) and writes the sao()
+syntax with the Python slice writer; the settings where the reference's
+host CTB loop and its device path differ (rdoq, given modes) raise
+ValueError.  Cut: the host mode decision `decide_modes`, the WPP slice
+writer and the flat decoder body (`IntraDecoder` keeps its NAL loop and
+hash check, and the quadtree decoder supplies `_decode_slice`).
+`code_tb_np` raises NotImplementedError for rdoq="full" (the host full
+RDOQ is not ported).
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -240,14 +243,109 @@ class IntraEncoder:
     # video_codecs_tpu/models/hevc/intra_codec.py:289
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
                      modes: np.ndarray | None = None):
-        """The host CTB loop is not ported: `encode_frame_fast` codes the
-        same syntax on the device."""
-        raise NotImplementedError(
-            "IntraEncoder.encode_frame: the host CTB loop is not ported "
-            "(encode_frame_fast)")
+        """Encode one frame; returns (list of NALs, recon (y, u, v)).
+
+        The reference codes this on its host CTB loop (`decide_modes`, a
+        raster recon, `deblock_420_np`, then with `cfg.sao` the host SAO
+        decision) and holds that loop to its device path at `rdoq` off
+        (tests/test_encoder_jax.py:9).  The port codes the picture with
+        the flat CTB16 device encoder (`_dispatch`), then decides and
+        applies SAO (`_sao_decide_apply`) and writes the slice with
+        `_encode_slice`, the Python writer that carries the sao() syntax:
+        the same bytes, computed on the encoder's device.  The settings
+        where the two reference paths differ raise ValueError: `rdoq`
+        (the host loop's float64 `rdoq_lite_np` and the host full RDOQ
+        against the device's float32 RDOQ-lite), given `modes`, WPP."""
+        cfg = self.cfg
+        if cfg.rdoq:
+            raise ValueError(
+                f"IntraEncoder.encode_frame: rdoq={cfg.rdoq!r}: the "
+                "reference's host CTB loop quantizes with the host RDOQ "
+                "(rdoq_lite_np, rdoq_np) and its device path with the "
+                "float32 RDOQ-lite, and their streams differ")
+        if modes is not None:
+            raise ValueError("IntraEncoder.encode_frame: the flat device "
+                             "encoder decides the modes itself")
+        if cfg.wpp:
+            raise ValueError("IntraEncoder.encode_frame: WPP is not ported")
+        bw, bh = cfg.width // 16, cfg.height // 16
+        st = {k: t.cpu().numpy() for k, t in self._dispatch(y, u, v).items()}
+        modes = st["modes"].reshape(-1)
+        lv_y, lv_cb, lv_cr = st["levels_y"], st["levels_cb"], st["levels_cr"]
+        cbf = st["cbf"]
+        rec_y, rec_u, rec_v = (st[k].astype(np.int32)
+                               for k in ("rec_y", "rec_u", "rec_v"))
+        ctus = [CtuData(mode=int(modes[i]),
+                        levels_y=lv_y[i] if cbf[0, i] else None,
+                        levels_cb=lv_cb[i] if cbf[1, i] else None,
+                        levels_cr=lv_cr[i] if cbf[2, i] else None)
+                for i in range(bw * bh)]
+
+        sao_params = None
+        if cfg.sao:
+            yv, uv, vv = (np.asarray(p).astype(np.int32) for p in (y, u, v))
+            sao_params, (rec_y, rec_u, rec_v) = self._sao_decide_apply(
+                (yv, uv, vv), (rec_y, rec_u, rec_v))
+
+        slice_nal = self._encode_slice(ctus, sao_params)
+        sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
+        return [slice_nal, sei_nal], (rec_y, rec_u, rec_v)
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:347
+    def _sao_decide_apply(self, origs, recs):
+        """Per-CTU SAO decision (luma + jointly-typed chroma) and apply.
+
+        The flat engines' CTBs: luma 16, chroma 8.  The reference decides
+        each CTB on the host from the planes (`decide_ctu`, and for Cr at
+        Cb's type `_sao_eo_for` / `_sao_bo_for`); the port takes each
+        plane's per-CTB statistics from `ops/sao.sao_stats` (the CUDA
+        kernel on the card: three launches a picture) and decides from
+        them with the same float64 arithmetic (`decide_from_stats`,
+        `decide_eo_from_stats`, `decide_bo_from_stats`: the band windows'
+        costs, which `_sao_bo_for` sums in a loop, are numpy's 4-entry
+        sums, left to right too; tests/test_torch_hevc_sao.py holds the
+        two to each other), then applies each plane with `apply_ctus` (a
+        loop of `apply_ctu`)."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        lam = 0.57 * 2.0 ** ((cfg.qp - 12) / 3.0)
+        stats = []
+        with torch.inference_mode():
+            for comp, ctb in ((0, 16), (1, 8), (2, 8)):
+                o, r = (to_device(np.asarray(p[comp], np.uint8), self.device)
+                        for p in (origs, recs))
+                stats.append([a.cpu().numpy()
+                              for a in sao_ops.sao_stats(o, r, ctb)])
+        params = [[None] * 3 for _ in range(bw * bh)]
+        for by in range(bh):
+            for bx in range(bw):
+                i = by * bw + bx
+                ec, es, bc, bsum = stats[0]
+                params[i][0] = sao_ops.decide_from_stats(
+                    ec[:, :, by, bx], es[:, :, by, bx], bc[:, by, bx],
+                    bsum[:, by, bx], lam)
+                ec, es, bc, bsum = stats[1]
+                cb = sao_ops.decide_from_stats(
+                    ec[:, :, by, bx], es[:, :, by, bx], bc[:, by, bx],
+                    bsum[:, by, bx], lam)
+                # chroma components share type and EO class (spec sao())
+                ec, es, bc, bsum = stats[2]
+                if cb.type_idx == sao_ops.SAO_EO:
+                    cr = sao_ops.decide_eo_from_stats(
+                        ec[:, :, by, bx], es[:, :, by, bx], cb.eo_class, lam)
+                elif cb.type_idx == sao_ops.SAO_BO:
+                    cr = sao_ops.decide_bo_from_stats(
+                        bc[:, by, bx], bsum[:, by, bx], lam)
+                else:
+                    cr = sao_ops.SaoParam()
+                params[i][1], params[i][2] = cb, cr
+        outs = tuple(sao_ops.apply_ctus(recs[c], [p[c] for p in params],
+                                        16 if c == 0 else 8, bw)
+                     for c in range(3))
+        return params, outs
 
     # video_codecs_tpu/models/hevc/intra_codec.py:413
-    def _encode_slice(self, ctus: list[CtuData]) -> bytes:
+    def _encode_slice(self, ctus: list[CtuData], sao_params=None) -> bytes:
         """Serialize the slice; with tiles, one CABAC substream per tile
         in tile-scan order with entry-point offsets in the header."""
         cfg = self.cfg
@@ -261,6 +359,9 @@ class IntraEncoder:
             for by in range(bh):
                 for bx in range(tx0, tx1):
                     ctu = ctus[by * bw + bx]
+                    if sao_params is not None:
+                        encode_sao_ctu(enc, sao_params, by * bw + bx,
+                                       bx, by, bw, tx0)
                     left_mode = ctus[by * bw + bx - 1].mode if bx > tx0 else DC
                     self._encode_ctu(enc, ctu, left_mode)
                     last_ctu = (by == bh - 1 and bx == tx1 - 1)
@@ -339,8 +440,6 @@ class IntraEncoder:
         cfg = self.cfg
         if cfg.tile_columns != 1:
             raise ValueError("tiles are not ported (parallel.tiles)")
-        if cfg.sao:
-            raise ValueError("SAO is not ported")
         bw, bh = cfg.width // 16, cfg.height // 16
         with torch.inference_mode():
             planes = [to_device(np.asarray(p, np.uint8), self.device)
@@ -353,6 +452,9 @@ class IntraEncoder:
     def serialize_frame(self, st, use_native: bool = True):
         """Host tail: fetch device outputs once, CABAC-serialize, hash."""
         cfg = self.cfg
+        if cfg.sao:
+            raise ValueError("SAO uses encode_frame (the native writer has "
+                             "no sao() syntax)")
         bw, bh = cfg.width // 16, cfg.height // 16
         st = {k: (a.cpu().numpy() if isinstance(a, torch.Tensor)
                   else np.asarray(a)) for k, a in st.items()}

@@ -49,8 +49,9 @@ EO_NEIGHBORS = {
 }
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "sao_stats.cu"
-# CTB sizes the kernel is instantiated for (luma CTB32, its chroma 16).
-KERNEL_CTBS = (16, 32)
+# CTB sizes the kernel is instantiated for: the CTB32 quadtree's luma and
+# its chroma 16, the flat CTB16 engines' luma 16 and their chroma 8.
+KERNEL_CTBS = (8, 16, 32)
 
 _LIB = None
 
