@@ -11,7 +11,9 @@ then on), the HEVC low-delay P row at 832x480 (as it is, with SAO, and
 with timing SEI and the long-term IDR), both HEVC rows with HM's
 TZSearch, the LD-P row under rate control, and the flat CTB16
 random-access (SAO off, then on) and hierarchical-B engines at
-1920x1072, in phases:
+1920x1072, and the reference's host low-delay P coder on HM's LD-P main
+configuration at 832x480 (as it is, with weighted prediction, with
+cu_qp_delta), in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -160,7 +162,32 @@ random-access (SAO off, then on) and hierarchical-B engines at
      e. flat-ra-cuda-vs-cpu-sao: c with SAO, byte-equal streams, the
         card's through the SAO kernel (27 launches), the CPU's through
         its plain version;
- 11. require that nothing of the JAX package was imported.
+ 11. the reference's host low-delay P coder (`inter_codec.LowDelayEncoder`,
+     what the reference's encoder CLI builds for HM's
+     encoder_lowdelay_P_main.cfg: `host_ldp_cfg`), TZSearch at search
+     range 64, on bench_synth_clip(832, 480, n, seed=42):
+     a. hevc-ldp-host: 9 pictures at QP 32, 4 references, merge 5, TMVP,
+        SBH, SAO, full RDOQ (the IDR on the host CTB loop with the host
+        float64 `rdoq_np`): per picture pass 1 (the motion searches and
+        the intra sweep on the card, copies back included), the raster
+        decision and reconstruction on the host, the deblock on the card,
+        the SAO decision and apply and CABAC with the SEI, bytes, Y-PSNR,
+        intra / merge / skip / AMVP blocks and the SAD launches (1 per
+        reference, 26) and sao_stats launches (27); no rdoq_dev launch;
+        every hash OK in the port's GeneralDecoder and LowDelayDecoder
+        with the encoder's pictures, and the JAX package's SHA-1 with the
+        spec AMVP list (HOST_SHA1), printed beside the JAX package's
+        stream as it writes it and that stream's hash results
+        (HOST_AS_WRITTEN);
+     b. hevc-ldp-wp: 5 pictures of the clip faded by 1 - 0.12 i with
+        explicit weighted prediction, 1 reference, SAO off: each
+        picture's pred_weight_table read back, the size beside the same
+        pictures without WP (whose SAD launches are counted on their
+        own), WP_SHA1;
+     c. hevc-ldp-dqp: 5 pictures with cu_qp_delta under a CtuRateControl
+        and a RateLambdaControl at 2 Mb/s, SAO off: each picture's slice
+        QP and the range of its CU QPs, DQP_SHA1;
+ 12. require that nothing of the JAX package was imported.
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -200,6 +227,7 @@ from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
 from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import intra_codec as hevc_intra_codec
+from video_codecs_tpu_torch.models.hevc import inter_codec as hevc_pc
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ratectrl
 from video_codecs_tpu_torch.models.hevc import sei as sei_mod
@@ -273,6 +301,37 @@ LDP_CONF_SHA1 = "7b0e7524abeb3c6612be87ed35b392de1d2cc1e2"
 RC_RESUME_AT = 5
 RC_RESUMED_BYTES = 15567
 RC_RESUMED_SHA1 = "cd2aaec4a7421f5f56138a7e2797a3341d4e504b"
+# The reference's host low-delay P coder (`inter_codec.LowDelayEncoder`,
+# what its encoder CLI builds for any low-delay HM cfg) on HM's
+# encoder_lowdelay_P_main.cfg (`host_ldp_cfg`), TZSearch at search range
+# 64, on bench_synth_clip's clip: HOST_PICTURES pictures as they are,
+# WP_PICTURES of the faded clip with weighted prediction, DQP_PICTURES
+# with cu_qp_delta under a CtuRateControl and a RateLambdaControl at
+# RC_BPS.
+HOST_PICTURES, WP_PICTURES, DQP_PICTURES = 9, 5, 5
+HOST_SR, HOST_ME = 64, "tz"
+# The JAX package's streams for them with the spec AMVP list
+# (scripts/jax_reference_sha1.py --ldp-host --ldp-wp --ldp-dqp, on the
+# CPU; every hash OK in both packages' decoders), and the rate-controlled
+# run's QPs.
+HOST_BYTES, HOST_SHA1 = 340373, "23c64556ce113832efbb556da4abc453d39d6599"
+WP_BYTES, WP_SHA1 = 163055, "fa8f5022dcb595f7c0a57e07875a8421a7835175"
+DQP_BYTES, DQP_SHA1 = 194621, "b086edcc5acb81c3e7468d8887d1a96b9ed7727c"
+DQP_QPS = [30, 32, 34, 36, 38]
+# The same streams as the JAX package writes them (its own AMVP list), and
+# the picture-hash results that script printed for them: the host and
+# cu_qp_delta streams fail from POC 2 on in a spec decoder; the WP stream
+# (one reference) is the same either way.
+HOST_AS_WRITTEN = {
+    "": (340366, "f56785d4a53975ea19755e3006ff0942a23c64d9",
+         "JAX GeneralDecoder 2 of 9, JAX LowDelayDecoder 9 of 9, the "
+         "port's GeneralDecoder 2 of 9, the port's LowDelayDecoder 2 of 9"),
+    "wp": (163055, "fa8f5022dcb595f7c0a57e07875a8421a7835175",
+           "5 of 5 in all four decoders"),
+    "dqp": (194625, "ee4e9635cc0042488afa5afc5684dee7d215cfa9",
+            "JAX GeneralDecoder 2 of 5, JAX LowDelayDecoder 5 of 5, the "
+            "port's GeneralDecoder 2 of 5, the port's LowDelayDecoder 2 of "
+            "5")}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs,
 # and on float32 outside the tensor cores, the RDOQ costs' type.
@@ -415,6 +474,37 @@ def bench_synth_clip(w, h, n, seed=42):
                                       / 128), 0, 255).astype(np.uint8)
         frames.append((y, u, v))
     return frames
+
+
+def fade_clip(frames):
+    """`frames` faded to black: picture i's planes scaled by 1 - 0.12 i
+    in float64 and truncated to 8 bits (tests/test_weighted_pred.py's
+    fade)."""
+    out = []
+    for i, planes in enumerate(frames):
+        g = 1.0 - 0.12 * i
+        out.append(tuple(np.clip(p.astype(np.float64) * g, 0, 255)
+                         .astype(np.uint8) for p in planes))
+    return out
+
+
+def host_ldp_cfg(variant: str = ""):
+    """HM's encoder_lowdelay_P_main.cfg as the reference's encoder CLI
+    builds it (tools/encoder_app.py:46-56, utils/config.py:86-113): 832x480
+    (HM class C), QP 32, SignHideFlag 1, SAO 1, RDOQ 1 (rdoq="full"),
+    MaxNumMergeCand 5, TMVPMode 1, 4 active references; the MD5 picture
+    hash SEI on.  `variant` "wp": explicit weighted prediction with the
+    one reference the reference allows it, SAO off; "dqp": cu_qp_delta
+    (HM's LCU-level rate control signals it), SAO off."""
+    cfg = hevc_headers.HevcConfig(width=LDP_W, height=LDP_H, qp=32,
+                                  sign_data_hiding=True, sao=True,
+                                  rdoq="full", merge_cands=5,
+                                  temporal_mvp=True, num_refs=4)
+    if variant == "wp":
+        cfg.weighted_pred, cfg.num_refs, cfg.sao = True, 1, False
+    elif variant == "dqp":
+        cfg.cu_qp_delta, cfg.sao = True, False
+    return cfg
 
 
 def cut_clip(w: int, h: int, nf: int, cut: int = 3):
@@ -1975,6 +2065,234 @@ def phase_sad_r64() -> list:
     return rows
 
 
+def _host_instrument(enc, sao: bool):
+    """Time each picture of the host LD-P coder by stage: pass 1 (the
+    motion searches and the intra sweep on the card, copies back
+    included: `_p_pass1`, for the IDR `decide_modes`), the raster
+    decision and reconstruction (`_p_raster`; the IDR's CTB loop), the
+    deblock (`_p_deblock`; inside the IDR's CTB loop), with SAO the
+    decision and apply (`_sao_timer`), and CABAC with the hash SEI; count
+    each picture's SAD- and RDOQ-kernel launches and keep its block
+    decisions."""
+    log, cur = [], {}
+    timed = _timer(cur)
+    enc._p_pass1 = timed("pass1", enc._p_pass1, sync=True)
+    enc.decide_modes = timed("modes", enc.decide_modes, sync=True)
+    enc._p_raster = timed("raster", enc._p_raster)
+    enc._encode_frame_host = timed("raster", enc._encode_frame_host)
+    enc._p_deblock = timed("deblock", enc._p_deblock)
+    for name in ("_encode_p_slice", "_encode_slice", "_hash_sei"):
+        setattr(enc, name, timed("cabac", getattr(enc, name)))
+    if sao:
+        _sao_timer(enc, cur)
+    orig_p, orig_i = enc.encode_p_frame, enc.encode_frame
+
+    def p_frame(y, u, v, dpb, poc):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec, mf = orig_p(y, u, v, dpb, poc)
+        log.append(dict(poc=poc, kind="P", qp=enc.cfg.qp,
+                        refs=min(len(dpb), enc.cfg.num_refs),
+                        total=time.perf_counter() - t0, nals=nals, rec=rec,
+                        info=cur["_p_raster"][0], **cur))
+        return nals, rec, mf
+
+    def idr(y, u, v, *a, **kw):
+        cur.clear()
+        t0 = time.perf_counter()
+        nals, rec = orig_i(y, u, v, *a, **kw)
+        cur["raster"] -= cur["modes"]        # the CTB loop calls the sweep
+        cur["pass1"] = cur.pop("modes")
+        log.append(dict(poc=0, kind="I", qp=enc.cfg.qp, refs=0,
+                        total=time.perf_counter() - t0, nals=nals, rec=rec,
+                        info=None, **cur))
+        return nals, rec
+
+    enc.encode_p_frame, enc.encode_frame = p_frame, idr
+    return log
+
+
+def _host_blocks(info) -> dict:
+    cnt = dict(intra=0, merge=0, skip=0, amvp=0)
+    for row in info:
+        for b in row:
+            cnt["intra" if b.pred_mode == hevc_pc.MODE_INTRA else "skip"
+                if b.skip else "merge" if b.merge else "amvp"] += 1
+    return cnt
+
+
+def _wp_tables(stream: bytes) -> list:
+    """The pred_weight_table of every P slice, read back with the port's
+    parser: [(luma w, o), (Cb w, o), (Cr w, o)] per picture."""
+    sps = pps = None
+    out = []
+    for nal in hevc_bs.split_annexb(stream):
+        t = (nal[0] >> 1) & 0x3F
+        rbsp = hevc_bs.strip_emulation_prevention(nal[2:])
+        if t == hevc_bs.NAL_SPS:
+            sps = hevc_headers.parse_sps(rbsp)
+        elif t == hevc_bs.NAL_PPS:
+            pps = hevc_headers.parse_pps(rbsp)
+        elif t == hevc_pc.NAL_TRAIL_R:
+            wp = hevc_pc.parse_p_slice_header(
+                rbsp, pps, sps_tmvp=sps.temporal_mvp, sps_sao=sps.sao,
+                sps_lt=sps.long_term_idr).wp
+            out.append(tuple(zip(wp["w"], wp["o"])))
+    return out
+
+
+def phase_hevc_ldp_host(variant: str = "") -> tuple[int, int, int]:
+    """Phases hevc-ldp-host / -wp / -dqp: the reference's host LD-P coder
+    (`inter_codec.LowDelayEncoder`, what its encoder CLI builds for HM's
+    encoder_lowdelay_P_main.cfg) on `host_ldp_cfg(variant)`, TZSearch at
+    search range 64, on bench_synth_clip's clip: per picture the stage
+    times, bytes, Y-PSNR, block kinds and kernel launches; both port
+    decoders must give every hash OK and the encoder's pictures, no
+    `rdoq_dev` may launch (the host coder quantizes with the float64 host
+    RDOQ), and the stream must be the JAX package's with the spec AMVP
+    list.  "wp" codes the faded clip with weighted prediction (and again
+    without, for the size), "dqp" signals cu_qp_delta under a
+    CtuRateControl and a RateLambdaControl.  Returns the SAD- and
+    sao_stats launches of the encode and the SAD launches of the encode
+    without WP (0 but for "wp")."""
+    w, h = LDP_W, LDP_H
+    n = {"": HOST_PICTURES, "wp": WP_PICTURES, "dqp": DQP_PICTURES}[variant]
+    tag = "hevc-ldp-host" if not variant else f"hevc-ldp-{variant}"
+    frames = bench_synth_clip(w, h, n)
+    if variant == "wp":
+        frames = fade_clip(frames)
+    cfg = host_ldp_cfg(variant)
+    sao = cfg.sao
+    what = {"": "HM's encoder_lowdelay_P_main.cfg as the reference's CLI "
+                "builds it: QP 32, 4 references, merge 5, TMVP, SBH, SAO, "
+                "full RDOQ (the host float64 rdoq_np in the IDR)",
+            "wp": "the same settings with explicit weighted prediction, 1 "
+                  "reference, SAO off, on the clip faded by 1 - 0.12 i",
+            "dqp": "the same settings with cu_qp_delta under a "
+                   f"CtuRateControl and a RateLambdaControl at "
+                   f"{RC_BPS / 1e6:g} Mb/s, SAO off"}[variant]
+    print(f"[{tag}] {w}x{h} low-delay P on the host coder "
+          f"(inter_codec.LowDelayEncoder), {n} pictures of bench.py's clip "
+          f"(seed 42): {what}; SR{HOST_SR} TZSearch; card {CARD}")
+    enc = hevc_pc.LowDelayEncoder(cfg, search_range=HOST_SR,
+                                  me_method=HOST_ME, device="cuda")
+    controller = None
+    if variant == "dqp":
+        enc.ctu_rc = ratectrl.CtuRateControl()
+        controller = ratectrl.RateLambdaControl(RC_BPS, 30.0, w, h,
+                                                base_qp=32)
+    log = _host_instrument(enc, sao)
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    sao_ops.sao_stats.launches = 0
+    RDOQ_REF_CALLS["cuda"] = RDOQ_REF_CALLS["cpu"] = 0
+    SAO_REF_CALLS["cuda"] = 0
+    t0 = time.perf_counter()
+    stream, recons = enc.encode_sequence_ldp(frames, controller)
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    sao_launches = sao_ops.sao_stats.launches
+    check(rdoq_ops.rdoq_dev.launches == 0 and
+          RDOQ_REF_CALLS["cuda"] + RDOQ_REF_CALLS["cpu"] == 0,
+          f"rdoq_dev ran in the host coder ({rdoq_ops.rdoq_dev.launches} "
+          "launches)")
+    check(SAO_REF_CALLS["cuda"] == 0,
+          f"the plain SAO statistics ran {SAO_REF_CALLS['cuda']} times on "
+          "the card")
+    want = 0
+    for e in log:
+        nbytes = sum(len(x) for x in e["nals"] if x)
+        p = psnr(frames[e["poc"]][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        if e["kind"] == "I":
+            blocks = f"{(w // 16) * (h // 16)} intra (IDR)"
+            dbk = "in the CTB loop"
+        else:
+            cnt = _host_blocks(e["info"])
+            blocks = " / ".join(f"{k_} {v}" for k_, v in cnt.items())
+            dbk = f"{e.get('deblock', 0.0) * 1e3:.1f} ms"
+            want += e["refs"]
+            check(e["launches"] == e["refs"],
+                  f"POC {e['poc']}: {e['launches']} SAD-kernel launches, "
+                  f"want 1 per reference ({e['refs']})")
+        sao_words = "; " + _sao_line(e) if sao else ""
+        qp_words = ""
+        if variant == "dqp" and e["info"] is not None:
+            qs = [b.qp for row in e["info"] for b in row]
+            qp_words = f", CU QPs {min(qs)}..{max(qs)}"
+        print(f"[{tag}] POC {e['poc']} ({e['kind']}, slice QP {e['qp']}"
+              f"{qp_words}, {e['refs']} refs): pass 1 "
+              f"{e['pass1'] * 1e3:.1f} ms, raster decision and recon "
+              f"{e['raster'] * 1e3:.1f} ms, deblock {dbk}{sao_words}, "
+              f"CABAC + SEI {e['cabac'] * 1e3:.1f} ms (total "
+              f"{e['total'] * 1e3:.1f} ms); {nbytes} bytes, Y-PSNR "
+              f"{p:.2f} dB; blocks {blocks}; SAD-kernel launches "
+              f"{e['launches']}")
+    check(launches == want, f"{launches} SAD-kernel launches, want {want}")
+    check(sao_launches == (3 * n if sao else 0),
+          f"{sao_launches} sao_stats launches")
+    kbps = len(stream) * 8 * 30 / n / 1000
+    sha = hashlib.sha1(stream).hexdigest()
+    print(f"[{tag}] {len(stream)} bytes, {kbps:.1f} kbps at 30 fps, mean "
+          f"Y-PSNR {np.mean([psnr(f[0], r[0]) for f, r in zip(frames, recons)]):.3f}"
+          f" dB, encode {t_enc:.2f} s ({n / t_enc:.3f} fps); SAD-kernel "
+          f"launches {launches}, sao_stats launches {sao_launches}, "
+          f"rdoq_dev launches 0; QPs {enc.frame_qps}; SHA-1 {sha}")
+    off_launches = 0
+    if variant == "wp":
+        tabs = _wp_tables(stream)
+        for k_, t in enumerate(tabs):
+            print(f"[{tag}] POC {k_ + 1} pred_weight_table (w, o) Y {t[0]} "
+                  f"Cb {t[1]} Cr {t[2]} (log2 denominators 6)")
+        check(len(tabs) == n - 1 and all(t[0][0] != 64 for t in tabs),
+              f"weights {tabs}")
+        off = host_ldp_cfg("wp")
+        off.weighted_pred = False
+        ss.sad_surface.launches = 0
+        ref_s, _ = hevc_pc.LowDelayEncoder(
+            off, search_range=HOST_SR, me_method=HOST_ME,
+            device="cuda").encode_sequence_ldp(frames)
+        off_launches = ss.sad_surface.launches
+        check(off_launches == n - 1,
+              f"{off_launches} SAD-kernel launches without WP, want {n - 1}")
+        print(f"[{tag}] with WP {len(stream)} bytes, the same pictures "
+              f"without WP {len(ref_s)} bytes ({len(stream) / len(ref_s):.3f}x; "
+              f"that encode's SAD-kernel launches {off_launches})")
+    for cls in (hevc_decoder.GeneralDecoder, hevc_pc.LowDelayDecoder):
+        t0 = time.perf_counter()
+        dec = cls()
+        out = dec.decode(stream)
+        t_dec = time.perf_counter() - t0
+        check(dec.hash_status == [True] * n,
+              f"{cls.__name__}: picture hash SEI {dec.hash_status}")
+        check(len(out) == n, f"{cls.__name__}: {len(out)} pictures")
+        for i, (r, o) in enumerate(zip(recons, out)):
+            for c in range(3):
+                check(np.array_equal(np.asarray(r[c]), np.asarray(o[c])),
+                      f"{cls.__name__}: picture {i} plane {c} != the "
+                      "encoder's")
+        print(f"[{tag}] the port's {cls.__name__}: hash SEI OK on all {n} "
+              f"pictures, pictures equal the encoder's, {t_dec:.2f} s")
+    ref_bytes, ref_sha, ref_qps = {
+        "": (HOST_BYTES, HOST_SHA1, [32] * HOST_PICTURES),
+        "wp": (WP_BYTES, WP_SHA1, [32] * WP_PICTURES),
+        "dqp": (DQP_BYTES, DQP_SHA1, DQP_QPS)}[variant]
+    check(enc.frame_qps == ref_qps,
+          f"QPs {enc.frame_qps}, the JAX package's are {ref_qps}")
+    opt = {"": "--ldp-host", "wp": "--ldp-wp", "dqp": "--ldp-dqp"}[variant]
+    w_bytes, w_sha, w_hash = HOST_AS_WRITTEN[variant]
+    print(f"[{tag}] the JAX package's streams (scripts/jax_reference_sha1.py "
+          f"{opt}, CPU): with the spec AMVP list {ref_bytes} bytes SHA-1 "
+          f"{ref_sha}, hash OK {n} of {n} in all four decoders; as it "
+          f"writes them {w_bytes} bytes SHA-1 {w_sha}, hash OK {w_hash}")
+    check((len(stream), sha) == (ref_bytes, ref_sha),
+          f"stream {len(stream)} bytes SHA-1 {sha}, the JAX package's "
+          f"(spec AMVP list) is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's with the spec AMVP "
+          "list, byte for byte (SHA-1)")
+    return launches, sao_launches, off_launches
+
+
 def flat_cfg(w: int, h: int, reorder: int, sao: bool = False):
     """scripts/diag_ra_gap.py's settings of the flat CTB16 B engines: QP
     32, SBH, CTB = CU = TU 16, one merge candidate, no TMVP, deblocking
@@ -2260,6 +2578,9 @@ def main() -> None:
     phase_flat_ra_cuda_vs_cpu()
     flat_sao, flat_sao_rdoq, flat_sao_stats = phase_hevc_flat("ra", sao=True)
     phase_flat_ra_cuda_vs_cpu(sao=True)
+    host_sad, host_sao, _ = phase_hevc_ldp_host()
+    wp_sad, _, wp_off_sad = phase_hevc_ldp_host("wp")
+    dqp_sad, _, _ = phase_hevc_ldp_host("dqp")
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
@@ -2267,20 +2588,23 @@ def main() -> None:
 
     launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_sao +
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
-                hierb + flat_sao)
-    sao_all = sao_launches + ldp_sao_stats + flat_sao_stats
+                hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad)
+    sao_all = sao_launches + ldp_sao_stats + flat_sao_stats + host_sao
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
           f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P SAO run "
           f"{ldp_sao}, LD-P conferencing run {ldp_conf}, LD-P TZ run "
           f"{ldp_tz}, RA TZ GOP {ra_tz}, LD-P rate-controlled run {ldp_rc} "
           f"and its resumed run {rc_resumed}, flat RA GOP {flat_ra}, flat "
           f"hierarchical-B run {hierb}, flat RA GOP with SAO {flat_sao}, "
-          f"together {launches}; its "
+          f"host LD-P run {host_sad}, its WP run {wp_sad} and that run's "
+          f"pictures without WP {wp_off_sad}, its "
+          f"cu_qp_delta run {dqp_sad}, together {launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
           f"launches: RA GOP with SAO {sao_launches}, LD-P SAO run "
-          f"{ldp_sao_stats}, flat RA GOP with SAO {flat_sao_stats}, "
-          f"together {sao_all} (the plain version 0 times in them); its "
+          f"{ldp_sao_stats}, flat RA GOP with SAO {flat_sao_stats}, host "
+          f"LD-P run {host_sao}, together {sao_all} (the plain version 0 "
+          "times in them); its "
           "times and bound are per 1080p RA picture (3 planes; the flat "
           "shapes' on the sao_stats_flat line)")
     rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_sao_rdoq +

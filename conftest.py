@@ -48,8 +48,9 @@ JAX package's test that compiles the same encoder at the same size --
 xdist's first deal gives each worker two tests in a row, so the twin
 runs on the same worker once its leader has finished -- then the other
 known long tests of _LONG_S, longest first, paired longest with
-shortest where they fill that first deal, then the rest in their
-order.  The order changes no test's outcome.
+shortest where they fill that first deal (a leader's second follower
+after them), then the rest in their order.  The order changes no
+test's outcome.
 """
 
 import gc
@@ -89,6 +90,19 @@ _TWINS = (
     ("tests/test_inter_jax.py::test_device_ldp_roundtrip[4-True-True]",
      "tests/test_torch_hevc_sao.py::"
      "test_general_decoder_decodes_jax_ldp_sao_stream"),
+    ("tests/test_inter_codec.py::test_ldp_roundtrip",
+     "tests/test_torch_hevc_host_ldp.py::test_ldp_roundtrip_64x48"),
+    ("tests/test_inter_codec.py::"
+     "test_ldp_multiref_merge5_tmvp_hm_conformance",
+     "tests/test_torch_hevc_host_ldp.py::"
+     "test_ldp_multiref_merge5_tmvp_80x48"),
+    ("tests/test_inter_codec.py::"
+     "test_ctu_rate_control_cu_qp_delta_conformance",
+     "tests/test_torch_hevc_host_ldp.py::"
+     "test_ctu_rate_control_cu_qp_delta_80x48"),
+    ("tests/test_inter_jax.py::test_device_ldp_roundtrip[4-True-True]",
+     "tests/test_torch_hevc_host_ldp.py::"
+     "test_device_ldp_sao_full_rdoq_64x48"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared
@@ -130,15 +144,25 @@ def _order_tests(items, workers: int) -> list:
     """_TWINS pairs, then the _LONG_S tests longest first (the first
     deal's remaining pairs longest with shortest), then the rest."""
     by_id = {it.nodeid: it for it in items}
-    head = [by_id[t] for pair in _TWINS if all(t in by_id for t in pair)
-            for t in pair]
-    long_ = sorted((t for t in _LONG_S if t in by_id),
+    head, late, leaders = [], [], set()
+    for lead, follow in _TWINS:
+        if lead not in by_id or follow not in by_id:
+            continue
+        if lead in leaders:
+            # a leader's second follower starts after the long tests,
+            # once the leader's programs are in the shared cache
+            late.append(by_id[follow])
+            continue
+        leaders.add(lead)
+        head += [by_id[lead], by_id[follow]]
+    twins = {t for pair in _TWINS for t in pair}
+    long_ = sorted((t for t in _LONG_S if t in by_id and t not in twins),
                    key=lambda t: -_LONG_S[t])
     k = max(0, min(2 * workers - len(head), len(long_)) // 2)
     deal = long_[:2 * k]
     for i in range(k):
         head += [by_id[deal[i]], by_id[deal[2 * k - 1 - i]]]
-    head += [by_id[t] for t in long_[2 * k:]]
+    head += [by_id[t] for t in long_[2 * k:]] + late
     placed = {id(it) for it in head}
     return head + [it for it in items if id(it) not in placed]
 

@@ -3,7 +3,8 @@ the port's to, computed with the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
         [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
-        [--ldp-sao] [--ldp-conf] [--no-ldp]
+        [--ldp-sao] [--ldp-conf] [--ldp-host] [--ldp-wp] [--ldp-dqp] \
+        [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -38,15 +39,28 @@ is the LD-P stream with `cfg.sao=True` (the JAX package codes its IDR on
 the host CTB loop and decides SAO per CTB on the host: about 15-20
 minutes on a CPU), --ldp-conf the LD-P stream with `timing_sei`,
 `long_term_idr` and no TMVP (buffering-period / picture-timing SEI, every
-P picture predicted from the IDR as a long-term reference).  This
-is a tool for the reference side: it imports the JAX package, the
-port's `motion` module for the repaired function and the port's
-decoder for the flat streams' second opinion.
+P picture predicted from the IDR as a long-term reference).  The
+reference's host low-delay P coder (`inter_codec.LowDelayEncoder`, what
+its encoder CLI builds for HM's encoder_lowdelay_P_main.cfg; chip_smoke.py's
+`host_ldp_cfg`: QP 32, SBH, SAO, full RDOQ, merge 5, TMVP, 4 references,
+TZSearch at search range 64, on bench_synth_clip(832, 480, n, seed=42)):
+--ldp-host is its 9-picture stream (chip_smoke.py's `[hevc-ldp-host]`,
+about an hour on a CPU for the two streams: the host P loop and the host
+SAO decision take minutes a picture), --ldp-wp 5 pictures of the faded
+clip (`chip_smoke.fade_clip`) with weighted prediction, one reference and
+SAO off (`[hevc-ldp-wp]`), --ldp-dqp 5 pictures with cu_qp_delta, a
+`CtuRateControl` and a `RateLambdaControl` at 2 Mb/s, SAO off
+(`[hevc-ldp-dqp]`).  Each is encoded twice, as written and with the spec
+AMVP list, and each stream decoded by the JAX package's
+`LowDelayDecoder` and `GeneralDecoder` and by the port's.  This is a tool for the reference side: it
+imports the JAX package, the port's `motion` module for the repaired
+function and the port's decoders for a second opinion.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import io
 import os
@@ -62,6 +76,7 @@ import chip_smoke  # noqa: E402
 from video_codecs_tpu.entropy import bitstream  # noqa: E402
 from video_codecs_tpu.models.hevc import checkpoint  # noqa: E402
 from video_codecs_tpu.models.hevc import decoder, headers  # noqa: E402
+from video_codecs_tpu.models.hevc import inter_codec  # noqa: E402
 from video_codecs_tpu.models.hevc import inter_jax, inter_qt  # noqa: E402
 from video_codecs_tpu.models.hevc import motion, ratectrl  # noqa: E402
 from video_codecs_tpu_torch.models.hevc import decoder as tdecoder  # noqa: E402
@@ -193,6 +208,43 @@ def flat(kind: str) -> None:
           flush=True)
 
 
+def host(kind: str) -> None:
+    """The reference's host LD-P coder on chip_smoke.py's `host_ldp_cfg`
+    (`kind` "" / "wp" / "dqp"), as written and with the spec AMVP list;
+    bytes, SHA-1, QPs and every decoder's hash results."""
+    from video_codecs_tpu_torch.models.hevc import inter_codec as tpc
+    n = {"": chip_smoke.HOST_PICTURES, "wp": chip_smoke.WP_PICTURES,
+         "dqp": chip_smoke.DQP_PICTURES}[kind]
+    frames = chip_smoke.bench_synth_clip(832, 480, n)
+    if kind == "wp":
+        frames = chip_smoke.fade_clip(frames)
+    tag = "ldp host" + (f" {kind}" if kind else "")
+    for what, amvp in ((f"{tag} as written", AMVP_AS_WRITTEN),
+                       (f"{tag} spec AMVP", tmotion.amvp_candidates)):
+        motion.amvp_candidates = amvp
+        cfg = headers.HevcConfig(**dataclasses.asdict(
+            chip_smoke.host_ldp_cfg(kind)))
+        enc = inter_codec.LowDelayEncoder(cfg, search_range=chip_smoke.
+                                          HOST_SR,
+                                          me_method=chip_smoke.HOST_ME)
+        rc = None
+        if kind == "dqp":
+            enc.ctu_rc = ratectrl.CtuRateControl()
+            rc = rate_control()
+        t0 = time.time()
+        stream, _ = enc.encode_sequence_ldp(frames, rc)
+        report(what, stream, n, time.time() - t0)
+        print(f"{what}: QPs {enc.frame_qps}", flush=True)
+        for label, dec in (
+                ("JAX LowDelayDecoder", inter_codec.LowDelayDecoder()),
+                ("the port's GeneralDecoder", tdecoder.GeneralDecoder()),
+                ("the port's LowDelayDecoder", tpc.LowDelayDecoder())):
+            dec.decode(stream)
+            print(f"{what}: {label} hash OK {sum(dec.hash_status)} of "
+                  f"{n}: {dec.hash_status}", flush=True)
+    motion.amvp_candidates = AMVP_AS_WRITTEN
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -215,6 +267,15 @@ def main() -> None:
     ap.add_argument("--ldp-conf", action="store_true",
                     help="the LD-P stream with timing SEI and the long-term "
                          "IDR reference (hevc-ldp-conf)")
+    ap.add_argument("--ldp-host", action="store_true",
+                    help="the host LD-P coder on HM's LD-P main cfg "
+                         "(hevc-ldp-host)")
+    ap.add_argument("--ldp-wp", action="store_true",
+                    help="the host LD-P coder with weighted prediction on "
+                         "the faded clip (hevc-ldp-wp)")
+    ap.add_argument("--ldp-dqp", action="store_true",
+                    help="the host LD-P coder with cu_qp_delta under CTU "
+                         "rate control (hevc-ldp-dqp)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -242,6 +303,10 @@ def main() -> None:
                  temporal_mvp=False)
     if args.ldp_sao:
         ldp_spec("ldp sao", sao=True)
+    for kind, on in (("", args.ldp_host), ("wp", args.ldp_wp),
+                     ("dqp", args.ldp_dqp)):
+        if on:
+            host(kind)
 
 
 if __name__ == "__main__":

@@ -63,8 +63,9 @@ _COPIES = {
                       "predict_intra", "use_filtered_ref"}, {"_weights_dev"}),
     "ops/deblock.py": ("ops/deblock.py", set(),
                        {"_filter_ver_edges_luma", "_filter_ver_edges_chroma",
-                        "deblock_420", "deblock_420_bs", "deblock_420_bs_np"},
-                       {"_scalar_qp"}),
+                        "deblock_420", "deblock_420_np", "deblock_420_bs",
+                        "deblock_420_bs_np"},
+                       {"_edge_qps"}),
     "ops/rdoq.py": ("ops/rdoq.py", set(), set(), set()),
     "ops/rdoq_dev.py": ("ops/rdoq_jax.py", set(),
                         {"_tables_dev", "_floor_log2", "_rate_level_dev",
@@ -91,13 +92,17 @@ _COPIES = {
         {"code_tb_np", "IntraEncoder.__init__", "IntraEncoder.encode_frame",
          "IntraEncoder._sao_decide_apply", "IntraEncoder._encode_slice", "IntraEncoder._encode_ctu",
          "IntraEncoder.encode_frame_fast", "IntraEncoder.serialize_frame",
-         "IntraEncoder.encode_sequence"}, set(), {"IntraEncoder._dispatch"}),
+         "IntraEncoder.encode_sequence", "IntraDecoder._decode_slice",
+         "IntraDecoder._decode_slice_wpp", "IntraDecoder._decode_ctu"},
+        {"IntraEncoder.decide_modes"},
+        {"IntraEncoder._dispatch", "IntraEncoder._encode_frame_host"}),
     "ops/interp.py": (
         "ops/interp.py", set(),
         {"_taps_dev", "mc_luma", "mc_chroma", "_gather_window_multi",
          "_mc_luma14_core", "mc_luma14_multi", "mc_luma_multi",
          "_mc_chroma14_core", "mc_chroma14_multi", "mc_chroma_multi",
-         "bi_average"},
+         "bi_average", "mc_luma_np", "mc_chroma_np", "_mc_luma14_np",
+         "_mc_chroma14_np"},
         {"gather_window", "_filter2"}),
     "ops/me.py": ("ops/me.py", set(),
                   {"integer_search", "_sad_at_points", "tz_search",
@@ -124,10 +129,12 @@ _COPIES = {
                                  set()),
     "models/hevc/inter_codec.py": (
         "models/hevc/inter_codec.py",
-        {"write_p_slice_header", "LowDelayEncoder.encode_frames",
-         "LowDelayEncoder.encode_p_frame",
-         "LowDelayEncoder._encode_p_slice", "LowDelayEncoder._encode_p_ctu"},
-        set(), set()),
+        {"LowDelayEncoder.__init__", "LowDelayEncoder.encode_frames",
+         "LowDelayDecoder._store", "LowDelayDecoder._decode_p_slice",
+         "LowDelayDecoder._decode_p_ctu"},
+        {"LowDelayEncoder.encode_p_frame", "_satd8"},
+        {"LowDelayEncoder._p_pass1", "LowDelayEncoder._p_raster",
+         "LowDelayEncoder._p_deblock"}),
     "models/hevc/checkpoint.py": ("models/hevc/checkpoint.py", set(), set(),
                                   set()),
     "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py",

@@ -190,6 +190,13 @@ def test_cut_options_raise():
         with pytest.raises(ValueError):
             tqc.QuadtreeFastEncoder(theaders.HevcConfig(**{**base, **bad}),
                                     device="cpu")
-    z = np.zeros((4, 4), np.int32)
-    with pytest.raises(NotImplementedError):
-        tic.code_tb_np(z, z, 32, 2, False, rdoq="full")
+    # the host full RDOQ, cut before, now codes a TB as the reference does
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    rng = np.random.default_rng(7)
+    o = rng.integers(0, 256, (4, 4)).astype(np.int32)
+    p = rng.integers(0, 256, (4, 4)).astype(np.int32)
+    got = tic.code_tb_np(o, p, 32, 2, False, rdoq="full")
+    want = jic.code_tb_np(o, p, 32, 2, False, rdoq="full")
+    assert got[0].any()
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)

@@ -346,13 +346,27 @@ def test_ldp_cut_options_raise():
     with pytest.raises(ValueError):
         enc.encode_frames(frames, start_state=tpc.checkpoint.capture(
             1, frames[0]))
-    with pytest.raises(ValueError):               # the host CTB loop's RDOQ
-        tic.IntraEncoder(_cfg(theaders, 64, 64, rdoq="lite"),
-                         device="cpu").encode_frame(*frames[0])
-    with pytest.raises(NotImplementedError):      # the host P coder
-        from video_codecs_tpu_torch.models.hevc import inter_codec
-        inter_codec.LowDelayEncoder(_cfg(theaders, 64, 64)).encode_p_frame(
-            *frames[1], [], 1)
+    # the host CTB loop's RDOQ and the host P coder, cut before, now run
+    # and give the reference's bytes and pictures
+    jn, jr = jic.IntraEncoder(_cfg(jheaders, 64, 64, rdoq="lite")) \
+        .encode_frame(*frames[0])
+    tn, tr = tic.IntraEncoder(_cfg(theaders, 64, 64, rdoq="lite"),
+                              device="cpu").encode_frame(*frames[0])
+    assert tn == jn
+    from video_codecs_tpu.models.hevc import inter_codec as jpc
+    outs = []
+    for pc, mo, hd, kw in ((jpc, jmotion, jheaders, {}),
+                           (tpc, tmotion, theaders, {"device": "cpu"})):
+        dpb = [(0, tuple(np.asarray(p) for p in jr),
+                mo.MotionField.empty(4, 4, 0))]
+        outs.append(pc.LowDelayEncoder(_cfg(hd, 64, 64), **kw)
+                    .encode_p_frame(*frames[1], dpb, 1))
+    (jnals, jrec, _), (tnals, trec, _) = outs
+    assert tnals == jnals
+    for c in range(3):
+        np.testing.assert_array_equal(trec[c], jrec[c])
+    for c in range(3):
+        np.testing.assert_array_equal(tr[c], jr[c])
     cfg = _cfg(theaders, 64, 64)
     cfg.sao = True
     with pytest.raises(ValueError):
@@ -361,8 +375,10 @@ def test_ldp_cut_options_raise():
 
 def test_ldp_runs_without_jax(tmp_path):
     """The LD-P encoder (flat IDR, four references, TMVP, intra blocks
-    after a cut) and the general decoder import nothing of JAX or of the
-    JAX package."""
+    after a cut), the host LD-P coder on HM's LD-P main tool set (the
+    host CTB loop's IDR with the full RDOQ, SAO, TZSearch, weighted
+    prediction, cu_qp_delta) and both decoders import nothing of JAX or
+    of the JAX package."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -390,6 +406,24 @@ def test_ldp_runs_without_jax(tmp_path):
         assert dec.hash_status == [True] * 5, dec.hash_status
         assert all(np.array_equal(r[c], o[c])
                    for r, o in zip(recons, out) for c in range(3))
+        from video_codecs_tpu_torch.models.hevc import inter_codec
+        for opts in (dict(sao=True), dict(weighted_pred=True, num_refs=1),
+                     dict(cu_qp_delta=True)):
+            cfg = headers.HevcConfig(width=64, height=32, qp=32,
+                                     sign_data_hiding=True, rdoq="full",
+                                     merge_cands=5, temporal_mvp=True,
+                                     num_refs=4)
+            for k, v in opts.items():
+                setattr(cfg, k, v)
+            enc = inter_codec.LowDelayEncoder(cfg, search_range=64,
+                                              me_method="tz", device="cpu")
+            s2, r2 = enc.encode_sequence_ldp(frames[:3])
+            for dec in (decoder.GeneralDecoder(),
+                        inter_codec.LowDelayDecoder()):
+                o2 = dec.decode(s2)
+                assert dec.hash_status == [True] * 3, (opts, dec)
+                assert all(np.array_equal(r[c], o[c])
+                           for r, o in zip(r2, o2) for c in range(3))
         bad = [m for m in sys.modules
                if m in ("jax", "video_codecs_tpu")
                or m.startswith(("jax.", "video_codecs_tpu."))

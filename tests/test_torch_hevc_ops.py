@@ -330,12 +330,20 @@ def test_deblock_bs_equal(w, h, qp):
 
 
 def test_deblock_cut_options_raise():
-    z = torch.zeros((16, 16), dtype=torch.int32)
-    zc = torch.zeros((8, 8), dtype=torch.int32)
-    bs = np.zeros((1, 2), np.int32)
-    with pytest.raises(NotImplementedError):
-        tdbk.deblock_420_bs(z, zc, zc, 30, bs, bs, block=8,
-                            qp_map=np.full((2, 2), 30))
+    """The per-block QP map (cu_qp_delta), cut before, now deblocks as
+    the reference does, on tensors and through the numpy entry."""
+    rng = np.random.default_rng(30)
+    y = np.clip(128 + rng.normal(0, 9, (16, 16)).cumsum(1) / 3, 0,
+                255).astype(np.int32)
+    c = rng.integers(90, 170, (8, 8)).astype(np.int32)
+    bs = np.full((1, 2), 2, np.int32)
+    qm = np.array([[30, 38], [44, 27]], np.int32)
+    want = jdbk.deblock_420_bs_np(y, c, c, 30, bs, bs, block=8, qp_map=qm)
+    got = tdbk.deblock_420_bs(T(y), T(c), T(c), 30, bs, bs, block=8,
+                              qp_map=qm)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert not np.array_equal(np.asarray(want[0]), y)
 
 
 @pytest.mark.parametrize("qp", [27, 37])

@@ -232,7 +232,8 @@ def test_ra_cut_options_raise():
                                      "long_term_idr"])
 def test_general_decoder_cut_syntax_raises(feature):
     """The parameter sets of syntax the decoder does not carry raise;
-    long-term reference pictures, ported since, are parsed."""
+    long-term reference pictures, weighted prediction and cu_qp_delta,
+    ported since, are parsed."""
     cfg = _cfg(theaders, 64, 64)
     setattr(cfg, feature, 2 if feature == "tile_columns" else True)
     stream = tbs.annexb([
@@ -243,6 +244,11 @@ def test_general_decoder_cut_syntax_raises(feature):
     if feature == "long_term_idr":
         assert dec.decode(stream) == []
         assert dec.sps.lt_present and dec.sps.lt_refs == []
+        return
+    if feature in ("weighted_pred", "cu_qp_delta"):
+        assert dec.decode(stream) == []
+        assert getattr(dec.pps, feature)
+        assert dec.pps.diff_cu_qp_delta_depth == 0
         return
     with pytest.raises(NotImplementedError):
         dec.decode(stream)

@@ -41,10 +41,11 @@ torch.set_grad_enabled(False)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RC = "models/hevc/ratectrl.py"
 
-# The copied definitions, in the port's order; the two controllers that
-# set QPs inside a picture are not ported.
+# The copied definitions, in the port's order (the two controllers that
+# set QPs inside a picture, UrqBasicUnitControl and CtuRateControl, too).
 _COPIED = ("RateLambdaControl", "UrqQuadraticControl", "_clip",
-           "HmRateControl", "GopRateLambdaControl")
+           "HmRateControl", "UrqBasicUnitControl", "GopRateLambdaControl",
+           "CtuRateControl")
 _CONSTS = ("_ALPHA_MIN", "_BETA_MIN", "_BETA1")
 
 
@@ -68,7 +69,7 @@ def test_copy_matches_original_source():
     orig, _ = _top(REPO / "video_codecs_tpu" / RC)
     assert [k for k in port if k in orig and k not in _CONSTS] == \
         list(_COPIED)
-    assert "UrqBasicUnitControl" not in port and "CtuRateControl" not in port
+    assert "UrqBasicUnitControl" in port and "CtuRateControl" in port
     for name in _COPIED:
         line, src = port[name]
         assert src == orig[name][1], name

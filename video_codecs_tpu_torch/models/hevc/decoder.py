@@ -16,12 +16,14 @@ recomputes it for every CTB) and decoded-picture-hash verification.
 Long-term reference pictures (the low-delay P encoder's long-term IDR)
 are parsed from the SPS and the slice header, resolved to POCs by
 `_lt_pocs` and kept in the DPB past its window; SEI other than the
-picture hash (the HRD timing messages) is skipped.  Cut, raising
+picture hash (the HRD timing messages) is skipped.  Explicit weighted
+prediction (`pred_weight_table`, `WpTable`) and cu_qp_delta (the QP
+groups, `_maybe_qp_delta` and the per-4x4 QP map that sets the deblock's
+edge QPs) decode the host low-delay P coder's streams.  Cut, raising
 NotImplementedError from the parameter sets that enable them (no port
-encoder emits them): PCM, scaling lists, tiles and WPP entry points,
-weighted prediction, transform skip and cu_qp_delta.  The branches
-those flags guard inside the CU decode stay as in the reference and are
-never entered.
+encoder emits them): PCM, scaling lists, tiles and WPP entry points and
+transform skip.  The branches those flags guard inside the CU decode
+stay as in the reference and are never entered.
 
 Parity references: hm-16.5rc1/source/Lib/TLibDecoder/TDecCAVLC.cpp
 (parameter-set and slice-header parsing), TDecTop.cpp:820 (picture
@@ -299,14 +301,12 @@ def parse_pps(rbsp: bytes) -> Pps:
         raise NotImplementedError("GeneralDecoder: transform skip")
     p.cu_qp_delta = bool(r.flag())
     if p.cu_qp_delta:
-        raise NotImplementedError("GeneralDecoder: cu_qp_delta")
+        p.diff_cu_qp_delta_depth = r.ue()
     p.cb_qp_offset = r.se()
     p.cr_qp_offset = r.se()
     p.slice_chroma_qp_offsets = bool(r.flag())
     p.weighted_pred = bool(r.flag())
     p.weighted_bipred = bool(r.flag())
-    if p.weighted_pred or p.weighted_bipred:
-        raise NotImplementedError("GeneralDecoder: weighted prediction")
     p.transquant_bypass = bool(r.flag())
     assert not p.transquant_bypass, "transquant bypass not supported"
     p.tiles = bool(r.flag())
@@ -331,6 +331,51 @@ def parse_pps(rbsp: bytes) -> Pps:
 
 
 B_SLICE, P_SLICE, I_SLICE = 0, 1, 2
+
+
+# video_codecs_tpu/models/hevc/decoder.py:410
+@dataclasses.dataclass
+class WpTable:
+    """pred_weight_table (spec 7.3.6.3): per-list per-ref weights as
+    (w, o) pairs for luma/cb/cr; log2 denominators shared."""
+    luma_denom: int = 0
+    chroma_denom: int = 0
+    # weights[list][ref] = ((wy, oy), (wcb, ocb), (wcr, ocr)) with the
+    # default (1 << denom, 0) filled in for unsignalled entries
+    weights: list = dataclasses.field(default_factory=lambda: [[], []])
+
+
+# video_codecs_tpu/models/hevc/decoder.py:421
+def parse_pred_weight_table(r: bs.BitReader, h: "SliceHeader") -> WpTable:
+    wp = WpTable()
+    wp.luma_denom = r.ue()
+    wp.chroma_denom = wp.luma_denom + r.se()
+    n_lists = 2 if h.slice_type == B_SLICE else 1
+    for lx in range(n_lists):
+        n = h.num_ref_idx[lx]
+        lflags = [bool(r.flag()) for _ in range(n)]
+        cflags = [bool(r.flag()) for _ in range(n)]
+        for i in range(n):
+            wy, oy = 1 << wp.luma_denom, 0
+            wcb = wcr = 1 << wp.chroma_denom
+            ocb = ocr = 0
+            if lflags[i]:
+                wy = (1 << wp.luma_denom) + r.se()
+                oy = r.se()
+            if cflags[i]:
+                cw = []
+                for _ in range(2):
+                    w_ = (1 << wp.chroma_denom) + r.se()
+                    d_ = r.se()
+                    # spec 7.4.7.3: offset = Clip3(-128, 127,
+                    #   d + 128 - ((128 * w) >> denom))
+                    o_ = max(-128, min(127,
+                                       d_ + 128 - ((128 * w_)
+                                                   >> wp.chroma_denom)))
+                    cw.append((w_, o_))
+                (wcb, ocb), (wcr, ocr) = cw
+            wp.weights[lx].append(((wy, oy), (wcb, ocb), (wcr, ocr)))
+    return wp
 
 
 # video_codecs_tpu/models/hevc/decoder.py:453
@@ -456,6 +501,9 @@ def parse_slice_header(rbsp: bytes, nal_type: int, sps: Sps,
             if (h.collocated_from_l0 and n0 > 1) or \
                     (not h.collocated_from_l0 and n1 > 1):
                 h.collocated_ref_idx = r.ue()
+        if (pps.weighted_pred and h.slice_type == P_SLICE) or \
+                (pps.weighted_bipred and h.slice_type == B_SLICE):
+            h.wp = parse_pred_weight_table(r, h)
         h.max_merge = 5 - r.ue()
     h.qp = pps.init_qp + r.se()
     if pps.slice_chroma_qp_offsets:

@@ -1254,7 +1254,8 @@ class DeviceLowDelayEncoder(pc.LowDelayEncoder):
         ref_poc_map = np.array(ref_pocs, np.int32)[st["ref_idx"]]
         mf.ref_poc[:] = np.where(inter_m, ref_poc_map, 0)
 
-        slice_nal = self._encode_p_slice(info, poc, n_refs, sao_params)
+        slice_nal = self._encode_p_slice(info, poc, None, n_refs,
+                                         sao_params)
         sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
         return [slice_nal, sei_nal], (rec_y, rec_u, rec_v), mf
 

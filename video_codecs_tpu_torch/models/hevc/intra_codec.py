@@ -1,24 +1,31 @@
 """HEVC intra host helpers: reference build, MPM, chroma QP, TB coding,
-stream headers, the picture-hash SEI, the flat CTB16 IDR with SAO and
-the intra decoder's NAL loop.
+stream headers, the picture-hash SEI, the CTB16 IDR with SAO, and the
+flat intra decoder.
 
 The port's copy of video_codecs_tpu/models/hevc/intra_codec.py; each
 function keeps its name and a comment gives the original's line.
-`IntraEncoder.encode_frame` codes the picture on the flat CTB16 device
-encoder and, with `cfg.sao`, decides SAO from the device statistics
-(`_sao_decide_apply`: luma CTB 16, chroma CTB 8) and writes the sao()
-syntax with the Python slice writer; the settings where the reference's
-host CTB loop and its device path differ (rdoq, given modes) raise
-ValueError.  Cut: the host mode decision `decide_modes`, the WPP slice
-writer and the flat decoder body (`IntraDecoder` keeps its NAL loop and
-hash check, and the quadtree decoder supplies `_decode_slice`).
-`code_tb_np` raises NotImplementedError for rdoq="full" (the host full
-RDOQ is not ported).
+`IntraEncoder.encode_frame` has two routes.  With `cfg.rdoq` set or
+`modes` given it is the reference's host CTB loop: `decide_modes` (one
+batched 35-mode `predict_intra` and one `hadamard_satd_8x8` on the
+encoder's device, one copy back, then the MPM-aware choice in float64
+numpy on the host), a raster recon with `code_tb_np` (float64
+`rdoq_lite_np` or the host full RDOQ `ops/rdoq.rdoq_np`), the picture
+deblock on the encoder's device, and with `cfg.sao` the SAO decision.
+Otherwise it codes the picture on the flat CTB16 device encoder, whose
+bytes the reference holds to its host loop at rdoq off
+(tests/test_encoder_jax.py:9).  Both decide SAO from the device
+statistics (`_sao_decide_apply`: luma CTB 16, chroma CTB 8) and write
+the slice with the Python writer (the sao() syntax, and a zero
+cu_qp_delta in coded CUs of cu_qp_delta pictures).  `IntraDecoder`
+decodes those slices (`_decode_slice`, SAO applied with
+`ops/sao.apply_ctus`).  Cut: WPP (the slice writer and decoder raise)
+and tiles in the encoder.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -26,7 +33,11 @@ import torch
 from video_codecs_tpu_torch.entropy import bitstream as bs
 from video_codecs_tpu_torch.entropy import cabac, ctx, native, residual
 from video_codecs_tpu_torch.models.hevc import headers
+from video_codecs_tpu_torch.ops import cost as cost_ops
+from video_codecs_tpu_torch.ops import deblock as deblock_ops
+from video_codecs_tpu_torch.ops import intra as intra_ops
 from video_codecs_tpu_torch.ops import quant as quant_ops
+from video_codecs_tpu_torch.ops import rdoq as rdoq_ops
 from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
 from video_codecs_tpu_torch.utils import rom
@@ -112,7 +123,7 @@ def code_tb_np(orig: np.ndarray, pred: np.ndarray, qp: int, log2: int,
     coeff = tr_ops.forward_transform_np(res, log2, dst=dst)
     lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
     if rdoq == "full":
-        raise NotImplementedError("host full RDOQ (rdoq_np) is not ported")
+        levels = rdoq_ops.rdoq_np(coeff, qp, log2, lam=lam, is_luma=is_luma)
     elif rdoq:
         levels = quant_ops.rdoq_lite_np(coeff, qp, log2, lam=lam)
     else:
@@ -240,46 +251,90 @@ class IntraEncoder:
             bs.nal_unit(bs.NAL_PPS, headers.write_pps(self.cfg)),
         ]
 
+    # video_codecs_tpu/models/hevc/intra_codec.py:244
+    def decide_modes(self, y: np.ndarray) -> np.ndarray:
+        """Batched 35-mode SATD sweep from original neighbors + sequential
+        MPM-aware bit cost (SURVEY.md §7.1).  The sweep (`predict_intra`
+        of every block at all 35 modes, `hadamard_satd_8x8` against the
+        originals) runs on the encoder's device, one copy back; the MPM
+        raster is the reference's float64 numpy on the host."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        bounds = cfg.tile_col_bounds()
+        tile_of = np.zeros(bw, np.int32)
+        for t, (tx0, tx1) in enumerate(bounds):
+            tile_of[tx0:tx1] = t
+        nb = bw * bh
+        refs = np.zeros((nb, 65), np.int32)
+        origs = np.zeros((nb, 16, 16), np.int32)
+        yv = y.astype(np.int32)
+        for by in range(bh):
+            for bx in range(bw):
+                i = by * bw + bx
+                tx0, tx1 = bounds[tile_of[bx]]
+                refs[i] = build_ref_np(yv, bx * 16, by * 16, 16,
+                                       tx0 * 16, tx1 * 16)
+                origs[i] = yv[by * 16:(by + 1) * 16, bx * 16:(bx + 1) * 16]
+        with torch.inference_mode():
+            modes = torch.arange(35, dtype=torch.int32,
+                                 device=self.device).expand(nb, 35)
+            preds = intra_ops.predict_intra(to_device(refs, self.device),
+                                            modes, 4)
+            satd = cost_ops.hadamard_satd_8x8(
+                to_device(origs, self.device)[:, None],
+                preds).cpu().numpy()                      # [nb, 35]
+
+        sqrt_lambda = math.sqrt(0.57 * 2.0 ** ((cfg.qp - 12) / 3.0))
+        best = np.zeros(nb, np.int32)
+        for by in range(bh):
+            for bx in range(bw):
+                i = by * bw + bx
+                at_tile_edge = bx == bounds[tile_of[bx]][0]
+                left = DC if at_tile_edge else int(best[i - 1])
+                mpm = mpm_list(left)
+                bits = np.full(35, 5.0 + 1.0)
+                bits[mpm[0]] = 2.0
+                bits[mpm[1]] = 3.0
+                bits[mpm[2]] = 3.0
+                cost = satd[i] + np.round(sqrt_lambda * bits)
+                best[i] = int(np.argmin(cost))
+        return best.reshape(bh, bw)
+
     # video_codecs_tpu/models/hevc/intra_codec.py:289
     def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
                      modes: np.ndarray | None = None):
         """Encode one frame; returns (list of NALs, recon (y, u, v)).
 
-        The reference codes this on its host CTB loop (`decide_modes`, a
-        raster recon, `deblock_420_np`, then with `cfg.sao` the host SAO
-        decision) and holds that loop to its device path at `rdoq` off
-        (tests/test_encoder_jax.py:9).  The port codes the picture with
-        the flat CTB16 device encoder (`_dispatch`), then decides and
-        applies SAO (`_sao_decide_apply`) and writes the slice with
-        `_encode_slice`, the Python writer that carries the sao() syntax:
-        the same bytes, computed on the encoder's device.  The settings
-        where the two reference paths differ raise ValueError: `rdoq`
-        (the host loop's float64 `rdoq_lite_np` and the host full RDOQ
-        against the device's float32 RDOQ-lite), given `modes`, WPP."""
+        With `cfg.rdoq` set or `modes` given, the reference's host CTB
+        loop (`_encode_frame_host`); otherwise the flat CTB16 device
+        encoder (`_dispatch`), which gives the host loop's bytes at rdoq
+        off (tests/test_encoder_jax.py:9).  Then, with `cfg.sao`, the SAO
+        decision and apply (`_sao_decide_apply`), and `_encode_slice`,
+        the Python writer that carries the sao() syntax.  WPP and tiles
+        raise ValueError."""
         cfg = self.cfg
-        if cfg.rdoq:
-            raise ValueError(
-                f"IntraEncoder.encode_frame: rdoq={cfg.rdoq!r}: the "
-                "reference's host CTB loop quantizes with the host RDOQ "
-                "(rdoq_lite_np, rdoq_np) and its device path with the "
-                "float32 RDOQ-lite, and their streams differ")
-        if modes is not None:
-            raise ValueError("IntraEncoder.encode_frame: the flat device "
-                             "encoder decides the modes itself")
         if cfg.wpp:
             raise ValueError("IntraEncoder.encode_frame: WPP is not ported")
-        bw, bh = cfg.width // 16, cfg.height // 16
-        st = {k: t.cpu().numpy() for k, t in self._dispatch(y, u, v).items()}
-        modes = st["modes"].reshape(-1)
-        lv_y, lv_cb, lv_cr = st["levels_y"], st["levels_cb"], st["levels_cr"]
-        cbf = st["cbf"]
-        rec_y, rec_u, rec_v = (st[k].astype(np.int32)
-                               for k in ("rec_y", "rec_u", "rec_v"))
-        ctus = [CtuData(mode=int(modes[i]),
-                        levels_y=lv_y[i] if cbf[0, i] else None,
-                        levels_cb=lv_cb[i] if cbf[1, i] else None,
-                        levels_cr=lv_cr[i] if cbf[2, i] else None)
-                for i in range(bw * bh)]
+        if cfg.tile_columns != 1:
+            raise ValueError("tiles are not ported (parallel.tiles)")
+        if cfg.rdoq or modes is not None:
+            ctus, (rec_y, rec_u, rec_v) = self._encode_frame_host(
+                y, u, v, modes)
+        else:
+            bw, bh = cfg.width // 16, cfg.height // 16
+            st = {k: t.cpu().numpy()
+                  for k, t in self._dispatch(y, u, v).items()}
+            modes = st["modes"].reshape(-1)
+            lv_y, lv_cb, lv_cr = (st["levels_y"], st["levels_cb"],
+                                  st["levels_cr"])
+            cbf = st["cbf"]
+            rec_y, rec_u, rec_v = (st[k].astype(np.int32)
+                                   for k in ("rec_y", "rec_u", "rec_v"))
+            ctus = [CtuData(mode=int(modes[i]),
+                            levels_y=lv_y[i] if cbf[0, i] else None,
+                            levels_cb=lv_cb[i] if cbf[1, i] else None,
+                            levels_cr=lv_cr[i] if cbf[2, i] else None)
+                    for i in range(bw * bh)]
 
         sao_params = None
         if cfg.sao:
@@ -290,6 +345,64 @@ class IntraEncoder:
         slice_nal = self._encode_slice(ctus, sao_params)
         sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
         return [slice_nal, sei_nal], (rec_y, rec_u, rec_v)
+
+    def _encode_frame_host(self, y, u, v, modes=None):
+        """The reference's host CTB loop (intra_codec.py:292-336): the
+        modes from `decide_modes` unless given, then per CTB in raster
+        order the intra prediction from the reconstruction and
+        `code_tb_np` (with `cfg.rdoq`'s host RDOQ) for luma and both
+        chroma TBs, then the picture deblock (`deblock_420` on the
+        encoder's device, one copy each way).  Returns (CtuData list,
+        deblocked recon)."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        if modes is None:
+            modes = self.decide_modes(y)
+        qp_c = chroma_qp(cfg.qp)
+
+        rec_y = np.zeros((cfg.height, cfg.width), np.int32)
+        rec_u = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
+        rec_v = np.zeros_like(rec_u)
+        yv, uv, vv = (np.asarray(p).astype(np.int32) for p in (y, u, v))
+
+        ctus: list[CtuData] = [None] * (bw * bh)  # type: ignore
+        tile_iter = [(bx, by, tx0, tx1)
+                     for (tx0, tx1) in cfg.tile_col_bounds()
+                     for by in range(bh) for bx in range(tx0, tx1)]
+        for bx, by, tx0, tx1 in tile_iter:
+            mode = int(modes[by, bx])
+            x, yy = bx * 16, by * 16
+            ref = build_ref_np(rec_y, x, yy, 16, tx0 * 16, tx1 * 16)
+            pred = intra_ops.predict_intra_np(ref, mode, 4)
+            lv, rec = code_tb_np(yv[yy:yy + 16, x:x + 16], pred, cfg.qp, 4,
+                                 dst=False, sbh=cfg.sign_data_hiding,
+                                 rdoq=cfg.rdoq)
+            rec_y[yy:yy + 16, x:x + 16] = rec
+            cx, cy = x // 2, yy // 2
+            out_c = []
+            for plane_o, plane_r in ((uv, rec_u), (vv, rec_v)):
+                refc = build_ref_np(plane_r, cx, cy, 8, tx0 * 8, tx1 * 8)
+                predc = intra_ops.predict_intra_np(refc, mode, 3,
+                                                   is_luma=False)
+                lvc, recc = code_tb_np(plane_o[cy:cy + 8, cx:cx + 8],
+                                       predc, qp_c, 3, dst=False,
+                                       sbh=cfg.sign_data_hiding,
+                                       rdoq=cfg.rdoq)
+                plane_r[cy:cy + 8, cx:cx + 8] = recc
+                out_c.append(lvc)
+            ctus[by * bw + bx] = CtuData(
+                mode=mode,
+                levels_y=lv if lv.any() else None,
+                levels_cb=out_c[0] if out_c[0].any() else None,
+                levels_cr=out_c[1] if out_c[1].any() else None)
+
+        if not cfg.deblocking_disabled:
+            with torch.inference_mode():
+                out = deblock_ops.deblock_420(
+                    *(to_device(p, self.device)
+                      for p in (rec_y, rec_u, rec_v)), cfg.qp)
+                rec_y, rec_u, rec_v = (o.cpu().numpy() for o in out)
+        return ctus, (rec_y, rec_u, rec_v)
 
     # video_codecs_tpu/models/hevc/intra_codec.py:347
     def _sao_decide_apply(self, origs, recs):
@@ -399,6 +512,13 @@ class IntraEncoder:
         enc.encode_bin(ctx.off("cbf_chroma"), 0 if ctu.levels_cb is None else 1)
         enc.encode_bin(ctx.off("cbf_chroma"), 0 if ctu.levels_cr is None else 1)
         enc.encode_bin(ctx.off("cbf_luma", 1), 0 if ctu.levels_y is None else 1)
+        if getattr(self.cfg, "cu_qp_delta", False) and (
+                ctu.levels_y is not None or ctu.levels_cb is not None or
+                ctu.levels_cr is not None):
+            # PPS cu_qp_delta applies to I slices too; intra uses delta 0
+            from video_codecs_tpu_torch.models.hevc.inter_codec import \
+                encode_cu_qp_delta
+            encode_cu_qp_delta(enc, 0)
         sbh = self.cfg.sign_data_hiding
         if ctu.levels_y is not None:
             residual.encode_residual(enc, ctu.levels_y, 4, rom.SCAN_DIAG, True,
@@ -535,6 +655,122 @@ class IntraDecoder:
                         .digest() == md5s[i] for i in range(3))
                     self.hash_status.append(ok)
         return frames
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:656
+    def _decode_slice(self, rbsp: bytes, nal_type: int):
+        cfg, pps = self.cfg, self.pps
+        info = headers.parse_slice_header(rbsp, nal_type, pps,
+                                          sps_sao=cfg.sao)
+        qp = info.qp
+        qp_c = chroma_qp(qp)
+        bw, bh = cfg.width // 16, cfg.height // 16
+
+        # CABAC payload starts at the (byte-aligned) slice data offset;
+        # tiles split it into independent substreams at the entry points.
+        data = rbsp[info.data_offset_bits // 8:]
+        if pps.wpp:
+            return self._decode_slice_wpp(data, info, qp, qp_c)
+        n_tiles = pps.tile_columns
+        edges = [(i * bw) // n_tiles for i in range(n_tiles + 1)]
+        offs = [0]
+        for e in info.entry_points:
+            offs.append(offs[-1] + e)
+        offs.append(len(data))
+        assert len(offs) == n_tiles + 1, "entry points != tile count"
+
+        rec_y = np.zeros((cfg.height, cfg.width), np.int32)
+        rec_u = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
+        rec_v = np.zeros_like(rec_u)
+        sao_params = [[None] * 3 for _ in range(bw * bh)]
+
+        for t in range(n_tiles):
+            tx0, tx1 = edges[t], edges[t + 1]
+            dec = cabac.CabacDecoder(bs.BitReader(data[offs[t]:offs[t + 1]]),
+                                     ctx.init_states(ctx.I, qp))
+            last_tile = t == n_tiles - 1
+            for by in range(bh):
+                left_mode = DC
+                for bx in range(tx0, tx1):
+                    if cfg.sao:
+                        decode_sao_ctu(dec, sao_params, by * bw + bx,
+                                       bx, by, bw, tx0)
+                    mode, lv_y, lv_cb, lv_cr = self._decode_ctu(dec, left_mode)
+                    left_mode = mode
+                    x, yy = bx * 16, by * 16
+                    ref = build_ref_np(rec_y, x, yy, 16, tx0 * 16, tx1 * 16)
+                    pred = intra_ops.predict_intra_np(ref, mode, 4)
+                    if lv_y is not None:
+                        dq = quant_ops.dequantize_np(lv_y, qp, 4)
+                        r = tr_ops.inverse_transform_np(dq, 4)
+                        rec = np.clip(pred + r, 0, 255)
+                    else:
+                        rec = pred
+                    rec_y[yy:yy + 16, x:x + 16] = rec
+                    cx, cy = x // 2, yy // 2
+                    for lv_c, plane in ((lv_cb, rec_u), (lv_cr, rec_v)):
+                        refc = build_ref_np(plane, cx, cy, 8, tx0 * 8, tx1 * 8)
+                        predc = intra_ops.predict_intra_np(refc, mode, 3,
+                                                           is_luma=False)
+                        if lv_c is not None:
+                            dq = quant_ops.dequantize_np(lv_c, qp_c, 3)
+                            r = tr_ops.inverse_transform_np(dq, 3)
+                            recc = np.clip(predc + r, 0, 255)
+                        else:
+                            recc = predc
+                        plane[cy:cy + 8, cx:cx + 8] = recc
+                    end = dec.decode_terminate()
+                    is_last = (by == bh - 1 and bx == tx1 - 1 and last_tile)
+                    assert end == (1 if is_last else 0), \
+                        f"end_of_slice mismatch at CTU ({bx},{by})"
+        if not pps.deblocking_disabled:
+            rec_y, rec_u, rec_v = deblock_ops.deblock_420_np(
+                rec_y, rec_u, rec_v, qp)
+        if cfg.sao:
+            # the reference's apply_ctu loop, with each EO class's map
+            # computed once per plane instead of once per CTB
+            rec_y, rec_u, rec_v = (
+                sao_ops.apply_ctus(p, [p3[c] for p3 in sao_params],
+                                   16 if c == 0 else 8, bw)
+                for c, p in enumerate((rec_y, rec_u, rec_v)))
+        return rec_y, rec_u, rec_v
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:737
+    def _decode_slice_wpp(self, data, info, qp, qp_c):
+        """WPP decode is not ported."""
+        raise NotImplementedError("IntraDecoder: WPP is not ported")
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:805
+    def _decode_ctu(self, dec: cabac.CabacDecoder, left_mode: int):
+        part = dec.decode_bin(ctx.off("part_size"))
+        assert part == 1, "NxN partition not supported in this build"
+        mpm = mpm_list(left_mode)
+        if dec.decode_bin(ctx.off("prev_intra_luma_pred")):
+            idx = 0 if dec.decode_bypass() == 0 else 1 + dec.decode_bypass()
+            mode = mpm[idx]
+        else:
+            rem = dec.decode_bypass_bins(5)
+            for c in sorted(mpm):
+                if rem >= c:
+                    rem += 1
+            mode = rem
+        cm = dec.decode_bin(ctx.off("chroma_pred_mode"))
+        assert cm == 0, "non-DM chroma mode not supported"
+        cbf_cb = dec.decode_bin(ctx.off("cbf_chroma"))
+        cbf_cr = dec.decode_bin(ctx.off("cbf_chroma"))
+        cbf_y = dec.decode_bin(ctx.off("cbf_luma", 1))
+        if self.pps.cu_qp_delta and (cbf_y or cbf_cb or cbf_cr):
+            from video_codecs_tpu_torch.models.hevc.inter_codec import \
+                decode_cu_qp_delta
+            assert decode_cu_qp_delta(dec) == 0, \
+                "I slices of this build code zero cu_qp_delta"
+        sbh = self.pps.sign_data_hiding
+        lv_y = residual.decode_residual(dec, 4, rom.SCAN_DIAG, True,
+                                        sign_hiding=sbh) if cbf_y else None
+        lv_cb = residual.decode_residual(dec, 3, rom.SCAN_DIAG, False,
+                                         sign_hiding=sbh) if cbf_cb else None
+        lv_cr = residual.decode_residual(dec, 3, rom.SCAN_DIAG, False,
+                                         sign_hiding=sbh) if cbf_cr else None
+        return mode, lv_y, lv_cb, lv_cr
 
     # video_codecs_tpu/models/hevc/intra_codec.py:837
     @staticmethod

@@ -15,9 +15,12 @@ Every controller shares the interface:
     qp = rc.pick_qp()            # before encoding a picture
     rc.update(bits, metric)      # after (metric: the picture's MAD)
 
-Not ported: `UrqBasicUnitControl` and `CtuRateControl`, which set QPs
-inside a picture (per basic unit or per CTU); they need `cu_qp_delta`
-and the host CTB loop, which the port's device encoders do not carry.
+Two controllers set QPs inside a picture: `UrqBasicUnitControl` (URQ per
+basic unit, the hm11.0_ratectrl study: start_frame / unit_qp /
+update_unit / end_frame) and `CtuRateControl` (`ctu_qps`: a QP per CTU
+from the ME SATD map in float64 numpy, which the host low-delay P coder
+models/hevc/inter_codec.LowDelayEncoder signals as cu_qp_delta when its
+`ctu_rc` is set).
 """
 
 from __future__ import annotations
@@ -275,6 +278,64 @@ class HmRateControl:
                                   bits_used, qp, lam, is_intra=False)
 
 
+# video_codecs_tpu/models/hevc/ratectrl.py:270
+class UrqBasicUnitControl(UrqQuadraticControl):
+    """URQ quadratic control with BASIC UNITS: within a frame, each
+    unit (row of CTUs by default) gets its own QP from the remaining
+    frame budget and a per-unit MAD prediction.
+
+    Parity: hm11.0_ratectrl TEncRateCtrl.h:695 URQ branch /
+    jm18.5 rc_quadratic.c:2754 updateRCModel + basic-unit loop
+    (JVT-G012): linear MAD prediction per colocated unit, quadratic
+    R(Q) solve on the unit budget, +-2 QP clip inside the frame.
+    """
+
+    def __init__(self, target_bps: float, fps: float, width: int,
+                 height: int, base_qp: int = 32,
+                 units_per_frame: int = 1) -> None:
+        super().__init__(target_bps, fps, width, height, base_qp)
+        self.n_units = max(1, units_per_frame)
+        self.unit_mad = [8.0] * self.n_units
+        self._frame_qp = base_qp
+
+    def start_frame(self) -> int:
+        self._frame_qp = self.pick_qp()
+        self._unit_idx = 0
+        self._frame_bits_left = max(
+            self.target_bits_per_frame - 0.1 * self.buffer_error,
+            0.1 * self.target_bits_per_frame)
+        self._unit_bits = []
+        return self._frame_qp
+
+    def unit_qp(self) -> int:
+        """QP for the next basic unit of the current frame."""
+        i = self._unit_idx
+        units_left = self.n_units - i
+        target = max(self._frame_bits_left / max(units_left, 1), 1.0)
+        mad = self.unit_mad[i]
+        qs = self.x1 * mad / max(target, 1e-3)
+        qp = self._qp_from_qstep(qs)
+        qp = _clip(qp, self._frame_qp - 2, self._frame_qp + 2)
+        qp = _clip(qp, 1, 51)
+        self._unit_qs = self._qstep(qp)
+        return qp
+
+    def update_unit(self, bits: float, mad: float) -> None:
+        i = self._unit_idx
+        self._frame_bits_left -= bits
+        mad = max(mad, 1e-3)
+        x1_obs = bits * self._unit_qs / mad
+        self.x1 = 0.75 * self.x1 + 0.25 * x1_obs
+        self.unit_mad[i] = 0.6 * self.unit_mad[i] + 0.4 * mad
+        self._unit_bits.append(bits)
+        self._unit_idx += 1
+
+    def end_frame(self) -> None:
+        self.buffer_error += sum(self._unit_bits) \
+            - self.target_bits_per_frame
+        self.prev_mad = sum(self.unit_mad) / self.n_units
+
+
 # video_codecs_tpu/models/hevc/ratectrl.py:327
 class GopRateLambdaControl(RateLambdaControl):
     """R-lambda control with GOP-level bit allocation and hierarchical
@@ -317,3 +378,31 @@ class GopRateLambdaControl(RateLambdaControl):
         self._last_lambda = lam
         self.prev_qp = qp
         return qp
+
+
+# video_codecs_tpu/models/hevc/ratectrl.py:370
+class CtuRateControl:
+    """CTU-level QP allocation (TEncRateCtrl getLCUTargetBpp +
+    getLCUEstLambdaAndQP semantics).
+
+    Per picture: each CTU's bit share is proportional to its complexity
+    weight (the ME SATD of the block — HM uses the per-LCU MAD/SATD
+    estimate); the per-CTU lambda follows from the frame R-lambda model
+    and maps to a QP offset, clipped to frame QP +-2 (HM's LCU QP clip).
+    """
+
+    def __init__(self, clip: int = 2) -> None:
+        self.clip = clip
+
+    def ctu_qps(self, frame_qp: int, weights):
+        import numpy as np
+
+        w = np.asarray(weights, np.float64) + 1.0
+        # lambda_i / lambda_frame = (bpp_frame / bpp_i)^|beta| with
+        # bpp_i proportional to w_i: cheaper CTUs get larger lambda (higher
+        # QP), complex CTUs smaller lambda (HM equation 5.3 shape).
+        rel = np.log2(w / np.exp(np.log(w).mean()))
+        dqp = -np.round(rel).astype(int)
+        qps = np.clip(frame_qp + dqp, frame_qp - self.clip,
+                      frame_qp + self.clip)
+        return np.clip(qps, 1, 51)

@@ -8,12 +8,15 @@ Vertical edges of the whole picture are filtered first, then horizontal
 edges on the result, each pass one tensor op over all edges and 4-line
 segments; the horizontal pass runs the vertical filter on the transpose.
 
-The port carries the scalar-QP case that its encoders' pictures use,
-with BS maps per block or, for the general decoder, per 4-sample segment
-(`seg4`); the per-segment QP maps of cu_qp_delta pictures (`qp_map`)
-raise NotImplementedError.  `deblock_420_bs_np` is not a numpy twin in
-the reference either: it runs the device function on the host (here: on
-CPU tensors).
+The edge QP is a scalar, or, in pictures whose CU QPs vary
+(cu_qp_delta), a per-segment map: `deblock_420_bs(qp_map=...)` takes a
+[bh, bw] per-block QP map (the host low-delay P coder and its decoder)
+or, with `seg4`, the general decoder's per-4x4 map, and the filters
+gather tc and beta (and, for chroma, QpC through CHROMA_QP_TABLE_420
+after cQpOffset, spec 8.7.2.5.5) from the tables by the edge QPs
+(QP_P + QP_Q + 1) >> 1 (spec 8.7.2.5.3).  `deblock_420_bs_np` is not a
+numpy twin in the reference either: it runs the device function on the
+host (here: on CPU tensors).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from video_codecs_tpu_torch.utils import rom
+from video_codecs_tpu_torch.utils.device import const
 
 # TComLoopFilter.cpp:59-67 (spec Tables 8-12).
 TC_TABLE = np.array(
@@ -50,11 +54,11 @@ def _chroma_params(qp: int, bit_depth: int = 8) -> int:
     return int(TC_TABLE[min(max(qpc + INTRA_TC_OFFSET, 0), 53)]) * scale
 
 
-def _scalar_qp(qp) -> int:
-    if not isinstance(qp, (int, np.integer)):
-        raise NotImplementedError(
-            "per-segment edge QPs (cu_qp_delta pictures) are not ported")
-    return int(qp)
+def _edge_qps(qp, device) -> torch.Tensor:
+    """A per-segment edge-QP map as an int32 tensor on `device`."""
+    if not isinstance(qp, torch.Tensor):
+        qp = torch.from_numpy(np.ascontiguousarray(qp))
+    return qp.to(device, torch.int32)
 
 
 # video_codecs_tpu/ops/deblock.py:52
@@ -66,18 +70,32 @@ def _filter_ver_edges_luma(plane: torch.Tensor, edges: np.ndarray, qp,
     """Filter vertical luma edges at columns `edges` of an int32 plane.
 
     bs: optional [E, H//4] boundary strength per 4-line segment (0/1/2);
-    None means BS=2 everywhere (all-intra picture).  qp: scalar."""
+    None means BS=2 everywhere (all-intra picture).
+    qp: scalar, or [E, H//4] per-segment edge QP ((QP_P + QP_Q + 1) >> 1,
+    spec 8.7.2.5.3) when CU QPs vary (cu_qp_delta): tc and beta are then
+    table gathers by the QP tensor."""
     if edges.size == 0:
         return plane
-    qp = _scalar_qp(qp)
-    scale = 1 << (bit_depth - 8)
-    bo, to = 2 * beta_off, 2 * tc_off
-    tc2 = int(TC_TABLE[min(max(qp + INTRA_TC_OFFSET + to, 0), 53)]) * scale
-    tc1 = int(TC_TABLE[min(max(qp + to, 0), 53)]) * scale
-    beta = int(BETA_TABLE[min(max(qp + bo, 0), 51)]) * scale
-    if beta == 0 and tc2 == 0:
-        return plane
     dev = plane.device
+    scale = 1 << (bit_depth - 8)
+    # slice beta/tc offsets shift the table indices by 2*offset_div2
+    # before clipping (spec 8.7.2.5.3)
+    bo, to = 2 * beta_off, 2 * tc_off
+    scalar_qp = isinstance(qp, (int, np.integer))
+    if scalar_qp:
+        qp = int(qp)
+        tc2 = int(TC_TABLE[min(max(qp + INTRA_TC_OFFSET + to, 0),
+                               53)]) * scale
+        tc1 = int(TC_TABLE[min(max(qp + to, 0), 53)]) * scale
+        beta = int(BETA_TABLE[min(max(qp + bo, 0), 51)]) * scale
+        if beta == 0 and tc2 == 0:
+            return plane
+    else:
+        qpa = _edge_qps(qp, dev)                               # [E, S]
+        tct, btt = const(TC_TABLE, dev), const(BETA_TABLE, dev)
+        tc2 = tct[(qpa + INTRA_TC_OFFSET + to).clamp(0, 53).long()] * scale
+        tc1 = tct[(qpa + to).clamp(0, 53).long()] * scale
+        beta = btt[(qpa + bo).clamp(0, 51).long()] * scale
     h = plane.shape[0]
     maxval = (1 << bit_depth) - 1
     idx = torch.from_numpy(edges[:, None] + np.arange(-4, 4)[None, :]).to(
@@ -94,7 +112,7 @@ def _filter_ver_edges_luma(plane: torch.Tensor, edges: np.ndarray, qp,
     d = d0 + d3
     if bs is None:
         filt = d < beta
-        tc = torch.full_like(d, tc2)
+        tc = torch.full_like(d, tc2) if scalar_qp else tc2
     else:
         bs = bs.to(dev)
         tc = torch.where(bs == 2, tc2, tc1).int()              # [E, S]
@@ -168,17 +186,27 @@ def _filter_ver_edges_chroma(plane: torch.Tensor, edges: np.ndarray, qp,
     """Chroma vertical edges, filtered where BS==2 (spec 8.7.2.5.5).
 
     mask: optional [E, H_c] bool (BS==2 per line); None = everywhere.
-    qp: scalar luma edge QP."""
+    qp: scalar luma edge QP, or [E, H_c] per-line luma edge QPs."""
     if edges.size == 0:
         return plane
-    qp = _scalar_qp(qp)
     scale = 1 << (bit_depth - 8)
-    # QpC = table[Clip3(0, 57, qP + cQpOffset)] (spec 8.7.2.5.5)
-    qpc = int(rom.CHROMA_QP_TABLE_420[min(max(qp + qp_off, 0), 57)])
-    tc = int(TC_TABLE[min(max(qpc + INTRA_TC_OFFSET + 2 * tc_off,
-                              0), 53)]) * scale
-    if tc == 0:
-        return plane
+    scalar_qp = isinstance(qp, (int, np.integer))
+    if scalar_qp:
+        # QpC = table[Clip3(0, 57, qP + cQpOffset)] with the PPS
+        # cb/cr offset (spec 8.7.2.5.5)
+        qpc = int(rom.CHROMA_QP_TABLE_420[min(max(int(qp) + qp_off, 0),
+                                              57)])
+        tc = int(TC_TABLE[min(max(qpc + INTRA_TC_OFFSET + 2 * tc_off,
+                                  0), 53)]) * scale
+        if tc == 0:
+            return plane
+    else:
+        dev = plane.device
+        qpa = _edge_qps(qp, dev) + qp_off
+        qpc = const(rom.CHROMA_QP_TABLE_420, dev)[qpa.clamp(0, 57).long()]
+        tc = (const(TC_TABLE, dev)[
+            (qpc + INTRA_TC_OFFSET + 2 * tc_off).clamp(0, 53).long()]
+            * scale).transpose(0, 1)                          # [H_c, E]
     maxval = (1 << bit_depth) - 1
     idx = torch.from_numpy(edges[:, None] + np.arange(-2, 2)[None, :]).to(
         plane.device, torch.int64)
@@ -223,6 +251,17 @@ def deblock_420(rec_y: torch.Tensor, rec_u: torch.Tensor,
     return rec_y.contiguous(), out_c[0], out_c[1]
 
 
+# video_codecs_tpu/ops/deblock.py:238
+def deblock_420_np(rec_y: np.ndarray, rec_u: np.ndarray, rec_v: np.ndarray,
+                   qp: int, block: int = 16, bit_depth: int = 8):
+    """deblock_420 on numpy planes, run on CPU tensors."""
+    with torch.inference_mode():
+        out = deblock_420(*(torch.from_numpy(np.asarray(p, np.int32))
+                            for p in (rec_y, rec_u, rec_v)),
+                          qp, block, bit_depth)
+    return tuple(o.numpy() for o in out)
+
+
 # video_codecs_tpu/ops/deblock.py:245
 def deblock_420_bs(rec_y, rec_u, rec_v, qp,
                    bs_ver: np.ndarray, bs_hor: np.ndarray,
@@ -235,11 +274,10 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
     bs_ver: [n_ver_edges, bh] BS between horizontally adjacent blocks;
     bs_hor: [n_hor_edges, bw] BS between vertically adjacent blocks
     (numpy arrays or tensors).  seg4: the maps are already per 4-sample
-    segment ([E, H//4] / [E, W//4]); block must be 8.  `qp_map` is not
-    ported."""
-    if qp_map is not None:
-        raise NotImplementedError("deblock_420_bs: qp_map (cu_qp_delta) "
-                                  "not ported")
+    segment ([E, H//4] / [E, W//4]); block must be 8.
+    qp_map: optional [bh, bw] per-block luma QP (cu_qp_delta pictures),
+    or with seg4 the [H//4, W//4] per-4x4 map of the general decoder;
+    edge QPs follow spec 8.7.2.5.3: (QP_P + QP_Q + 1) >> 1."""
     dev = rec_y.device
     h, w = rec_y.shape
     ey = np.arange(block, w, block, dtype=np.int32)
@@ -253,9 +291,32 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
     else:
         bs_v = bs_ver.repeat_interleave(segs, dim=1)
         bs_h = bs_hor.repeat_interleave(segs, dim=1)
-    rec_y = _filter_ver_edges_luma(rec_y, ey, qp, bit_depth, bs=bs_v,
+    qp_v = qp_h = qp
+    cqp_v = cqp_h = qp
+    if qp_map is not None and seg4:
+        # per-4x4 luma QP map (cu_qp_delta pictures, general decoder):
+        # edge QP = (QP_P + QP_Q + 1) >> 1 per 4-sample segment
+        # (spec 8.7.2.5.3)
+        q4 = _edge_qps(qp_map, dev)                            # [H//4, W//4]
+        cv = torch.as_tensor(ey // 4, dtype=torch.long, device=dev)
+        rh = torch.as_tensor(ex // 4, dtype=torch.long, device=dev)
+        qp_v = ((q4[:, cv - 1] + q4[:, cv] + 1) >> 1).T
+        qp_h = (q4[rh - 1, :] + q4[rh, :] + 1) >> 1
+        cqp_v = qp_v[1::2].repeat_interleave(2, dim=1)
+        cqp_h = qp_h[1::2].repeat_interleave(2, dim=1)
+    elif qp_map is not None:
+        qm = _edge_qps(qp_map, dev)
+        qe_v = (qm[:, :-1] + qm[:, 1:] + 1) >> 1               # [bh, E]
+        qe_h = (qm[:-1, :] + qm[1:, :] + 1) >> 1               # [E, bw]
+        qp_v = qe_v.T.repeat_interleave(segs, dim=1)           # [E, H//4]
+        qp_h = qe_h.repeat_interleave(segs, dim=1)             # [E, W//4]
+        step_ = 16 // block
+        crep_ = block // 2
+        cqp_v = qe_v.T[step_ - 1::step_].repeat_interleave(crep_, dim=1)
+        cqp_h = qe_h[step_ - 1::step_].repeat_interleave(crep_, dim=1)
+    rec_y = _filter_ver_edges_luma(rec_y, ey, qp_v, bit_depth, bs=bs_v,
                                    beta_off=beta_off, tc_off=tc_off)
-    rec_y = _filter_ver_edges_luma(rec_y.T, ex, qp, bit_depth, bs=bs_h,
+    rec_y = _filter_ver_edges_luma(rec_y.T, ex, qp_h, bit_depth, bs=bs_h,
                                    beta_off=beta_off, tc_off=tc_off).T
 
     # Chroma edges always lie on the 16-luma-sample grid (spec 8.7.2); for
@@ -269,9 +330,9 @@ def deblock_420_bs(rec_y, rec_u, rec_v, qp,
     cm_h = (bs_hor[step - 1::step] == 2).repeat_interleave(crep, dim=1)
     out_c = []
     for p, coff in ((rec_u, cb_qp_off), (rec_v, cr_qp_off)):
-        p = _filter_ver_edges_chroma(p, cey, qp, bit_depth, mask=cm_v,
+        p = _filter_ver_edges_chroma(p, cey, cqp_v, bit_depth, mask=cm_v,
                                      tc_off=tc_off, qp_off=coff)
-        p = _filter_ver_edges_chroma(p.T, cex, qp, bit_depth,
+        p = _filter_ver_edges_chroma(p.T, cex, cqp_h, bit_depth,
                                      mask=cm_h, tc_off=tc_off,
                                      qp_off=coff).T
         out_c.append(p)

@@ -13,8 +13,14 @@ All arithmetic stays int32 (`>>` on int32 is the arithmetic shift, as
 in jnp): 14-bit intermediates, shift2 = 6, final (p + 32) >> 6 for
 uni-prediction and (p0 + p1 + 64) >> 7 for bi-prediction.
 `gather_window` is the integer motion search's edge-clamped window.
-Cut: the other numpy twins (square-block, bi-prediction and
-weighted-prediction MC), which no port path calls.
+
+The square-block numpy twins of the host low-delay P coder and its
+decoder (`mc_luma_np`, `mc_chroma_np`, their 14-bit cores and the
+explicit weighted uni-prediction `mc_luma_wp_np` / `mc_chroma_wp_np`)
+keep the reference's names, integers and dtypes; where the reference
+computes each sample in a Python loop, the 14-bit cores call the
+rectangular twins with w = h = n.  Cut: the bi-prediction twins, which
+wait for the host B coder.
 """
 
 from __future__ import annotations
@@ -210,3 +216,50 @@ def mc_chroma14_rect_np(ref: np.ndarray, x0: int, y0: int, mvx: int,
     fv = CHROMA_FILTERS[fy].astype(np.int64)
     hor = sum(win[:, i:i + w] * fh[i] for i in range(4)) >> (bit_depth - 8)
     return sum(hor[i:i + h, :] * fv[i] for i in range(4)) >> 6
+
+
+# video_codecs_tpu/ops/interp.py:180
+def mc_luma_np(ref: np.ndarray, x0: int, y0: int, mvx: int, mvy: int,
+               n: int) -> np.ndarray:
+    """Uni-pred luma MC of one n x n block, int32: the 14-bit samples,
+    (p + 32) >> 6, clipped to 8 bits."""
+    p14 = _mc_luma14_np(ref, x0, y0, mvx, mvy, n)
+    return np.clip((p14 + 32) >> 6, 0, 255).astype(np.int32)
+
+
+# video_codecs_tpu/ops/interp.py:204
+def mc_chroma_np(ref: np.ndarray, x0: int, y0: int, mvx: int, mvy: int,
+                 n: int) -> np.ndarray:
+    """Uni-pred chroma MC of one n x n block (1/8-pel), int32."""
+    p14 = _mc_chroma14_np(ref, x0, y0, mvx, mvy, n)
+    return np.clip((p14 + 32) >> 6, 0, 255).astype(np.int32)
+
+
+# video_codecs_tpu/ops/interp.py:233
+def _mc_luma14_np(ref, x0, y0, mvx, mvy, n):
+    """int64 [n, n] luma samples in the 14-bit domain."""
+    return mc_luma14_rect_np(ref, x0, y0, mvx, mvy, n, n)
+
+
+# video_codecs_tpu/ops/interp.py:255
+def _mc_chroma14_np(ref, x0, y0, mvx, mvy, n):
+    """int64 [n, n] chroma samples in the 14-bit domain (1/8-pel)."""
+    return mc_chroma14_rect_np(ref, x0, y0, mvx, mvy, n, n)
+
+
+# video_codecs_tpu/ops/interp.py:324
+def mc_luma_wp_np(ref, x0, y0, mvx, mvy, n, w, o, denom):
+    """Explicit weighted uni-prediction, luma (spec 8.5.3.3.4.3;
+    TComWeightPrediction.cpp addWeightUni): the weight applies to the
+    14-bit interpolation intermediate, then one combined shift."""
+    p14 = _mc_luma14_np(ref, x0, y0, mvx, mvy, n)
+    shift = denom + 6            # log2Wd = denom + (14 - bitDepth)
+    return np.clip(((p14 * w + (1 << (shift - 1))) >> shift) + o, 0, 255)
+
+
+# video_codecs_tpu/ops/interp.py:333
+def mc_chroma_wp_np(ref, x0, y0, mvx, mvy, n, w, o, denom):
+    """Explicit weighted uni-prediction, chroma."""
+    p14 = _mc_chroma14_np(ref, x0, y0, mvx, mvy, n)
+    shift = denom + 6
+    return np.clip(((p14 * w + (1 << (shift - 1))) >> shift) + o, 0, 255)
