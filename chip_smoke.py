@@ -13,7 +13,8 @@ TZSearch, the LD-P row under rate control, and the flat CTB16
 random-access (SAO off, then on) and hierarchical-B engines at
 1920x1072, and the reference's host low-delay P coder on HM's LD-P main
 configuration at 832x480 (as it is, with weighted prediction, with
-cu_qp_delta), in phases:
+cu_qp_delta), and the reference's encoder and decoder CLIs on HM's
+random-access and low-delay P main cfgs at 832x480, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -187,7 +188,33 @@ cu_qp_delta), in phases:
      c. hevc-ldp-dqp: 5 pictures with cu_qp_delta under a CtuRateControl
         and a RateLambdaControl at 2 Mb/s, SAO off: each picture's slice
         QP and the range of its CU QPs, DQP_SHA1;
- 12. require that nothing of the JAX package was imported.
+ 12. the reference's encoder and decoder CLIs (`tools/encoder_app.main`,
+     `tools/decoder_app.main`, called in this process) on HM 16.5's main
+     cfgs as its users start them (`hm_cli_files`: the stock settings and
+     GOPEntry tables, a per-sequence cfg, the clip as a YUV file):
+     a. cli-ra: encoder_randomaccess_main.cfg at 832x480 over 9 pictures
+        of bench_synth_clip (seed 42): the CLI builds the host random-
+        access B coder (`ra_codec.RandomAccessEncoder`: TZSearch at
+        search range 64, one merge candidate, no TMVP, SAO off with the
+        reference's warning, the IDR with the host full RDOQ); per
+        picture pass 1 on the card (`_p_pass1`), the host raster
+        (`_b_raster`), the deblock on the card and CABAC with the SEI,
+        bytes, Y-PSNR and intra / skip / merge / AMVP / bi blocks; the
+        CLI's summary and warnings; SAD launches 15 (one per list),
+        sao_stats and rdoq_dev 0; the recon file the encoder's pictures;
+        the port's decoder CLI (GeneralDecoder for this stream) "(OK)"
+        on every picture with the recon file's pictures; the port's
+        RandomAccessDecoder every hash OK with the encoder's pictures;
+        the stream the JAX package's CLI's (CLI_RA_SHA1), printed beside
+        that script's decoders' results (the JAX decoder CLI's too);
+     b. cli-ra-cuda-vs-cpu: a at 80x48 on the card and with
+        --device=cpu: byte-equal streams and recon files;
+     c. cli-ldp: encoder_lowdelay_P_main.cfg on the first 3 pictures of
+        11a's clip: the CLI builds 11a's host LD-P coder, so its NAL units
+        must be the first of 11a's stream from this run; SAD 3 and
+        sao_stats 9 launches; the decoder CLI (LowDelayDecoder) "(OK)" on
+        every picture;
+ 13. require that nothing of the JAX package was imported.
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -207,7 +234,9 @@ times print on JSON lines of their own before them.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import hashlib
+import io
 import json
 import statistics
 import subprocess
@@ -222,6 +251,7 @@ import torch
 from video_codecs_tpu_torch.entropy import bitstream as hevc_bs
 from video_codecs_tpu_torch.models.h264 import inter_dev
 from video_codecs_tpu_torch.models.h264.inter_codec import H264Decoder
+from video_codecs_tpu_torch.models.hevc import bframe_codec as hevc_bc
 from video_codecs_tpu_torch.models.hevc import checkpoint
 from video_codecs_tpu_torch.models.hevc import decoder as hevc_decoder
 from video_codecs_tpu_torch.models.hevc import headers as hevc_headers
@@ -229,12 +259,15 @@ from video_codecs_tpu_torch.models.hevc import inter_dev as hevc_inter_dev
 from video_codecs_tpu_torch.models.hevc import intra_codec as hevc_intra_codec
 from video_codecs_tpu_torch.models.hevc import inter_codec as hevc_pc
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
+from video_codecs_tpu_torch.models.hevc import ra_codec as hevc_ra
 from video_codecs_tpu_torch.models.hevc import ratectrl
 from video_codecs_tpu_torch.models.hevc import sei as sei_mod
 from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
+from video_codecs_tpu_torch.tools import decoder_app, encoder_app
+from video_codecs_tpu_torch.utils import yuv
 
 # Files this script writes (the resumed run's checkpoint), in the
 # repository's build directory.
@@ -332,6 +365,17 @@ HOST_AS_WRITTEN = {
             "JAX GeneralDecoder 2 of 5, JAX LowDelayDecoder 5 of 5, the "
             "port's GeneralDecoder 2 of 5, the port's LowDelayDecoder 2 of "
             "5")}
+# The JAX package's encoder CLI (tools/encoder_app.main) on chip_smoke's
+# `[cli-ra]` files (`hm_cli_files`: HM's encoder_randomaccess_main.cfg,
+# 832x480, 9 pictures of bench_synth_clip, seed 42), on the CPU
+# (scripts/jax_reference_sha1.py --cli-ra): bytes and SHA-1, and the hash
+# results that script printed for the stream.
+CLI_RA_BYTES, CLI_RA_SHA1 = 259591, "31a95f33a43bd6ae9fa261a749400398e216e5aa"
+CLI_RA_JAX_DECODERS = (
+    "hash OK 9 of 9 in the JAX package's RandomAccessDecoder and "
+    "GeneralDecoder and in the port's; the JAX decoder CLI (its "
+    "LowDelayDecoder with concealment) (OK) 1 of 9 with 5 pictures "
+    "written, the port's decoder CLI 9 of 9")
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and
 # operations/s on 8-bit integers, the type of the SAD kernel's inputs,
 # and on float32 outside the tensor cores, the RDOQ costs' type.
@@ -506,6 +550,143 @@ def host_ldp_cfg(variant: str = ""):
         cfg.cu_qp_delta, cfg.sao = True, False
     return cfg
 
+
+
+# HM 16.5's encoder_randomaccess_main.cfg and encoder_lowdelay_P_main.cfg
+# (hm-16.5rc1/cfg/) as the reference's encoder CLI reads them: the unit,
+# coding-structure, motion-search, quantization, deblocking and coding-tool
+# settings of the stock files with their GOPEntry tables (each FrameN line
+# in HM's column layout, the inter-RPS columns after the reference
+# pictures; ra_codec.parse_gop_entries reads the RA table as GOP8_RA).
+# The reference's CLI warns about the options it does not implement and
+# ignores them.
+HM_MAIN_CFG = """\
+#======== Profile ================
+Profile                       : main
+#======== Unit definition ================
+MaxCUWidth                    : 64          # Maximum coding unit width in pixel
+MaxCUHeight                   : 64          # Maximum coding unit height in pixel
+MaxPartitionDepth             : 4           # Maximum coding unit depth
+QuadtreeTULog2MaxSize         : 5           # Log2 of maximum transform size
+QuadtreeTULog2MinSize         : 2           # Log2 of minimum transform size
+QuadtreeTUMaxDepthInter       : 3
+QuadtreeTUMaxDepthIntra       : 3
+#======== Coding Structure =============
+{structure}
+#=========== Motion Search =============
+FastSearch                    : 1           # 0:Full search  1:TZ search
+SearchRange                   : 64          # (0: Search range is a Full frame)
+BipredSearchRange             : 4           # Search range for bi-prediction refinement
+HadamardME                    : 1           # Use of hadamard measure for fractional ME
+FEN                           : 1           # Fast encoder decision
+FDM                           : 1           # Fast Decision for Merge RD cost
+#======== Quantization =============
+QP                            : 32          # Quantization parameter(0-51)
+MaxDeltaQP                    : 0           # CU-based multi-QP optimization
+MaxCuDQPDepth                 : 0           # Max depth of a minimum CuDQP for sub-LCU-level delta QP
+DeltaQpRD                     : 0           # Slice-based multi-QP optimization
+RDOQ                          : 1           # RDOQ
+RDOQTS                        : 1           # RDOQ for transform skip
+#=========== Deblock Filter ============
+LoopFilterOffsetInPPS         : 1           # Dbl params constant in PPS
+LoopFilterDisable             : 0           # Disable deblocking filter (0=Filter, 1=No Filter)
+LoopFilterBetaOffset_div2     : 0           # base_param: -6 ~ 6
+LoopFilterTcOffset_div2       : 0           # base_param: -6 ~ 6
+DeblockingFilterMetric        : 0           # blockiness metric
+#=========== Misc. ============
+InternalBitDepth              : 8           # codec operating bit-depth
+#=========== Coding Tools =================
+SAO                           : 1           # Sample adaptive offset  (0: OFF, 1: ON)
+AMP                           : 1           # Asymmetric motion partitions (0: OFF, 1: ON)
+TransformSkip                 : 1           # Transform skipping (0: OFF, 1: ON)
+TransformSkipFast             : 1           # Fast Transform skipping (0: OFF, 1: ON)
+SAOLcuBoundary                : 0           # SAOLcuBoundary using non-deblocked pixels (0: OFF, 1: ON)
+#============ Slices ================
+SliceMode                : 0                # 0: Disable all slice options.
+SliceArgument            : 1500             # Argument for 'SliceMode'.
+LFCrossSliceBoundaryFlag : 1                # In-loop filtering across slices
+#============ PCM ================
+PCMEnabledFlag                      : 0
+#============ Tiles ================
+TileUniformSpacing                  : 0
+NumTileColumnsMinus1                : 0
+NumTileRowsMinus1                   : 0
+#============ WaveFront ================
+WaveFrontSynchro                    : 0
+#=========== Quantization Matrix =================
+ScalingList                   : 0
+#============ Lossless ================
+TransquantBypassEnableFlag : 0
+CUTransquantBypassFlagForce: 0
+#============ Rate Control ======================
+RateControl                         : 0
+TargetBitrate                       : 1000000
+KeepHierarchicalBit                 : 2
+LCULevelRateControl                 : 1
+RCLCUSeparateModel                  : 1
+InitialQP                           : 0
+RCForceIntraQP                      : 0
+#============ Merge, TMVP, sign hiding ================
+MaxNumMergeCand               : 5
+TMVPMode                      : 1
+SignHideFlag                  : 1
+"""
+HM_RA_STRUCTURE = """\
+IntraPeriod                   : 32          # Period of I-Frame ( -1 = only first)
+DecodingRefreshType           : 1           # Random Accesss 0:none, 1:CRA, 2:IDR, 3:Recovery Point SEI
+GOPSize                       : 8           # GOP Size (number of B slice = GOPSize-1)
+#        Type POC QPoffset QPfactor tcOffsetDiv2 betaOffsetDiv2 temporal_id #ref_pics_active #ref_pics reference pictures     predict deltaRPS #ref_idcs reference idcs
+Frame1:  B    8   1        0.442    0            0              0           2                3         -8 -12 -16         0
+Frame2:  B    4   2        0.3536   0            0              1           2                3         -4 -8 4            1       4        4         1 1 0 1
+Frame3:  B    2   3        0.3536   0            0              2           2                4         -2 -6 2 6          1       2        4         1 1 1 1
+Frame4:  B    1   4        0.68     0            0              3           2                4         -1 1 3 7           1       1        5         1 0 1 1 1
+Frame5:  B    3   4        0.68     0            0              3           2                4         -1 -3 1 5          1       -2       5         1 1 1 1 0
+Frame6:  B    6   3        0.3536   0            0              2           2                3         -2 -6 2            1       -3       5         0 1 1 1 0
+Frame7:  B    5   4        0.68     0            0              3           2                4         -1 -5 1 3          1       1        4         1 1 1 1
+Frame8:  B    7   4        0.68     0            0              3           2                4         -1 -3 -7 1         1       -2       5         1 1 1 1 0"""
+HM_LDP_STRUCTURE = """\
+IntraPeriod                   : -1          # Period of I-Frame ( -1 = only first)
+DecodingRefreshType           : 0           # Random Accesss 0:none, 1:CRA, 2:IDR, 3:Recovery Point SEI
+GOPSize                       : 4           # GOP Size (number of B slice = GOPSize-1)
+#        Type POC QPoffset QPfactor tcOffsetDiv2 betaOffsetDiv2 temporal_id #ref_pics_active #ref_pics reference pictures predict deltaRPS #ref_idcs reference idcs
+Frame1:  P    1   3        0.4624   0            0              0           4                4         -1 -5 -9 -13       0
+Frame2:  P    2   2        0.4624   0            0              0           4                4         -1 -2 -6 -10       1      -1       5         1 1 1 0 1
+Frame3:  P    3   3        0.4624   0            0              0           4                4         -1 -3 -7 -11       1      -1       5         0 1 1 1 1
+Frame4:  P    4   1        0.578    0            0              0           4                4         -1 -4 -8 -12       1      -1       5         0 1 1 1 1"""
+# The per-sequence cfg (hm-16.5rc1/cfg/per-sequence/, HM class C's
+# 832x480 layout) of a seeded clip.
+HM_SEQUENCE_CFG = """\
+#======== File I/O ===============
+InputBitDepth                 : 8           # Input bitdepth
+InputChromaFormat             : 420         # Ratio of luminance to chrominance samples
+FrameRate                     : 30          # Frame Rate per second
+FrameSkip                     : 0           # Number of frames to be skipped in input
+SourceWidth                   : {w}         # Input  frame width
+SourceHeight                  : {h}         # Input  frame height
+FramesToBeEncoded             : {n}         # Number of frames to be coded
+Level                         : 3.1
+"""
+CLI_W, CLI_H = 832, 480
+CLI_RA_PICTURES, CLI_LDP_PICTURES = 9, 3
+
+
+def hm_cli_files(d: Path, kind: str, frames, w: int = CLI_W,
+                 h: int = CLI_H) -> list:
+    """Write HM's main cfg of `kind` ("ra" or "ldp"), the per-sequence
+    cfg and the clip's YUV file into directory d; returns the encoder
+    CLI's arguments (`-c main -c sequence -i in.yuv -b out.bin -o
+    rec.yuv`, all in d)."""
+    from video_codecs_tpu_torch.utils import yuv
+    structure = {"ra": HM_RA_STRUCTURE, "ldp": HM_LDP_STRUCTURE}[kind]
+    main = d / f"encoder_{kind}_main.cfg"
+    main.write_text(HM_MAIN_CFG.format(structure=structure))
+    seq = d / f"Synth_{w}x{h}.cfg"
+    seq.write_text(HM_SEQUENCE_CFG.format(w=w, h=h, n=len(frames)))
+    src = d / "in.yuv"
+    yuv.write_frames(str(src), *(np.stack([f[c] for f in frames])
+                                 for c in range(3)))
+    return ["-c", str(main), "-c", str(seq), "-i", str(src),
+            "-b", str(d / "out.bin"), "-o", str(d / "rec.yuv")]
 
 def cut_clip(w: int, h: int, nf: int, cut: int = 3):
     """A texture panning by (2, 1) px, then from picture `cut` on a smooth
@@ -2073,7 +2254,9 @@ def _host_instrument(enc, sao: bool):
     deblock (`_p_deblock`; inside the IDR's CTB loop), with SAO the
     decision and apply (`_sao_timer`), and CABAC with the hash SEI; count
     each picture's SAD- and RDOQ-kernel launches and keep its block
-    decisions."""
+    decisions.  A host B coder (`bframe_codec.HierarchicalBEncoder`) is
+    timed the same way per anchor P and B picture: `_p_pass1`,
+    `_b_raster`, `_p_deblock`, `_encode_b_slice` with the SEI."""
     log, cur = [], {}
     timed = _timer(cur)
     enc._p_pass1 = timed("pass1", enc._p_pass1, sync=True)
@@ -2109,6 +2292,22 @@ def _host_instrument(enc, sao: bool):
         return nals, rec
 
     enc.encode_p_frame, enc.encode_frame = p_frame, idr
+    if isinstance(enc, hevc_bc.HierarchicalBEncoder):
+        enc._b_raster = timed("raster", enc._b_raster)
+        enc._encode_b_slice = timed("cabac", enc._encode_b_slice)
+        orig_b = enc._encode_b_frame
+
+        def b_frame(frame, poc, refs, is_anchor):
+            cur.clear()
+            t0 = time.perf_counter()
+            nals, rec = orig_b(frame, poc, refs, is_anchor)
+            log.append(dict(poc=poc, kind="P" if is_anchor else "B",
+                            qp=enc.cfg.qp, refs=len(refs),
+                            total=time.perf_counter() - t0, nals=nals,
+                            rec=rec, info=cur["_b_raster"][0], **cur))
+            return nals, rec
+
+        enc._encode_b_frame = b_frame
     return log
 
 
@@ -2141,7 +2340,7 @@ def _wp_tables(stream: bytes) -> list:
     return out
 
 
-def phase_hevc_ldp_host(variant: str = "") -> tuple[int, int, int]:
+def phase_hevc_ldp_host(variant: str = "") -> tuple:
     """Phases hevc-ldp-host / -wp / -dqp: the reference's host LD-P coder
     (`inter_codec.LowDelayEncoder`, what its encoder CLI builds for HM's
     encoder_lowdelay_P_main.cfg) on `host_ldp_cfg(variant)`, TZSearch at
@@ -2153,8 +2352,8 @@ def phase_hevc_ldp_host(variant: str = "") -> tuple[int, int, int]:
     list.  "wp" codes the faded clip with weighted prediction (and again
     without, for the size), "dqp" signals cu_qp_delta under a
     CtuRateControl and a RateLambdaControl.  Returns the SAD- and
-    sao_stats launches of the encode and the SAD launches of the encode
-    without WP (0 but for "wp")."""
+    sao_stats launches of the encode, the SAD launches of the encode
+    without WP (0 but for "wp") and the stream."""
     w, h = LDP_W, LDP_H
     n = {"": HOST_PICTURES, "wp": WP_PICTURES, "dqp": DQP_PICTURES}[variant]
     tag = "hevc-ldp-host" if not variant else f"hevc-ldp-{variant}"
@@ -2290,8 +2489,262 @@ def phase_hevc_ldp_host(variant: str = "") -> tuple[int, int, int]:
           f"(spec AMVP list) is {ref_bytes} bytes {ref_sha}")
     print(f"[{tag}] the stream is the JAX package's with the spec AMVP "
           "list, byte for byte (SHA-1)")
-    return launches, sao_launches, off_launches
+    return launches, sao_launches, off_launches, stream
 
+
+
+def _cli(main, argv: list) -> tuple[str, str, float]:
+    """Run a CLI's main(argv) in this process, so that the kernels'
+    launch counters can be read: (its standard output, its standard
+    error, seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        main(argv)
+    return out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _b_blocks(info) -> dict:
+    cnt = dict(intra=0, skip=0, merge=0, amvp=0, bi=0)
+    for row in info:
+        for b in row:
+            cnt["intra" if b.pred_mode == hevc_bc.MODE_INTRA else "skip"
+                if b.skip else "merge" if b.merge else "bi"
+                if b.inter_dir == 3 else "amvp"] += 1
+    return cnt
+
+
+def _decoder_app(tag: str, d: Path, n: int) -> float:
+    """The port's decoder CLI on d/out.bin: "(OK)" for n of n pictures and
+    its output file equal to the encoder CLI's recon file d/rec.yuv;
+    returns its seconds."""
+    out, _, t = _cli(decoder_app.main, ["-b", str(d / "out.bin"), "-o",
+                                        str(d / "dec.yuv")])
+    oks = out.count("(OK)")
+    check(oks == n and f"{n} pictures decoded (hevc)" in out,
+          f"[{tag}] decoder_app: (OK) for {oks} of {n}: {out[-400:]}")
+    check((d / "dec.yuv").read_bytes() == (d / "rec.yuv").read_bytes(),
+          f"[{tag}] decoder_app's pictures != the encoder CLI's recon file")
+    return t
+
+
+def _cli_launches(main, argv: list):
+    """_cli(main, argv) with the SAD-, SAO- and RDOQ-kernel counters and
+    the plain versions' call counts set to 0 just before; returns
+    (stdout, stderr, seconds, SAD, sao_stats and rdoq_dev launches, plain
+    RDOQ calls, plain SAO statistics calls on the card)."""
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    sao_ops.sao_stats.launches = 0
+    RDOQ_REF_CALLS["cuda"] = RDOQ_REF_CALLS["cpu"] = 0
+    SAO_REF_CALLS["cuda"] = 0
+    out, err, t = _cli(main, argv)
+    return (out, err, t, ss.sad_surface.launches, sao_ops.sao_stats.launches,
+            rdoq_ops.rdoq_dev.launches,
+            RDOQ_REF_CALLS["cuda"] + RDOQ_REF_CALLS["cpu"],
+            SAO_REF_CALLS["cuda"])
+
+
+def phase_cli_ra() -> int:
+    """Phase cli-ra: the port's encoder CLI on HM 16.5's
+    encoder_randomaccess_main.cfg (`hm_cli_files`), as a user starts it,
+    in this process: it builds `ra_codec.RandomAccessEncoder` (the host
+    flat 16x16 B coder) on the card.  Per picture pass 1 on the card, the
+    host raster, the deblock on the card and CABAC with the SEI; the
+    CLI's summary and warnings; 15 SAD launches (one per list), no SAO or
+    RDOQ kernel; the recon file the encoder's pictures; the port's
+    decoder CLI "(OK)" for every picture with the recon file's pictures,
+    `RandomAccessDecoder` every hash OK with the encoder's pictures; the
+    stream the JAX package's encoder CLI's (CLI_RA_SHA1).  Returns the
+    SAD launches."""
+    w, h, n = CLI_W, CLI_H, CLI_RA_PICTURES
+    tag = "cli-ra"
+    frames = bench_synth_clip(w, h, n)
+    d = BUILD_DIR / "cli_ra"
+    d.mkdir(parents=True, exist_ok=True)
+    argv = hm_cli_files(d, "ra", frames, w, h)
+    print(f"[{tag}] the port's encoder CLI (tools/encoder_app.main) on HM "
+          f"16.5's encoder_randomaccess_main.cfg and a per-sequence cfg: "
+          f"{w}x{h}, {n} pictures of bench.py's clip (seed 42), QP 32, GOP "
+          "8 from its Frame1-8 lines, IntraPeriod 32, FastSearch 1 "
+          "SearchRange 64, RDOQ 1, SignHideFlag 1, MaxNumMergeCand 5, "
+          "TMVPMode 1, SAO 1; card " + CARD)
+    made = []
+    cls = hevc_ra.RandomAccessEncoder
+
+    def build(*a, **kw):
+        enc = cls(*a, **kw)
+        made.append((enc, _host_instrument(enc, sao=False)))
+        return enc
+
+    hevc_ra.RandomAccessEncoder = build
+    try:
+        out, err, t_enc, launches, sao_n, rdoq_n, rdoq_ref, sao_ref = \
+            _cli_launches(encoder_app.main, argv)
+    finally:
+        hevc_ra.RandomAccessEncoder = cls
+    check(len(made) == 1, f"the CLI built {len(made)} RandomAccessEncoders")
+    enc, log = made[0]
+    cfg = enc.cfg
+    check(enc.device.type == "cuda", f"the CLI's encoder is on {enc.device}")
+    check((cfg.width, cfg.height, cfg.sao, cfg.merge_cands, cfg.temporal_mvp,
+           cfg.rdoq, cfg.sign_data_hiding, enc.me_method, enc.search_range,
+           enc.gop) == (w, h, False, 1, False, "full", True, "tz", 64,
+                        hevc_ra.GOP8_RA),
+          f"the CLI's RA settings {cfg} {enc.me_method} {enc.search_range}")
+    sao_warning = ("** warning: SAO on the hierarchical-B build not "
+                   "implemented yet — disabled")
+    check(sao_warning in err, f"no SAO warning: {err[-300:]}")
+    ignored = [ln.split("option ")[1].split(" not implemented")[0]
+               for ln in err.splitlines() if "** warning: option " in ln]
+    print(f"[{tag}] the CLI's warnings: {len(ignored)} options ignored "
+          f"({', '.join(ignored)}); {sao_warning[12:]}")
+    for ln in out.strip().splitlines():
+        print(f"[{tag}] {ln}")
+    want = 0
+    for e in log:
+        nbytes = sum(len(x) for x in e["nals"] if x)
+        p = psnr(frames[e["poc"]][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        if e["kind"] == "I":
+            blocks = f"{(w // 16) * (h // 16)} intra (IDR)"
+            dbk = "in the CTB loop"
+        else:
+            cnt = _b_blocks(e["info"])
+            blocks = " / ".join(f"{k_} {v}" for k_, v in cnt.items())
+            dbk = f"{e['deblock'] * 1e3:.1f} ms"
+            want += e["refs"]
+            check(e["launches"] == e["refs"],
+                  f"POC {e['poc']}: {e['launches']} SAD-kernel launches, "
+                  f"want 1 per list ({e['refs']})")
+        print(f"[{tag}] POC {e['poc']} ({e['kind']}, QP {e['qp']}, "
+              f"{e['refs']} lists): pass 1 {e['pass1'] * 1e3:.1f} ms, "
+              f"raster decision and recon {e['raster'] * 1e3:.1f} ms, "
+              f"deblock {dbk}, CABAC + SEI {e['cabac'] * 1e3:.1f} ms (total "
+              f"{e['total'] * 1e3:.1f} ms); {nbytes} bytes, Y-PSNR "
+              f"{p:.2f} dB; blocks {blocks}; SAD-kernel launches "
+              f"{e['launches']}")
+    check(len(log) == n, f"{len(log)} pictures coded")
+    check(launches == want == 15,
+          f"{launches} SAD-kernel launches, want 15 (1 per list)")
+    check(sao_n == 0 and sao_ref == 0, f"{sao_n} sao_stats launches")
+    check(rdoq_n == 0 and rdoq_ref == 0,
+          f"rdoq_dev: {rdoq_n} launches, {rdoq_ref} plain-version calls")
+    stream = (d / "out.bin").read_bytes()
+    sha = hashlib.sha1(stream).hexdigest()
+    recons = {e["poc"]: e["rec"] for e in log}
+    ry, ru, rv = yuv.read_frames(str(d / "rec.yuv"), w, h)
+    for k_ in range(n):
+        for c, plane in enumerate((ry, ru, rv)):
+            check(np.array_equal(plane[k_], recons[k_][c]),
+                  f"[{tag}] recon file picture {k_} plane {c} != the "
+                  "encoder's")
+    print(f"[{tag}] {len(stream)} bytes, SHA-1 {sha}; encoder_app.main "
+          f"{t_enc:.2f} s ({n / t_enc:.3f} fps); SAD-kernel launches "
+          f"{launches}, sao_stats 0, rdoq_dev 0; the recon file holds the "
+          "encoder's pictures")
+    check(decoder_app._needs_general(stream),
+          "decoder_app would take LowDelayDecoder for the RA stream")
+    t_app = _decoder_app(tag, d, n)
+    print(f"[{tag}] the port's decoder_app (the stream has TRAIL_N "
+          f"pictures and B slices: GeneralDecoder): (OK) for {n} of {n} "
+          f"pictures, its output file equals the recon file, {t_app:.2f} s")
+    t0 = time.perf_counter()
+    dec = hevc_ra.RandomAccessDecoder()
+    got = dec.decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(dec.hash_status == [True] * n,
+          f"RandomAccessDecoder: picture hash SEI {dec.hash_status}")
+    for k_, o in enumerate(got):
+        for c in range(3):
+            check(np.array_equal(np.asarray(o[c]), recons[k_][c]),
+                  f"RandomAccessDecoder: picture {k_} plane {c} != the "
+                  "encoder's")
+    print(f"[{tag}] the port's RandomAccessDecoder: hash SEI OK on all {n} "
+          f"pictures, pictures equal the encoder's, {t_dec:.2f} s")
+    print(f"[{tag}] the JAX package's encoder CLI on the same files "
+          "(scripts/jax_reference_sha1.py --cli-ra, CPU): "
+          f"{CLI_RA_BYTES} bytes SHA-1 {CLI_RA_SHA1}; {CLI_RA_JAX_DECODERS}")
+    check((len(stream), sha) == (CLI_RA_BYTES, CLI_RA_SHA1),
+          f"stream {len(stream)} bytes SHA-1 {sha}, the JAX package's CLI "
+          f"wrote {CLI_RA_BYTES} bytes {CLI_RA_SHA1}")
+    print(f"[{tag}] the stream is the JAX package's encoder CLI's, byte for "
+          "byte (SHA-1)")
+    return launches
+
+
+def phase_cli_ra_cuda_vs_cpu() -> None:
+    """Phase cli-ra-cuda-vs-cpu: the encoder CLI on HM's RA main cfg at
+    80x48 (9 pictures of bench.py's clip) on the card and with
+    --device=cpu: byte-equal streams and recon files, 15 SAD launches on
+    the card and none on the CPU."""
+    tag = "cli-ra-cuda-vs-cpu"
+    frames = bench_synth_clip(80, 48, CLI_RA_PICTURES)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        d = BUILD_DIR / f"cli_ra_small_{dev}"
+        d.mkdir(parents=True, exist_ok=True)
+        argv = hm_cli_files(d, "ra", frames, 80, 48)
+        if dev == "cpu":
+            argv.append("--device=cpu")
+        _, _, t, sad_n = _cli_launches(encoder_app.main, argv)[:4]
+        runs.append(((d / "out.bin").read_bytes(),
+                     (d / "rec.yuv").read_bytes(), sad_n, t))
+    (sg, rg, ng, tg), (sc, rc_, nc, tc) = runs
+    check(sg == sc and rg == rc_,
+          f"[{tag}] the card's stream ({len(sg)} bytes) != the CPU's "
+          f"({len(sc)} bytes), or their recon files differ")
+    check(ng == 15 and nc == 0,
+          f"[{tag}] SAD-kernel launches: card {ng}, CPU {nc} (want 15, 0)")
+    print(f"[{tag}] 80x48, {CLI_RA_PICTURES} pictures: streams byte-equal "
+          f"({len(sg)} bytes), recon files equal; SAD-kernel launches: card "
+          f"{ng}, CPU 0; cuda {tg:.2f} s, cpu {tc:.2f} s")
+
+
+def phase_cli_ldp(host_stream: bytes) -> tuple[int, int]:
+    """Phase cli-ldp: the port's encoder CLI on HM 16.5's
+    encoder_lowdelay_P_main.cfg (`hm_cli_files`) over the first
+    CLI_LDP_PICTURES pictures of `[hevc-ldp-host]`'s clip: it builds
+    `inter_codec.LowDelayEncoder` with `host_ldp_cfg`'s settings, so its
+    NAL units must be the first NAL units of that phase's stream from
+    this run (the host coder codes a picture from the ones before it
+    only); 1 SAD launch per reference and 3 sao_stats per picture; the
+    port's decoder CLI (LowDelayDecoder) "(OK)" for every picture with the
+    recon file's pictures.  Returns the SAD and sao_stats launches."""
+    w, h, n = CLI_W, CLI_H, CLI_LDP_PICTURES
+    tag = "cli-ldp"
+    frames = bench_synth_clip(w, h, n)
+    d = BUILD_DIR / "cli_ldp"
+    d.mkdir(parents=True, exist_ok=True)
+    argv = hm_cli_files(d, "ldp", frames, w, h)
+    out, err, t_enc, sad_n, sao_n, rdoq_n, rdoq_ref, sao_ref = \
+        _cli_launches(encoder_app.main, argv)
+    for ln in out.strip().splitlines():
+        print(f"[{tag}] {ln}")
+    want_sad = sum(min(k_, 4) for k_ in range(n))
+    check(sad_n == want_sad and sao_n == 3 * n and sao_ref == 0,
+          f"[{tag}] SAD-kernel launches {sad_n} (want {want_sad}), "
+          f"sao_stats {sao_n} (want {3 * n}), plain SAO {sao_ref}")
+    check(rdoq_n == 0 and rdoq_ref == 0, f"[{tag}] rdoq_dev ran")
+    stream = (d / "out.bin").read_bytes()
+    nals = hevc_bs.split_annexb(stream)
+    host_nals = hevc_bs.split_annexb(host_stream)
+    check(nals == host_nals[:len(nals)],
+          f"[{tag}] the CLI's {len(nals)} NAL units are not the first NAL "
+          "units of [hevc-ldp-host]'s stream")
+    check(not decoder_app._needs_general(stream),
+          "decoder_app would route the LD-P stream to GeneralDecoder")
+    t_app = _decoder_app(tag, d, n)
+    print(f"[{tag}] HM 16.5's encoder_lowdelay_P_main.cfg through the port's "
+          f"encoder CLI: {w}x{h}, {n} pictures, {len(stream)} bytes, "
+          f"encoder_app.main {t_enc:.2f} s; SAD-kernel launches {sad_n}, "
+          f"sao_stats {sao_n}, rdoq_dev 0; its {len(nals)} NAL units are "
+          f"the first {len(nals)} of [hevc-ldp-host]'s stream from this run "
+          "(the JAX package's with the spec AMVP list); the port's "
+          f"decoder_app (LowDelayDecoder): (OK) for {n} of {n}, its output "
+          f"file equals the recon file, {t_app:.2f} s; {len(err.splitlines())}"
+          " warnings")
+    return sad_n, sao_n
 
 def flat_cfg(w: int, h: int, reorder: int, sao: bool = False):
     """scripts/diag_ra_gap.py's settings of the flat CTB16 B engines: QP
@@ -2578,9 +3031,12 @@ def main() -> None:
     phase_flat_ra_cuda_vs_cpu()
     flat_sao, flat_sao_rdoq, flat_sao_stats = phase_hevc_flat("ra", sao=True)
     phase_flat_ra_cuda_vs_cpu(sao=True)
-    host_sad, host_sao, _ = phase_hevc_ldp_host()
-    wp_sad, _, wp_off_sad = phase_hevc_ldp_host("wp")
-    dqp_sad, _, _ = phase_hevc_ldp_host("dqp")
+    host_sad, host_sao, _, host_stream = phase_hevc_ldp_host()
+    wp_sad, _, wp_off_sad, _ = phase_hevc_ldp_host("wp")
+    dqp_sad, _, _, _ = phase_hevc_ldp_host("dqp")
+    cli_ra_sad = phase_cli_ra()
+    phase_cli_ra_cuda_vs_cpu()
+    cli_ldp_sad, cli_ldp_sao = phase_cli_ldp(host_stream)
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
@@ -2588,8 +3044,10 @@ def main() -> None:
 
     launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_sao +
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
-                hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad)
-    sao_all = sao_launches + ldp_sao_stats + flat_sao_stats + host_sao
+                hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad +
+                cli_ra_sad + cli_ldp_sad)
+    sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
+               cli_ldp_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
           f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P SAO run "
           f"{ldp_sao}, LD-P conferencing run {ldp_conf}, LD-P TZ run "
@@ -2598,12 +3056,15 @@ def main() -> None:
           f"hierarchical-B run {hierb}, flat RA GOP with SAO {flat_sao}, "
           f"host LD-P run {host_sad}, its WP run {wp_sad} and that run's "
           f"pictures without WP {wp_off_sad}, its "
-          f"cu_qp_delta run {dqp_sad}, together {launches}; its "
+          f"cu_qp_delta run {dqp_sad}, the encoder CLI on HM's RA main cfg "
+          f"{cli_ra_sad} and on its LD-P main cfg {cli_ldp_sad}, together "
+          f"{launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
           f"launches: RA GOP with SAO {sao_launches}, LD-P SAO run "
           f"{ldp_sao_stats}, flat RA GOP with SAO {flat_sao_stats}, host "
-          f"LD-P run {host_sao}, together {sao_all} (the plain version 0 "
+          f"LD-P run {host_sao}, the encoder CLI on HM's LD-P main cfg "
+          f"{cli_ldp_sao}, together {sao_all} (the plain version 0 "
           "times in them); its "
           "times and bound are per 1080p RA picture (3 planes; the flat "
           "shapes' on the sao_stats_flat line)")
@@ -2618,7 +3079,8 @@ def main() -> None:
           f"RA TZ GOP {ra_tz_rdoq}, LD-P rate-controlled run {ldp_rc_rdoq} "
           f"and its resumed run {resumed_rdoq}, flat RA GOP {flat_ra_rdoq}, "
           f"flat hierarchical-B run {hierb_rdoq}, flat RA GOP with SAO "
-          f"{flat_sao_rdoq}, together {rdoq_launches}; "
+          f"{flat_sao_rdoq} (the host coders and the encoder CLI 0), "
+          f"together {rdoq_launches}; "
           f"the plain version ran 0 times in them; its times and bound are "
           f"the {r['what']} call's (B={r['b']}; every shape on the next "
           "line)")

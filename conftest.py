@@ -103,6 +103,10 @@ _TWINS = (
     ("tests/test_inter_jax.py::test_device_ldp_roundtrip[4-True-True]",
      "tests/test_torch_hevc_host_ldp.py::"
      "test_device_ldp_sao_full_rdoq_64x48"),
+    ("tests/test_ra_codec.py::test_ra_gop8_roundtrip_and_order",
+     "tests/test_torch_hevc_host_b.py::test_ra_gop8_80x48"),
+    ("tests/test_bframes.py::test_bframes_roundtrip",
+     "tests/test_torch_hevc_host_b.py::test_hierb_moving_clip_64x48"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared
@@ -128,6 +132,9 @@ _LONG_S = {
     "tests/test_inter_codec.py::"
     "test_ldp_multiref_merge5_tmvp_hm_conformance": 59,
     "tests/test_config_apps.py::test_encoder_decoder_apps_roundtrip": 47,
+    "tests/test_torch_cli.py::test_cli_matches_jax[intra-fast]": 40,
+    "tests/test_torch_cli.py::test_cli_matches_jax[ldp]": 33,
+    "tests/test_torch_cli.py::test_cli_matches_jax[ra]": 32,
     "tests/test_inter_codec.py::"
     "test_ctu_rate_control_cu_qp_delta_conformance": 44,
     "tests/test_torch_hevc_intra.py::test_quadtree_path_equal"

@@ -4,7 +4,7 @@ the port's to, computed with the JAX package on the CPU.
     JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
         [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
         [--ldp-sao] [--ldp-conf] [--ldp-host] [--ldp-wp] [--ldp-dqp] \
-        [--no-ldp]
+        [--cli-ra] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -52,7 +52,17 @@ SAO off (`[hevc-ldp-wp]`), --ldp-dqp 5 pictures with cu_qp_delta, a
 `CtuRateControl` and a `RateLambdaControl` at 2 Mb/s, SAO off
 (`[hevc-ldp-dqp]`).  Each is encoded twice, as written and with the spec
 AMVP list, and each stream decoded by the JAX package's
-`LowDelayDecoder` and `GeneralDecoder` and by the port's.  This is a tool for the reference side: it
+`LowDelayDecoder` and `GeneralDecoder` and by the port's.  --cli-ra runs
+the JAX package's encoder CLI (`tools/encoder_app.main`) on HM's
+encoder_randomaccess_main.cfg and a per-sequence cfg as chip_smoke.py's
+`[cli-ra]` writes them (`chip_smoke.hm_cli_files`: 832x480, 9 pictures of
+bench_synth_clip(832, 480, 9, seed=42)), which builds the reference's
+host random-access B coder (`ra_codec.RandomAccessEncoder`, TZSearch at
+search range 64, SAO switched off with a warning, the IDR with the full
+RDOQ), and decodes the stream with the JAX package's
+`RandomAccessDecoder` and `GeneralDecoder`, the port's, and both
+packages' decoder CLIs (the JAX one routes random-access streams to
+`LowDelayDecoder`; ROADMAP queue 3, reference fault 10).  This is a tool for the reference side: it
 imports the JAX package, the port's `motion` module for the repaired
 function and the port's decoders for a second opinion.
 """
@@ -62,10 +72,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import contextlib
 import io
 import os
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -245,6 +258,53 @@ def host(kind: str) -> None:
     motion.amvp_candidates = AMVP_AS_WRITTEN
 
 
+def _app_oks(main, argv) -> tuple[int, int]:
+    """(pictures with "(OK)", pictures decoded) that a decoder CLI's
+    `main(argv)` prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    return text.count("(OK)"), int(text.split(" pictures decoded")[0]
+                                   .split()[-1])
+
+
+def cli_ra() -> None:
+    """The JAX package's encoder CLI on chip_smoke.py's `[cli-ra]` files;
+    bytes, SHA-1, its SUMMARY lines and every decoder's hash results."""
+    from video_codecs_tpu.models.hevc import ra_codec
+    from video_codecs_tpu.tools import decoder_app, encoder_app
+    from video_codecs_tpu_torch.models.hevc import ra_codec as tra
+    from video_codecs_tpu_torch.tools import decoder_app as tdecoder_app
+    n, w, h = chip_smoke.CLI_RA_PICTURES, chip_smoke.CLI_W, chip_smoke.CLI_H
+    frames = chip_smoke.bench_synth_clip(w, h, n)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        argv = chip_smoke.hm_cli_files(d, "ra", frames, w, h)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            encoder_app.main(argv)
+        t = time.time() - t0
+        stream = (d / "out.bin").read_bytes()
+        print(f"cli ra: {len(stream)} bytes, SHA-1 "
+              f"{hashlib.sha1(stream).hexdigest()}, encoder_app.main "
+              f"{t:.1f} s; its summary:\n{buf.getvalue()}", flush=True)
+        for label, dec in (
+                ("JAX RandomAccessDecoder", ra_codec.RandomAccessDecoder()),
+                ("JAX GeneralDecoder", decoder.GeneralDecoder()),
+                ("the port's RandomAccessDecoder", tra.RandomAccessDecoder()),
+                ("the port's GeneralDecoder", tdecoder.GeneralDecoder())):
+            dec.decode(stream)
+            print(f"cli ra: {label} hash OK {sum(dec.hash_status)} of "
+                  f"{n}: {dec.hash_status}", flush=True)
+        for label, app in (("JAX decoder_app", decoder_app.main),
+                           ("the port's decoder_app", tdecoder_app.main)):
+            ok, got = _app_oks(app, ["-b", str(d / "out.bin")])
+            print(f"cli ra: {label} (OK) {ok} of {n}, {got} pictures "
+                  "decoded", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -276,6 +336,9 @@ def main() -> None:
     ap.add_argument("--ldp-dqp", action="store_true",
                     help="the host LD-P coder with cu_qp_delta under CTU "
                          "rate control (hevc-ldp-dqp)")
+    ap.add_argument("--cli-ra", action="store_true",
+                    help="the JAX package's encoder CLI on HM's RA main "
+                         "cfg (cli-ra)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -307,6 +370,8 @@ def main() -> None:
                      ("dqp", args.ldp_dqp)):
         if on:
             host(kind)
+    if args.cli_ra:
+        cli_ra()
 
 
 if __name__ == "__main__":

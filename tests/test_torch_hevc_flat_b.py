@@ -249,7 +249,8 @@ def test_flat_b_cut_options_raise():
     (TMVP, merge_idx under MaxNumMergeCand > 1 in the RA header, timing
     SEI and the long-term IDR, which its B loop does not write), and the
     options the port does not carry, raise ValueError; SAO is taken; the
-    engines run on the card by default; the host B coder raises."""
+    engines run on the card by default; the host B coder (ported since)
+    codes an anchor picture."""
     ok = _cfg(theaders, 64, 48, 3)
     for cls in (tinter.DeviceRandomAccessEncoder,
                 tinter.DeviceHierarchicalBEncoder):
@@ -272,9 +273,10 @@ def test_flat_b_cut_options_raise():
             _cfg(theaders, 64, 48, 3, merge_cands=5), device="cpu")
     z = np.zeros((48, 64), np.uint8)
     zc = z[::2, ::2]
-    host = tra.RandomAccessEncoder(ok)
-    with pytest.raises(NotImplementedError):
-        host._encode_b_frame((z, zc, zc), 2, {0: (0, (z, zc, zc))}, True)
+    host = tra.RandomAccessEncoder(ok, device="cpu")
+    nals, _ = host._encode_b_frame((z, zc, zc), 2, {0: (0, (z, zc, zc))},
+                                   True)
+    assert len(nals) == 2            # the host B coder codes the picture
     zt = torch.zeros((48, 64), dtype=torch.uint8)
     ztc = zt[::2, ::2]
     args = (zt, ztc, ztc) * 3

@@ -137,11 +137,16 @@ _COPIES = {
          "LowDelayEncoder._p_deblock"}),
     "models/hevc/checkpoint.py": ("models/hevc/checkpoint.py", set(), set(),
                                   set()),
-    "models/hevc/bframe_codec.py": ("models/hevc/bframe_codec.py",
-                                    {"HierarchicalBEncoder._encode_b_frame"},
-                                    set(), set()),
-    "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py", set(), set(),
-                                set()),
+    "models/hevc/bframe_codec.py": (
+        "models/hevc/bframe_codec.py",
+        {"HierarchicalBDecoder._decode_b_slice"},
+        {"HierarchicalBEncoder._encode_b_frame"},
+        {"check_flat_b", "HierarchicalBEncoder.__init__",
+         "HierarchicalBEncoder._b_raster"}),
+    "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py",
+                                {"RandomAccessEncoder.__init__",
+                                 "RandomAccessDecoder._decode_b_body"},
+                                set(), set()),
     "models/hevc/inter_qt.py": (
         "models/hevc/inter_qt.py",
         {"QtDeviceRandomAccessEncoder.__init__",

@@ -671,13 +671,15 @@ class LowDelayEncoder(ic.IntraEncoder):
                 info[by][bx] = b
         return info, (rec_y, rec_u, rec_v)
 
-    def _p_deblock(self, recs, info):
+    def _p_deblock(self, recs, info, bs_maps=None):
         """The picture deblock with the BS maps and, with cu_qp_delta,
         the per-CU QP map (inter_codec.py:625-632) on the encoder's
-        device, one copy each way."""
+        device, one copy each way.  bs_maps: (bs_ver, bs_hor) where the
+        caller derives them (the B coder's `_bs_maps_b`), else
+        `compute_bs_maps` of the P grid."""
         cfg = self.cfg
         bw, bh = cfg.width // 16, cfg.height // 16
-        bs_ver, bs_hor = compute_bs_maps(info, bw, bh)
+        bs_ver, bs_hor = bs_maps or compute_bs_maps(info, bw, bh)
         dq_map = None
         if cfg.cu_qp_delta:
             dq_map = np.array([[info[r][c].qp for c in range(bw)]

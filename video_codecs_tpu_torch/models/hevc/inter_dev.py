@@ -1457,28 +1457,11 @@ def _reconcile_b(st, bw, bh, ref_poc, poc, is_anchor):
 
 
 def _check_flat_b(name, cfg, me_method):
-    """The configurations the reference codes on its host path or
-    mis-codes on the flat B engines raise ValueError."""
-    if cfg.tile_columns != 1:
-        raise ValueError(f"{name}: tiles are not ported")
-    for opt in ("wpp", "weighted_pred", "cu_qp_delta"):
-        if getattr(cfg, opt):
-            raise ValueError(f"{name}: {opt} is not ported")
-    for opt in ("timing_sei", "long_term_idr"):
-        if getattr(cfg, opt):
-            raise ValueError(
-                f"{name}: {opt}: the reference's B picture loop writes "
-                "neither the buffering-period / picture-timing SEI nor the "
-                "long-term entries its SPS then announces (they are "
-                "LowDelayEncoder.encode_frames' and write_p_slice_header's)")
-    if cfg.temporal_mvp:
-        raise ValueError(
-            f"{name}: temporal_mvp: the flat B coder ignores the temporal "
-            "candidate in its merge and AMVP derivations, so the "
-            "reference's stream does not decode")
-    if not (cfg.log2_ctb == cfg.log2_min_cb == cfg.log2_max_tb == 4):
-        raise ValueError(f"{name}: the flat engines code CTB = CU = TU "
-                         "16 (log2_ctb = log2_min_cb = log2_max_tb = 4)")
+    """The device engines take the device motion searches only; the
+    configurations the flat B syntax writes wrongly raise in
+    `HierarchicalBEncoder.__init__` (`bframe_codec.check_flat_b`), the RA
+    header's MaxNumMergeCand other than 1 in
+    `RandomAccessEncoder.__init__`."""
     if me_method not in ME_METHODS:
         raise ValueError(f"{name}: me_method {me_method!r} is not one of "
                          f"{ME_METHODS}")
@@ -1583,11 +1566,6 @@ class DeviceRandomAccessEncoder(ra.RandomAccessEncoder):
                  search_range: int = 64, me_method: str = "pyr", *,
                  device="cuda") -> None:
         _check_flat_b("DeviceRandomAccessEncoder", cfg, me_method)
-        if cfg.merge_cands != 1:
-            raise ValueError(
-                "DeviceRandomAccessEncoder: merge_cands must be 1: the flat "
-                "CU writer codes no merge_idx (bframe_codec._encode_b_ctu) "
-                "while the slice header signals MaxNumMergeCand")
         super().__init__(cfg, gop, search_range, me_method)
         self.device = torch.device(device)
 

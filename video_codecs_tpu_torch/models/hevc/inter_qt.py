@@ -442,6 +442,10 @@ class QtDeviceRandomAccessEncoder(ra.RandomAccessEncoder):
     quadtree for IDR, device per-16 inter decision + 32x32 skip-merge
     tree for B/P pictures, merge-5 syntax via motion_hm."""
 
+    #: writes its own CTB32 slices (`_serialize_qt_slice`), not the flat
+    #: 16x16 syntax whose refusals `bframe_codec.check_flat_b` holds
+    flat_syntax = False
+
     # video_codecs_tpu/models/hevc/inter_qt.py:477
     def __init__(self, cfg, gop: tuple = ra.GOP8_RA,
                  search_range: int = 64, me_method: str = "pyr",

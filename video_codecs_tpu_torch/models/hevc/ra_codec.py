@@ -1,26 +1,38 @@
-"""Random-access hierarchical-B GOP loop: GOPEntry tables, the RA
-slice header, the coding-order loop `encode_sequence_ra`, the flat
-16x16 RA slice writer `_encode_b_slice` and `_encode_b_frame`, which
-tags the picture's reference-ness for its NAL type.
+"""Random-access hierarchical-B GOP loop driven by GOPEntry tables:
+HM's `FrameN:` cfg lines (`parse_gop_entries`), the RA slice header
+(written and parsed), the coding-order loop `encode_sequence_ra`, the
+flat 16x16 RA slice writer `_encode_b_slice`, `_encode_b_frame`, which
+tags the picture's reference-ness for its NAL type, and
+`RandomAccessDecoder`.
 
-The port's copy of the part of video_codecs_tpu/models/hevc/ra_codec.py
-that the random-access encoders (the CTB32 quadtree one of
-models/hevc/inter_qt.py and the flat CTB16 one of
-models/hevc/inter_dev.py) run; each function keeps its name and a
-comment gives the original's line.  Cut: the HM cfg parser
-`parse_gop_entries`, `parse_ra_slice_header` and `RandomAccessDecoder`
-(the port decodes with models/hevc/decoder.py).
+The port's copy of video_codecs_tpu/models/hevc/ra_codec.py; each
+function keeps its name and a comment gives the original's line.
+`RandomAccessEncoder` is what the reference's encoder CLI builds for
+HM's encoder_randomaccess_main.cfg: the host flat 16x16 B coder of
+models/hevc/bframe_codec.py under the GOP table.  The device encoders
+(the CTB32 quadtree one of models/hevc/inter_qt.py and the flat CTB16
+one of models/hevc/inter_dev.py) derive from it.  `RandomAccessDecoder`
+runs on the host with the numpy twins, as the reference's does;
+models/hevc/decoder.GeneralDecoder decodes the same streams.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+
+import numpy as np
 
 from video_codecs_tpu_torch.entropy import bitstream as bs
 from video_codecs_tpu_torch.entropy import cabac, ctx
 from video_codecs_tpu_torch.models.hevc import bframe_codec as bc
 from video_codecs_tpu_torch.models.hevc import headers
 from video_codecs_tpu_torch.models.hevc import intra_codec as ic
+from video_codecs_tpu_torch.models.hevc import inter_codec as pc
+from video_codecs_tpu_torch.ops import deblock as deblock_ops
+from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import intra as intra_ops
+from video_codecs_tpu_torch.ops import sao as sao_ops
 
 L0, L1 = 0, 1
 NAL_TRAIL_N, NAL_TRAIL_R = 0, 1
@@ -52,6 +64,29 @@ GOP8_RA = (
     GOPEntry("B", 5, 4, 0.68, 0, 0, 3, 2, (-1, -5, 1, 3)),
     GOPEntry("B", 7, 4, 0.68, 0, 0, 3, 2, (-1, -3, -7, 1)),
 )
+
+
+# video_codecs_tpu/models/hevc/ra_codec.py:63
+def parse_gop_entries(cfg_text: str) -> list[GOPEntry]:
+    """Parse FrameN lines from an HM cfg (TAppEncCfg GOPEntry istream)."""
+    out = []
+    for m in re.finditer(r"^Frame(\d+)\s*:\s*(.+)$", cfg_text, re.M):
+        f = m.group(2).split("#")[0].split()
+        st, poc, qpo, qpf = f[0], int(f[1]), int(f[2]), float(f[3])
+        tc, beta, tid = int(f[4]), int(f[5]), int(f[6])
+        n_active, n_refs = int(f[7]), int(f[8])
+        refs = tuple(int(x) for x in f[9:9 + n_refs])
+        out.append(GOPEntry(st, poc, qpo, qpf, tc, beta, tid,
+                            n_active, refs))
+    out.sort(key=lambda e: e.poc)
+    # restore coding order: the file lists entries in coding order already
+    order = []
+    for m in re.finditer(r"^Frame(\d+)\s*:\s*(.+)$", cfg_text, re.M):
+        f = m.group(2).split("#")[0].split()
+        order.append(int(f[1]))
+    by_poc = {e.poc: e for e in out}
+    return [by_poc[p] for p in order]
+
 
 
 # video_codecs_tpu/models/hevc/ra_codec.py:84
@@ -110,14 +145,66 @@ def write_ra_slice_header(cfg, poc: int, slice_type: int, qp: int,
     return w
 
 
+# video_codecs_tpu/models/hevc/ra_codec.py:139
+def parse_ra_slice_header(rbsp: bytes, pps, sps_sao: bool = False,
+                          sps_tmvp: bool = False):
+    r = bs.BitReader(rbsp)
+    assert r.flag() == 1
+    assert r.ue() == 0
+    st = r.ue()
+    poc = r.read(8)
+    assert r.flag() == 0
+    n_neg, n_pos = r.ue(), r.ue()
+    neg, pos = [], []
+    prev = 0
+    for _ in range(n_neg):
+        prev = prev - r.ue() - 1
+        neg.append((prev, bool(r.flag())))
+    prev = 0
+    for _ in range(n_pos):
+        prev = prev + r.ue() + 1
+        pos.append((prev, bool(r.flag())))
+    if sps_tmvp:
+        assert r.flag() == 0, \
+            "TMVP RA streams: decode with GeneralDecoder"
+    sao = False
+    if sps_sao:
+        sao = bool(r.flag())
+        assert bool(r.flag()) == sao, "joint luma+chroma SAO expected"
+    if r.flag():                   # num_ref_idx_active_override
+        n0 = 1 + r.ue()
+        n1 = (1 + r.ue()) if st == 0 else 1
+        assert n0 == 1 and n1 == 1, \
+            "multi-ref RA streams: decode with GeneralDecoder"
+    if st == 0:
+        r.flag()                   # mvd_l1_zero
+    merge_cands = 5 - r.ue()
+    qp = pps.init_qp + r.se()
+    if not pps.deblocking_disabled:
+        r.flag()
+    assert r.flag() == 1
+    r.byte_align()
+    return st, poc, qp, neg, pos, merge_cands, r.bit_pos(), sao
+
+
+
 # video_codecs_tpu/models/hevc/ra_codec.py:180
 class RandomAccessEncoder(bc.HierarchicalBEncoder):
     """GOP-driven hierarchical-B encoder (BASELINE config 3 structure)."""
 
     # video_codecs_tpu/models/hevc/ra_codec.py:183
     def __init__(self, cfg: headers.HevcConfig, gop: tuple = GOP8_RA,
-                 search_range: int = 8, me_method: str = "auto") -> None:
-        super().__init__(cfg, search_range, me_method)
+                 search_range: int = 8, me_method: str = "auto", *,
+                 device="cuda") -> None:
+        """The flat RA header signals cfg.merge_cands while the flat CU
+        writer codes no merge_idx (`_encode_b_ctu`): merge_cands other
+        than 1 raises ValueError, as TMVP does (HierarchicalBEncoder)."""
+        if self.flat_syntax and cfg.merge_cands != 1:
+            raise ValueError(
+                f"{type(self).__name__}: merge_cands must be 1: the flat "
+                "CU writer codes no merge_idx (bframe_codec._encode_b_ctu) "
+                "while the slice header signals MaxNumMergeCand")
+        super().__init__(cfg, search_range, me_method, device=device)
         self.gop = tuple(gop)
         self.gop_size = max(e.poc for e in gop)
 
@@ -224,3 +311,139 @@ class RandomAccessEncoder(bc.HierarchicalBEncoder):
                   if (poc - e.poc) % self.gop_size == 0), None)
         self._cur_is_ref = e is None or e.temporal_id < 3
         return super()._encode_b_frame(frame, poc, refs, is_anchor)
+
+
+# video_codecs_tpu/models/hevc/ra_codec.py:291
+class RandomAccessDecoder(bc.HierarchicalBDecoder):
+    """Decodes GOPEntry-driven RA streams (RPS-derived reference lists)."""
+
+    # video_codecs_tpu/models/hevc/ra_codec.py:294
+    def decode(self, stream: bytes):
+        import hashlib
+        out: dict[int, tuple] = {}
+        self._dpb: dict[int, tuple] = {}
+        last_poc = None
+        for nal in bs.split_annexb(stream):
+            nal_type = (nal[0] >> 1) & 0x3F
+            rbsp = bs.strip_emulation_prevention(nal[2:])
+            if nal_type == bs.NAL_VPS:
+                continue
+            if nal_type == bs.NAL_SPS:
+                self.cfg = headers.parse_sps(rbsp)
+            elif nal_type == bs.NAL_PPS:
+                self.pps = headers.parse_pps(rbsp)
+            elif nal_type in (bs.NAL_IDR_W_RADL, bs.NAL_IDR_N_LP):
+                frame = self._decode_slice(rbsp, nal_type)
+                out[0] = frame
+                self._dpb = {0: frame}
+                last_poc = 0
+            elif nal_type in (NAL_TRAIL_N, NAL_TRAIL_R):
+                poc, frame = self._decode_ra_slice(rbsp,
+                                                   nal_type == NAL_TRAIL_R)
+                out[poc] = frame
+                last_poc = poc
+            elif nal_type == bs.NAL_SUFFIX_SEI:
+                md5s = self._parse_hash_sei(rbsp)
+                if md5s and last_poc is not None:
+                    ok = all(hashlib.md5(out[last_poc][i].astype(np.uint8)
+                                         .tobytes()).digest() == md5s[i]
+                             for i in range(3))
+                    self.hash_status.append(ok)
+        return [out[k] for k in sorted(out)]
+
+    # video_codecs_tpu/models/hevc/ra_codec.py:327
+    def _decode_ra_slice(self, rbsp: bytes, is_ref: bool):
+        st, poc, qp, neg, pos, merge_cands, off_bits, sao_on = \
+            parse_ra_slice_header(rbsp, self.pps, sps_sao=self.cfg.sao)
+        is_anchor = st == 1
+        used_past = [poc + d for d, u in neg if u]
+        used_fut = [poc + d for d, u in pos if u]
+        ref_poc = {L0: max(used_past)}
+        if not is_anchor:
+            ref_poc[L1] = min(used_fut)
+        frame = self._decode_b_body(rbsp, off_bits, poc, qp, is_anchor,
+                                    ref_poc, sao_on=sao_on)
+        # DPB: retain RPS pictures + this one (if referenced)
+        keep = {poc + d for d, _ in neg} | {poc + d for d, _ in pos}
+        self._dpb = {p: v for p, v in self._dpb.items() if p in keep}
+        if is_ref:
+            self._dpb[poc] = frame
+        return poc, frame
+
+    # video_codecs_tpu/models/hevc/ra_codec.py:345
+    def _decode_b_body(self, rbsp, off_bits, poc, qp, is_anchor, ref_poc,
+                       sao_on: bool = False):
+        """CTU decode shared with the 2-level decoder (ref planes from the
+        RPS-selected DPB pictures)."""
+        cfg, pps = self.cfg, self.pps
+        ref_planes = {lx: tuple(p.astype(np.int32)
+                                for p in self._dpb[rp])
+                      for lx, rp in ref_poc.items()}
+        qp_c = ic.chroma_qp(qp)
+        bw, bh = cfg.width // 16, cfg.height // 16
+        data = rbsp[off_bits // 8:]
+        init_row = ctx.P if is_anchor else ctx.B
+        dec = cabac.CabacDecoder(bs.BitReader(data),
+                                 ctx.init_states(init_row, qp))
+        rec_y = np.zeros((cfg.height, cfg.width), np.int32)
+        rec_u = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
+        rec_v = np.zeros_like(rec_u)
+        info = [[None] * bw for _ in range(bh)]
+        sbh = pps.sign_data_hiding
+        sao_params = [[None] * 3 for _ in range(bw * bh)]
+
+        for by in range(bh):
+            for bx in range(bw):
+                if sao_on:
+                    ic.decode_sao_ctu(dec, sao_params, by * bw + bx,
+                                      bx, by, bw, 0)
+                b = self._decode_b_ctu(dec, info, bx, by, bw, bh, is_anchor,
+                                       poc, ref_poc, sbh)
+                info[by][bx] = b
+                xx, yy = bx * 16, by * 16
+                cx, cy = xx // 2, yy // 2
+                if b.pred_mode == bc.MODE_INTRA:
+                    ref = ic.build_ref_np(rec_y, xx, yy, 16)
+                    pred = intra_ops.predict_intra_np(ref, b.intra_mode, 4)
+                elif b.inter_dir == 3:
+                    pred = interp.mc_luma_bi_np(
+                        ref_planes[L0][0], ref_planes[L1][0], xx, yy,
+                        b.mv[L0], b.mv[L1], 16)
+                else:
+                    lx = L0 if 1 & b.inter_dir else L1
+                    pred = interp.mc_luma_np(ref_planes[lx][0], xx, yy,
+                                             *b.mv[lx], 16)
+                rec_y[yy:yy + 16, xx:xx + 16] = pc._recon_tb(
+                    pred, b.levels_y, qp, 4)
+                for comp, pr in ((0, rec_u), (1, rec_v)):
+                    if b.pred_mode == bc.MODE_INTRA:
+                        refc = ic.build_ref_np(pr, cx, cy, 8)
+                        predc = intra_ops.predict_intra_np(
+                            refc, b.intra_mode, 3, is_luma=False)
+                    elif b.inter_dir == 3:
+                        predc = interp.mc_chroma_bi_np(
+                            ref_planes[L0][1 + comp],
+                            ref_planes[L1][1 + comp], cx, cy,
+                            b.mv[L0], b.mv[L1], 8)
+                    else:
+                        lx = L0 if 1 & b.inter_dir else L1
+                        predc = interp.mc_chroma_np(
+                            ref_planes[lx][1 + comp], cx, cy, *b.mv[lx], 8)
+                    lvc = b.levels_cb if comp == 0 else b.levels_cr
+                    pr[cy:cy + 8, cx:cx + 8] = pc._recon_tb(predc, lvc,
+                                                            qp_c, 3)
+                end = dec.decode_terminate()
+                last = by == bh - 1 and bx == bw - 1
+                assert end == (1 if last else 0)
+        if not pps.deblocking_disabled:
+            bs_ver, bs_hor = bc._bs_maps_b(info, bw, bh, ref_poc)
+            rec_y, rec_u, rec_v = deblock_ops.deblock_420_bs_np(
+                rec_y, rec_u, rec_v, qp, bs_ver, bs_hor)
+        if sao_on:
+            # the reference's apply_ctu loop, with each EO class's map
+            # computed once per plane instead of once per CTB
+            rec_y, rec_u, rec_v = (
+                sao_ops.apply_ctus(p, [p3[c] for p3 in sao_params],
+                                   16 if c == 0 else 8, bw)
+                for c, p in enumerate((rec_y, rec_u, rec_v)))
+        return rec_y, rec_u, rec_v

@@ -19,8 +19,9 @@ decoder (`mc_luma_np`, `mc_chroma_np`, their 14-bit cores and the
 explicit weighted uni-prediction `mc_luma_wp_np` / `mc_chroma_wp_np`)
 keep the reference's names, integers and dtypes; where the reference
 computes each sample in a Python loop, the 14-bit cores call the
-rectangular twins with w = h = n.  Cut: the bi-prediction twins, which
-wait for the host B coder.
+rectangular twins with w = h = n.  The host B coder and its decoder
+(models/hevc/bframe_codec.py) add the bi-prediction twins
+`mc_luma_bi_np` / `mc_chroma_bi_np`.
 """
 
 from __future__ import annotations
@@ -245,6 +246,20 @@ def _mc_luma14_np(ref, x0, y0, mvx, mvy, n):
 def _mc_chroma14_np(ref, x0, y0, mvx, mvy, n):
     """int64 [n, n] chroma samples in the 14-bit domain (1/8-pel)."""
     return mc_chroma14_rect_np(ref, x0, y0, mvx, mvy, n, n)
+
+
+# video_codecs_tpu/ops/interp.py:312
+def mc_luma_bi_np(ref0, ref1, x0, y0, mv0, mv1, n):
+    p0 = _mc_luma14_np(ref0, x0, y0, mv0[0], mv0[1], n)
+    p1 = _mc_luma14_np(ref1, x0, y0, mv1[0], mv1[1], n)
+    return np.clip((p0 + p1 + 64) >> 7, 0, 255).astype(np.int32)
+
+
+# video_codecs_tpu/ops/interp.py:318
+def mc_chroma_bi_np(ref0, ref1, x0, y0, mv0, mv1, n):
+    p0 = _mc_chroma14_np(ref0, x0, y0, mv0[0], mv0[1], n)
+    p1 = _mc_chroma14_np(ref1, x0, y0, mv1[0], mv1[1], n)
+    return np.clip((p0 + p1 + 64) >> 7, 0, 255).astype(np.int32)
 
 
 # video_codecs_tpu/ops/interp.py:324
