@@ -13,8 +13,10 @@ TZSearch, the LD-P row under rate control, and the flat CTB16
 random-access (SAO off, then on) and hierarchical-B engines at
 1920x1072, and the reference's host low-delay P coder on HM's LD-P main
 configuration at 832x480 (as it is, with weighted prediction, with
-cu_qp_delta), and the reference's encoder and decoder CLIs on HM's
-random-access and low-delay P main cfgs at 832x480, in phases:
+cu_qp_delta), the reference's encoder and decoder CLIs on HM's
+random-access and low-delay P main cfgs at 832x480, and the reference's
+JM encoder CLI (the H.264 host IPPP coder at Main profile and baseline)
+at 176x144, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -214,7 +216,28 @@ random-access and low-delay P main cfgs at 832x480, in phases:
         must be the first of 11a's stream from this run; SAD 3 and
         sao_stats 9 launches; the decoder CLI (LowDelayDecoder) "(OK)" on
         every picture;
- 13. require that nothing of the JAX package was imported.
+ 13. the reference's JM encoder CLI (`tools/jm_encoder_app.main`, called
+     in this process) on a JM-style cfg (`jm_cli_files`) and 5 pictures
+     of bench_synth_clip(176, 144, 5, seed=42), QP 28, search range 16:
+     it builds the host IPPP coder `inter_codec.H264Encoder`, whose card
+     stage (`host_me.RefSearch`: one SAD launch at n=4, r=32 per
+     reference and P picture, the partition sums and the 16 quarter-pel
+     phase planes) runs on the card:
+     a. sad-kernel-jm: the kernel against its plain version at that shape
+        (B=1,584), timed beside its bound, the plain version and
+        `torch.cdist`;
+     b. jm-main: CABAC, EPZS, 3 references, trellis; per picture the
+        card stage, the searches, the mode loops and the rest, the
+        quantization and the entropy coder, bytes, Y-PSNR, SAD launches
+        (9 in all: the list holds 1, 2, 3 and 3 references); the CLI's
+        summary and warnings; the recon file the encoder's pictures and
+        the port's H264Decoder's; the stream the JAX package's CLI's
+        (JM_SHA1, scripts/jax_reference_sha1.py --jm-main);
+     c. jm-baseline: b with CAVLC, full search, 1 reference and adaptive
+        rounding (4 SAD launches; --jm-baseline);
+     d. jm-cuda-vs-cpu: b at 64x48 on the card and with --device=cpu:
+        byte-equal streams and recon files;
+ 14. require that nothing of the JAX package was imported.
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -687,6 +710,73 @@ def hm_cli_files(d: Path, kind: str, frames, w: int = CLI_W,
                                  for c in range(3)))
     return ["-c", str(main), "-c", str(seq), "-i", str(src),
             "-b", str(d / "out.bin"), "-o", str(d / "rec.yuv")]
+
+
+# The JM encoder CLI's runs (phases jm-main / jm-baseline): JM 18.5's
+# geometry of its stock cfgs (176x144, the QCIF of foreman_part_qcif.yuv
+# that bench.py's bench_jm_baseline and the JAX tests read), 5 pictures
+# of bench.py's clip (seed 42) at QP 28, search range 16, IPPP.
+JM_W, JM_H, JM_PICTURES, JM_SR = 176, 144, 5, 16
+JM_SETTINGS = {
+    # Main profile: CABAC, EPZS, 3 references, trellis (RDOQ)
+    "main": dict(SymbolMode=1, SearchMode=3, NumberReferenceFrames=3,
+                 UseRDOQuant=1, UseAdaptiveRounding=0, ProfileIDC=77),
+    # Baseline: CAVLC, full search, 1 reference, adaptive rounding
+    "baseline": dict(SymbolMode=0, SearchMode=0, NumberReferenceFrames=1,
+                     UseRDOQuant=0, UseAdaptiveRounding=1, ProfileIDC=66),
+}
+# SAD launches of a run: one per reference and P picture (the Main
+# settings' list holds 1, 2, 3 and 3 references).
+JM_LAUNCHES = {"main": 1 + 2 + 3 + 3, "baseline": 4}
+# The JAX package's JM encoder CLI on the same files
+# (scripts/jax_reference_sha1.py --jm-main / --jm-baseline): bytes, SHA-1.
+JM_SHA1 = {"main": (24931, "0af9146b4a7e9b2ed2841cdbb955e1f00025e61a"),
+           "baseline": (32666, "3403d6c7d1168407c7757b918d2f0a6c86d0d1e6")}
+# A JM-style cfg (jm18.5/bin/encoder_*.cfg layout: `Key = Value  # note`)
+# with the mapped keys and four the CLI does not map (it warns about the
+# one that is not 0, RDOptimization).
+JM_CFG = """\
+# JM 18.5 style encoder configuration
+InputFile             = "{src}"   # Input sequence
+FramesToBeEncoded     = {n}       # Number of frames to be coded
+FrameRate             = 30.0      # Frame Rate per second
+SourceWidth           = {w}       # Source frame width
+SourceHeight          = {h}       # Source frame height
+OutputFile            = "{out}"   # Bitstream
+ReconFile             = "{rec}"   # Reconstructed YUV file
+ProfileIDC            = {ProfileIDC}  # Profile IDC (66=baseline, 77=main)
+LevelIDC              = 30        # Level IDC
+IntraPeriod           = 0         # Period of I-pictures (0=only first)
+QPISlice              = 28        # Quant. param for I Slices
+QPPSlice              = 28        # Quant. param for P Slices
+SearchRange           = {sr}        # Max search range
+NumberReferenceFrames = {NumberReferenceFrames}  # Reference frames
+SymbolMode            = {SymbolMode}  # 0=UVLC, 1=CABAC
+SearchMode            = {SearchMode}  # -1 full, 0 fast full, 1 UMHex, 3 EPZS
+UseRDOQuant           = {UseRDOQuant}  # RDOQ (trellis)
+UseAdaptiveRounding   = {UseAdaptiveRounding}  # Adaptive rounding
+RDOptimization        = 1         # rd-optimized mode decision
+DisableSubpelME       = 0         # Disable sub-pixel motion estimation
+NumberBFrames         = 0         # Number of B coded frames
+ChromaQPOffset        = 0         # Chroma QP offset
+"""
+
+
+def jm_cli_files(d: Path, kind: str, frames) -> list:
+    """Write the clip's YUV file and a JM-style cfg of `kind` ("main" or
+    "baseline", JM_SETTINGS) into directory d; returns the JM encoder
+    CLI's arguments (`-d d/encoder_<kind>.cfg`; out.264 and rec.yuv in
+    d)."""
+    from video_codecs_tpu_torch.utils import yuv
+    src = d / "in.yuv"
+    yuv.write_frames(str(src), *(np.stack([f[c] for f in frames])
+                                 for c in range(3)))
+    cfg = d / f"encoder_{kind}.cfg"
+    h, w = frames[0][0].shape
+    cfg.write_text(JM_CFG.format(src=src, n=len(frames), w=w, h=h,
+                                 out=d / "out.264", rec=d / "rec.yuv",
+                                 sr=JM_SR, **JM_SETTINGS[kind]))
+    return ["-d", str(cfg)]
 
 def cut_clip(w: int, h: int, nf: int, cut: int = 3):
     """A texture panning by (2, 1) px, then from picture `cut` on a smooth
@@ -2746,6 +2836,250 @@ def phase_cli_ldp(host_stream: bytes) -> tuple[int, int]:
           " warnings")
     return sad_n, sao_n
 
+def phase_sad_jm() -> dict:
+    """Phase 13a (sad-kernel-jm): the SAD kernel against its plain version at the
+    host H.264 coder's card-stage shape -- n=4, r=32 (twice search range
+    16), B=1,584 (the 4x4 blocks of a 176x144 picture), one launch per
+    reference and P picture -- on windows cut as `host_me.sad_surfaces`
+    cuts them from a seeded picture pair, exactly; timed beside its bound,
+    the plain version and `torch.cdist`.  Returns the row."""
+    from video_codecs_tpu_torch.models.h264 import host_me
+    n, r = 4, 2 * JM_SR
+    frames = bench_synth_clip(JM_W, JM_H, 2)
+    cur_y = torch.from_numpy(frames[1][0]).cuda()
+    ref_y = torch.from_numpy(frames[0][0]).cuda()
+    ys = torch.arange(-r, JM_H + r, device="cuda").clamp(0, JM_H - 1)
+    xs = torch.arange(-r, JM_W + r, device="cuda").clamp(0, JM_W - 1)
+    wn = n + 2 * r
+    win = ref_y[ys][:, xs].unfold(0, wn, 4).unfold(1, wn, 4).reshape(
+        -1, wn, wn).contiguous()
+    cur = cur_y.unfold(0, 4, 4).unfold(1, 4, 4).reshape(-1, 4, 4).contiguous()
+    b = cur.shape[0]
+    got = ss.sad_surface(cur, win, n, r)
+    torch.cuda.synchronize()
+    want = ss.sad_surface_ref(cur, win, n, r)
+    err = int((got - want).abs().max())
+    check(err == 0, f"kernel != plain at n={n} B={b} r={r} (max abs err "
+                    f"{err})")
+    stage = host_me.sad_surfaces(cur_y, ref_y, JM_SR)
+    check(torch.equal(stage[(4, 4)].reshape(-1, 2 * r + 1, 2 * r + 1), got),
+          "host_me.sad_surfaces' 4x4 surfaces != the kernel's on its cut")
+    lib_err = float((sad_cdist(cur, win, n, r) - want).abs().max())
+    tm = sad_times(cur, win, n, r)
+    ms, plain, lib = tm["ms"], tm["plain_ms"], tm["library_ms"]
+    bound, nbytes, ops = sad_bound(n, b, r)
+    by = "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES else "bytes"
+    print(f"[sad-kernel-jm] the host H.264 coder's card stage at {JM_W}x"
+          f"{JM_H}, search range {JM_SR}: n={n} B={b} r={r}: equal to the "
+          f"plain version (max abs err 0); kernel {kms(ms)} (profiler"
+          f"{', ' + tm['note'] if tm['note'] else ''}), {tm['event_ms']:.4f}"
+          f" ms a wrapper call (CUDA events); bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops, {by}), "
+          f"{of_bound(bound, ms)}; plain {plain:.3f} ms; torch.cdist "
+          f"{lib:.3f} ms (max abs err {lib_err:g})")
+    return dict(what=f"H.264 host coder {JM_W}x{JM_H}", n=n, b=b, r=r,
+                ms=ms, event_ms=tm["event_ms"], plain_ms=plain,
+                library_ms=lib, bound_ms=bound, bound_by=by, max_abs_err=err,
+                note=tm["note"] or None)
+
+
+def _jm_instrument(enc):
+    """Time each picture of the host H.264 coder by stage: the card stage
+    (`_card_stage`: the SAD surfaces and phase planes of every reference,
+    synchronised by their copy back), the motion searches (`_search`,
+    `_search_epzs`, `_search_umhex` with their sub-pel refinement), the
+    luma quantization (`_quant_ac`: hard, trellis or adaptive rounding),
+    the entropy coder (`_write_p_mb_cabac`, `_write_mb_cabac`, CAVLC's
+    `encode_block`); the rest of the picture is the mode loops, MC,
+    transforms, reconstruction and the deblock.  Counts each picture's
+    SAD-kernel launches.  Returns (log, restore)."""
+    from video_codecs_tpu_torch.entropy import cavlc
+    cur = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    enc._card_stage = timed("card", enc._card_stage)
+    for name in ("_search", "_search_epzs", "_search_umhex"):
+        setattr(enc, name, timed("search", getattr(enc, name)))
+    enc._quant_ac = timed("quant", enc._quant_ac)
+    enc._write_p_mb_cabac = timed("entropy", enc._write_p_mb_cabac)
+    enc._write_mb_cabac = timed("entropy", enc._write_mb_cabac)
+    encode_block = cavlc.encode_block
+    cavlc.encode_block = timed("entropy", encode_block)
+    log = []
+    orig_p, orig_i = enc._encode_p_frame, enc.encode_frame
+
+    def picture(kind, fn, refs):
+        def run(*a, **kw):
+            cur.clear()
+            n0 = ss.sad_surface.launches
+            t0 = time.perf_counter()
+            rbsp, rec = fn(*a, **kw)
+            log.append(dict(kind=kind, refs=refs(a), rbsp=rbsp, rec=rec,
+                            total=time.perf_counter() - t0,
+                            launches=ss.sad_surface.launches - n0, **cur))
+            return rbsp, rec
+        return run
+
+    enc._encode_p_frame = picture("P", orig_p, lambda a: len(a[3]))
+    enc.encode_frame = picture("I", orig_i, lambda a: 0)
+
+    def restore():
+        cavlc.encode_block = encode_block
+
+    return log, restore
+
+
+def phase_jm(kind: str) -> int:
+    """Phase 13b-c (jm-main, jm-baseline): the port's JM encoder CLI
+    (`tools/jm_encoder_app.main`, in this process) on a JM-style cfg
+    (`jm_cli_files`) and 5 pictures of bench.py's clip at 176x144: it
+    builds the host IPPP coder `inter_codec.H264Encoder` on the card.
+    Per picture the card stage, the searches, the mode loops and the
+    rest, the quantization and the entropy coder, bytes, Y-PSNR and SAD
+    launches (one per reference and P picture); the CLI's summary and
+    warnings; the recon file the encoder's pictures and the port's
+    H264Decoder's; the stream the JAX package's CLI's (JM_SHA1).
+    Returns the SAD launches."""
+    from video_codecs_tpu_torch.models.h264 import inter_codec as h264
+    from video_codecs_tpu_torch.tools import jm_encoder_app
+    tag = f"jm-{kind}"
+    s = JM_SETTINGS[kind]
+    frames = bench_synth_clip(JM_W, JM_H, JM_PICTURES)
+    d = BUILD_DIR / f"jm_{kind}"
+    d.mkdir(parents=True, exist_ok=True)
+    argv = jm_cli_files(d, kind, frames)
+    print(f"[{tag}] the port's JM encoder CLI (tools/jm_encoder_app.main) "
+          f"on a JM-style cfg: {JM_W}x{JM_H}, {JM_PICTURES} pictures of "
+          f"bench.py's clip (seed 42), QP 28, IPPP, SearchRange {JM_SR}, "
+          f"SymbolMode {s['SymbolMode']}, SearchMode {s['SearchMode']}, "
+          f"NumberReferenceFrames {s['NumberReferenceFrames']}, UseRDOQuant "
+          f"{s['UseRDOQuant']}, UseAdaptiveRounding "
+          f"{s['UseAdaptiveRounding']}; card {CARD}")
+    made = []
+    cls = h264.H264Encoder
+
+    def build(*a, **kw):
+        enc = cls(*a, **kw)
+        made.append((enc, _jm_instrument(enc)))
+        return enc
+
+    h264.H264Encoder = build
+    try:
+        out, err, t_enc, launches = _cli_launches(jm_encoder_app.main,
+                                                  argv)[:4]
+    finally:
+        h264.H264Encoder = cls
+        for _, (_, restore) in made:
+            restore()
+    check(len(made) == 1, f"the CLI built {len(made)} H264Encoders")
+    enc, (log, _) = made[0]
+    want_cfg = ("cabac" if s["SymbolMode"] else "cavlc",
+                {0: "full", 3: "epzs"}[s["SearchMode"]],
+                s["NumberReferenceFrames"],
+                "trellis" if s["UseRDOQuant"] else
+                "around" if s["UseAdaptiveRounding"] else "normal", JM_SR)
+    check(enc.device.type == "cuda", f"the CLI's encoder is on {enc.device}")
+    check((enc.entropy, enc.me, enc.n_refs, enc.quant, enc.sr) == want_cfg,
+          f"the CLI's settings {enc.entropy} {enc.me} {enc.n_refs} "
+          f"{enc.quant} {enc.sr}, want {want_cfg}")
+    warned = [ln for ln in err.splitlines() if ln.startswith("**")]
+    print(f"[{tag}] the CLI's warnings: {' | '.join(warned) or 'none'}")
+    for ln in out.strip().splitlines():
+        print(f"[{tag}] {ln}")
+    want = 0
+    for i, e in enumerate(log):
+        p = psnr(frames[i][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
+        rest = e["total"] - sum(e.get(k_, 0.0) for k_ in
+                                ("card", "search", "quant", "entropy"))
+        want += e["refs"]
+        check(e["launches"] == e["refs"],
+              f"picture {i}: {e['launches']} SAD-kernel launches, want 1 "
+              f"per reference ({e['refs']})")
+        print(f"[{tag}] picture {i} ({e['kind']}, {e['refs']} references): "
+              f"card stage {e.get('card', 0.0) * 1e3:.1f} ms, searches "
+              f"{e.get('search', 0.0) * 1e3:.1f} ms, mode loops, MC, "
+              f"recon and deblock {rest * 1e3:.1f} ms, quantization "
+              f"{e.get('quant', 0.0) * 1e3:.1f} ms, entropy coder "
+              f"{e.get('entropy', 0.0) * 1e3:.1f} ms (total "
+              f"{e['total'] * 1e3:.1f} ms); {len(e['rbsp'])} bytes, Y-PSNR "
+              f"{p:.2f} dB; SAD-kernel launches {e['launches']}")
+    check(len(log) == JM_PICTURES, f"{len(log)} pictures coded")
+    check(launches == want == JM_LAUNCHES[kind],
+          f"{launches} SAD-kernel launches, want {JM_LAUNCHES[kind]} (one "
+          "per reference and P picture)")
+    stream = (d / "out.264").read_bytes()
+    sha = hashlib.sha1(stream).hexdigest()
+    ry, ru, rv = yuv.read_frames(str(d / "rec.yuv"), JM_W, JM_H)
+    for k_, e in enumerate(log):
+        for c, plane in enumerate((ry, ru, rv)):
+            check(np.array_equal(plane[k_], e["rec"][c]),
+                  f"[{tag}] recon file picture {k_} plane {c} != the "
+                  "encoder's")
+    t0 = time.perf_counter()
+    got = H264Decoder().decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(len(got) == JM_PICTURES, f"H264Decoder: {len(got)} pictures")
+    for k_, g in enumerate(got):
+        for c, plane in enumerate((ry, ru, rv)):
+            check(np.array_equal(plane[k_], g[c]),
+                  f"[{tag}] H264Decoder picture {k_} plane {c} != the "
+                  "recon file's")
+    print(f"[{tag}] {len(stream)} bytes, SHA-1 {sha}; jm_encoder_app.main "
+          f"{t_enc:.2f} s ({JM_PICTURES / t_enc:.3f} fps); SAD-kernel "
+          f"launches {launches}; the recon file holds the encoder's "
+          f"pictures; the port's H264Decoder gives them ({t_dec:.2f} s)")
+    ref_bytes, ref_sha = JM_SHA1[kind]
+    print(f"[{tag}] the JAX package's JM encoder CLI on the same files "
+          f"(scripts/jax_reference_sha1.py --jm-{kind}, CPU): {ref_bytes} "
+          f"bytes SHA-1 {ref_sha}")
+    check((len(stream), sha) == (ref_bytes, ref_sha),
+          f"stream {len(stream)} bytes SHA-1 {sha}, the JAX package's CLI "
+          f"wrote {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's JM encoder CLI's, byte "
+          "for byte (SHA-1)")
+    return launches
+
+
+def phase_jm_cuda_vs_cpu() -> None:
+    """Phase 13d (jm-cuda-vs-cpu): the JM encoder CLI with the Main
+    settings on 5 pictures at 64x48 on the card and with --device=cpu:
+    byte-equal streams and recon files, 9 SAD launches on the card and
+    none on the CPU."""
+    from video_codecs_tpu_torch.tools import jm_encoder_app
+    tag = "jm-cuda-vs-cpu"
+    frames = bench_synth_clip(64, 48, JM_PICTURES)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        d = BUILD_DIR / f"jm_small_{dev}"
+        d.mkdir(parents=True, exist_ok=True)
+        argv = jm_cli_files(d, "main", frames)
+        if dev == "cpu":
+            argv.append("--device=cpu")
+        _, _, t, sad_n = _cli_launches(jm_encoder_app.main, argv)[:4]
+        runs.append(((d / "out.264").read_bytes(),
+                     (d / "rec.yuv").read_bytes(), sad_n, t))
+    (sg, rg, ng, tg), (sc, rc_, nc, tc) = runs
+    check(sg == sc and rg == rc_,
+          f"[{tag}] the card's stream ({len(sg)} bytes) != the CPU's "
+          f"({len(sc)} bytes), or their recon files differ")
+    check(ng == JM_LAUNCHES["main"] and nc == 0,
+          f"[{tag}] SAD-kernel launches: card {ng}, CPU {nc} (want "
+          f"{JM_LAUNCHES['main']}, 0)")
+    print(f"[{tag}] 64x48, {JM_PICTURES} pictures, the Main settings: "
+          f"streams byte-equal ({len(sg)} bytes), recon files equal; "
+          f"SAD-kernel launches: card {ng}, CPU 0; cuda {tg:.2f} s, cpu "
+          f"{tc:.2f} s")
+
+
 def flat_cfg(w: int, h: int, reorder: int, sao: bool = False):
     """scripts/diag_ra_gap.py's settings of the flat CTB16 B engines: QP
     32, SBH, CTB = CU = TU 16, one merge candidate, no TMVP, deblocking
@@ -3037,6 +3371,10 @@ def main() -> None:
     cli_ra_sad = phase_cli_ra()
     phase_cli_ra_cuda_vs_cpu()
     cli_ldp_sad, cli_ldp_sao = phase_cli_ldp(host_stream)
+    sad_jm = phase_sad_jm()
+    jm_main = phase_jm("main")
+    jm_base = phase_jm("baseline")
+    phase_jm_cuda_vs_cpu()
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("video_codecs_tpu", "jax")]
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
@@ -3045,7 +3383,7 @@ def main() -> None:
     launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_sao +
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
                 hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad +
-                cli_ra_sad + cli_ldp_sad)
+                cli_ra_sad + cli_ldp_sad + jm_main + jm_base)
     sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
                cli_ldp_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
@@ -3057,7 +3395,9 @@ def main() -> None:
           f"host LD-P run {host_sad}, its WP run {wp_sad} and that run's "
           f"pictures without WP {wp_off_sad}, its "
           f"cu_qp_delta run {dqp_sad}, the encoder CLI on HM's RA main cfg "
-          f"{cli_ra_sad} and on its LD-P main cfg {cli_ldp_sad}, together "
+          f"{cli_ra_sad} and on its LD-P main cfg {cli_ldp_sad}, the JM "
+          f"encoder CLI's Main run {jm_main} and baseline run {jm_base}, "
+          "together "
           f"{launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
@@ -3085,6 +3425,7 @@ def main() -> None:
           f"the {r['what']} call's (B={r['b']}; every shape on the next "
           "line)")
     print(json.dumps({"sad_surface_r64": r64}))
+    print(json.dumps({"sad_surface_jm": sad_jm}))
     print(json.dumps({"rdoq_dev_shapes": rq}))
     print(json.dumps({"sao_stats_flat": sao_flat}))
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the start, "

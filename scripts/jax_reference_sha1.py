@@ -62,7 +62,15 @@ search range 64, SAO switched off with a warning, the IDR with the full
 RDOQ), and decodes the stream with the JAX package's
 `RandomAccessDecoder` and `GeneralDecoder`, the port's, and both
 packages' decoder CLIs (the JAX one routes random-access streams to
-`LowDelayDecoder`; ROADMAP queue 3, reference fault 10).  This is a tool for the reference side: it
+`LowDelayDecoder`; ROADMAP queue 3, reference fault 10).  --jm-main and
+--jm-baseline run the JAX package's JM encoder CLI
+(`tools/jm_encoder_app.main`) on the JM-style cfg and YUV file that
+chip_smoke.py's `[jm-main]` / `[jm-baseline]` write
+(`chip_smoke.jm_cli_files`: 176x144, 5 pictures of
+bench_synth_clip(176, 144, 5, seed=42), QP 28, search range 16; Main:
+CABAC, EPZS, 3 references, trellis; baseline: CAVLC, full search, 1
+reference, adaptive rounding) and decode the stream with both packages'
+H264Decoder.  This is a tool for the reference side: it
 imports the JAX package, the port's `motion` module for the repaired
 function and the port's decoders for a second opinion.
 """
@@ -305,6 +313,42 @@ def cli_ra() -> None:
                   "decoded", flush=True)
 
 
+def jm(kind: str) -> None:
+    """The JAX package's JM encoder CLI on chip_smoke.py's `[jm-<kind>]`
+    files (`chip_smoke.jm_cli_files`); bytes, SHA-1, its summary lines
+    and whether both packages' H.264 decoders give the recon file's
+    pictures."""
+    from video_codecs_tpu.models.h264 import inter_codec as h264
+    from video_codecs_tpu.tools import jm_encoder_app
+    from video_codecs_tpu.utils import yuv
+    from video_codecs_tpu_torch.models.h264 import inter_codec as th264
+    w, h, n = chip_smoke.JM_W, chip_smoke.JM_H, chip_smoke.JM_PICTURES
+    frames = chip_smoke.bench_synth_clip(w, h, n)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        argv = chip_smoke.jm_cli_files(d, kind, frames)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            jm_encoder_app.main(argv)
+        t = time.time() - t0
+        stream = (d / "out.264").read_bytes()
+        print(f"jm {kind}: {len(stream)} bytes, SHA-1 "
+              f"{hashlib.sha1(stream).hexdigest()}, jm_encoder_app.main "
+              f"{t:.1f} s; its summary:\n{out.getvalue()}its warnings:\n"
+              f"{err.getvalue()}", flush=True)
+        ry, ru, rv = yuv.read_frames(str(d / "rec.yuv"), w, h)
+        for label, dec in (("JAX H264Decoder", h264.H264Decoder()),
+                           ("the port's H264Decoder", th264.H264Decoder())):
+            got = dec.decode(stream)
+            same = len(got) == n and all(
+                (g[c].astype("uint8") == p[i]).all()
+                for i, g in enumerate(got)
+                for c, p in enumerate((ry, ru, rv)))
+            print(f"jm {kind}: {label} {len(got)} pictures, equal to the "
+                  f"recon file: {same}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -339,6 +383,12 @@ def main() -> None:
     ap.add_argument("--cli-ra", action="store_true",
                     help="the JAX package's encoder CLI on HM's RA main "
                          "cfg (cli-ra)")
+    ap.add_argument("--jm-main", action="store_true",
+                    help="the JAX package's JM encoder CLI, Main profile "
+                         "(jm-main)")
+    ap.add_argument("--jm-baseline", action="store_true",
+                    help="the JAX package's JM encoder CLI, baseline "
+                         "(jm-baseline)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -372,6 +422,10 @@ def main() -> None:
             host(kind)
     if args.cli_ra:
         cli_ra()
+    if args.jm_main:
+        jm("main")
+    if args.jm_baseline:
+        jm("baseline")
 
 
 if __name__ == "__main__":

@@ -39,23 +39,33 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 _TRIMMED = {
     "entropy/bitstream.py": set(),
     "entropy/cavlc.py": set(),
+    "entropy/h264_cabac.py": set(),
+    "entropy/h264_ctx_data.py": set(),
     "ops/h264_transform.py": set(),
     "ops/h264_deblock.py": set(),
     "ops/h264_interp.py": set(),
+    "ops/h264_rdoq.py": set(),
+    "tools/misc.py": set(),
+    "tools/jm_encoder_app.py": {"main"},
     "models/h264/dpb.py": {"Dpb.mark"},
     "models/h264/intra_codec.py": {
         "H264IntraEncoder.__init__", "H264IntraEncoder._quant_ac",
         "H264IntraEncoder.encode_sequence", "H264IntraEncoder.encode_frame",
-        "H264IntraEncoder._encode_mb", "H264IntraDecoder.decode",
-        "H264IntraDecoder._decode_slice"},
+        "H264IntraEncoder._encode_mb", "H264IntraEncoder._write_mb_cabac",
+        "H264IntraDecoder.decode", "H264IntraDecoder._decode_slice",
+        "H264IntraDecoder._decode_slice_mbs_cabac"},
     "models/h264/inter_codec.py": {
         "H264Encoder.__init__", "H264Encoder.encode_sequence",
-        "H264Encoder._encode_p_frame", "H264Decoder.__init__",
-        "H264Decoder._push", "H264Decoder.decode",
-        "H264Decoder._decode_p_slice"},
+        "H264Encoder._search", "H264Encoder._subpel_refine",
+        "H264Encoder._search_epzs", "H264Encoder._search_umhex",
+        "H264Encoder._write_p_mb_cabac", "H264Encoder._encode_p_frame",
+        "H264Decoder.__init__", "H264Decoder._push", "H264Decoder.decode",
+        "H264Decoder._decode_p_slice", "H264Decoder._decode_p_mbs_cabac",
+        "H264Decoder._decode_intra_mb_cabac"},
 }
 # Functions only the port has.
-_ADDED = {"models/h264/intra_codec.py": {"_parse_baseline_pps"}}
+_ADDED = {"models/h264/intra_codec.py": {"_checked_pps"},
+          "models/h264/inter_codec.py": {"H264Encoder._card_stage"}}
 
 
 def _defs(path):
@@ -407,7 +417,7 @@ def test_cut_options_raise(opt):
         tid.DeviceH264Encoder(32, 32, device="cpu", **opt)
 
 
-@pytest.mark.parametrize("opt", [dict(entropy="cabac"),
+@pytest.mark.parametrize("opt", [dict(weighted_pred=True),
                                  dict(transform8x8=True),
                                  dict(long_term=True)])
 def test_decoder_rejects_cut_stream_features(opt):

@@ -5,8 +5,9 @@ returns the same integers (and the same bitstream bytes) as its JAX
 counterpart on the same inputs.  The port imports `torch`, numpy and the
 standard library, and nothing of `video_codecs_tpu` -- not even its
 modules that do not import JAX.  What it needs of the reference's host
-code (bit writer, CAVLC, transforms, deblocking, the H.264 baseline host
-encoder/decoder and DPB; the HEVC spec tables, CABAC, residual coding,
+code (bit writer, CAVLC and H.264 CABAC, transforms, trellis and
+adaptive rounding, deblocking, the H.264 host IPPP coder at Main
+profile, its decoder and DPB, the JM encoder CLI; the HEVC spec tables, CABAC, residual coding,
 parameter sets and the intra/quadtree syntax and decoders, and the
 native C++ CABAC writer, the inter host classes of the random-access
 and low-delay P encoders and the general decoder) it carries as its own copy, function by
@@ -14,7 +15,7 @@ function under the same names, with each original's file and line in a
 comment; only the tests import both packages.
 
 Rules: plain functions on tensors, an explicit `device` everywhere (the
-entry points `DeviceH264Encoder`, `QuadtreeFastEncoder`,
+entry points `DeviceH264Encoder`, `H264Encoder`, `QuadtreeFastEncoder`,
 `QtDeviceRandomAccessEncoder`, `DeviceLowDelayEncoder` and the flat
 `IntraEncoder` run on the card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel
@@ -41,9 +42,16 @@ Module map (port -> JAX counterpart):
                              pyramid_search, _refine, motion_search)
   ops/h264_dev.py            ops/h264_jax.py
   models/h264/dpb.py         models/h264/dpb.py (sliding window)
-  models/h264/intra_codec.py models/h264/intra_codec.py (baseline CAVLC)
-  models/h264/inter_codec.py models/h264/inter_codec.py (IPPP driver,
-                             CAVLC decoder)
+  entropy/h264_cabac.py,     entropy/h264_cabac.py, h264_ctx_data.py
+    h264_ctx_data.py           (whole)
+  ops/h264_rdoq.py           ops/h264_rdoq.py (whole)
+  models/h264/intra_codec.py models/h264/intra_codec.py (CAVLC, CABAC)
+  models/h264/inter_codec.py models/h264/inter_codec.py (the host IPPP
+                             coder, CAVLC and CABAC decoder)
+  models/h264/host_me.py     (the host coder's card stage: its SAD
+                             surfaces and sub-pel phase planes)
+  tools/jm_encoder_app.py,   tools/jm_encoder_app.py, tools/misc.py
+    tools/misc.py              (the level checks)
   models/hevc/inter_dev.py   models/hevc/inter_jax.py (MV helpers,
                              _intra_wavefront, encode_p_frame_dev,
                              DeviceLowDelayEncoder, b_me_one,

@@ -248,9 +248,12 @@ class DeviceH264Encoder(H264Encoder):
     (ME + mode decision + transforms); host CAVLC phase 2.
 
     The work runs on the card unless the caller passes `device="cpu"`.
-    The options of `H264Encoder` that the port does not carry (several
-    references, CABAC, weighted prediction, ...) raise
-    NotImplementedError there.
+    The engine codes what the reference's does: one reference, full
+    search, all partitions, hard quantization and CAVLC.  The options of
+    `H264Encoder` beyond that raise NotImplementedError here; the
+    reference asserts CAVLC and sends several references to its host
+    coder (models/h264/inter_jax.py:236-252), which the port carries as
+    `H264Encoder` itself.
 
     `p_times` collects (device-phase s, host-phase s) per P picture; the
     device phase includes the uploads and the copy of its result to the
@@ -258,9 +261,19 @@ class DeviceH264Encoder(H264Encoder):
 
     def __init__(self, width: int, height: int, qp: int = 28,
                  search_range: int = 16, *, device="cuda", **kw) -> None:
+        engine = {"entropy": "cavlc", "perceptual": "", "n_refs": 1,
+                  "quant": "normal", "me": "full", "weighted_pred": False,
+                  "partitions": True, "transform8x8": False,
+                  "long_term": False, "lt_period": 0, "reorder": "",
+                  "intra_refresh": 0}
+        bad = [k for k, v in kw.items() if engine.get(k, v) != v]
+        if bad:
+            raise NotImplementedError(
+                f"DeviceH264Encoder: {', '.join(bad)} not on the device "
+                "engine (one reference, full search, all partitions, hard "
+                "quantization, CAVLC)")
         super().__init__(width, height, qp=qp,
-                         search_range=search_range, **kw)
-        self.device = torch.device(device)
+                         search_range=search_range, device=device, **kw)
         self.p_times: list[tuple[float, float]] = []
 
     def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None):

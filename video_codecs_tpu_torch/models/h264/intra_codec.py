@@ -1,23 +1,24 @@
-"""H.264/AVC baseline intra encoder + decoder (CAVLC): I_16x16 and I_4x4.
+"""H.264/AVC intra encoder + decoder: I_16x16 and I_4x4, CAVLC and CABAC.
 
-The port's copy of the baseline CAVLC half of
-video_codecs_tpu/models/h264/intra_codec.py.  Each function and class
-kept is carried as it is under its own name, with a comment giving the
-original's line; the branches behind options the port rejects are cut:
-CABAC, trellis/adaptive-rounding quant, perceptual RDO ("att", "ssim"),
-transform8x8 / I_8x8 (with `_decode_i8_mb` and `_decode_chroma_cavlc`,
-which only it called) and the VCT_FORCE_I4 / VCT_FORCE_I8 debug flags
-(fixed off, no environment variable is read).  The constructor raises
-on those options, and the decoder on CABAC, weighted-prediction and
-8x8-transform streams.
+The port's copy of video_codecs_tpu/models/h264/intra_codec.py.  Each
+function and class kept is carried as it is under its own name, with a
+comment giving the original's line; the branches behind options the
+port rejects are cut: perceptual RDO ("att", "ssim"), transform8x8 /
+I_8x8 (with `_decode_i8_mb` and `_decode_chroma_cavlc`, which only it
+called), the intra MB of a B slice and the VCT_FORCE_I4 / VCT_FORCE_I8
+debug flags (fixed off, no environment variable is read).  The
+constructor raises on those options, and the decoder on
+weighted-prediction and 8x8-transform streams.  Kept: CAVLC and CABAC
+(Main profile), hard, trellis and adaptive-rounding quantization.
 
-Toolset: baseline profile, 4:2:0 8-bit, I slices of I_16x16 and I_4x4
-macroblocks, CAVLC entropy coding, in-loop deblocking.
+Toolset: baseline and Main profile, 4:2:0 8-bit, I slices of I_16x16
+and I_4x4 macroblocks, in-loop deblocking.
 
 Parity references: SURVEY.md §2.6/3.3; jm18.5/lencod/src/intra16x16.c
 (prediction modes), intra_chroma.c, vlc.c / cavlc tables (entropy/cavlc.py),
-lcommon transform.c + spec 8.5.10-12 (ops/h264_transform.py), parset.c
-(SPS/PPS), slice/MB syntax spec 7.3.3-7.3.5.
+cabac.c (entropy/h264_cabac.py), lcommon transform.c + spec 8.5.10-12
+(ops/h264_transform.py), parset.c (SPS/PPS), slice/MB syntax spec
+7.3.3-7.3.5.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ from __future__ import annotations
 import numpy as np
 
 from video_codecs_tpu_torch.entropy import cavlc
+from video_codecs_tpu_torch.entropy import h264_cabac as hc
 from video_codecs_tpu_torch.entropy.bitstream import (
     BitReader, BitWriter, insert_emulation_prevention, split_annexb,
     strip_emulation_prevention)
+from video_codecs_tpu_torch.ops import h264_rdoq
 from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops.h264_deblock import deblock_frame_intra
 
@@ -199,18 +202,16 @@ def parse_pps(rbsp: bytes, full: bool = False):
     return dbf_present, cabac
 
 
-def _parse_baseline_pps(rbsp: bytes):
+def _checked_pps(rbsp: bytes):
     """parse_pps(full=True) for the streams this decoder reads: raises
-    NotImplementedError on CABAC, weighted prediction and the 8x8
-    transform.  Returns (deblocking_filter_control_present, info)."""
+    NotImplementedError on weighted prediction and the 8x8 transform.
+    Returns (deblocking_filter_control_present, cabac, info)."""
     dbf_present, cabac, info = parse_pps(rbsp, full=True)
-    if cabac:
-        raise NotImplementedError("CABAC streams: CAVLC decoder only")
     if info["weighted_pred"] or info["weighted_bipred_idc"]:
         raise NotImplementedError("weighted prediction is not decoded")
     if info["transform_8x8_mode"]:
         raise NotImplementedError("transform_8x8_mode is not decoded")
-    return dbf_present, info
+    return dbf_present, cabac, info
 
 
 # ---------------------------------------------------------------------------
@@ -514,28 +515,38 @@ class H264IntraEncoder:
                  perceptual: str = "", quant: str = "normal",
                  transform8x8: bool = False) -> None:
         assert width % 16 == 0 and height % 16 == 0
-        if entropy != "cavlc":
-            raise NotImplementedError(f"entropy={entropy!r}: CAVLC only")
-        if quant != "normal":
-            raise NotImplementedError(f"quant={quant!r}: hard quant only")
+        assert entropy in ("cavlc", "cabac")
+        assert quant in ("normal", "trellis", "around")
         if perceptual:
             raise NotImplementedError(
                 f"perceptual={perceptual!r}: no perceptual RDO")
         if transform8x8:
-            raise NotImplementedError("transform8x8: baseline profile only")
+            raise NotImplementedError("transform8x8: no High profile")
+        if quant == "around":
+            self._around = h264_rdoq.AdaptiveRounding()
         self.w, self.h, self.qp = width, height, qp
         self.deblock = deblock
         self.entropy = entropy
+        self.quant = quant   # "trellis" = soft-decision (rdoq.c analog)
 
     # video_codecs_tpu/models/h264/intra_codec.py:512
     def _quant_ac(self, wt, qp, intra: bool = True) -> np.ndarray:
-        """Luma AC quantization: hard (quant4x4_normal.c)."""
+        """Luma AC quantization: hard (quant4x4_normal.c) or trellis
+        (quant4x4_trellis.c/rdoq.c) per the `quant` option."""
+        if self.quant == "trellis":
+            lam = 0.85 * 2.0 ** ((qp - 12) / 3.0)
+            return h264_rdoq.trellis_quant_ac(wt, qp, lam, intra)
+        if self.quant == "around":
+            return self._around.quant_ac(wt, qp, intra)
         return ht.quant_ac(wt, qp, intra)
 
     # video_codecs_tpu/models/h264/intra_codec.py:532
     def encode_sequence(self, frames) -> tuple[bytes, list]:
-        nals = [nal_unit(NAL_SPS, write_sps(self.w // 16, self.h // 16)),
-                nal_unit(NAL_PPS, write_pps())]
+        cabac = self.entropy == "cabac"
+        profile = 77 if cabac else 66
+        nals = [nal_unit(NAL_SPS, write_sps(self.w // 16, self.h // 16,
+                                            profile=profile)),
+                nal_unit(NAL_PPS, write_pps(cabac=cabac))]
         recons = []
         for idx, (y, u, v) in enumerate(frames):
             rbsp, rec = self.encode_frame(y, u, v, idx)
@@ -577,11 +588,23 @@ class H264IntraEncoder:
         else:
             w.ue(1)          # disable_deblocking_filter_idc = 1 (off)
 
+        ce = None
+        if self.entropy == "cabac":
+            ce = hc.H264CabacEncoder(w, "I", qp)
+            self._cbf = hc.CbfState(mbw, mbh)
+            self._cbp_arr = np.zeros((mbh, mbw), np.int32)
+            self._cipred = np.zeros((mbh, mbw), np.int32)
         for mby in range(mbh):
             for mbx in range(mbw):
                 self._encode_mb(w, yv, uv, vv, rec_y, rec_u, rec_v,
-                                nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
-        w.rbsp_trailing_bits()
+                                nc_y, nc_u, nc_v, mbx, mby, qp, qpc, ce=ce)
+                if ce is not None:
+                    last = (mby == mbh - 1 and mbx == mbw - 1)
+                    ce.final(1 if last else 0)
+        if ce is not None:
+            ce.finish()   # flush wrote the rbsp stop bit already
+        else:
+            w.rbsp_trailing_bits()
         if self.deblock:
             # intra pred above used the unfiltered recon (spec 8.3); the
             # output picture is the deblocked one (spec 8.7).
@@ -591,7 +614,10 @@ class H264IntraEncoder:
 
     # video_codecs_tpu/models/h264/intra_codec.py:616
     def _encode_mb(self, w, yv, uv, vv, rec_y, rec_u, rec_v,
-                   nc_y, nc_u, nc_v, mbx, mby, qp, qpc):
+                   nc_y, nc_u, nc_v, mbx, mby, qp, qpc,
+                   mb_type_offset=0, ce=None, p_slice=False):
+        # mb_type_offset=5 encodes this intra MB inside a P slice
+        # (spec Table 7-13: intra mb_types follow the 5 inter ones)
         x, y = mbx * 16, mby * 16
         cx, cy = mbx * 8, mby * 8
         mbw = self.w // 16
@@ -693,10 +719,17 @@ class H264IntraEncoder:
         cbp_chroma = 2 if any_cac else (1 if any_cdc else 0)
 
         zz = cavlc.ZIGZAG_4x4
-        if use_i4:
+        if ce is not None:
+            self._write_mb_cabac(ce, mbx, mby, use_i4, modes4, mode16,
+                                 best_cm, cbp_luma4, cbp_luma16, cbp_chroma,
+                                 levels4, dc_q, ac_q, c_dc_q, c_ac_q,
+                                 p_slice=p_slice)
+            rec_y[y:y + 16, x:x + 16] = (
+                rec_trial[y:y + 16, x:x + 16] if use_i4 else rec16)
+        elif use_i4:
             # ---- I_4x4 syntax (spec 7.3.5.1) ----
             cbp = cbp_luma4 | (cbp_chroma << 4)
-            w.ue(0)                      # mb_type I_4x4
+            w.ue(0 + mb_type_offset)     # mb_type I_4x4
             for idx in range(16):
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                 pm = self._pred_mode4(mbx * 4 + x4, mby * 4 + y4,
@@ -727,7 +760,7 @@ class H264IntraEncoder:
         else:
             mb_type = 1 + mode16 + 4 * cbp_chroma + \
                 12 * (1 if cbp_luma16 else 0)
-            w.ue(mb_type)
+            w.ue(mb_type + mb_type_offset)
             w.ue(best_cm)
             w.se(0)
             dc_list = [int(dc_q.reshape(16)[zz[i]]) for i in range(16)]
@@ -743,25 +776,26 @@ class H264IntraEncoder:
                     total = 0
                 nc_y.set(gx, gy, total)
             rec_y[y:y + 16, x:x + 16] = rec16
-        # chroma DC / AC syntax
-        if cbp_chroma:
-            for comp in (0, 1):
-                dcs = c_dc_q[comp]
-                lst = [int(dcs[0, 0]), int(dcs[0, 1]),
-                       int(dcs[1, 0]), int(dcs[1, 1])]
-                cavlc.encode_block(w, lst, -1, 4)
-        for comp, grid in ((0, nc_u), (1, nc_v)):
-            for idx in range(4):
-                x4, y4 = idx & 1, idx >> 1
-                gx, gy = mbx * 2 + x4, mby * 2 + y4
-                if cbp_chroma == 2:
-                    coeffs = c_ac_q[comp][y4, x4].reshape(16)[zz][1:]
-                    total = cavlc.encode_block(
-                        w, [int(cc) for cc in coeffs],
-                        grid.nc(gx, gy), 15)
-                else:
-                    total = 0
-                grid.set(gx, gy, total)
+        if ce is None:
+            # chroma DC / AC syntax (CAVLC; CABAC path wrote it above)
+            if cbp_chroma:
+                for comp in (0, 1):
+                    dcs = c_dc_q[comp]
+                    lst = [int(dcs[0, 0]), int(dcs[0, 1]),
+                           int(dcs[1, 0]), int(dcs[1, 1])]
+                    cavlc.encode_block(w, lst, -1, 4)
+            for comp, grid in ((0, nc_u), (1, nc_v)):
+                for idx in range(4):
+                    x4, y4 = idx & 1, idx >> 1
+                    gx, gy = mbx * 2 + x4, mby * 2 + y4
+                    if cbp_chroma == 2:
+                        coeffs = c_ac_q[comp][y4, x4].reshape(16)[zz][1:]
+                        total = cavlc.encode_block(
+                            w, [int(cc) for cc in coeffs],
+                            grid.nc(gx, gy), 15)
+                    else:
+                        total = 0
+                    grid.set(gx, gy, total)
 
         # ---- chroma reconstruction ----
         for comp, (plane, pred) in enumerate((
@@ -778,6 +812,112 @@ class H264IntraEncoder:
             crec = np.clip(pred + cr.transpose(0, 2, 1, 3).reshape(8, 8),
                            0, 255)
             plane[cy:cy + 8, cx:cx + 8] = crec
+
+    # video_codecs_tpu/models/h264/intra_codec.py:924
+    def _write_mb_cabac(self, ce, mbx, mby, use_i4, modes4, mode16, best_cm,
+                        cbp_luma4, cbp_luma16, cbp_chroma, levels4, dc_q,
+                        ac_q, c_dc_q, c_ac_q, p_slice=False):
+        """CABAC syntax for one intra MB (I slice, or intra MB in P slice).
+
+        Parity: jm18.5/lencod/src/cabac.c writeMB_I_typeInfo_CABAC,
+        writeIntraPredMode, writeCIPredMode, writeCBP, writeDquant,
+        writeRunLevel (via entropy/h264_cabac.py).
+        """
+        zz = cavlc.ZIGZAG_4x4
+        cbf = self._cbf
+
+        cbp = (cbp_luma4 | (cbp_chroma << 4)) if use_i4 else \
+            ((15 if cbp_luma16 else 0) | (cbp_chroma << 4))
+        if p_slice:
+            # intra suffix inside a P slice (writeMB_P_typeInfo :566-612)
+            if use_i4:
+                ce.mb_type_p(6)
+            else:
+                i16 = mode16 + 4 * cbp_chroma + 12 * (1 if cbp_luma16 else 0)
+                ce.mb_type_p(7, i16)
+        else:
+            # mb_type: ctx term = neighbor present and not I_4x4
+            a = 1 if (mbx > 0 and not self._is_i4[mby, mbx - 1]) else 0
+            b = 1 if (mby > 0 and not self._is_i4[mby - 1, mbx]) else 0
+            act = 0 if use_i4 else \
+                1 + mode16 + 4 * cbp_chroma + 12 * (1 if cbp_luma16 else 0)
+            ce.mb_type_i(act, a + b)
+        if use_i4:
+            for idx in range(16):
+                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                pm = self._pred_mode4(mbx * 4 + x4, mby * 4 + y4,
+                                      upto=idx, mbx=mbx, mby=mby)
+                ce.intra4x4_pred_mode(modes4[idx], pm)
+        # chroma pred mode: ctx from neighbors' nonzero chroma mode
+        ca = 1 if (mbx > 0 and self._cipred[mby, mbx - 1] != 0) else 0
+        cb = 1 if (mby > 0 and self._cipred[mby - 1, mbx] != 0) else 0
+        ce.intra_chroma_pred_mode(best_cm, ca + cb)
+        self._cipred[mby, mbx] = best_cm
+
+        def nbr(dx, dy):
+            nx, ny = mbx + dx, mby + dy
+            if nx < 0 or ny < 0:
+                return None
+            return {"cbp": int(self._cbp_arr[ny, nx]), "ipcm": False}
+
+        if use_i4:
+            ce.cbp(cbp, nbr(0, -1), nbr(-1, 0))
+        self._cbp_arr[mby, mbx] = cbp
+        if (not use_i4) or cbp:
+            ce.mb_qp_delta(0, False)
+
+        cur_bits = 0
+        if not use_i4:
+            # I_16x16: luma DC always coded (with cbf)
+            dc_list = [int(dc_q.reshape(16)[zz[i]]) for i in range(16)]
+            ctx = cbf.ctx_dc(mbx, mby, hc.CbfState.LUMA_DC_BIT, True)
+            ce.residual_block(hc.LUMA_16DC, dc_list, ctx)
+            if any(dc_list):
+                cur_bits |= 1 << hc.CbfState.LUMA_DC_BIT
+                cbf.set_bit(mbx, mby, hc.CbfState.LUMA_DC_BIT)
+        for i8 in range(4):
+            for k in range(4):
+                idx = 4 * i8 + k
+                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                if use_i4:
+                    if not (cbp_luma4 & (1 << i8)):
+                        continue
+                    coeffs = [int(c) for c in levels4[idx].reshape(16)[zz]]
+                    btype = hc.LUMA_4x4
+                else:
+                    if not cbp_luma16:
+                        continue
+                    coeffs = [int(c) for c in ac_q[y4, x4].reshape(16)[zz][1:]]
+                    btype = hc.LUMA_16AC
+                ctx = cbf.ctx_ac(mbx, mby, x4, y4, 1, 4, cur_bits, True)
+                ce.residual_block(btype, coeffs, ctx)
+                if any(coeffs):
+                    cur_bits |= 1 << (1 + 4 * y4 + x4)
+                    cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
+        if cbp_chroma:
+            for comp, bit in ((0, hc.CbfState.U_DC_BIT),
+                              (1, hc.CbfState.V_DC_BIT)):
+                dcs = c_dc_q[comp]
+                lst = [int(dcs[0, 0]), int(dcs[0, 1]),
+                       int(dcs[1, 0]), int(dcs[1, 1])]
+                ctx = cbf.ctx_dc(mbx, mby, bit, True)
+                ce.residual_block(hc.CHROMA_DC, lst, ctx)
+                if any(lst):
+                    cbf.set_bit(mbx, mby, bit)
+        if cbp_chroma == 2:
+            for comp, base in ((0, hc.CbfState.U_AC_BASE),
+                               (1, hc.CbfState.V_AC_BASE)):
+                for idx in range(4):
+                    x4, y4 = idx & 1, idx >> 1
+                    coeffs = [int(c) for c in
+                              c_ac_q[comp][y4, x4].reshape(16)[zz][1:]]
+                    ctx = cbf.ctx_ac(mbx, mby, x4, y4, base, 2,
+                                     cur_bits, True)
+                    ce.residual_block(hc.CHROMA_AC, coeffs, ctx)
+                    if any(coeffs):
+                        cur_bits |= 1 << (base + 4 * y4 + x4)
+                        cbf.set_bit(mbx, mby, base + 4 * y4 + x4)
+        cbf.mark(mbx, mby)
 
     # video_codecs_tpu/models/h264/intra_codec.py:1067
     def _pred_mode4(self, gx4, gy4, upto=None, mbx=None, mby=None):
@@ -827,7 +967,7 @@ class H264IntraDecoder:
                 wmb, hmb, self.sps_info = parse_sps(rbsp, full=True)
                 self.size = (wmb, hmb)
             elif nal_type == NAL_PPS:
-                self.dbf_present, _ = _parse_baseline_pps(rbsp)
+                self.dbf_present, self.cabac, _ = _checked_pps(rbsp)
             elif nal_type in (NAL_SLICE_IDR, 1):
                 frames.append(self._decode_slice(rbsp))
         return frames
@@ -885,23 +1025,184 @@ class H264IntraDecoder:
                 return 2
             return min(a, b)
 
-        for mby in range(mbh):
-            for mbx in range(mbw):
-                mb_type = r.ue()
-                assert 0 <= mb_type <= 24, \
-                    f"unsupported mb_type {mb_type}"
-                if mb_type == 0:
-                    self._decode_i4_mb(r, None, rec_y, rec_u,
-                                       rec_v, nc_y, nc_u, nc_v,
-                                       mbx, mby, qp, qpc, mode4,
-                                       is_i4, pred_mode4)
-                    continue
-                self._decode_i16_mb(r, mb_type - 1, rec_y, rec_u, rec_v,
-                                    nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
+        if getattr(self, "cabac", False):
+            self._decode_slice_mbs_cabac(r, qp, qpc, rec_y, rec_u, rec_v,
+                                         mode4, is_i4, pred_mode4)
+        else:
+            for mby in range(mbh):
+                for mbx in range(mbw):
+                    mb_type = r.ue()
+                    assert 0 <= mb_type <= 24, \
+                        f"unsupported mb_type {mb_type}"
+                    if mb_type == 0:
+                        self._decode_i4_mb(r, None, rec_y, rec_u,
+                                           rec_v, nc_y, nc_u, nc_v,
+                                           mbx, mby, qp, qpc, mode4,
+                                           is_i4, pred_mode4)
+                        continue
+                    self._decode_i16_mb(r, mb_type - 1, rec_y, rec_u, rec_v,
+                                        nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
         if dbf_idc != 1:
             rec_y, rec_u, rec_v = deblock_frame_intra(
                 rec_y, rec_u, rec_v, qp, qpc, aoff, boff)
         return rec_y, rec_u, rec_v
+
+    # video_codecs_tpu/models/h264/intra_codec.py:1205
+    def _decode_slice_mbs_cabac(self, r, qp, qpc, rec_y, rec_u, rec_v,
+                                mode4, is_i4, pred_mode4):
+        """CABAC I-slice MB loop (mirror of _write_mb_cabac)."""
+        mbw, mbh = self.size
+        zz = cavlc.ZIGZAG_4x4
+        cd = hc.H264CabacDecoder(r, "I", qp)
+        cbf = hc.CbfState(mbw, mbh)
+        cbp_arr = np.zeros((mbh, mbw), np.int32)
+        cipred = np.zeros((mbh, mbw), np.int32)
+        i16 = np.zeros((mbh, mbw), bool)
+
+        for mby in range(mbh):
+            for mbx in range(mbw):
+                x, y = mbx * 16, mby * 16
+                cx, cy = mbx * 8, mby * 8
+                a = 1 if (mbx > 0 and i16[mby, mbx - 1]) else 0
+                b = 1 if (mby > 0 and i16[mby - 1, mbx]) else 0
+                act = cd.mb_type_i(a + b)
+                assert act != 25, "IPCM decode unsupported"
+                use_i4 = act == 0
+                i16[mby, mbx] = not use_i4
+                is_i4[mby, mbx] = use_i4
+                modes = []
+                if use_i4:
+                    for idx in range(16):
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        pm = pred_mode4(mbx * 4 + x4, mby * 4 + y4)
+                        m = cd.intra4x4_pred_mode(pm)
+                        modes.append(m)
+                        mode4[mby * 4 + y4, mbx * 4 + x4] = m
+                else:
+                    code = act - 1
+                    lmode = code % 4
+                    cbp_chroma = (code // 4) % 3
+                    cbp_luma = 15 if code >= 12 else 0
+                ca = 1 if (mbx > 0 and cipred[mby, mbx - 1] != 0) else 0
+                cb = 1 if (mby > 0 and cipred[mby - 1, mbx] != 0) else 0
+                cmode = cd.intra_chroma_pred_mode(ca + cb)
+                cipred[mby, mbx] = cmode
+
+                def nbr(dx, dy):
+                    nx, ny = mbx + dx, mby + dy
+                    if nx < 0 or ny < 0:
+                        return None
+                    return {"cbp": int(cbp_arr[ny, nx]), "ipcm": False}
+
+                if use_i4:
+                    cbp = cd.cbp(nbr(0, -1), nbr(-1, 0))
+                    cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+                else:
+                    cbp = cbp_luma | (cbp_chroma << 4)
+                cbp_arr[mby, mbx] = cbp
+                if (not use_i4) or cbp:
+                    dqp = cd.mb_qp_delta(False)
+                    assert dqp == 0, "dqp unsupported"
+
+                cur_bits = 0
+                dc_q = np.zeros((4, 4), np.int64)
+                if not use_i4:
+                    ctx = cbf.ctx_dc(mbx, mby, hc.CbfState.LUMA_DC_BIT, True)
+                    dc_list = cd.residual_block(hc.LUMA_16DC, 16, ctx)
+                    flat = np.zeros(16, np.int64)
+                    flat[zz] = dc_list
+                    dc_q = flat.reshape(4, 4)
+                    if any(dc_list):
+                        cur_bits |= 1 << hc.CbfState.LUMA_DC_BIT
+                        cbf.set_bit(mbx, mby, hc.CbfState.LUMA_DC_BIT)
+                levels4 = [np.zeros((4, 4), np.int64) for _ in range(16)]
+                ac_q = np.zeros((4, 4, 4, 4), np.int64)
+                for i8 in range(4):
+                    for k in range(4):
+                        idx = 4 * i8 + k
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        if use_i4:
+                            if not (cbp_luma & (1 << i8)):
+                                continue
+                            ctx = cbf.ctx_ac(mbx, mby, x4, y4, 1, 4,
+                                             cur_bits, True)
+                            coeffs = cd.residual_block(hc.LUMA_4x4, 16, ctx)
+                            flat = np.zeros(16, np.int64)
+                            flat[zz] = coeffs
+                            levels4[idx] = flat.reshape(4, 4)
+                        else:
+                            if not cbp_luma:
+                                continue
+                            ctx = cbf.ctx_ac(mbx, mby, x4, y4, 1, 4,
+                                             cur_bits, True)
+                            coeffs = cd.residual_block(hc.LUMA_16AC, 15, ctx)
+                            flat = np.zeros(16, np.int64)
+                            flat[zz[1:]] = coeffs
+                            ac_q[y4, x4] = flat.reshape(4, 4)
+                        if any(coeffs):
+                            cur_bits |= 1 << (1 + 4 * y4 + x4)
+                            cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
+                c_dc_q = [np.zeros((2, 2), np.int64) for _ in range(2)]
+                c_ac_q = [np.zeros((2, 2, 4, 4), np.int64) for _ in range(2)]
+                if cbp_chroma:
+                    for comp, bit in ((0, hc.CbfState.U_DC_BIT),
+                                      (1, hc.CbfState.V_DC_BIT)):
+                        ctx = cbf.ctx_dc(mbx, mby, bit, True)
+                        lst = cd.residual_block(hc.CHROMA_DC, 4, ctx)
+                        c_dc_q[comp][0, 0], c_dc_q[comp][0, 1] = \
+                            lst[0], lst[1]
+                        c_dc_q[comp][1, 0], c_dc_q[comp][1, 1] = \
+                            lst[2], lst[3]
+                        if any(lst):
+                            cbf.set_bit(mbx, mby, bit)
+                if cbp_chroma == 2:
+                    for comp, base in ((0, hc.CbfState.U_AC_BASE),
+                                       (1, hc.CbfState.V_AC_BASE)):
+                        for idx in range(4):
+                            x4, y4 = idx & 1, idx >> 1
+                            ctx = cbf.ctx_ac(mbx, mby, x4, y4, base, 2,
+                                             cur_bits, True)
+                            coeffs = cd.residual_block(hc.CHROMA_AC, 15, ctx)
+                            flat = np.zeros(16, np.int64)
+                            flat[zz[1:]] = coeffs
+                            c_ac_q[comp][y4, x4] = flat.reshape(4, 4)
+                            if any(coeffs):
+                                cur_bits |= 1 << (base + 4 * y4 + x4)
+                                cbf.set_bit(mbx, mby, base + 4 * y4 + x4)
+                cbf.mark(mbx, mby)
+
+                # ---- reconstruction ----
+                if use_i4:
+                    for idx in range(16):
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        px, py = x + x4 * 4, y + y4 * 4
+                        l, t, c, av = gather_ref4(rec_y, px, py, mbw)
+                        pb = pred_luma4(l, t, c, av, modes[idx])
+                        d4 = ht.dequant_ac(levels4[idx], qp)
+                        rec_y[py:py + 4, px:px + 4] = np.clip(
+                            pb + ht.inverse4x4(d4), 0, 255)
+                else:
+                    pred = pred_luma16(rec_y, x, y, lmode)
+                    dc_deq = ht.dequant_luma_dc(dc_q, qp)
+                    d = ht.dequant_ac(ac_q, qp)
+                    d[:, :, 0, 0] = dc_deq
+                    rr = ht.inverse4x4(d)
+                    rec_y[y:y + 16, x:x + 16] = np.clip(
+                        pred + rr.transpose(0, 2, 1, 3).reshape(16, 16),
+                        0, 255)
+                for comp, plane in ((0, rec_u), (1, rec_v)):
+                    cpred = pred_chroma8(plane, cx, cy, cmode)
+                    cdc_deq = ht.dequant_chroma_dc(c_dc_q[comp], qpc)
+                    cdq = ht.dequant_ac(c_ac_q[comp], qpc)
+                    cdq[:, :, 0, 0] = cdc_deq
+                    cr2 = ht.inverse4x4(cdq)
+                    plane[cy:cy + 8, cx:cx + 8] = np.clip(
+                        cpred + cr2.transpose(0, 2, 1, 3).reshape(8, 8),
+                        0, 255)
+
+                last = (mby == mbh - 1 and mbx == mbw - 1)
+                eos = cd.final()
+                assert eos == (1 if last else 0), "end_of_slice mismatch"
 
     # video_codecs_tpu/models/h264/intra_codec.py:1409
     def _decode_i16_mb(self, r, code, rec_y, rec_u, rec_v, nc_y, nc_u,
