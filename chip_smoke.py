@@ -14,9 +14,10 @@ random-access (SAO off, then on) and hierarchical-B engines at
 1920x1072, and the reference's host low-delay P coder on HM's LD-P main
 configuration at 832x480 (as it is, with weighted prediction, with
 cu_qp_delta), the reference's encoder and decoder CLIs on HM's
-random-access and low-delay P main cfgs at 832x480, and the reference's
+random-access and low-delay P main cfgs at 832x480, the reference's
 JM encoder CLI (the H.264 host IPPP coder at Main profile and baseline)
-at 176x144, in phases:
+at 176x144, and the H.264 host coder at High profile (the 8x8 transform,
+I_8x8) and with B slices (spatial direct) at 176x144, in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -158,10 +159,12 @@ at 176x144, in phases:
         12 RDOQ launches, HIERB_SHA1);
      c. flat-ra-cuda-vs-cpu: the flat RA GOP at 96x64 over 9 pictures on
         the card and on the CPU, byte-equal streams;
-     d. hevc-flat-ra-sao: a with SAO: 27 sao_stats launches and the SAO
-        split per picture as in 8f, every hash OK (no JAX SHA-1: the JAX
-        package's host SAO decision would take hours at 1080p; the CPU
-        tests hold the 64x48 SAO GOP to its stream);
+     d. hevc-flat-ra-sao: a with SAO over the GOP's first 5 pictures
+        (IDR, P4, B2 B1 B3; cut from 9 for the script's time): 21 SAD
+        and 15 sao_stats launches and the SAO split per picture as in
+        8f, every hash OK (no JAX SHA-1: the JAX package's host SAO
+        decision would take hours at 1080p; the CPU tests hold the 64x48
+        SAO GOP to its stream);
      e. flat-ra-cuda-vs-cpu-sao: c with SAO, byte-equal streams, the
         card's through the SAO kernel (27 launches), the CPU's through
         its plain version;
@@ -227,8 +230,9 @@ at 176x144, in phases:
         (B=1,584), timed beside its bound, the plain version and
         `torch.cdist`;
      b. jm-main: CABAC, EPZS, 3 references, trellis; per picture the
-        card stage, the searches, the mode loops and the rest, the
-        quantization and the entropy coder, bytes, Y-PSNR, SAD launches
+        card stage, the searches (EPZS and the partitions' apart), the
+        mode loops and the rest, the quantization and the entropy coder
+        (`_h264_instrument`), bytes, Y-PSNR, SAD launches
         (9 in all: the list holds 1, 2, 3 and 3 references); the CLI's
         summary and warnings; the recon file the encoder's pictures and
         the port's H264Decoder's; the stream the JAX package's CLI's
@@ -237,7 +241,43 @@ at 176x144, in phases:
         rounding (4 SAD launches; --jm-baseline);
      d. jm-cuda-vs-cpu: b at 64x48 on the card and with --device=cpu:
         byte-equal streams and recon files;
- 14. require that nothing of the JAX package was imported.
+ 15. the host H.264 coder at High profile and with B slices, at 176x144
+     on bench_synth_clip(176, 144, n, seed=42), QP 28, search range 16
+     (`phase_h264_high_b`), every search through the card stage:
+     a. h264-high: `H264Encoder(..., transform8x8=True)` with 13b's
+        settings (CABAC, EPZS, 3 references, trellis; High profile 100),
+        5 pictures: per picture the card stage, the searches, the 8x8
+        transforms of the 4x4/8x8 decision, I_8x8 and the recon, the
+        quantization, the entropy coder and the rest (mode loops, MC,
+        recon, deblock), the MBs coded with the 8x8 transform, bytes,
+        Y-PSNR and SAD launches (9: 1, 2, 3, 3 references); the port's
+        H264Decoder gives the encoder's pictures; the stream is the JAX
+        package's (H264_HIGH_SHA1, scripts/jax_reference_sha1.py
+        --h264-high);
+     b. h264-b: `H264BEncoder(b_frames=2, b_qp_offset=2)`, CABAC, spatial
+        direct, every partition of Table 7-14, 7 pictures coded I0 P3 B1
+        B2 P6 B4 B5: per B picture its direct / skip / L0 / L1 / bi /
+        partitioned / intra MBs and the stages of a (16x16 and partition
+        searches apart), SAD launches 1 per P anchor and 2 per B picture
+        (10); H264BDecoder gives the encoder's pictures in display order;
+        the stream is the JAX package's (H264_B_SHA1, --h264-b);
+     c. h264-hb-cuda-vs-cpu: a and b at 64x48 on the card and with
+        device="cpu": byte-equal streams, 9 and 10 SAD launches on the
+        card, none on the CPU;
+ 16. require that nothing of the JAX package was imported, in this
+     process or in any worker.
+
+The phases run in three stages, to end well inside the 1,200 s the
+script is given.  Stage 1, alone on the card: phases 1-2 and every
+kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a).
+Stage 2: the end-to-end phases of 4-13 (POOL_TASKS), WORKERS at a time,
+each worker a spawned process of its own on the same card with
+WORKER_THREADS CPU threads for torch; every phase zeroes the kernels'
+counts it reads, and its launches come back to this process, which
+prints each phase's output as the phase ends (so in the order they
+end, not in the order above) and stops every worker at the first
+failure.  Their times are taken beside three other phases sharing the
+host and the card.  Stage 3, alone again: phase 15.
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -261,10 +301,12 @@ import contextlib
 import hashlib
 import io
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 import types
 from pathlib import Path
 
@@ -338,8 +380,11 @@ LDP_RC_QPS = [30, 32, 34, 36, 38, 40, 42, 44, 46]
 # 7's clip (scripts/jax_reference_sha1.py --flat-ra --hierb, the JAX
 # package on the CPU; every hash OK in both packages' GeneralDecoders):
 # the RA GOP-8 over its 9 pictures and the hierarchical-B run over its
-# first HIERB_PICTURES (I0 P2 B1 P4 B3).
+# first HIERB_PICTURES (I0 P2 B1 P4 B3).  The RA GOP with SAO, which no
+# JAX SHA-1 gates, runs over the first FLAT_SAO_PICTURES only (IDR, P4,
+# B2 B1 B3), to keep the script inside its time.
 HIERB_PICTURES = 5
+FLAT_SAO_PICTURES = 5
 FLAT_RA_BYTES = 344846
 FLAT_RA_SHA1 = "c837e7b257cb85bd937dbaac2d3c05e499795ded"
 HIERB_BYTES = 351522
@@ -732,6 +777,26 @@ JM_LAUNCHES = {"main": 1 + 2 + 3 + 3, "baseline": 4}
 # (scripts/jax_reference_sha1.py --jm-main / --jm-baseline): bytes, SHA-1.
 JM_SHA1 = {"main": (24931, "0af9146b4a7e9b2ed2841cdbb955e1f00025e61a"),
            "baseline": (32666, "3403d6c7d1168407c7757b918d2f0a6c86d0d1e6")}
+# The host H.264 coder at High profile and with B slices (phase 15), at
+# JM's QCIF on bench.py's clip (seed 42), QP 28, search range 16:
+# [jm-main]'s settings with the 8x8 transform (the reference's JM CLI
+# does not map Transform8x8Mode, so the phase calls the class), and B
+# pictures between P anchors, b_qp_offset 2 as JM's stock QPBSlice 30
+# against QPPSlice 28 (I0 P3 B1 B2 P6 B4 B5).
+H264_HIGH_KW = dict(qp=28, search_range=JM_SR, entropy="cabac", n_refs=3,
+                    me="epzs", quant="trellis", transform8x8=True)
+H264_B_KW = dict(qp=28, search_range=JM_SR, b_frames=2, entropy="cabac",
+                 b_qp_offset=2)
+H264_HIGH_PICTURES, H264_B_PICTURES = 5, 7
+# SAD launches: one per reference and P picture (the High run's list
+# holds 1, 2, 3 and 3 references); the B run's two P anchors hold one
+# reference each and each of its four B pictures searches two lists.
+H264_HIGH_LAUNCHES = 1 + 2 + 3 + 3
+H264_B_LAUNCHES = 2 + 2 * 4
+# The JAX package's streams for them (scripts/jax_reference_sha1.py
+# --h264-high / --h264-b, on the CPU): bytes, SHA-1.
+H264_HIGH_SHA1 = (23753, "57437f38257e8b6f89abd0c02f25ddc793f4aaf5")
+H264_B_SHA1 = (27423, "93b547699b1fe5308fabe1c9bce5ee9ed8f076ce")
 # A JM-style cfg (jm18.5/bin/encoder_*.cfg layout: `Key = Value  # note`)
 # with the mapped keys and four the CLI does not map (it warns about the
 # one that is not 0, RDOptimization).
@@ -2883,58 +2948,110 @@ def phase_sad_jm() -> dict:
                 note=tm["note"] or None)
 
 
-def _jm_instrument(enc):
-    """Time each picture of the host H.264 coder by stage: the card stage
-    (`_card_stage`: the SAD surfaces and phase planes of every reference,
-    synchronised by their copy back), the motion searches (`_search`,
-    `_search_epzs`, `_search_umhex` with their sub-pel refinement), the
-    luma quantization (`_quant_ac`: hard, trellis or adaptive rounding),
-    the entropy coder (`_write_p_mb_cabac`, `_write_mb_cabac`, CAVLC's
-    `encode_block`); the rest of the picture is the mode loops, MC,
-    transforms, reconstruction and the deblock.  Counts each picture's
-    SAD-kernel launches.  Returns (log, restore)."""
+def _h264_instrument(enc, skips: dict | None = None):
+    """Time each picture of the host H.264 coder (`H264Encoder` or
+    `H264BEncoder`) by stage: the card stage (`_card_stage`, one
+    `host_me.RefSearch` per reference or list, synchronised by its copy
+    back), the integer searches with their sub-pel refinement (`_search`,
+    `_search_epzs`, `_search_umhex`; 16x16 blocks and partitions apart),
+    the 8x8 transforms (`forward8x8`, `quant8x8`, `dequant8x8`,
+    `inverse8x8`: the 4x4/8x8 decision, I_8x8 and the 8x8 recon), the
+    luma quantization (`_quant_ac`) and the entropy coder (the MB
+    writers and CAVLC's `encode_block`); the rest of a picture is the
+    mode and partition loops, MC, the 4x4 transforms, reconstruction and
+    the deblock.  Per picture also the SAD-kernel launches, the 8x8-
+    transform MBs (`_trans8`), the POC and the B coder's mb_type
+    histogram (`mb_type_stats`) with the skips `skips["n"]` counts.
+    Returns (log, restore)."""
     from video_codecs_tpu_torch.entropy import cavlc
+    from video_codecs_tpu_torch.ops import h264_transform as ht
     cur = {}
 
-    def timed(name, fn):
+    def timed(name, fn, split=None):
         def run(*a, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                cur[name] = cur.get(name, 0.0) + time.perf_counter() - t0
+                k = split(a, kw) if split else name
+                cur[k] = cur.get(k, 0.0) + time.perf_counter() - t0
         return run
 
+    def search_kind(a, kw):
+        pw = a[6] if len(a) > 6 else kw.get("pw", 16)
+        ph = a[7] if len(a) > 7 else kw.get("ph", 16)
+        return "search" if (pw, ph) == (16, 16) else "search_part"
+
     enc._card_stage = timed("card", enc._card_stage)
-    for name in ("_search", "_search_epzs", "_search_umhex"):
+    enc._search = timed("", enc._search, search_kind)
+    for name in ("_search_epzs", "_search_umhex"):
         setattr(enc, name, timed("search", getattr(enc, name)))
     enc._quant_ac = timed("quant", enc._quant_ac)
-    enc._write_p_mb_cabac = timed("entropy", enc._write_p_mb_cabac)
-    enc._write_mb_cabac = timed("entropy", enc._write_mb_cabac)
+    for name in ("_write_p_mb_cabac", "_write_mb_cabac",
+                 "_write_b_mb_cabac"):
+        if hasattr(enc, name):
+            setattr(enc, name, timed("entropy", getattr(enc, name)))
+    keep = {n: getattr(ht, n) for n in ("forward8x8", "quant8x8",
+                                         "dequant8x8", "inverse8x8")}
+    for n, fn in keep.items():
+        setattr(ht, n, timed("t8", fn))
     encode_block = cavlc.encode_block
     cavlc.encode_block = timed("entropy", encode_block)
     log = []
-    orig_p, orig_i = enc._encode_p_frame, enc.encode_frame
 
-    def picture(kind, fn, refs):
+    def picture(kind, fn, lists):
         def run(*a, **kw):
             cur.clear()
             n0 = ss.sad_surface.launches
+            s0 = dict(getattr(enc, "mb_type_stats", {}))
+            k0 = skips["n"] if skips else 0
             t0 = time.perf_counter()
             rbsp, rec = fn(*a, **kw)
-            log.append(dict(kind=kind, refs=refs(a), rbsp=rbsp, rec=rec,
-                            total=time.perf_counter() - t0,
-                            launches=ss.sad_surface.launches - n0, **cur))
+            total = time.perf_counter() - t0
+            s1 = getattr(enc, "mb_type_stats", {})
+            log.append(dict(kind=kind, refs=lists(a), rbsp=rbsp, rec=rec,
+                            poc=a[4] if kind == "B" else kw.get("poc"),
+                            total=total, t8=int(enc._trans8.sum())
+                            if kind != "B" else 0,
+                            launches=ss.sad_surface.launches - n0,
+                            types={k: s1[k] - s0.get(k, 0) for k in s1
+                                   if s1[k] != s0.get(k, 0)},
+                            skip=(skips["n"] - k0) if skips else 0,
+                            stages=dict(cur)))
             return rbsp, rec
         return run
 
-    enc._encode_p_frame = picture("P", orig_p, lambda a: len(a[3]))
-    enc.encode_frame = picture("I", orig_i, lambda a: 0)
+    enc._encode_p_frame = picture("P", enc._encode_p_frame,
+                                  lambda a: len(a[3]))
+    enc.encode_frame = picture("I", enc.encode_frame, lambda a: 0)
+    if hasattr(enc, "_encode_b_frame"):
+        enc._encode_b_frame = picture("B", enc._encode_b_frame,
+                                      lambda a: 2)
 
     def restore():
         cavlc.encode_block = encode_block
+        for n, fn in keep.items():
+            setattr(ht, n, fn)
 
     return log, restore
+
+
+def _h264_stages(e: dict) -> str:
+    st = e["stages"]
+    rest = e["total"] - sum(st.values())
+    words = [f"card stage {st.get('card', 0.0) * 1e3:.1f} ms",
+             f"searches {st.get('search', 0.0) * 1e3:.1f} ms"]
+    if "search_part" in st:
+        words.append(f"partition searches {st['search_part'] * 1e3:.1f} ms")
+    if "t8" in st:
+        words.append(f"8x8 transforms (4x4/8x8 decision, I_8x8, recon) "
+                     f"{st['t8'] * 1e3:.1f} ms")
+    words += [f"quantization {st.get('quant', 0.0) * 1e3:.1f} ms",
+              f"entropy coder {st.get('entropy', 0.0) * 1e3:.1f} ms",
+              f"mode and partition loops, MC, 4x4 transforms, recon and "
+              f"deblock {rest * 1e3:.1f} ms",
+              f"total {e['total'] * 1e3:.1f} ms"]
+    return ", ".join(words)
 
 
 def phase_jm(kind: str) -> int:
@@ -2968,7 +3085,7 @@ def phase_jm(kind: str) -> int:
 
     def build(*a, **kw):
         enc = cls(*a, **kw)
-        made.append((enc, _jm_instrument(enc)))
+        made.append((enc, _h264_instrument(enc)))
         return enc
 
     h264.H264Encoder = build
@@ -2998,19 +3115,12 @@ def phase_jm(kind: str) -> int:
     for i, e in enumerate(log):
         p = psnr(frames[i][0], e["rec"][0])
         check(np.isfinite(p) and p > 25, f"implausible Y-PSNR {p}")
-        rest = e["total"] - sum(e.get(k_, 0.0) for k_ in
-                                ("card", "search", "quant", "entropy"))
         want += e["refs"]
         check(e["launches"] == e["refs"],
               f"picture {i}: {e['launches']} SAD-kernel launches, want 1 "
               f"per reference ({e['refs']})")
         print(f"[{tag}] picture {i} ({e['kind']}, {e['refs']} references): "
-              f"card stage {e.get('card', 0.0) * 1e3:.1f} ms, searches "
-              f"{e.get('search', 0.0) * 1e3:.1f} ms, mode loops, MC, "
-              f"recon and deblock {rest * 1e3:.1f} ms, quantization "
-              f"{e.get('quant', 0.0) * 1e3:.1f} ms, entropy coder "
-              f"{e.get('entropy', 0.0) * 1e3:.1f} ms (total "
-              f"{e['total'] * 1e3:.1f} ms); {len(e['rbsp'])} bytes, Y-PSNR "
+              f"{_h264_stages(e)}; {len(e['rbsp'])} bytes, Y-PSNR "
               f"{p:.2f} dB; SAD-kernel launches {e['launches']}")
     check(len(log) == JM_PICTURES, f"{len(log)} pictures coded")
     check(launches == want == JM_LAUNCHES[kind],
@@ -3078,6 +3188,164 @@ def phase_jm_cuda_vs_cpu() -> None:
           f"streams byte-equal ({len(sg)} bytes), recon files equal; "
           f"SAD-kernel launches: card {ng}, CPU 0; cuda {tg:.2f} s, cpu "
           f"{tc:.2f} s")
+
+
+def _b_counts(e: dict) -> str:
+    t = e["types"]
+    parts = sum(v for k, v in t.items() if isinstance(k, int) and k >= 4)
+    direct = t.get(0, 0) - e["skip"]
+    return (f"direct {direct}, skip {e['skip']}, L0 {t.get(1, 0)}, L1 "
+            f"{t.get(2, 0)}, bi {t.get(3, 0)}, partitioned {parts} "
+            f"(16x8/8x16 {parts - t.get(22, 0)}, B_8x8 {t.get(22, 0)}), "
+            f"intra {t.get('intra', 0)}")
+
+
+def h264_high_b_encoder(kind: str, w: int, h: int, device: str):
+    """The host H.264 coder of phase 15: `H264Encoder` with the High
+    settings (kind "high") or `H264BEncoder` with the B settings
+    ("b")."""
+    from video_codecs_tpu_torch.models.h264 import bslice_codec
+    from video_codecs_tpu_torch.models.h264 import inter_codec as h264
+    if kind == "high":
+        return h264.H264Encoder(w, h, device=device, **H264_HIGH_KW)
+    return bslice_codec.H264BEncoder(w, h, device=device, **H264_B_KW)
+
+
+def phase_h264_high_b(kind: str, device: str = "cuda") -> int:
+    """Phase 15a-b (h264-high, h264-b): the host H.264 coder at JM's QCIF
+    on bench.py's clip (seed 42), QP 28, search range 16.  h264-high:
+    `H264Encoder(..., transform8x8=True)`, [jm-main]'s settings with the
+    8x8 transform (CABAC, EPZS, 3 references, trellis; High profile 100),
+    5 pictures: per picture the stages of `_h264_instrument`, the MBs
+    coded with the 8x8 transform, bytes, Y-PSNR and the SAD launches
+    (one per reference and P picture: 9); the port's H264Decoder gives
+    the encoder's pictures.  h264-b: `H264BEncoder(b_frames=2,
+    b_qp_offset=2)`, CABAC, 7 pictures coded I0 P3 B1 B2 P6 B4 B5:
+    per B picture its direct / skip / L0 / L1 / bi / partitioned /
+    intra MBs and the stages, SAD launches 1 per P anchor and 2 per B
+    picture (10); H264BDecoder gives the encoder's pictures in display
+    order.  Each stream must be the JAX package's
+    (scripts/jax_reference_sha1.py --h264-high / --h264-b).  Returns the
+    SAD launches."""
+    from video_codecs_tpu_torch.models.h264 import bslice_codec
+    tag = f"h264-{kind}"
+    n = H264_HIGH_PICTURES if kind == "high" else H264_B_PICTURES
+    frames = bench_synth_clip(JM_W, JM_H, n)
+    kw = H264_HIGH_KW if kind == "high" else H264_B_KW
+    print(f"[{tag}] the host H.264 coder "
+          f"({'H264Encoder' if kind == 'high' else 'H264BEncoder'}) at "
+          f"{JM_W}x{JM_H}, {n} pictures of bench.py's clip (seed 42): "
+          f"{', '.join(f'{k}={v}' for k, v in kw.items())}; card {CARD}")
+    enc = h264_high_b_encoder(kind, JM_W, JM_H, device)
+    skips = {"n": 0}
+    cabac_cls = bslice_codec.hc.H264CabacEncoder
+    skip_flag = cabac_cls.mb_skip_flag_b
+
+    def count_skip(self, flag, *a):
+        skips["n"] += int(bool(flag))
+        return skip_flag(self, flag, *a)
+
+    cabac_cls.mb_skip_flag_b = count_skip
+    log, restore = _h264_instrument(enc, skips)
+    ss.sad_surface.launches = 0
+    t0 = time.perf_counter()
+    try:
+        stream, recons = enc.encode_sequence(frames)
+    finally:
+        restore()
+        cabac_cls.mb_skip_flag_b = skip_flag
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    check(len(log) == n, f"[{tag}] {len(log)} pictures coded, want {n}")
+    want = 0
+    order = []
+    t8_all = 0
+    for k_, e in enumerate(log):
+        # display index: POC / 2 in the B run (poc_type 0), the coding
+        # order in the IPPP run
+        i = k_ if e["poc"] is None else e["poc"] // 2
+        order.append(f"{e['kind']}{i}")
+        p = psnr(frames[i][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"[{tag}] implausible Y-PSNR {p}")
+        want += e["refs"]
+        check(e["launches"] == e["refs"],
+              f"[{tag}] picture {i}: {e['launches']} SAD-kernel launches, "
+              f"want 1 per reference or list ({e['refs']})")
+        t8_all += e["t8"]
+        extra = ""
+        if kind == "high":
+            extra = f"; 8x8-transform MBs {e['t8']} of {JM_W * JM_H // 256}"
+        elif e["kind"] == "B":
+            extra = f"; MBs: {_b_counts(e)}"
+        print(f"[{tag}] {e['kind']}{i} ({e['refs']} "
+              f"{'lists' if e['kind'] == 'B' else 'references'}): "
+              f"{_h264_stages(e)}; {len(e['rbsp'])} bytes, Y-PSNR "
+              f"{p:.2f} dB; SAD-kernel launches {e['launches']}{extra}")
+    want_n = H264_HIGH_LAUNCHES if kind == "high" else H264_B_LAUNCHES
+    check(launches == want == want_n,
+          f"[{tag}] {launches} SAD-kernel launches, want {want_n}")
+    if kind == "high":
+        check(t8_all > 0, f"[{tag}] no MB took the 8x8 transform")
+    sha = hashlib.sha1(stream).hexdigest()
+    t0 = time.perf_counter()
+    if kind == "high":
+        got = H264Decoder().decode(stream)
+        dec_name = "H264Decoder"
+    else:
+        got = bslice_codec.H264BDecoder().decode(stream)
+        dec_name = "H264BDecoder (display order)"
+    t_dec = time.perf_counter() - t0
+    check(len(got) == n, f"[{tag}] {dec_name}: {len(got)} pictures")
+    for k_, (g, r) in enumerate(zip(got, recons)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(g[c]), np.asarray(r[c])),
+                  f"[{tag}] {dec_name} picture {k_} plane {c} != the "
+                  "encoder's")
+    y_psnr = np.mean([psnr(f[0], r[0]) for f, r in zip(frames, recons)])
+    print(f"[{tag}] coding order {' '.join(order)}; {len(stream)} bytes, "
+          f"mean Y-PSNR {y_psnr:.2f} dB, encode {t_enc:.2f} s "
+          f"({n / t_enc:.3f} fps); SAD-kernel launches {launches}; SHA-1 "
+          f"{sha}; the port's {dec_name} gives the encoder's pictures "
+          f"({t_dec:.2f} s)")
+    ref_bytes, ref_sha = H264_HIGH_SHA1 if kind == "high" else H264_B_SHA1
+    print(f"[{tag}] the JAX package's stream for the same clip and "
+          f"settings (scripts/jax_reference_sha1.py --h264-{kind}, CPU): "
+          f"{ref_bytes} bytes SHA-1 {ref_sha}")
+    check((len(stream), sha) == (ref_bytes, ref_sha),
+          f"[{tag}] stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+          f"package's is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's, byte for byte (SHA-1)")
+    return launches
+
+
+def phase_h264_hb_cuda_vs_cpu() -> None:
+    """Phase 15c (h264-hb-cuda-vs-cpu): 15a and 15b's coders at 64x48 on
+    the card and with device="cpu": byte-equal streams, the card's
+    searches through the SAD kernel (9 and 10 launches), the CPU's
+    through its plain version (0)."""
+    tag = "h264-hb-cuda-vs-cpu"
+    words = []
+    for kind, n, want_n in (("high", H264_HIGH_PICTURES, H264_HIGH_LAUNCHES),
+                            ("b", H264_B_PICTURES, H264_B_LAUNCHES)):
+        frames = bench_synth_clip(64, 48, n)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            enc = h264_high_b_encoder(kind, 64, 48, dev)
+            ss.sad_surface.launches = 0
+            t0 = time.perf_counter()
+            stream, _ = enc.encode_sequence(frames)
+            res[dev] = (stream, ss.sad_surface.launches,
+                        time.perf_counter() - t0)
+        (g, ng, tg), (c, nc, tc) = res["cuda"], res["cpu"]
+        check(g == c, f"[{tag}] {kind}: the card's stream ({len(g)} bytes) "
+                      f"!= the CPU's ({len(c)} bytes)")
+        check(ng == want_n and nc == 0,
+              f"[{tag}] {kind}: SAD-kernel launches card {ng}, CPU {nc} "
+              f"(want {want_n}, 0)")
+        words.append(f"{kind} ({n} pictures) byte-equal ({len(g)} bytes), "
+                     f"SAD-kernel launches card {ng}, CPU 0, cuda {tg:.2f} "
+                     f"s, cpu {tc:.2f} s")
+    print(f"[{tag}] 64x48: {'; '.join(words)}")
 
 
 def flat_cfg(w: int, h: int, reorder: int, sao: bool = False):
@@ -3170,7 +3438,12 @@ def phase_hevc_flat(kind: str, sao: bool = False) -> tuple[int, int, int]:
     tag = ("hevc-flat-ra" if kind == "ra" else "hevc-hierb") + \
         ("-sao" if sao else "")
     frames = synth_clip(w, h, RA_PICTURES, seed=5)
-    if kind == "ra":
+    if kind == "ra" and sao:
+        frames = frames[:FLAT_SAO_PICTURES]
+        order = ("GOP-8 random access (DeviceRandomAccessEncoder) cut to "
+                 f"{FLAT_SAO_PICTURES} pictures: IDR, anchor P at 4, B at "
+                 "2 1 3")
+    elif kind == "ra":
         order = ("GOP-8 random access (DeviceRandomAccessEncoder), 9 "
                  "pictures: IDR, anchor P at 8, B at 4 2 1 3 6 5 7")
     else:
@@ -3239,7 +3512,8 @@ def phase_hevc_flat(kind: str, sao: bool = False) -> tuple[int, int, int]:
               f"SAD-kernel launches {e['launches']}, RDOQ-kernel launches "
               f"{e['rdoq']}{sao_words}")
     n_inter = len(frames) - 1
-    check(launches == want == (45 if kind == "ra" else 18),
+    want_n = 18 if kind == "hierb" else 21 if sao else 45
+    check(launches == want == want_n,
           f"{launches} SAD-kernel launches in the run, want {want}")
     check(rdoq_launches == 3 * n_inter,
           f"{rdoq_launches} RDOQ-kernel launches, want {3 * n_inter}")
@@ -3321,6 +3595,133 @@ def phase_flat_ra_cuda_vs_cpu(sao: bool = False) -> None:
           f"{tg:.2f} s, cpu {tc:.2f} s")
 
 
+def jax_modules() -> list:
+    """The modules of the JAX package or of JAX this process imported."""
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("video_codecs_tpu", "jax")]
+
+
+def pick(fn, idx, *args, **kw):
+    """Item idx of fn(*args, **kw)'s tuple, or the tuple of items idx."""
+    out = fn(*args, **kw)
+    return out[idx] if isinstance(idx, int) else tuple(out[i] for i in idx)
+
+
+def task_ldp_rc() -> tuple:
+    """hevc-ldp-rc and its resumed run: their SAD and RDOQ launches."""
+    sad, log, rdoq, _ = phase_hevc_ldp(rc=True)
+    return (sad, rdoq) + tuple(phase_ldp_rc_resume(log))
+
+
+def task_ldp_host() -> tuple:
+    """hevc-ldp-host, then cli-ldp, which holds its NAL units to the host
+    run's: the SAD and sao_stats launches of both."""
+    sad, sao, _, stream = phase_hevc_ldp_host()
+    return (sad, sao) + tuple(phase_cli_ldp(stream))
+
+
+# Stage 2's phases as (name, function, arguments, keywords), the longest
+# first (their times alone on one H100: PERF.md), so that the workers end
+# together.  main reads each result by its name.
+POOL_TASKS = [
+    ("hevc-ldp-host", task_ldp_host, (), {}),
+    ("720p", phase_encode_720p, (), {}),
+    ("cli-ra", phase_cli_ra, (), {}),
+    ("hevc-flat-ra-sao", pick, (phase_hevc_flat, (0, 1, 2), "ra"),
+     {"sao": True}),
+    ("hevc-flat-ra", pick, (phase_hevc_flat, (0, 1), "ra"), {}),
+    ("hevc-ldp-wp", pick, (phase_hevc_ldp_host, (0, 2), "wp"), {}),
+    ("hevc-ldp-dqp", pick, (phase_hevc_ldp_host, 0, "dqp"), {}),
+    ("hevc-hierb", pick, (phase_hevc_flat, (0, 1), "hierb"), {}),
+    ("ra-cuda-vs-cpu", phase_ra_cuda_vs_cpu, (), {}),
+    ("hevc-ra-sao", phase_hevc_ra, (), {"sao": True}),
+    ("hevc-ldp-rc", task_ldp_rc, (), {}),
+    ("hevc-ldp-sao", pick, (phase_hevc_ldp, (0, 2, 3)), {"variant": "sao"}),
+    ("hevc-ldp-conf", pick, (phase_hevc_ldp, (0, 2)), {"variant": "conf"}),
+    ("hevc-ra", pick, (phase_hevc_ra, (0, 2)), {}),
+    ("hevc-ldp-tz", pick, (phase_hevc_ldp, (0, 2)), {"me_method": "tz"}),
+    ("hevc-ra-tz", pick, (phase_hevc_ra, (0, 2)), {"me_method": "tz"}),
+    ("hevc-ldp", pick, (phase_hevc_ldp, (0, 2)), {}),
+    ("cuda-vs-cpu", phase_cuda_vs_cpu, (), {}),
+    ("jm-main", phase_jm, ("main",), {}),
+    ("jm-baseline", phase_jm, ("baseline",), {}),
+    ("flat-ra-cuda-vs-cpu-sao", phase_flat_ra_cuda_vs_cpu, (),
+     {"sao": True}),
+    ("flat-ra-cuda-vs-cpu", phase_flat_ra_cuda_vs_cpu, (), {}),
+    ("hevc-intra", phase_hevc_intra, (), {}),
+    ("cli-ra-cuda-vs-cpu", phase_cli_ra_cuda_vs_cpu, (), {}),
+    ("ldp-cuda-vs-cpu", phase_ldp_cuda_vs_cpu, (), {}),
+    ("jm-cuda-vs-cpu", phase_jm_cuda_vs_cpu, (), {}),
+]
+# Processes stage 2 runs its phases in, and the CPU threads each gives
+# torch: the host has 8 cores.
+WORKERS, WORKER_THREADS = 4, 2
+
+
+def worker_init(card: str) -> None:
+    """Start a stage-2 worker: load the three kernels stage 1 built and
+    count the plain versions' calls, as main does."""
+    global CARD
+    CARD = card
+    torch.set_num_threads(WORKER_THREADS)
+    for mod in (ss, sao_ops, rdoq_ops):
+        mod._load()
+    count_rdoq_ref()
+    count_sao_ref()
+
+
+def run_task(name: str, fn, args: tuple, kw: dict) -> tuple:
+    """Run one phase in a worker with its output kept: (name, passed,
+    result, standard output, standard error, seconds).  A failed check
+    (SystemExit) or an exception is caught here, its traceback kept, and
+    reported as not passed, and so is an import of the JAX package."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    ok, res = False, None
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            res = fn(*args, **kw)
+            bad = jax_modules()
+            check(not bad, f"{name}: the JAX package was imported: "
+                           f"{bad[:5]}")
+            ok = True
+        except (Exception, SystemExit):
+            traceback.print_exc()
+    return (name, ok, res, out.getvalue(), err.getvalue(),
+            time.perf_counter() - t0)
+
+
+def run_pool(tasks: list) -> dict:
+    """Stage 2: run tasks on WORKERS spawned processes that share the
+    card, print each phase's output as it ends, and return the results
+    by name.  The first phase that fails stops every worker and exits
+    non-zero."""
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=worker_init, initargs=(CARD,))
+    results, done = {}, False
+    try:
+        futs = [pool.submit(run_task, *t) for t in tasks]
+        for fut in concurrent.futures.as_completed(futs):
+            name, ok, res, out, err, secs = fut.result()
+            sys.stdout.write(out)
+            sys.stderr.write(err)
+            print(f"[pool] {name}: {secs:.1f} s in its worker", flush=True)
+            check(ok, f"phase {name} failed")
+            results[name] = res
+        done = True
+    finally:
+        if not done:
+            # the executor has no public call that stops a running task
+            for proc in list((pool._processes or {}).values()):
+                proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"[pool] {len(tasks)} phases on {WORKERS} workers in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
@@ -3339,51 +3740,53 @@ def main() -> None:
     build_kernels()
     count_rdoq_ref()
     count_sao_ref()
+    # Stage 1: the kernels against their plain versions, timed alone.
     phase_kernel()
-    phase_encode_720p()
-    phase_cuda_vs_cpu()
     rq = phase_rdoq_kernel()
-    phase_hevc_intra()
     k = phase_ra_kernel()
-    ra_launches, _, ra_rdoq = phase_hevc_ra()
-    phase_ra_cuda_vs_cpu()
     sk = phase_sao_kernel()
-    ra_sao_sad, sao_launches, ra_sao_rdoq = phase_hevc_ra(sao=True)
     phase_ldp_kernel()
-    ldp_launches, _, ldp_rdoq, _ = phase_hevc_ldp()
-    phase_ldp_cuda_vs_cpu()
     sao_flat, _ = phase_sao_kernel_flat()
-    ldp_sao, _, ldp_sao_rdoq, ldp_sao_stats = phase_hevc_ldp(variant="sao")
-    ldp_conf, _, ldp_conf_rdoq, _ = phase_hevc_ldp(variant="conf")
     r64 = phase_sad_r64()
-    ldp_tz, _, ldp_tz_rdoq, _ = phase_hevc_ldp(me_method="tz")
-    ra_tz, _, ra_tz_rdoq = phase_hevc_ra(me_method="tz")
-    ldp_rc, rc_log, ldp_rc_rdoq, _ = phase_hevc_ldp(rc=True)
-    rc_resumed, resumed_rdoq = phase_ldp_rc_resume(rc_log)
-    flat_ra, flat_ra_rdoq, _ = phase_hevc_flat("ra")
-    hierb, hierb_rdoq, _ = phase_hevc_flat("hierb")
-    phase_flat_ra_cuda_vs_cpu()
-    flat_sao, flat_sao_rdoq, flat_sao_stats = phase_hevc_flat("ra", sao=True)
-    phase_flat_ra_cuda_vs_cpu(sao=True)
-    host_sad, host_sao, _, host_stream = phase_hevc_ldp_host()
-    wp_sad, _, wp_off_sad, _ = phase_hevc_ldp_host("wp")
-    dqp_sad, _, _, _ = phase_hevc_ldp_host("dqp")
-    cli_ra_sad = phase_cli_ra()
-    phase_cli_ra_cuda_vs_cpu()
-    cli_ldp_sad, cli_ldp_sao = phase_cli_ldp(host_stream)
     sad_jm = phase_sad_jm()
-    jm_main = phase_jm("main")
-    jm_base = phase_jm("baseline")
-    phase_jm_cuda_vs_cpu()
-    jax_mods = [m for m in sys.modules
-                if m.split(".")[0] in ("video_codecs_tpu", "jax")]
+    print(f"[time] stage 1 (the build and the kernels alone) ended at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # Stage 2: the earlier slices' paths, WORKERS at a time.
+    res = run_pool(POOL_TASKS)
+    ra_launches, ra_rdoq = res["hevc-ra"]
+    ra_sao_sad, sao_launches, ra_sao_rdoq = res["hevc-ra-sao"]
+    ldp_launches, ldp_rdoq = res["hevc-ldp"]
+    ldp_sao, ldp_sao_rdoq, ldp_sao_stats = res["hevc-ldp-sao"]
+    ldp_conf, ldp_conf_rdoq = res["hevc-ldp-conf"]
+    ldp_tz, ldp_tz_rdoq = res["hevc-ldp-tz"]
+    ra_tz, ra_tz_rdoq = res["hevc-ra-tz"]
+    ldp_rc, ldp_rc_rdoq, rc_resumed, resumed_rdoq = res["hevc-ldp-rc"]
+    flat_ra, flat_ra_rdoq = res["hevc-flat-ra"]
+    hierb, hierb_rdoq = res["hevc-hierb"]
+    flat_sao, flat_sao_rdoq, flat_sao_stats = res["hevc-flat-ra-sao"]
+    host_sad, host_sao, cli_ldp_sad, cli_ldp_sao = res["hevc-ldp-host"]
+    wp_sad, wp_off_sad = res["hevc-ldp-wp"]
+    dqp_sad = res["hevc-ldp-dqp"]
+    cli_ra_sad = res["cli-ra"]
+    jm_main = res["jm-main"]
+    jm_base = res["jm-baseline"]
+    # Stage 3: this slice's paths, alone again.
+    t3 = time.perf_counter()
+    h264_high = phase_h264_high_b("high")
+    h264_b = phase_h264_high_b("b")
+    phase_h264_hb_cuda_vs_cpu()
+    print(f"[time] stage 3 (phase 15 alone) {time.perf_counter() - t3:.1f} "
+          "s")
+    jax_mods = jax_modules()
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
-    print("[imports] nothing of video_codecs_tpu or jax was imported")
+    print("[imports] nothing of video_codecs_tpu or jax was imported, "
+          "in this process or in stage 2's workers")
 
     launches = (ra_launches + ra_sao_sad + ldp_launches + ldp_sao +
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
                 hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad +
-                cli_ra_sad + cli_ldp_sad + jm_main + jm_base)
+                cli_ra_sad + cli_ldp_sad + jm_main + jm_base + h264_high +
+                h264_b)
     sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
                cli_ldp_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
@@ -3397,7 +3800,8 @@ def main() -> None:
           f"cu_qp_delta run {dqp_sad}, the encoder CLI on HM's RA main cfg "
           f"{cli_ra_sad} and on its LD-P main cfg {cli_ldp_sad}, the JM "
           f"encoder CLI's Main run {jm_main} and baseline run {jm_base}, "
-          "together "
+          f"the host H.264 coder's High-profile run {h264_high} and B run "
+          f"{h264_b}, together "
           f"{launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "

@@ -107,6 +107,16 @@ _TWINS = (
      "tests/test_torch_hevc_host_b.py::test_ra_gop8_80x48"),
     ("tests/test_bframes.py::test_bframes_roundtrip",
      "tests/test_torch_hevc_host_b.py::test_hierb_moving_clip_64x48"),
+    ("tests/test_h264_bslice.py::test_b_partitions_roundtrip_and_engage"
+     "[cabac]",
+     "tests/test_torch_h264_high_b.py::test_b_stream_partitions_96x64"
+     "[cabac]"),
+    ("tests/test_h264_bslice.py::test_b_partitions_roundtrip_and_engage"
+     "[cavlc]",
+     "tests/test_torch_h264_high_b.py::test_b_stream_partitions_96x64"
+     "[cavlc]"),
+    ("tests/test_h264_bslice.py::test_b_display_reorder[2]",
+     "tests/test_torch_h264_high_b.py::test_b_stream_64x48[cabac-2]"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared

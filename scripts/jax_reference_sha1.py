@@ -4,7 +4,8 @@ the port's to, computed with the JAX package on the CPU.
     JAX_PLATFORMS=cpu python scripts/jax_reference_sha1.py [--ra] [--ra-sao] \
         [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
         [--ldp-sao] [--ldp-conf] [--ldp-host] [--ldp-wp] [--ldp-dqp] \
-        [--cli-ra] [--no-ldp]
+        [--cli-ra] [--jm-main] [--jm-baseline] [--h264-high] [--h264-b] \
+        [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -70,7 +71,12 @@ chip_smoke.py's `[jm-main]` / `[jm-baseline]` write
 bench_synth_clip(176, 144, 5, seed=42), QP 28, search range 16; Main:
 CABAC, EPZS, 3 references, trellis; baseline: CAVLC, full search, 1
 reference, adaptive rounding) and decode the stream with both packages'
-H264Decoder.  This is a tool for the reference side: it
+H264Decoder.  --h264-high and --h264-b run the JAX package's host H.264
+coder as chip_smoke.py's `[h264-high]` / `[h264-b]` do (176x144, QP 28,
+search range 16: `H264Encoder` with the 8x8 transform, CABAC, EPZS, 3
+references and trellis over 5 pictures; `H264BEncoder` with 2 B pictures
+between anchors, CABAC and b_qp_offset 2 over 7) and decode the stream
+with both packages' decoders.  This is a tool for the reference side: it
 imports the JAX package, the port's `motion` module for the repaired
 function and the port's decoders for a second opinion.
 """
@@ -349,6 +355,44 @@ def jm(kind: str) -> None:
                   f"recon file: {same}", flush=True)
 
 
+def h264_high_b(kind: str) -> None:
+    """The JAX package's host H.264 coder on chip_smoke.py's `[h264-high]`
+    (`H264Encoder(..., transform8x8=True)`, 5 pictures) or `[h264-b]`
+    (`H264BEncoder`, 7 pictures) run: bench_synth_clip(176, 144, n,
+    seed=42) at chip_smoke's H264_HIGH_KW / H264_B_KW; bytes, SHA-1, the
+    MB statistics and whether both packages' decoders give the encoder's
+    pictures."""
+    from video_codecs_tpu.models.h264 import bslice_codec, inter_codec
+    from video_codecs_tpu_torch.models.h264 import bslice_codec as tb
+    from video_codecs_tpu_torch.models.h264 import inter_codec as ti
+    w, h = chip_smoke.JM_W, chip_smoke.JM_H
+    if kind == "high":
+        n = chip_smoke.H264_HIGH_PICTURES
+        enc = inter_codec.H264Encoder(w, h, **chip_smoke.H264_HIGH_KW)
+        decs = (("JAX H264Decoder", inter_codec.H264Decoder()),
+                ("the port's H264Decoder", ti.H264Decoder()))
+    else:
+        n = chip_smoke.H264_B_PICTURES
+        enc = bslice_codec.H264BEncoder(w, h, **chip_smoke.H264_B_KW)
+        decs = (("JAX H264BDecoder", bslice_codec.H264BDecoder()),
+                ("the port's H264BDecoder", tb.H264BDecoder()))
+    frames = chip_smoke.bench_synth_clip(w, h, n)
+    t0 = time.time()
+    stream, recons = enc.encode_sequence(frames)
+    t = time.time() - t0
+    stats = getattr(enc, "mb_type_stats", None)
+    print(f"h264 {kind}: {len(stream)} bytes, SHA-1 "
+          f"{hashlib.sha1(stream).hexdigest()}, encode {t:.1f} s"
+          + (f", mb_type_stats {stats}" if stats else ""), flush=True)
+    for label, dec in decs:
+        got = dec.decode(stream)
+        same = len(got) == n and all(
+            (g[c] == r[c]).all() for g, r in zip(got, recons)
+            for c in range(3))
+        print(f"h264 {kind}: {label} {len(got)} pictures, equal to the "
+              f"encoder's: {same}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -389,6 +433,10 @@ def main() -> None:
     ap.add_argument("--jm-baseline", action="store_true",
                     help="the JAX package's JM encoder CLI, baseline "
                          "(jm-baseline)")
+    ap.add_argument("--h264-high", action="store_true",
+                    help="the host H.264 coder at High profile (h264-high)")
+    ap.add_argument("--h264-b", action="store_true",
+                    help="the host H.264 B coder (h264-b)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -426,6 +474,10 @@ def main() -> None:
         jm("main")
     if args.jm_baseline:
         jm("baseline")
+    if args.h264_high:
+        h264_high_b("high")
+    if args.h264_b:
+        h264_high_b("b")
 
 
 if __name__ == "__main__":

@@ -525,6 +525,20 @@ def test_cli_needs_card_without_device_flag(monkeypatch, tmp_path):
     dict(weighted_pred=True), dict(long_term=True), dict(lt_period=2),
     dict(reorder="lt_first"), dict(intra_refresh=4)])
 def test_host_coder_cut_options_raise(opt):
+    """The options the port does not carry raise.  The 8x8 transform
+    (High profile), which it carries, is held to the JAX encoder's stream
+    instead."""
+    if opt.get("transform8x8"):
+        jx = _jax()
+        frames = _clip(32, 32, 2, seed=3)
+        st, rt = tinter.H264Encoder(32, 32, qp=26, search_range=4,
+                                    device="cpu", **opt
+                                    ).encode_sequence(frames)
+        sj, rj = jx["inter"].H264Encoder(32, 32, qp=26, search_range=4,
+                                         **opt).encode_sequence(frames)
+        assert st == sj
+        _planes_equal(rt, rj)
+        return
     with pytest.raises(NotImplementedError):
         tinter.H264Encoder(32, 32, device="cpu", **opt)
 

@@ -1,6 +1,7 @@
 """H.264 IPPP codec: the reference's host P coder (P_Skip, P_L0
 partitions down to 4x4, intra MBs, several references, full / EPZS /
-UMHex search, CAVLC and CABAC) and its decoder.
+UMHex search, CAVLC and CABAC, Main and High profile with the 8x8
+transform) and its decoder.
 
 The port's copy of video_codecs_tpu/models/h264/inter_codec.py.  Each
 function and class kept is carried as it is under its own name, with a
@@ -9,10 +10,10 @@ sub-pel candidates come from its card stage (models/h264/host_me.py:
 one SAD-kernel launch and 16 phase planes per reference and P picture)
 instead of per-call numpy; its decisions, in the reference's order and
 types, stay on the host.  Cut, with the branches behind them: weighted
-prediction, the 8x8 transform, perceptual RDO, long-term references,
-list reordering, MMCO, intra refresh, the trace / statistics wrappers
-and error concealment.  The constructors and the decoder raise
-NotImplementedError on those.
+prediction of P slices (`wp_apply` is kept for the B decoder's weighted
+bipred), perceptual RDO, long-term references, list reordering, MMCO,
+intra refresh, the trace / statistics wrappers and error concealment.
+The constructors and the decoder raise NotImplementedError on those.
 
 Mirrors the JM encoder/decoder behavior (reference: jm18.5 lencod/ldecod —
 mv prediction lcommon/src/mv_prediction.c GetMotionVectorPredictorNormal,
@@ -195,6 +196,18 @@ def bs_maps_p(intra_mb, nz_y, mvg, refg):
     return bs_ver, bs_hor
 
 
+# video_codecs_tpu/models/h264/inter_codec.py:176
+def wp_apply(pred, w: int, o: int, logd: int):
+    """Explicit weighted prediction on an interpolated block
+    (spec 8.4.2.3.2 / jm18.5 weighted_prediction.c)."""
+    p = pred.astype(np.int64)
+    if logd > 0:
+        out = ((p * w + (1 << (logd - 1))) >> logd) + o
+    else:
+        out = p * w + o
+    return np.clip(out, 0, 255).astype(np.int32)
+
+
 # video_codecs_tpu/models/h264/inter_codec.py:241
 def _code_residual_16(w, lv, nc_grid, gx, gy):
     coeffs = lv.reshape(16)[cavlc.ZIGZAG_4x4]
@@ -230,9 +243,9 @@ class H264Encoder(H264IntraEncoder):
     (`host_me.RefSearch`, one per reference and P picture) on `device`,
     the card unless the caller passes "cpu"; the decisions, the
     transforms and the entropy coder run on the host as the reference's.
-    The options the port does not carry (perceptual RDO, the 8x8
-    transform, weighted prediction, long-term references, list
-    reordering, intra refresh) raise NotImplementedError."""
+    The options the port does not carry (perceptual RDO, weighted
+    prediction, long-term references, list reordering, intra refresh)
+    raise NotImplementedError."""
 
     # video_codecs_tpu/models/h264/inter_codec.py:267
     def __init__(self, width: int, height: int, qp: int = 28,
@@ -268,11 +281,12 @@ class H264Encoder(H264IntraEncoder):
     # video_codecs_tpu/models/h264/inter_codec.py:302
     def encode_sequence(self, frames):
         cabac = self.entropy == "cabac"
-        profile = 77 if cabac else 66
+        profile = 100 if self.transform8x8 else (77 if cabac else 66)
         nals = [nal_unit(NAL_SPS, write_sps(self.w // 16, self.h // 16,
                                             profile=profile,
                                             num_ref_frames=self.n_refs)),
-                nal_unit(NAL_PPS, write_pps(cabac=cabac))]
+                nal_unit(NAL_PPS, write_pps(
+                    cabac=cabac, transform8x8=self.transform8x8))]
         recons = []
         dpb = dpb_mod.Dpb(self.n_refs, 8)
         frame_num = 0
@@ -484,7 +498,7 @@ class H264Encoder(H264IntraEncoder):
     # video_codecs_tpu/models/h264/inter_codec.py:542
     def _write_p_mb_cabac(self, ce, mbx, mby, mb_type, parts, subs, cbp,
                           lv, c_dc_q, c_ac_q, skip_ctx_terms, n_active,
-                          refg, mvd4):
+                          refg, mvd4, mb_t8=False, lv8=None):
         """CABAC syntax for one non-skip inter P MB (any partitioning).
 
         Parity: jm18.5/lencod/src/cabac.c writeMB_Pskip_flagInfo :424,
@@ -530,10 +544,30 @@ class H264Encoder(H264IntraEncoder):
         ce.cbp(cbp, nbr(0, -1), nbr(-1, 0))
         self._cbp_arr[mby, mbx] = cbp
         cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        if self.transform8x8 and cbp_luma and \
+                all(p_[2] >= 8 and p_[3] >= 8 for p_ in parts):
+            ta = 1 if (mbx > 0 and self._trans8[mby, mbx - 1]) else 0
+            tb = 1 if (mby > 0 and self._trans8[mby - 1, mbx]) else 0
+            ce.transform_size_8x8_flag(1 if mb_t8 else 0, ta + tb)
         if cbp:
             ce.mb_qp_delta(0, False)
         cur_bits = 0
+        if mb_t8:
+            for b8 in range(4):
+                if not (cbp_luma & (1 << b8)):
+                    continue
+                coeffs = [int(c) for c in
+                          lv8[b8].reshape(64)[ht.ZIGZAG_8x8]]
+                ce.residual_block(hc.LUMA_8x8, coeffs, 0, code_cbf=False)
+                if any(coeffs):
+                    for k in range(4):
+                        idx = 4 * b8 + k
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        cur_bits |= 1 << (1 + 4 * y4 + x4)
+                        cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
         for i8 in range(4):
+            if mb_t8:
+                break
             if not (cbp_luma & (1 << i8)):
                 continue
             for k in range(4):
@@ -572,7 +606,7 @@ class H264Encoder(H264IntraEncoder):
 
     # -- P frame -----------------------------------------------------------
     # video_codecs_tpu/models/h264/inter_codec.py:654
-    def _encode_p_frame(self, y, u, v, refs, frame_num):
+    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None):
         qp = self.qp
         qpc = int(ht.CHROMA_QP[min(max(qp, 0), 51)])
         mbw, mbh = self.w // 16, self.h // 16
@@ -587,6 +621,8 @@ class H264Encoder(H264IntraEncoder):
         nc_v = NcGrid(mbw * 2, mbh * 2)
         self._mode4 = np.full((mbh * 4, mbw * 4), 2, np.int32)
         self._is_i4 = np.zeros((mbh, mbw), bool)
+        self._trans8 = np.zeros((mbh, mbw), bool)
+        nz8 = np.zeros((mbh * 4, mbw * 4), bool)
         mvg = np.zeros((mbh * 4, mbw * 4, 2), np.int32)
         refg = np.full((mbh * 4, mbw * 4), -1, np.int32)
         dec4 = np.zeros((mbh * 4, mbw * 4), bool)
@@ -603,6 +639,8 @@ class H264Encoder(H264IntraEncoder):
         w.ue(5)                  # slice_type = P (all slices)
         w.ue(0)                  # pps_id
         w.write(frame_num & 0xFF, 8)
+        if poc is not None:      # pic_order_cnt_lsb (poc_type 0 streams)
+            w.write(poc & 0xFFFF, 16)
         if n_active > 1:
             w.flag(1)            # num_ref_idx_active_override_flag
             w.ue(n_active - 1)   # num_ref_idx_l0_active_minus1
@@ -809,11 +847,39 @@ class H264Encoder(H264IntraEncoder):
                 res = orig - pred
                 blk = res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3)
                 lv = self._quant_ac(ht.forward4x4(blk), qp, intra=False)
+                # ---- 4x4 vs 8x8 transform decision (High profile) ----
+                mb_t8 = False
+                lv8 = None
+                if self.transform8x8 and \
+                        all(p_[2] >= 8 and p_[3] >= 8 for p_ in parts):
+                    lv8 = [ht.quant8x8(ht.forward8x8(
+                        res[(b >> 1) * 8:(b >> 1) * 8 + 8,
+                            (b & 1) * 8:(b & 1) * 8 + 8]), qp, intra=False)
+                        for b in range(4)]
+                    r4 = ht.inverse4x4(ht.dequant_ac(lv, qp)) \
+                        .transpose(0, 2, 1, 3).reshape(16, 16)
+                    r8 = np.zeros((16, 16), np.int64)
+                    for b in range(4):
+                        ox8, oy8 = (b & 1) * 8, (b >> 1) * 8
+                        r8[oy8:oy8 + 8, ox8:ox8 + 8] = ht.inverse8x8(
+                            ht.dequant8x8(lv8[b], qp))
+                    lam_mb = lam
+                    c4 = int(np.abs(res - r4).sum()) + \
+                        round(lam_mb * 3 * int((lv != 0).sum()))
+                    c8 = int(np.abs(res - r8).sum()) + \
+                        round(lam_mb * 3 * int(sum((q != 0).sum()
+                                                   for q in lv8)))
+                    mb_t8 = c8 < c4 and any(q.any() for q in lv8)
                 cbp_luma = 0
-                for i8 in range(4):
-                    ids = [4 * i8 + k for k in range(4)]
-                    if any(lv[_BLK_Y[i], _BLK_X[i]].any() for i in ids):
-                        cbp_luma |= 1 << i8
+                if mb_t8:
+                    for b in range(4):
+                        if lv8[b].any():
+                            cbp_luma |= 1 << b
+                else:
+                    for i8 in range(4):
+                        ids = [4 * i8 + k for k in range(4)]
+                        if any(lv[_BLK_Y[i], _BLK_X[i]].any() for i in ids):
+                            cbp_luma |= 1 << i8
 
                 c_dc_q, c_ac_q = [], []
                 for comp, (co, cp) in enumerate(
@@ -858,15 +924,24 @@ class H264Encoder(H264IntraEncoder):
                                 comp.set(mbx * 2 + bx2, mby * 2 + by2, 0)
                     continue
 
+                if mb_t8:
+                    self._trans8[mby, mbx] = True
+                    for b in range(4):
+                        if lv8[b].any():
+                            bx4, by4 = (b & 1) * 2, (b >> 1) * 2
+                            nz8[gy + by4:gy + by4 + 2,
+                                gx + bx4:gx + bx4 + 2] = True
                 if ce is not None:
                     self._write_p_mb_cabac(ce, mbx, mby, mb_type_sel,
                                            parts, subs, cbp, lv, c_dc_q,
                                            c_ac_q, skip_ctx_terms,
-                                           n_active, refg, mvd4)
+                                           n_active, refg, mvd4,
+                                           mb_t8=mb_t8, lv8=lv8)
                     for i8 in range(4):
                         for k in range(4):
                             idx = 4 * i8 + k
                             nc_y.set(gx + _BLK_X[idx], gy + _BLK_Y[idx],
+                                     0 if mb_t8 else
                                      int((lv[_BLK_Y[idx],
                                              _BLK_X[idx]] != 0).sum())
                                      if cbp_luma & (1 << i8) else 0)
@@ -893,10 +968,27 @@ class H264Encoder(H264IntraEncoder):
                         w.se(mv_[0] - pmv_[0])   # mvd_l0 x
                         w.se(mv_[1] - pmv_[1])   # mvd_l0 y
                     w.ue(_NCBP_INTER_420[cbp])   # coded_block_pattern me(v)
+                    if self.transform8x8 and cbp_luma and \
+                            all(p_[2] >= 8 and p_[3] >= 8 for p_ in parts):
+                        w.flag(1 if mb_t8 else 0)  # transform_size_8x8
                     if cbp:
                         w.se(0)                  # mb_qp_delta
                     # luma residual: 16-coeff blocks per coded 8x8 group
                     for i8 in range(4):
+                        if mb_t8:
+                            lv64 = lv8[i8].reshape(64)[ht.ZIGZAG_8x8]
+                            for k in range(4):
+                                idx = 4 * i8 + k
+                                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                                if cbp_luma & (1 << i8):
+                                    coeffs = lv64[4 * np.arange(16) + k]
+                                    total = cavlc.encode_block(
+                                        w, [int(cc) for cc in coeffs],
+                                        nc_y.nc(gx + x4, gy + y4), 16)
+                                else:
+                                    total = 0
+                                nc_y.set(gx + x4, gy + y4, total)
+                            continue
                         for k in range(4):
                             idx = 4 * i8 + k
                             x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -925,15 +1017,26 @@ class H264Encoder(H264IntraEncoder):
                             grid.set(mbx * 2 + x4, mby * 2 + y4, total)
 
                 # recon
-                d = ht.dequant_ac(lv, qp)
-                for i8 in range(4):
-                    if not (cbp_luma & (1 << i8)):
-                        for k in range(4):
-                            idx = 4 * i8 + k
-                            d[_BLK_Y[idx], _BLK_X[idx]] = 0
-                rec_y[yy:yy + 16, x:x + 16] = np.clip(
-                    pred + ht.inverse4x4(d)
-                    .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
+                if mb_t8:
+                    res8 = np.zeros((16, 16), np.int64)
+                    for b in range(4):
+                        if not (cbp_luma & (1 << b)):
+                            continue
+                        ox8, oy8 = (b & 1) * 8, (b >> 1) * 8
+                        res8[oy8:oy8 + 8, ox8:ox8 + 8] = ht.inverse8x8(
+                            ht.dequant8x8(lv8[b], qp))
+                    rec_y[yy:yy + 16, x:x + 16] = np.clip(pred + res8,
+                                                          0, 255)
+                else:
+                    d = ht.dequant_ac(lv, qp)
+                    for i8 in range(4):
+                        if not (cbp_luma & (1 << i8)):
+                            for k in range(4):
+                                idx = 4 * i8 + k
+                                d[_BLK_Y[idx], _BLK_X[idx]] = 0
+                    rec_y[yy:yy + 16, x:x + 16] = np.clip(
+                        pred + ht.inverse4x4(d)
+                        .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
                 for comp, (plane, cp) in enumerate(
                         ((rec_u, pu), (rec_v, pv))):
                     cdc_deq = (ht.dequant_chroma_dc(c_dc_q[comp], qpc)
@@ -954,10 +1057,14 @@ class H264Encoder(H264IntraEncoder):
                 w.ue(skip_run)
             w.rbsp_trailing_bits()
 
-        bs_ver, bs_hor = bs_maps_p(intra_mb, nc_y.tc, mvg, refg)
+        bs_ver, bs_hor = bs_maps_p(intra_mb,
+                                   nc_y.tc + nz8.astype(np.int32),
+                                   mvg, refg)
         rec_y, rec_u, rec_v = deblock_frame(
-            rec_y, rec_u, rec_v, qp, qpc, bs_ver, bs_hor)
+            rec_y, rec_u, rec_v, qp, qpc, bs_ver, bs_hor,
+            trans8=self._trans8 if self._trans8.any() else None)
         self._prev_mvg = mvg.copy()    # EPZS temporal predictors
+        self._prev_refg = refg.copy()  # colocated motion for B direct
         return w.data(), (rec_y, rec_u, rec_v)
 
 
@@ -974,10 +1081,15 @@ class H264Decoder(H264IntraDecoder):
         self.dpb = []            # list0: most recently decoded first
         self.max_refs = 1
         self._next_fn = 0
+        self._last_mv = None     # (mvg, refg) of the last decoded P slice
 
     # video_codecs_tpu/models/h264/inter_codec.py:1214
     def _push(self, rec, frames, fn=None, is_ref=True):
         frames.append(rec)
+        if getattr(self, "_ext_dpb", False) or not hasattr(self, "_dpbm"):
+            self.dpb.insert(0, rec)
+            del self.dpb[self.max_refs:]
+            return
         if fn is None:
             fn = self._next_fn
         if is_ref:
@@ -1016,6 +1128,8 @@ class H264Decoder(H264IntraDecoder):
                 self.dbf_present, self.cabac, ppsinfo = \
                     _checked_pps(rbsp)
                 self.default_l0 = ppsinfo["num_ref_idx_l0_default_active"]
+                self.trans8_enabled = ppsinfo.get("transform_8x8_mode",
+                                                  False)
             elif nal_type in (NAL_SLICE_IDR, 1):
                 self._cur_ref_idc = nal[0] >> 5
                 if nal_type == NAL_SLICE_IDR:
@@ -1060,15 +1174,19 @@ class H264Decoder(H264IntraDecoder):
         n_active = getattr(self, "default_l0", 1)
         if r.flag():                # num_ref_idx_active_override_flag
             n_active = r.ue() + 1   # num_ref_idx_l0_active_minus1
+        ext = getattr(self, "_ext_dpb", False) or \
+            not hasattr(self, "_dpbm")
         # ref_pic_list_modification (spec 7.3.3.1 / 8.2.4.3)
         if r.flag():
             raise NotImplementedError("ref_pic_list_modification is not "
                                       "decoded")
-        list0 = self._dpbm.default_list0(fn)
-        self.dpb = [p.planes for p in list0[:max(n_active, 1)]]
+        if not ext:
+            list0 = self._dpbm.default_list0(fn)
+            self.dpb = [p.planes for p in list0[:max(n_active, 1)]]
         assert n_active <= len(self.dpb), "ref list underrun"
         # dec_ref_pic_marking (spec 7.3.3.3 / 8.2.5.4)
-        if self._cur_ref_idc and r.flag():  # adaptive_ref_pic_marking
+        if getattr(self, "_cur_ref_idc", 1) and r.flag():
+            # adaptive_ref_pic_marking_mode_flag
             raise NotImplementedError("MMCO is not decoded")
         cabac = getattr(self, "cabac", False)
         model = r.ue() if cabac else 0  # cabac_init_idc
@@ -1093,6 +1211,9 @@ class H264Decoder(H264IntraDecoder):
         intra_mb = np.zeros((mbh, mbw), bool)
         mode4 = np.full((mbh * 4, mbw * 4), 2, np.int32)
         is_i4 = np.zeros((mbh, mbw), bool)
+        trans8 = np.zeros((mbh, mbw), bool)     # 8x8-transform MBs
+        nz8 = np.zeros((mbh * 4, mbw * 4), bool)  # their coded-8x8 marks
+        t8_on = getattr(self, "trans8_enabled", False)
         zz = cavlc.ZIGZAG_4x4
 
         def pred_mode4(gx4, gy4):
@@ -1138,11 +1259,15 @@ class H264Decoder(H264IntraDecoder):
             self._decode_p_mbs_cabac(
                 r, qp, qpc, model, rec_y, rec_u, rec_v, nc_y, nc_u, nc_v,
                 mvg, refg, intra_mb, mode4, is_i4, pred_mode4, decode_skip,
-                n_active=n_active, dec4=dec4)
+                n_active=n_active, dec4=dec4, trans8=trans8, nz8=nz8)
             if dbf_idc != 1:
-                bs_ver, bs_hor = bs_maps_p(intra_mb, nc_y.tc, mvg, refg)
+                bs_ver, bs_hor = bs_maps_p(intra_mb,
+                                           nc_y.tc + nz8.astype(np.int32),
+                                           mvg, refg)
                 rec_y, rec_u, rec_v = deblock_frame(
-                    rec_y, rec_u, rec_v, qp, qpc, bs_ver, bs_hor, aoff, boff)
+                    rec_y, rec_u, rec_v, qp, qpc, bs_ver, bs_hor, aoff, boff,
+                    trans8=trans8 if trans8.any() else None)
+            self._last_mv = (mvg.copy(), refg.copy())
             return rec_y, rec_u, rec_v
 
         n_mbs = mbw * mbh
@@ -1161,10 +1286,17 @@ class H264Decoder(H264IntraDecoder):
                 intra_mb[mby, mbx] = True
                 dec4[mby * 4:mby * 4 + 4, mbx * 4:mbx * 4 + 4] = True
                 if mb_type == 5:
-                    self._decode_i4_mb(r, None, rec_y, rec_u, rec_v,
-                                       nc_y, nc_u, nc_v, mbx, mby,
-                                       qp, qpc, mode4, is_i4,
-                                       pred_mode4)
+                    if t8_on and r.flag():   # transform_size_8x8_flag
+                        trans8[mby, mbx] = True
+                        self._decode_i8_mb(r, rec_y, rec_u, rec_v,
+                                           nc_y, nc_u, nc_v, mbx, mby,
+                                           qp, qpc, mode4, is_i4,
+                                           pred_mode4)
+                    else:
+                        self._decode_i4_mb(r, None, rec_y, rec_u, rec_v,
+                                           nc_y, nc_u, nc_v, mbx, mby,
+                                           qp, qpc, mode4, is_i4,
+                                           pred_mode4)
                 else:
                     self._decode_i16_mb(r, mb_type - 6, rec_y, rec_u, rec_v,
                                         nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
@@ -1199,10 +1331,36 @@ class H264Decoder(H264IntraDecoder):
                                  pw_ // 2, ph_ // 2)
             cbp = _CBP_FROM_CODE_INTER_420[r.ue()]
             cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+            mb_t8 = False
+            if t8_on and cbp_luma and \
+                    all(p[2] >= 8 and p[3] >= 8 for p in parts):
+                mb_t8 = bool(r.flag())   # transform_size_8x8_flag
+                trans8[mby, mbx] = mb_t8
             if cbp:
                 assert r.se() == 0      # mb_qp_delta
             lv = np.zeros((4, 4, 4, 4), np.int64)
+            lv8 = [np.zeros((8, 8), np.int64) for _ in range(4)]
             for i8 in range(4):
+                if mb_t8:
+                    lv64 = np.zeros(64, np.int64)
+                    for k in range(4):
+                        idx = 4 * i8 + k
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        if cbp_luma & (1 << i8):
+                            coeffs = cavlc.decode_block(
+                                r, nc_y.nc(gx + x4, gy + y4), 16)
+                            lv64[4 * np.arange(16) + k] = coeffs
+                            nc_y.set(gx + x4, gy + y4,
+                                     sum(1 for c in coeffs if c))
+                        else:
+                            nc_y.set(gx + x4, gy + y4, 0)
+                    flat = np.zeros(64, np.int64)
+                    flat[ht.ZIGZAG_8x8] = lv64
+                    lv8[i8] = flat.reshape(8, 8)
+                    if lv64.any():
+                        x4, y4 = (i8 & 1) * 2, (i8 >> 1) * 2
+                        nz8[gy + y4:gy + y4 + 2, gx + x4:gx + x4 + 2] = True
+                    continue
                 for k in range(4):
                     idx = 4 * i8 + k
                     x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -1237,9 +1395,17 @@ class H264Decoder(H264IntraDecoder):
                     else:
                         grid.set(mbx * 2 + x4, mby * 2 + y4, 0)
 
-            rec_y[yy:yy + 16, x:x + 16] = np.clip(
-                pred + ht.inverse4x4(ht.dequant_ac(lv, qp))
-                .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
+            if mb_t8:
+                res = np.zeros((16, 16), np.int64)
+                for i8 in range(4):
+                    ox, oy = (i8 & 1) * 8, (i8 >> 1) * 8
+                    res[oy:oy + 8, ox:ox + 8] = ht.inverse8x8(
+                        ht.dequant8x8(lv8[i8], qp))
+                rec_y[yy:yy + 16, x:x + 16] = np.clip(pred + res, 0, 255)
+            else:
+                rec_y[yy:yy + 16, x:x + 16] = np.clip(
+                    pred + ht.inverse4x4(ht.dequant_ac(lv, qp))
+                    .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
             for comp, (plane, cp) in enumerate(((rec_u, pu), (rec_v, pv))):
                 cdc_deq = (ht.dequant_chroma_dc(c_dc_q[comp], qpc)
                            if cbp_chroma else np.zeros((2, 2), np.int64))
@@ -1252,9 +1418,14 @@ class H264Decoder(H264IntraDecoder):
                     .transpose(0, 2, 1, 3).reshape(8, 8), 0, 255)
 
         if dbf_idc != 1:
-            bs_ver, bs_hor = bs_maps_p(intra_mb, nc_y.tc, mvg, refg)
+            bs_ver, bs_hor = bs_maps_p(intra_mb,
+                                       nc_y.tc + nz8.astype(np.int32),
+                                       mvg, refg)
             rec_y, rec_u, rec_v = deblock_frame(rec_y, rec_u, rec_v, qp, qpc,
-                                                bs_ver, bs_hor, aoff, boff)
+                                                bs_ver, bs_hor, aoff, boff,
+                                                trans8=trans8
+                                                if trans8.any() else None)
+        self._last_mv = (mvg.copy(), refg.copy())
         return rec_y, rec_u, rec_v
 
     # video_codecs_tpu/models/h264/inter_codec.py:1624
@@ -1306,7 +1477,7 @@ class H264Decoder(H264IntraDecoder):
     def _decode_p_mbs_cabac(self, r, qp, qpc, model, rec_y, rec_u, rec_v,
                             nc_y, nc_u, nc_v, mvg, refg, intra_mb, mode4,
                             is_i4, pred_mode4, decode_skip, n_active=1,
-                            dec4=None):
+                            dec4=None, trans8=None, nz8=None):
         """CABAC P-slice MB loop (mirror of the encoder's CABAC path)."""
         mbw, mbh = self.size
         zz = cavlc.ZIGZAG_4x4
@@ -1347,7 +1518,7 @@ class H264Decoder(H264IntraDecoder):
                     self._decode_intra_mb_cabac(
                         cd, act, i16_sym, mbx, mby, qp, qpc, rec_y, rec_u,
                         rec_v, cbf, cbp_arr, cipred, mode4, is_i4,
-                        pred_mode4, i16)
+                        pred_mode4, i16, trans8=trans8)
                     assert cd.final() == (1 if last_mb else 0)
                     continue
                 assert act in (1, 2, 3, 4), f"P mb_type act {act}"
@@ -1444,11 +1615,41 @@ class H264Decoder(H264IntraDecoder):
                 cbp = cd.cbp(nbr(0, -1), nbr(-1, 0))
                 cbp_arr[mby, mbx] = cbp
                 cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+                mb_t8 = False
+                if getattr(self, "trans8_enabled", False) and \
+                        trans8 is not None and cbp_luma and \
+                        all(g[2] >= 8 and g[3] >= 8 for g in geo):
+                    ta = 1 if (mbx > 0 and trans8[mby, mbx - 1]) else 0
+                    tb = 1 if (mby > 0 and trans8[mby - 1, mbx]) else 0
+                    mb_t8 = bool(cd.transform_size_8x8_flag(ta + tb))
+                    trans8[mby, mbx] = mb_t8
                 if cbp:
                     assert cd.mb_qp_delta(False) == 0, "dqp unsupported"
                 cur_bits = 0
                 lv = np.zeros((4, 4, 4, 4), np.int64)
+                lv8 = [np.zeros((8, 8), np.int64) for _ in range(4)]
+                if mb_t8:
+                    for b8 in range(4):
+                        if not (cbp_luma & (1 << b8)):
+                            continue
+                        coeffs = cd.residual_block(hc.LUMA_8x8, 64, 0,
+                                                   code_cbf=False)
+                        flat = np.zeros(64, np.int64)
+                        flat[ht.ZIGZAG_8x8] = coeffs
+                        lv8[b8] = flat.reshape(8, 8)
+                        if any(coeffs):
+                            bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                            if nz8 is not None:
+                                nz8[gy + by4:gy + by4 + 2,
+                                    gx + bx4:gx + bx4 + 2] = True
+                            for k in range(4):
+                                idx = 4 * b8 + k
+                                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                                cur_bits |= 1 << (1 + 4 * y4 + x4)
+                                cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
                 for i8 in range(4):
+                    if mb_t8:
+                        break
                     for k in range(4):
                         idx = 4 * i8 + k
                         x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -1500,10 +1701,19 @@ class H264Decoder(H264IntraDecoder):
                             cbf.set_bit(mbx, mby, base + 4 * y4 + x4)
                 cbf.mark(mbx, mby)
 
-                d = ht.dequant_ac(lv, qp)
-                rec_y[yy:yy + 16, x:x + 16] = np.clip(
-                    pred + ht.inverse4x4(d)
-                    .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
+                if mb_t8:
+                    res = np.zeros((16, 16), np.int64)
+                    for b8 in range(4):
+                        ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
+                        res[oy:oy + 8, ox:ox + 8] = ht.inverse8x8(
+                            ht.dequant8x8(lv8[b8], qp))
+                    rec_y[yy:yy + 16, x:x + 16] = np.clip(pred + res,
+                                                          0, 255)
+                else:
+                    d = ht.dequant_ac(lv, qp)
+                    rec_y[yy:yy + 16, x:x + 16] = np.clip(
+                        pred + ht.inverse4x4(d)
+                        .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
                 for comp, (plane, cp) in enumerate(
                         ((rec_u, pred_u), (rec_v, pred_v))):
                     cdc_deq = (ht.dequant_chroma_dc(c_dc_q[comp], qpc)
@@ -1521,9 +1731,10 @@ class H264Decoder(H264IntraDecoder):
     # video_codecs_tpu/models/h264/inter_codec.py:1930
     def _decode_intra_mb_cabac(self, cd, act, i16_sym, mbx, mby, qp, qpc,
                                rec_y, rec_u, rec_v, cbf, cbp_arr, cipred,
-                               mode4, is_i4, pred_mode4, i16):
-        """Intra MB inside a CABAC P slice (act 6 = I_4x4, 7 =
-        I_16x16)."""
+                               mode4, is_i4, pred_mode4, i16, trans8=None):
+        """Intra MB inside a CABAC P slice (act 6 = I_4x4/I_8x8,
+        7 = I_16x16)."""
+        from video_codecs_tpu_torch.models.h264 import intra8
         mbw, mbh = self.size
         zz = cavlc.ZIGZAG_4x4
         x, y = mbx * 16, mby * 16
@@ -1531,8 +1742,23 @@ class H264Decoder(H264IntraDecoder):
         use_i4 = act == 6
         is_i4[mby, mbx] = use_i4
         i16[mby, mbx] = not use_i4
+        use_i8 = False
+        if use_i4 and trans8 is not None and \
+                getattr(self, "trans8_enabled", False):
+            ta = 1 if (mbx > 0 and trans8[mby, mbx - 1]) else 0
+            tb = 1 if (mby > 0 and trans8[mby - 1, mbx]) else 0
+            use_i8 = bool(cd.transform_size_8x8_flag(ta + tb))
+            trans8[mby, mbx] = use_i8
         modes = []
-        if use_i4:
+        if use_i8:
+            for b8 in range(4):
+                bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                pm = pred_mode4(mbx * 4 + bx4, mby * 4 + by4)
+                m = cd.intra4x4_pred_mode(pm)
+                modes.append(m)
+                mode4[mby * 4 + by4:mby * 4 + by4 + 2,
+                      mbx * 4 + bx4:mbx * 4 + bx4 + 2] = m
+        elif use_i4:
             for idx in range(16):
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                 pm = pred_mode4(mbx * 4 + x4, mby * 4 + y4)
@@ -1576,8 +1802,26 @@ class H264Decoder(H264IntraDecoder):
                 cur_bits |= 1 << hc.CbfState.LUMA_DC_BIT
                 cbf.set_bit(mbx, mby, hc.CbfState.LUMA_DC_BIT)
         levels4 = [np.zeros((4, 4), np.int64) for _ in range(16)]
+        levels8 = [np.zeros((8, 8), np.int64) for _ in range(4)]
         ac_q = np.zeros((4, 4, 4, 4), np.int64)
+        if use_i8:
+            for b8 in range(4):
+                if not (cbp_luma & (1 << b8)):
+                    continue
+                coeffs = cd.residual_block(hc.LUMA_8x8, 64, 0,
+                                           code_cbf=False)
+                flat = np.zeros(64, np.int64)
+                flat[ht.ZIGZAG_8x8] = coeffs
+                levels8[b8] = flat.reshape(8, 8)
+                if any(coeffs):
+                    for k in range(4):
+                        idx = 4 * b8 + k
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        cur_bits |= 1 << (1 + 4 * y4 + x4)
+                        cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
         for i8 in range(4):
+            if use_i8:
+                break
             for k in range(4):
                 idx = 4 * i8 + k
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -1628,7 +1872,14 @@ class H264Decoder(H264IntraDecoder):
         cbf.mark(mbx, mby)
 
         # ---- reconstruction ----
-        if use_i4:
+        if use_i8:
+            for b8 in range(4):
+                ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
+                pb = intra8.predict8(rec_y, x + ox, y + oy, mbw, modes[b8])
+                d8 = ht.inverse8x8(ht.dequant8x8(levels8[b8], qp))
+                rec_y[y + oy:y + oy + 8, x + ox:x + ox + 8] = \
+                    np.clip(pb + d8, 0, 255)
+        elif use_i4:
             for idx in range(16):
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                 px, py = x + x4 * 4, y + y4 * 4

@@ -1,18 +1,18 @@
-"""H.264/AVC intra encoder + decoder: I_16x16 and I_4x4, CAVLC and CABAC.
+"""H.264/AVC intra encoder + decoder: I_16x16, I_4x4 and I_8x8, CAVLC
+and CABAC.
 
 The port's copy of video_codecs_tpu/models/h264/intra_codec.py.  Each
 function and class kept is carried as it is under its own name, with a
 comment giving the original's line; the branches behind options the
-port rejects are cut: perceptual RDO ("att", "ssim"), transform8x8 /
-I_8x8 (with `_decode_i8_mb` and `_decode_chroma_cavlc`, which only it
-called), the intra MB of a B slice and the VCT_FORCE_I4 / VCT_FORCE_I8
-debug flags (fixed off, no environment variable is read).  The
-constructor raises on those options, and the decoder on
-weighted-prediction and 8x8-transform streams.  Kept: CAVLC and CABAC
-(Main profile), hard, trellis and adaptive-rounding quantization.
+port rejects are cut: perceptual RDO ("att", "ssim") and the
+VCT_FORCE_I4 / VCT_FORCE_I8 debug flags (fixed off, no environment
+variable is read).  The constructor raises on perceptual RDO, and the
+decoder on weighted-prediction streams.  Kept: CAVLC and CABAC (Main
+and High profile: the 8x8 transform and I_8x8), hard, trellis and
+adaptive-rounding quantization, the intra MB of a B slice.
 
-Toolset: baseline and Main profile, 4:2:0 8-bit, I slices of I_16x16
-and I_4x4 macroblocks, in-loop deblocking.
+Toolset: baseline, Main and High profile, 4:2:0 8-bit, I slices of
+I_16x16, I_4x4 and I_8x8 macroblocks, in-loop deblocking.
 
 Parity references: SURVEY.md §2.6/3.3; jm18.5/lencod/src/intra16x16.c
 (prediction modes), intra_chroma.c, vlc.c / cavlc tables (entropy/cavlc.py),
@@ -204,13 +204,11 @@ def parse_pps(rbsp: bytes, full: bool = False):
 
 def _checked_pps(rbsp: bytes):
     """parse_pps(full=True) for the streams this decoder reads: raises
-    NotImplementedError on weighted prediction and the 8x8 transform.
+    NotImplementedError on weighted prediction.
     Returns (deblocking_filter_control_present, cabac, info)."""
     dbf_present, cabac, info = parse_pps(rbsp, full=True)
     if info["weighted_pred"] or info["weighted_bipred_idc"]:
         raise NotImplementedError("weighted prediction is not decoded")
-    if info["transform_8x8_mode"]:
-        raise NotImplementedError("transform_8x8_mode is not decoded")
     return dbf_present, cabac, info
 
 
@@ -517,11 +515,10 @@ class H264IntraEncoder:
         assert width % 16 == 0 and height % 16 == 0
         assert entropy in ("cavlc", "cabac")
         assert quant in ("normal", "trellis", "around")
+        self.transform8x8 = transform8x8   # High profile: I_8x8 + T8x8
         if perceptual:
             raise NotImplementedError(
                 f"perceptual={perceptual!r}: no perceptual RDO")
-        if transform8x8:
-            raise NotImplementedError("transform8x8: no High profile")
         if quant == "around":
             self._around = h264_rdoq.AdaptiveRounding()
         self.w, self.h, self.qp = width, height, qp
@@ -543,10 +540,11 @@ class H264IntraEncoder:
     # video_codecs_tpu/models/h264/intra_codec.py:532
     def encode_sequence(self, frames) -> tuple[bytes, list]:
         cabac = self.entropy == "cabac"
-        profile = 77 if cabac else 66
+        profile = 100 if self.transform8x8 else (77 if cabac else 66)
         nals = [nal_unit(NAL_SPS, write_sps(self.w // 16, self.h // 16,
                                             profile=profile)),
-                nal_unit(NAL_PPS, write_pps(cabac=cabac))]
+                nal_unit(NAL_PPS, write_pps(
+                    cabac=cabac, transform8x8=self.transform8x8))]
         recons = []
         for idx, (y, u, v) in enumerate(frames):
             rbsp, rec = self.encode_frame(y, u, v, idx)
@@ -568,6 +566,7 @@ class H264IntraEncoder:
         nc_v = NcGrid(mbw * 2, mbh * 2)
         self._mode4 = np.full((mbh * 4, mbw * 4), 2, np.int32)
         self._is_i4 = np.zeros((mbh, mbw), bool)
+        self._trans8 = np.zeros((mbh, mbw), bool)
 
         w = BitWriter()
         # slice header (IDR, I slice)
@@ -609,13 +608,14 @@ class H264IntraEncoder:
             # intra pred above used the unfiltered recon (spec 8.3); the
             # output picture is the deblocked one (spec 8.7).
             rec_y, rec_u, rec_v = deblock_frame_intra(
-                rec_y, rec_u, rec_v, qp, qpc)
+                rec_y, rec_u, rec_v, qp, qpc,
+                trans8=self._trans8 if self._trans8.any() else None)
         return w.data(), (rec_y, rec_u, rec_v)
 
     # video_codecs_tpu/models/h264/intra_codec.py:616
     def _encode_mb(self, w, yv, uv, vv, rec_y, rec_u, rec_v,
                    nc_y, nc_u, nc_v, mbx, mby, qp, qpc,
-                   mb_type_offset=0, ce=None, p_slice=False):
+                   mb_type_offset=0, ce=None, p_slice=False, b_ctx=None):
         # mb_type_offset=5 encodes this intra MB inside a P slice
         # (spec Table 7-13: intra mb_types follow the 5 inter ones)
         x, y = mbx * 16, mby * 16
@@ -680,18 +680,72 @@ class H264IntraEncoder:
             cost4_bits += 1 if m4 == pm else 4
         cost4 = int(np.abs(rec_trial[y:y + 16, x:x + 16] - orig).sum()) + \
             round(lam * cost4_bits)
+        # ---- I_8x8 candidate (High profile; trial recon like I_4x4) ----
+        modes4_cells = self._mode4[mby * 4:mby * 4 + 4,
+                                   mbx * 4:mbx * 4 + 4].copy()
+        cost8 = None
+        if self.transform8x8 and not getattr(self, 'force_i4', False):
+            from video_codecs_tpu_torch.models.h264 import intra8
+            rec_t8 = rec_y.copy()
+            modes8, levels8 = [], []
+            cost8_bits = 5          # mb_type + transform_size_8x8_flag
+            for b8 in range(4):
+                ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
+                px, py = x + ox, y + oy
+                bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                pm = self._pred_mode4(mbx * 4 + bx4, mby * 4 + by4,
+                                      upto=4 * b8, mbx=mbx, mby=mby)
+                l8, t8, c8, av8 = intra8.gather_ref8(rec_t8, px, py, mbw)
+                lf, tf, cf = intra8.filter_ref8(l8, t8, c8, av8)
+                ob = yv[py:py + 8, px:px + 8]
+                bestb = None
+                for m in intra8.allowed_modes8(av8):
+                    pb = intra8.pred_luma8(lf, tf, cf, av8, m)
+                    sad = int(np.abs(ob - pb).sum()) + \
+                        round(lam * (1 if m == pm else 4))
+                    if bestb is None or sad < bestb[0]:
+                        bestb = (sad, m, pb)
+                _, m8, pb = bestb
+                lv8 = ht.quant8x8(ht.forward8x8(ob - pb), qp, intra=True)
+                recb = np.clip(pb + ht.inverse8x8(ht.dequant8x8(lv8, qp)),
+                               0, 255)
+                rec_t8[py:py + 8, px:px + 8] = recb
+                modes8.append(int(m8))
+                levels8.append(lv8)
+                self._mode4[mby * 4 + by4:mby * 4 + by4 + 2,
+                            mbx * 4 + bx4:mbx * 4 + bx4 + 2] = m8
+                cost8_bits += 1 if m8 == pm else 4
+            cost8 = int(np.abs(rec_t8[y:y + 16, x:x + 16] - orig).sum()) + \
+                round(lam * cost8_bits)
 
-        use_i4 = cost4 < cost16
-        self._is_i4[mby, mbx] = use_i4   # I_NxN
-        # finalize the MB's mode grid per the winner (the I_4x4 trial
-        # above already wrote its modes)
-        if not use_i4:
+        use_i8 = (cost8 is not None and
+                  ((cost8 < cost16 and cost8 <= cost4) or
+                   getattr(self, 'force_i8', False)))
+        use_i4 = (not use_i8) and (cost4 < cost16 or
+                                   getattr(self, 'force_i4', False))
+        self._is_i4[mby, mbx] = use_i4 or use_i8   # I_NxN
+        self._trans8[mby, mbx] = use_i8
+        # finalize the MB's mode grid per the winner
+        if use_i8:
+            for b8 in range(4):
+                bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                self._mode4[mby * 4 + by4:mby * 4 + by4 + 2,
+                            mbx * 4 + bx4:mbx * 4 + bx4 + 2] = modes8[b8]
+        elif use_i4:
+            self._mode4[mby * 4:mby * 4 + 4,
+                        mbx * 4:mbx * 4 + 4] = modes4_cells
+        else:
             self._mode4[mby * 4:mby * 4 + 4, mbx * 4:mbx * 4 + 4] = 2
         cbp_luma4 = 0
         if use_i4:
             for i8 in range(4):
                 if any(levels4[4 * i8 + k].any() for k in range(4)):
                     cbp_luma4 |= 1 << i8
+        cbp_luma8 = 0
+        if use_i8:
+            for b8 in range(4):
+                if levels8[b8].any():
+                    cbp_luma8 |= 1 << b8
 
         # ---- chroma (shared) ----
         cmodes = [0] + ([1] if avail_l else []) + ([2] if avail_t else []) + \
@@ -723,13 +777,55 @@ class H264IntraEncoder:
             self._write_mb_cabac(ce, mbx, mby, use_i4, modes4, mode16,
                                  best_cm, cbp_luma4, cbp_luma16, cbp_chroma,
                                  levels4, dc_q, ac_q, c_dc_q, c_ac_q,
-                                 p_slice=p_slice)
+                                 p_slice=p_slice, b_ctx=b_ctx,
+                                 use_i8=use_i8,
+                                 modes8=modes8 if use_i8 else None,
+                                 levels8=levels8 if use_i8 else None,
+                                 cbp_luma8=cbp_luma8)
             rec_y[y:y + 16, x:x + 16] = (
+                rec_t8[y:y + 16, x:x + 16] if use_i8 else
                 rec_trial[y:y + 16, x:x + 16] if use_i4 else rec16)
+        elif use_i8:
+            # ---- I_8x8 syntax (spec 7.3.5, transform_size_8x8_flag) ----
+            cbp = cbp_luma8 | (cbp_chroma << 4)
+            w.ue(0 + mb_type_offset)     # mb_type I_NxN
+            w.flag(1)                    # transform_size_8x8_flag
+            for b8 in range(4):
+                bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                pm = self._pred_mode4(mbx * 4 + bx4, mby * 4 + by4,
+                                      upto=4 * b8, mbx=mbx, mby=mby)
+                m = modes8[b8]
+                if m == pm:
+                    w.flag(1)
+                else:
+                    w.flag(0)
+                    w.write(m if m < pm else m - 1, 3)
+            w.ue(best_cm)
+            w.ue(_NCBP_INTRA_420[cbp])   # coded_block_pattern me(v)
+            if cbp:
+                w.se(0)              # mb_qp_delta
+            for b8 in range(4):
+                lv64 = np.zeros(64, np.int64)
+                lv64[:] = levels8[b8].reshape(64)[ht.ZIGZAG_8x8]
+                for k in range(4):
+                    idx = 4 * b8 + k
+                    x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                    gx, gy = mbx * 4 + x4, mby * 4 + y4
+                    if cbp_luma8 & (1 << b8):
+                        coeffs = lv64[4 * np.arange(16) + k]
+                        total = cavlc.encode_block(
+                            w, [int(cc) for cc in coeffs],
+                            nc_y.nc(gx, gy), 16)
+                    else:
+                        total = 0
+                    nc_y.set(gx, gy, total)
+            rec_y[y:y + 16, x:x + 16] = rec_t8[y:y + 16, x:x + 16]
         elif use_i4:
             # ---- I_4x4 syntax (spec 7.3.5.1) ----
             cbp = cbp_luma4 | (cbp_chroma << 4)
             w.ue(0 + mb_type_offset)     # mb_type I_4x4
+            if self.transform8x8:
+                w.flag(0)                # transform_size_8x8_flag
             for idx in range(16):
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                 pm = self._pred_mode4(mbx * 4 + x4, mby * 4 + y4,
@@ -816,7 +912,9 @@ class H264IntraEncoder:
     # video_codecs_tpu/models/h264/intra_codec.py:924
     def _write_mb_cabac(self, ce, mbx, mby, use_i4, modes4, mode16, best_cm,
                         cbp_luma4, cbp_luma16, cbp_chroma, levels4, dc_q,
-                        ac_q, c_dc_q, c_ac_q, p_slice=False):
+                        ac_q, c_dc_q, c_ac_q, p_slice=False,
+                        b_ctx=None, use_i8=False, modes8=None, levels8=None,
+                        cbp_luma8=0):
         """CABAC syntax for one intra MB (I slice, or intra MB in P slice).
 
         Parity: jm18.5/lencod/src/cabac.c writeMB_I_typeInfo_CABAC,
@@ -825,12 +923,22 @@ class H264IntraEncoder:
         """
         zz = cavlc.ZIGZAG_4x4
         cbf = self._cbf
+        mbw, mbh = self.w // 16, self.h // 16
 
-        cbp = (cbp_luma4 | (cbp_chroma << 4)) if use_i4 else \
+        i_nxn = use_i4 or use_i8
+        cbp = ((cbp_luma8 if use_i8 else cbp_luma4) | (cbp_chroma << 4)) \
+            if i_nxn else \
             ((15 if cbp_luma16 else 0) | (cbp_chroma << 4))
-        if p_slice:
+        if b_ctx is not None:
+            # intra MB inside a B slice (writeMB_B_typeInfo :626)
+            if i_nxn:
+                ce.mb_type_b(23, b_ctx)
+            else:
+                i16 = mode16 + 4 * cbp_chroma + 12 * (1 if cbp_luma16 else 0)
+                ce.mb_type_b(24, b_ctx, i16)
+        elif p_slice:
             # intra suffix inside a P slice (writeMB_P_typeInfo :566-612)
-            if use_i4:
+            if i_nxn:
                 ce.mb_type_p(6)
             else:
                 i16 = mode16 + 4 * cbp_chroma + 12 * (1 if cbp_luma16 else 0)
@@ -839,10 +947,20 @@ class H264IntraEncoder:
             # mb_type: ctx term = neighbor present and not I_4x4
             a = 1 if (mbx > 0 and not self._is_i4[mby, mbx - 1]) else 0
             b = 1 if (mby > 0 and not self._is_i4[mby - 1, mbx]) else 0
-            act = 0 if use_i4 else \
+            act = 0 if i_nxn else \
                 1 + mode16 + 4 * cbp_chroma + 12 * (1 if cbp_luma16 else 0)
             ce.mb_type_i(act, a + b)
-        if use_i4:
+        if i_nxn and self.transform8x8:
+            ta = 1 if (mbx > 0 and self._trans8[mby, mbx - 1]) else 0
+            tb = 1 if (mby > 0 and self._trans8[mby - 1, mbx]) else 0
+            ce.transform_size_8x8_flag(1 if use_i8 else 0, ta + tb)
+        if use_i8:
+            for b8 in range(4):
+                bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                pm = self._pred_mode4(mbx * 4 + bx4, mby * 4 + by4,
+                                      upto=4 * b8, mbx=mbx, mby=mby)
+                ce.intra4x4_pred_mode(modes8[b8], pm)
+        elif use_i4:
             for idx in range(16):
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                 pm = self._pred_mode4(mbx * 4 + x4, mby * 4 + y4,
@@ -860,14 +978,14 @@ class H264IntraEncoder:
                 return None
             return {"cbp": int(self._cbp_arr[ny, nx]), "ipcm": False}
 
-        if use_i4:
+        if i_nxn:
             ce.cbp(cbp, nbr(0, -1), nbr(-1, 0))
         self._cbp_arr[mby, mbx] = cbp
-        if (not use_i4) or cbp:
+        if (not i_nxn) or cbp:
             ce.mb_qp_delta(0, False)
 
         cur_bits = 0
-        if not use_i4:
+        if not i_nxn:
             # I_16x16: luma DC always coded (with cbf)
             dc_list = [int(dc_q.reshape(16)[zz[i]]) for i in range(16)]
             ctx = cbf.ctx_dc(mbx, mby, hc.CbfState.LUMA_DC_BIT, True)
@@ -875,7 +993,22 @@ class H264IntraEncoder:
             if any(dc_list):
                 cur_bits |= 1 << hc.CbfState.LUMA_DC_BIT
                 cbf.set_bit(mbx, mby, hc.CbfState.LUMA_DC_BIT)
+        if use_i8:
+            for b8 in range(4):
+                if not (cbp_luma8 & (1 << b8)):
+                    continue
+                coeffs = [int(c) for c in
+                          levels8[b8].reshape(64)[ht.ZIGZAG_8x8]]
+                ce.residual_block(hc.LUMA_8x8, coeffs, 0, code_cbf=False)
+                if any(coeffs):
+                    for k in range(4):
+                        idx = 4 * b8 + k
+                        x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                        cur_bits |= 1 << (1 + 4 * y4 + x4)
+                        cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
         for i8 in range(4):
+            if use_i8:
+                break
             for k in range(4):
                 idx = 4 * i8 + k
                 x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -967,7 +1100,8 @@ class H264IntraDecoder:
                 wmb, hmb, self.sps_info = parse_sps(rbsp, full=True)
                 self.size = (wmb, hmb)
             elif nal_type == NAL_PPS:
-                self.dbf_present, self.cabac, _ = _checked_pps(rbsp)
+                self.dbf_present, self.cabac, ppsi = _checked_pps(rbsp)
+                self.trans8_enabled = ppsi["transform_8x8_mode"]
             elif nal_type in (NAL_SLICE_IDR, 1):
                 frames.append(self._decode_slice(rbsp))
         return frames
@@ -1009,6 +1143,7 @@ class H264IntraDecoder:
 
         mode4 = np.full((mbh * 4, mbw * 4), 2, np.int32)
         is_i4 = np.zeros((mbh, mbw), bool)
+        trans8 = np.zeros((mbh, mbw), bool)
 
         def pred_mode4(gx4, gy4):
             def nbr(sx4, sy4):
@@ -1027,7 +1162,8 @@ class H264IntraDecoder:
 
         if getattr(self, "cabac", False):
             self._decode_slice_mbs_cabac(r, qp, qpc, rec_y, rec_u, rec_v,
-                                         mode4, is_i4, pred_mode4)
+                                         mode4, is_i4, pred_mode4,
+                                         trans8=trans8)
         else:
             for mby in range(mbh):
                 for mbx in range(mbw):
@@ -1035,23 +1171,35 @@ class H264IntraDecoder:
                     assert 0 <= mb_type <= 24, \
                         f"unsupported mb_type {mb_type}"
                     if mb_type == 0:
-                        self._decode_i4_mb(r, None, rec_y, rec_u,
-                                           rec_v, nc_y, nc_u, nc_v,
-                                           mbx, mby, qp, qpc, mode4,
-                                           is_i4, pred_mode4)
+                        if getattr(self, "trans8_enabled", False) and \
+                                r.flag():    # transform_size_8x8_flag
+                            trans8[mby, mbx] = True
+                            self._decode_i8_mb(r, rec_y, rec_u, rec_v,
+                                               nc_y, nc_u, nc_v, mbx, mby,
+                                               qp, qpc, mode4, is_i4,
+                                               pred_mode4)
+                        else:
+                            self._decode_i4_mb(r, None, rec_y, rec_u,
+                                               rec_v, nc_y, nc_u, nc_v,
+                                               mbx, mby, qp, qpc, mode4,
+                                               is_i4, pred_mode4)
                         continue
                     self._decode_i16_mb(r, mb_type - 1, rec_y, rec_u, rec_v,
                                         nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
         if dbf_idc != 1:
             rec_y, rec_u, rec_v = deblock_frame_intra(
-                rec_y, rec_u, rec_v, qp, qpc, aoff, boff)
+                rec_y, rec_u, rec_v, qp, qpc, aoff, boff,
+                trans8=trans8 if trans8.any() else None)
         return rec_y, rec_u, rec_v
 
     # video_codecs_tpu/models/h264/intra_codec.py:1205
     def _decode_slice_mbs_cabac(self, r, qp, qpc, rec_y, rec_u, rec_v,
-                                mode4, is_i4, pred_mode4):
+                                mode4, is_i4, pred_mode4, trans8=None):
         """CABAC I-slice MB loop (mirror of _write_mb_cabac)."""
+        from video_codecs_tpu_torch.models.h264 import intra8
         mbw, mbh = self.size
+        if trans8 is None:
+            trans8 = np.zeros((mbh, mbw), bool)
         zz = cavlc.ZIGZAG_4x4
         cd = hc.H264CabacDecoder(r, "I", qp)
         cbf = hc.CbfState(mbw, mbh)
@@ -1070,8 +1218,22 @@ class H264IntraDecoder:
                 use_i4 = act == 0
                 i16[mby, mbx] = not use_i4
                 is_i4[mby, mbx] = use_i4
+                use_i8 = False
+                if use_i4 and getattr(self, "trans8_enabled", False):
+                    ta = 1 if (mbx > 0 and trans8[mby, mbx - 1]) else 0
+                    tb = 1 if (mby > 0 and trans8[mby - 1, mbx]) else 0
+                    use_i8 = bool(cd.transform_size_8x8_flag(ta + tb))
+                    trans8[mby, mbx] = use_i8
                 modes = []
-                if use_i4:
+                if use_i8:
+                    for b8 in range(4):
+                        bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                        pm = pred_mode4(mbx * 4 + bx4, mby * 4 + by4)
+                        m = cd.intra4x4_pred_mode(pm)
+                        modes.append(m)
+                        mode4[mby * 4 + by4:mby * 4 + by4 + 2,
+                              mbx * 4 + bx4:mbx * 4 + bx4 + 2] = m
+                elif use_i4:
                     for idx in range(16):
                         x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                         pm = pred_mode4(mbx * 4 + x4, mby * 4 + y4)
@@ -1116,8 +1278,26 @@ class H264IntraDecoder:
                         cur_bits |= 1 << hc.CbfState.LUMA_DC_BIT
                         cbf.set_bit(mbx, mby, hc.CbfState.LUMA_DC_BIT)
                 levels4 = [np.zeros((4, 4), np.int64) for _ in range(16)]
+                levels8 = [np.zeros((8, 8), np.int64) for _ in range(4)]
                 ac_q = np.zeros((4, 4, 4, 4), np.int64)
+                if use_i8:
+                    for b8 in range(4):
+                        if not (cbp_luma & (1 << b8)):
+                            continue
+                        coeffs = cd.residual_block(hc.LUMA_8x8, 64, 0,
+                                                   code_cbf=False)
+                        lv = np.zeros(64, np.int64)
+                        lv[ht.ZIGZAG_8x8] = coeffs
+                        levels8[b8] = lv.reshape(8, 8)
+                        if any(coeffs):
+                            for k in range(4):
+                                idx = 4 * b8 + k
+                                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                                cur_bits |= 1 << (1 + 4 * y4 + x4)
+                                cbf.set_bit(mbx, mby, 1 + 4 * y4 + x4)
                 for i8 in range(4):
+                    if use_i8:
+                        break
                     for k in range(4):
                         idx = 4 * i8 + k
                         x4, y4 = _BLK_X[idx], _BLK_Y[idx]
@@ -1172,7 +1352,15 @@ class H264IntraDecoder:
                 cbf.mark(mbx, mby)
 
                 # ---- reconstruction ----
-                if use_i4:
+                if use_i8:
+                    for b8 in range(4):
+                        ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
+                        pb = intra8.predict8(rec_y, x + ox, y + oy, mbw,
+                                             modes[b8])
+                        d8 = ht.inverse8x8(ht.dequant8x8(levels8[b8], qp))
+                        rec_y[y + oy:y + oy + 8, x + ox:x + ox + 8] = \
+                            np.clip(pb + d8, 0, 255)
+                elif use_i4:
                     for idx in range(16):
                         x4, y4 = _BLK_X[idx], _BLK_Y[idx]
                         px, py = x + x4 * 4, y + y4 * 4
@@ -1320,6 +1508,94 @@ class H264IntraDecoder:
                 rec_y[py:py + 4, px:px + 4] = np.clip(
                     pb + ht.inverse4x4(d4), 0, 255)
         # chroma (same structure as I_16x16 path)
+        c_dc_q = [np.zeros((2, 2), np.int64) for _ in range(2)]
+        c_ac_q = [np.zeros((2, 2, 4, 4), np.int64) for _ in range(2)]
+        if cbp_chroma:
+            for comp in (0, 1):
+                lst = cavlc.decode_block(r, -1, 4)
+                c_dc_q[comp][0, 0], c_dc_q[comp][0, 1] = lst[0], lst[1]
+                c_dc_q[comp][1, 0], c_dc_q[comp][1, 1] = lst[2], lst[3]
+        for comp, grid in ((0, nc_u), (1, nc_v)):
+            for idx in range(4):
+                x4, y4 = idx & 1, idx >> 1
+                gx, gy = mbx * 2 + x4, mby * 2 + y4
+                if cbp_chroma == 2:
+                    coeffs = cavlc.decode_block(r, grid.nc(gx, gy), 15)
+                    flat = np.zeros(16, np.int64)
+                    flat[zz[1:]] = coeffs
+                    c_ac_q[comp][y4, x4] = flat.reshape(4, 4)
+                    grid.set(gx, gy, sum(1 for cc in coeffs if cc))
+                else:
+                    grid.set(gx, gy, 0)
+        for comp, plane in ((0, rec_u), (1, rec_v)):
+            cpred = pred_chroma8(plane, cx, cy, cmode)
+            cdc_deq = ht.dequant_chroma_dc(c_dc_q[comp], qpc)
+            cd = ht.dequant_ac(c_ac_q[comp], qpc)
+            cd[:, :, 0, 0] = cdc_deq
+            cr2 = ht.inverse4x4(cd)
+            plane[cy:cy + 8, cx:cx + 8] = np.clip(
+                cpred + cr2.transpose(0, 2, 1, 3).reshape(8, 8), 0, 255)
+
+    # video_codecs_tpu/models/h264/intra_codec.py:1477
+    def _decode_i8_mb(self, r, rec_y, rec_u, rec_v, nc_y, nc_u,
+                      nc_v, mbx, mby, qp, qpc, mode4, is_i4, pred_mode4):
+        """I_8x8 MB, CAVLC residuals (each 8x8 block read as four
+        de-interleaved 4x4 scans: sub-block k holds 8x8-scan positions
+        4*i + k — jm18.5/ldecod read_comp_cavlc.c:1009)."""
+        import numpy as np
+        from video_codecs_tpu_torch.models.h264 import intra8
+        mbw = rec_y.shape[1] // 16
+        x, y = mbx * 16, mby * 16
+        cx, cy = mbx * 8, mby * 8
+        zz = cavlc.ZIGZAG_4x4
+        is_i4[mby, mbx] = True          # I_NxN for mode prediction
+        modes = []
+        for b8 in range(4):
+            bx4, by4 = (b8 & 1) * 2, (b8 >> 1) * 2
+            pm = pred_mode4(mbx * 4 + bx4, mby * 4 + by4)
+            if r.flag():
+                m = pm
+            else:
+                rem = r.read(3)
+                m = rem if rem < pm else rem + 1
+            modes.append(m)
+            mode4[mby * 4 + by4:mby * 4 + by4 + 2,
+                  mbx * 4 + bx4:mbx * 4 + bx4 + 2] = m
+        cmode = r.ue()
+        cbp = _CBP_FROM_CODE_INTRA_420[r.ue()]
+        if cbp:
+            dqp = r.se()
+            assert dqp == 0
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        for b8 in range(4):
+            ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
+            lv64 = np.zeros(64, np.int64)
+            for k in range(4):
+                idx = 4 * b8 + k
+                x4, y4 = _BLK_X[idx], _BLK_Y[idx]
+                gx, gy = mbx * 4 + x4, mby * 4 + y4
+                if cbp_luma & (1 << b8):
+                    coeffs = cavlc.decode_block(r, nc_y.nc(gx, gy), 16)
+                    lv64[4 * np.arange(16) + k] = coeffs
+                    nc_y.set(gx, gy, sum(1 for cc in coeffs if cc))
+                else:
+                    nc_y.set(gx, gy, 0)
+            lv = np.zeros(64, np.int64)
+            lv[ht.ZIGZAG_8x8] = lv64
+            pb = intra8.predict8(rec_y, x + ox, y + oy, mbw, modes[b8])
+            d8 = ht.inverse8x8(ht.dequant8x8(lv.reshape(8, 8), qp))
+            rec_y[y + oy:y + oy + 8, x + ox:x + ox + 8] = np.clip(
+                pb + d8, 0, 255)
+        self._decode_chroma_cavlc(r, rec_u, rec_v, nc_u, nc_v, mbx, mby,
+                                  qpc, cmode, cbp_chroma)
+
+    # video_codecs_tpu/models/h264/intra_codec.py:1529
+    def _decode_chroma_cavlc(self, r, rec_u, rec_v, nc_u, nc_v, mbx, mby,
+                             qpc, cmode, cbp_chroma):
+        """Shared 4:2:0 chroma residual decode (DC + AC CAVLC)."""
+        import numpy as np
+        cx, cy = mbx * 8, mby * 8
+        zz = cavlc.ZIGZAG_4x4
         c_dc_q = [np.zeros((2, 2), np.int64) for _ in range(2)]
         c_ac_q = [np.zeros((2, 2, 4, 4), np.int64) for _ in range(2)]
         if cbp_chroma:
