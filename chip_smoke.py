@@ -16,8 +16,12 @@ configuration at 832x480 (as it is, with weighted prediction, with
 cu_qp_delta), the reference's encoder and decoder CLIs on HM's
 random-access and low-delay P main cfgs at 832x480, the reference's
 JM encoder CLI (the H.264 host IPPP coder at Main profile and baseline)
-at 176x144, and the H.264 host coder at High profile (the 8x8 transform,
-I_8x8) and with B slices (spatial direct) at 176x144, in phases:
+at 176x144, the H.264 host coder at High profile (the 8x8 transform,
+I_8x8) and with B slices (spatial direct) at 176x144, and the rest of
+that coder's options at 176x144 -- long-term references with MMCO and
+list reordering, weighted prediction, perceptual RDO, intra refresh with
+an SEI stream sent over RTP with loss and concealed by its receivers --
+in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -264,20 +268,52 @@ I_8x8) and with B slices (spatial direct) at 176x144, in phases:
      c. h264-hb-cuda-vs-cpu: a and b at 64x48 on the card and with
         device="cpu": byte-equal streams, 9 and 10 SAD launches on the
         card, none on the CPU;
- 16. require that nothing of the JAX package was imported, in this
+ 16. the rest of the host H.264 coder's options at 176x144 on
+     bench_synth_clip(176, 144, n, seed=42) (`phase_h264_conf`,
+     `H264_CONF_KW`), every search through the card stage, per picture
+     the stages of 13b (the saliency model on the card apart), bytes,
+     Y-PSNR, SAD launches (one per list0 entry and P picture) and the
+     DPB after it; the port's H264Decoder gives the encoder's pictures
+     and each stream is the JAX package's (H264_CONF_SHA1,
+     scripts/jax_reference_sha1.py --h264-<kind>):
+     a. h264-ltr: a baseline conferencing sender: CAVLC, 2 references
+        beside the long-term IDR, every third P picture made the
+        long-term one by MMCO 4+6, the long-term picture moved to
+        ref_idx 0 by list reordering, 9 pictures (21 SAD launches: the
+        lists hold 1, 2, then 3 pictures); `analyze.analyze` finds the
+        long-term flag, the reordering and the MMCO where the encoder
+        wrote them;
+     b. h264-wp: [jm-main]'s settings with weighted prediction on 5
+        pictures of the faded clip (`fade_clip`): each P picture's luma
+        weights, a pred_weight_table on every P slice (9 SAD launches);
+     c. h264-perc: perceptual RDO ("att+ssim", QP 30) over 5 pictures:
+        the saliency model and eta on the card per picture, eta's range
+        (4 SAD launches);
+     d. h264-loss: one MB row of intra refresh a picture (11 MBs) over
+        12 pictures, CAVLC (11 SAD launches; every P picture holds the 11
+        forced intra MBs); a recovery-point and user-data SEI after the
+        PPS, one RTP packet a NAL unit, the reference's 20 % loss after
+        the first 3 packets (`h264_lossy`: packet 13, picture 10, is
+        lost); H264Decoder(conceal=1) and (conceal=2) must give the JAX
+        decoders' `concealed` lists and pictures (H264_LOSS_JAX,
+        --h264-loss);
+     e. h264-conf-cuda-vs-cpu: a-d at 64x48 on the card and with
+        device="cpu": byte-equal streams, the SAD launches on the card,
+        none on the CPU;
+ 17. require that nothing of the JAX package was imported, in this
      process or in any worker.
 
 The phases run in three stages, to end well inside the 1,200 s the
 script is given.  Stage 1, alone on the card: phases 1-2 and every
 kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a).
-Stage 2: the end-to-end phases of 4-13 (POOL_TASKS), WORKERS at a time,
+Stage 2: the end-to-end phases of 4-15 (POOL_TASKS), WORKERS at a time,
 each worker a spawned process of its own on the same card with
 WORKER_THREADS CPU threads for torch; every phase zeroes the kernels'
 counts it reads, and its launches come back to this process, which
 prints each phase's output as the phase ends (so in the order they
 end, not in the order above) and stops every worker at the first
 failure.  Their times are taken beside three other phases sharing the
-host and the card.  Stage 3, alone again: phase 15.
+host and the card.  Stage 3, alone again: phase 16, this slice's.
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -600,6 +636,40 @@ def fade_clip(frames):
     return out
 
 
+def h264_conf_clip(kind: str, w: int, h: int):
+    """Phase 16's clip for `kind`: bench.py's (seed 42), faded for wp."""
+    frames = bench_synth_clip(w, h, H264_CONF_PICTURES[kind])
+    return fade_clip(frames) if kind == "wp" else frames
+
+
+def h264_lossy(stream: bytes, sei, rtp, h: int) -> tuple:
+    """[h264-loss]'s network: a recovery-point SEI (the refresh's period,
+    one picture a MB row) with unregistered user data after the PPS, one
+    RTP packet a NAL unit, the reference's deterministic loss, and the
+    packets that arrive put back into Annex B.  `sei` and `rtp` are
+    either package's modules.  Returns (the stream sent, the stream
+    received, packets sent, packets received)."""
+    nals = [p[12:] for p in rtp.packetize(stream)]    # the NAL units
+    msg = sei.sei_nal([
+        sei.RecoveryPoint(recovery_frame_cnt=h // 16),
+        sei.UserDataUnregistered(uuid=bytes(range(16)), data=b"h264-loss")])
+    sent = b"".join(b"\x00\x00\x00\x01" + n
+                    for n in nals[:2] + [msg] + nals[2:])
+    pkts = rtp.packetize(sent)
+    kept = rtp.inject_loss(pkts, H264_LOSS_PERCENT,
+                           keep_leading=H264_LOSS_KEEP)
+    return sent, rtp.depacketize(kept), len(pkts), len(kept)
+
+
+def pictures_sha1(pictures) -> str:
+    """SHA-1 of decoded pictures: each plane's 8-bit samples in order."""
+    d = hashlib.sha1()
+    for pic in pictures:
+        for plane in pic:
+            d.update(np.ascontiguousarray(plane, np.uint8).tobytes())
+    return d.hexdigest()
+
+
 def host_ldp_cfg(variant: str = ""):
     """HM's encoder_lowdelay_P_main.cfg as the reference's encoder CLI
     builds it (tools/encoder_app.py:46-56, utils/config.py:86-113): 832x480
@@ -797,6 +867,57 @@ H264_B_LAUNCHES = 2 + 2 * 4
 # --h264-high / --h264-b, on the CPU): bytes, SHA-1.
 H264_HIGH_SHA1 = (23753, "57437f38257e8b6f89abd0c02f25ddc793f4aaf5")
 H264_B_SHA1 = (27423, "93b547699b1fe5308fabe1c9bce5ee9ed8f076ce")
+# The rest of the H.264 host coder (phase 16), at JM's QCIF on bench.py's
+# clip (seed 42), search range 16:
+#   ltr:  a baseline conferencing sender -- CAVLC, 2 short-term
+#         references beside a long-term one (the IDR, then every third P
+#         picture by MMCO 4+6), the long-term picture moved to ref_idx 0
+#         by list reordering;
+#   wp:   [jm-main]'s settings (CABAC, EPZS, 3 references, trellis) with
+#         weighted prediction, on the faded clip (`fade_clip`);
+#   perc: the perceptual RDO of the reference's
+#         test_perceptual_stream_jm_conformant (saliency-weighted lambda
+#         and SSIM in the intra decision), QP 30;
+#   loss: CAVLC with one MB row of intra refresh a picture (11 MBs),
+#         sent over RTP with a recovery-point SEI and 20 % loss after the
+#         first 3 packets (the parameter sets and the SEI).  12 pictures:
+#         the reference's loss generator (an un-seeded libc rand, so the
+#         same packets every run) keeps packets 3-12 and drops packet 13,
+#         picture 10, so the stream must run past 10 pictures to lose one.
+H264_CONF_KW = {
+    "ltr": dict(qp=28, search_range=JM_SR, entropy="cavlc", n_refs=2,
+                long_term=True, lt_period=3, reorder="lt_first"),
+    "wp": dict(qp=28, search_range=JM_SR, entropy="cabac", me="epzs",
+               n_refs=3, quant="trellis", weighted_pred=True),
+    "perc": dict(qp=30, perceptual="att+ssim"),
+    "loss": dict(qp=28, search_range=JM_SR, entropy="cavlc",
+                 intra_refresh=11),
+}
+H264_CONF_PICTURES = {"ltr": 9, "wp": 5, "perc": 5, "loss": 12}
+H264_LOSS_PERCENT, H264_LOSS_KEEP = 20, 3
+# SAD launches: one per list0 entry and P picture, the lists' lengths in
+# the port's CPU run of the same settings (ltr: 1, 2, then 3 a picture --
+# two short-term references and the long-term one; wp: 1, 2, 3, 3).
+H264_CONF_LAUNCHES = {"ltr": 1 + 2 + 3 * 6, "wp": 1 + 2 + 3 + 3, "perc": 4,
+                      "loss": 11}
+# The JAX package's streams for them (scripts/jax_reference_sha1.py
+# --h264-ltr --h264-wp --h264-perc --h264-loss, on the CPU): bytes, SHA-1.
+H264_CONF_SHA1 = {
+    "ltr": (45350, "c52622b9e30a33ecdea04f8c2ca141fd0c9a6d44"),
+    "wp": (26226, "5cb86818e1737ab560db44b99a86dc10c2fc7884"),
+    "perc": (20779, "6a5e0f6449c5a6b5d1fbc17a848cd865dd0a3399"),
+    "loss": (62496, "5e7a66a453e480b20fbc1bcb5722d8a7b2a7a788"),
+}
+# [h264-loss]'s network with the JAX package's SEI and RTP modules
+# (--h264-loss): the stream sent and the stream received as (bytes,
+# SHA-1), and per concealment mode the JAX H264Decoder's `concealed`
+# list and its pictures' SHA-1 (`pictures_sha1`).
+H264_LOSS_JAX = {
+    "sent": (62533, "e8ceba37496f23f0b2652415334a27d5b623f86a"),
+    "lossy": (57721, "f532324f83e0aded1d218228dfce7a111c6b8dd8"),
+    1: ([10], "5f0c3575f5602ae83932111e44f2cca6dee60f1b"),
+    2: ([10], "49319c3dc7858d76b743e25aab14c7ca5d9c76cd"),
+}
 # A JM-style cfg (jm18.5/bin/encoder_*.cfg layout: `Key = Value  # note`)
 # with the mapped keys and four the CLI does not map (it warns about the
 # one that is not 0, RDOptimization).
@@ -2959,9 +3080,11 @@ def _h264_instrument(enc, skips: dict | None = None):
     luma quantization (`_quant_ac`) and the entropy coder (the MB
     writers and CAVLC's `encode_block`); the rest of a picture is the
     mode and partition loops, MC, the 4x4 transforms, reconstruction and
-    the deblock.  Per picture also the SAD-kernel launches, the 8x8-
-    transform MBs (`_trans8`), the POC and the B coder's mb_type
-    histogram (`mb_type_stats`) with the skips `skips["n"]` counts.
+    the deblock; with perceptual RDO the saliency model (`_att_eta`,
+    on the encoder's device) apart.  Per picture also the SAD-kernel
+    launches, the 8x8-transform MBs (`_trans8`), the POC and the B
+    coder's mb_type histogram (`mb_type_stats`) with the skips
+    `skips["n"]` counts.
     Returns (log, restore)."""
     from video_codecs_tpu_torch.entropy import cavlc
     from video_codecs_tpu_torch.ops import h264_transform as ht
@@ -2987,6 +3110,8 @@ def _h264_instrument(enc, skips: dict | None = None):
     for name in ("_search_epzs", "_search_umhex"):
         setattr(enc, name, timed("search", getattr(enc, name)))
     enc._quant_ac = timed("quant", enc._quant_ac)
+    if getattr(enc, "att", False):
+        enc._att_eta = timed("att", enc._att_eta)
     for name in ("_write_p_mb_cabac", "_write_mb_cabac",
                  "_write_b_mb_cabac"):
         if hasattr(enc, name):
@@ -3046,6 +3171,9 @@ def _h264_stages(e: dict) -> str:
     if "t8" in st:
         words.append(f"8x8 transforms (4x4/8x8 decision, I_8x8, recon) "
                      f"{st['t8'] * 1e3:.1f} ms")
+    if "att" in st:
+        words.append(f"saliency model and eta (card) "
+                     f"{st['att'] * 1e3:.1f} ms")
     words += [f"quantization {st.get('quant', 0.0) * 1e3:.1f} ms",
               f"entropy coder {st.get('entropy', 0.0) * 1e3:.1f} ms",
               f"mode and partition loops, MC, 4x4 transforms, recon and "
@@ -3345,6 +3473,252 @@ def phase_h264_hb_cuda_vs_cpu() -> None:
         words.append(f"{kind} ({n} pictures) byte-equal ({len(g)} bytes), "
                      f"SAD-kernel launches card {ng}, CPU 0, cuda {tg:.2f} "
                      f"s, cpu {tc:.2f} s")
+    print(f"[{tag}] 64x48: {'; '.join(words)}")
+
+
+def _conf_recorder(enc):
+    """Per P picture of phase 16's coder: its reordering and MMCO
+    commands, its intra MBs (the refresh's forced ones among them), its
+    slice's weights and its eta's range; and after every picture the DPB
+    as "frame_num" or "frame_num(LTidx)" words.  Install before
+    `_h264_instrument`.  Returns (record, restore)."""
+    from video_codecs_tpu_torch.models.h264 import dpb as dpb_mod
+    rec = {"p": [], "dpb": []}
+    cnt = {"intra": 0}
+    orig_mb, orig_p = enc._encode_mb, enc._encode_p_frame
+    orig_mark = dpb_mod.Dpb.mark
+
+    def encode_mb(*a, **kw):
+        if kw.get("p_slice") or kw.get("mb_type_offset"):
+            cnt["intra"] += 1
+        return orig_mb(*a, **kw)
+
+    def p_frame(*a, **kw):
+        cnt["intra"] = 0
+        out = orig_p(*a, **kw)
+        eta = enc._eta
+        rec["p"].append(dict(
+            reorder=kw.get("reorder_cmds"), mmco=kw.get("mmco"),
+            intra=cnt["intra"], wp=enc._wp,
+            eta=None if eta is None else (float(eta.min()),
+                                          float(eta.max()))))
+        return out
+
+    def mark(self, cur, mmco=None):
+        orig_mark(self, cur, mmco)
+        rec["dpb"].append(" ".join(
+            f"{p.frame_num}" + (f"(LT{p.lt_idx})" if p.long_term else "")
+            for p in self.pics))
+
+    enc._encode_mb, enc._encode_p_frame = encode_mb, p_frame
+    dpb_mod.Dpb.mark = mark
+
+    def restore():
+        dpb_mod.Dpb.mark = orig_mark
+
+    return rec, restore
+
+
+def _conf_words(kind: str, p: dict) -> str:
+    """Phase 16's per-P-picture fields for `kind`."""
+    if kind == "ltr":
+        return (f"; reordering {p['reorder'] or 'none'}, MMCO "
+                f"{p['mmco'] or 'none (sliding window)'}")
+    if kind == "wp":
+        return "; luma weight/offset per reference " + " ".join(
+            f"{w['w'][0]}/{w['o'][0]}" for w in p["wp"])
+    if kind == "perc":
+        return f"; eta {p['eta'][0]:.4f}..{p['eta'][1]:.4f}"
+    return f"; intra MBs {p['intra']} (11 forced by the refresh)"
+
+
+def phase_h264_conf(kind: str, device: str = "cuda") -> int:
+    """Phase 16a-d (h264-ltr, h264-wp, h264-perc, h264-loss): the host
+    H.264 coder with the options of the reference's that the port
+    carries since this slice, at JM's QCIF on bench.py's clip (seed 42),
+    `H264_CONF_KW[kind]` on the card: per picture the stages of
+    `_h264_instrument` (the saliency model on the card apart for perc),
+    bytes, Y-PSNR, SAD launches (one per list0 entry and P picture), the
+    DPB after the picture and the kind's own fields (`_conf_words`); the
+    port's H264Decoder gives the encoder's pictures; the stream is the
+    JAX package's (H264_CONF_SHA1, scripts/jax_reference_sha1.py
+    --h264-<kind>).  ltr: `analyze.analyze` finds the long-term IDR, the
+    reordering and the MMCO commands on the slices the encoder wrote them
+    to.  wp: every P slice carries a pred_weight_table.  loss: every P
+    picture holds at least the 11 forced intra MBs; the stream goes
+    through `h264_lossy` (SEI, RTP, the reference's loss) and both
+    concealment modes must give the JAX decoders' `concealed` lists and
+    pictures (H264_LOSS_JAX).  Returns the SAD launches."""
+    from video_codecs_tpu_torch.models.h264 import inter_codec as h264
+    from video_codecs_tpu_torch.models.h264 import sei as h264_sei
+    from video_codecs_tpu_torch.tools import analyze, rtp
+    tag = f"h264-{kind}"
+    kw, n = H264_CONF_KW[kind], H264_CONF_PICTURES[kind]
+    frames = h264_conf_clip(kind, JM_W, JM_H)
+    print(f"[{tag}] the host H.264 coder (H264Encoder) at {JM_W}x{JM_H}, "
+          f"{n} pictures of bench.py's clip (seed 42"
+          f"{', faded by 1 - 0.12 i' if kind == 'wp' else ''}): "
+          f"{', '.join(f'{k}={v}' for k, v in kw.items())}; card {CARD}")
+    enc = h264.H264Encoder(JM_W, JM_H, device=device, **kw)
+    rec, restore_rec = _conf_recorder(enc)
+    log, restore = _h264_instrument(enc)
+    ss.sad_surface.launches = 0
+    t0 = time.perf_counter()
+    try:
+        stream, recons = enc.encode_sequence(frames)
+    finally:
+        restore()
+        restore_rec()
+    t_enc = time.perf_counter() - t0
+    launches = ss.sad_surface.launches
+    check(len(log) == n and len(rec["p"]) == n - 1,
+          f"[{tag}] {len(log)} pictures coded, want {n}")
+    want = 0
+    for i, e in enumerate(log):
+        p = psnr(frames[i][0], e["rec"][0])
+        check(np.isfinite(p) and p > 25, f"[{tag}] implausible Y-PSNR {p}")
+        want += e["refs"]
+        check(e["launches"] == e["refs"],
+              f"[{tag}] picture {i}: {e['launches']} SAD-kernel launches, "
+              f"want 1 per list0 entry ({e['refs']})")
+        extra = _conf_words(kind, rec["p"][i - 1]) if i else ""
+        print(f"[{tag}] {e['kind']}{i} ({e['refs']} references): "
+              f"{_h264_stages(e)}; {len(e['rbsp'])} bytes, Y-PSNR "
+              f"{p:.2f} dB; SAD-kernel launches {e['launches']}; DPB after "
+              f"it {rec['dpb'][i]}{extra}")
+    check(launches == want == H264_CONF_LAUNCHES[kind],
+          f"[{tag}] {launches} SAD-kernel launches, want "
+          f"{H264_CONF_LAUNCHES[kind]} (the list0 lengths)")
+    rows = analyze.analyze(stream)
+    slices = [r for r in rows if r["type"] in (1, 5)]
+    if kind == "ltr":
+        idr = analyze.analyze(stream, verbose=True)[2]
+        check(idr["fields"]["dec_ref_pic_marking"].get(
+            "long_term_reference") == 1,
+            f"[{tag}] the IDR is not marked long-term: {idr}")
+        got = [("reorder_l0" in r, "mmco" in r) for r in slices[1:]]
+        made = [(bool(q["reorder"]), bool(q["mmco"])) for q in rec["p"]]
+        check(got == made and any(m for _, m in made),
+              f"[{tag}] analyze finds reordering / MMCO on {got}, the "
+              f"encoder wrote them on {made}")
+        print(f"[{tag}] analyze.analyze: long_term_reference_flag 1 on the "
+              f"IDR; reordering on P pictures "
+              f"{[i + 1 for i, g in enumerate(got) if g[0]]}, MMCO on "
+              f"{[i + 1 for i, g in enumerate(got) if g[1]]}, where the "
+              "encoder wrote them")
+    if kind == "wp":
+        check(all(r.get("wp") for r in slices[1:]) and
+              all(q["wp"] for q in rec["p"]),
+              f"[{tag}] a P slice without a pred_weight_table")
+    if kind == "loss":
+        intra = [q["intra"] for q in rec["p"]]
+        check(all(k_ >= 11 for k_ in intra),
+              f"[{tag}] intra MBs per P picture {intra}, want at least "
+              "the 11 of the refresh")
+    sha = hashlib.sha1(stream).hexdigest()
+    t0 = time.perf_counter()
+    got = H264Decoder().decode(stream)
+    t_dec = time.perf_counter() - t0
+    check(len(got) == n, f"[{tag}] H264Decoder: {len(got)} pictures")
+    for k_, (g, r) in enumerate(zip(got, recons)):
+        for c in range(3):
+            check(np.array_equal(np.asarray(g[c]), np.asarray(r[c])),
+                  f"[{tag}] H264Decoder picture {k_} plane {c} != the "
+                  "encoder's")
+    y_psnr = np.mean([psnr(f[0], r[0]) for f, r in zip(frames, recons)])
+    print(f"[{tag}] {len(stream)} bytes, mean Y-PSNR {y_psnr:.2f} dB, "
+          f"encode {t_enc:.2f} s ({n / t_enc:.3f} fps); SAD-kernel "
+          f"launches {launches}; SHA-1 {sha}; the port's H264Decoder gives "
+          f"the encoder's pictures ({t_dec:.2f} s)")
+    ref_bytes, ref_sha = H264_CONF_SHA1[kind]
+    print(f"[{tag}] the JAX package's stream for the same clip and "
+          f"settings (scripts/jax_reference_sha1.py --h264-{kind}, CPU): "
+          f"{ref_bytes} bytes SHA-1 {ref_sha}")
+    check((len(stream), sha) == (ref_bytes, ref_sha),
+          f"[{tag}] stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+          f"package's is {ref_bytes} bytes {ref_sha}")
+    print(f"[{tag}] the stream is the JAX package's, byte for byte (SHA-1)")
+    if kind == "loss":
+        _h264_loss_decode(tag, stream, h264_sei, rtp, analyze)
+    return launches
+
+
+def _h264_loss_decode(tag: str, stream: bytes, h264_sei, rtp,
+                      analyze) -> None:
+    """[h264-loss]'s network and receivers: `h264_lossy` with the port's
+    SEI and RTP modules, then H264Decoder(conceal=1) and (conceal=2) on
+    what arrives; the bytes sent and received, the `concealed` lists and
+    the pictures' SHA-1 must be the JAX package's (H264_LOSS_JAX)."""
+    sent, lossy, n_sent, n_kept = h264_lossy(stream, h264_sei, rtp, JM_H)
+    msgs = analyze.analyze(sent)[2]
+    check(msgs["name"] == "SEI" and msgs["messages"] ==
+          ["RecoveryPoint", "UserDataUnregistered"],
+          f"[{tag}] analyze reads the SEI NAL as {msgs}")
+    got_sent = (len(sent), hashlib.sha1(sent).hexdigest())
+    got_lossy = (len(lossy), hashlib.sha1(lossy).hexdigest())
+    print(f"[{tag}] sent {n_sent} RTP packets ({got_sent[0]} bytes, the "
+          f"SEI NAL after the PPS: {', '.join(msgs['messages'])}), "
+          f"{H264_LOSS_PERCENT} % loss after the first {H264_LOSS_KEEP}: "
+          f"{n_kept} arrive ({got_lossy[0]} bytes)")
+    check(got_sent == H264_LOSS_JAX["sent"] and
+          got_lossy == H264_LOSS_JAX["lossy"],
+          f"[{tag}] sent {got_sent}, received {got_lossy}; the JAX "
+          f"package's {H264_LOSS_JAX['sent']}, {H264_LOSS_JAX['lossy']}")
+    for mode in (1, 2):
+        dec = H264Decoder(conceal=mode)
+        t0 = time.perf_counter()
+        pics = dec.decode(lossy)
+        t = time.perf_counter() - t0
+        sha = pictures_sha1(pics)
+        want = H264_LOSS_JAX[mode]
+        print(f"[{tag}] H264Decoder(conceal={mode}) "
+              f"({'frame copy' if mode == 1 else 'motion copy'}): "
+              f"{len(pics)} pictures, concealed {dec.concealed}, pictures "
+              f"SHA-1 {sha} ({t:.2f} s); the JAX decoder's: concealed "
+              f"{want[0]}, SHA-1 {want[1]}")
+        check(len(pics) == H264_CONF_PICTURES["loss"] and dec.concealed and
+              (dec.concealed, sha) == want,
+              f"[{tag}] conceal={mode}: concealed {dec.concealed}, SHA-1 "
+              f"{sha}; the JAX decoder's {want}")
+    print(f"[{tag}] both concealment modes give the JAX decoders' "
+          "pictures and concealed lists")
+
+
+def phase_h264_conf_cuda_vs_cpu() -> None:
+    """Phase 16e (h264-conf-cuda-vs-cpu): 16a-d's coders at 64x48 on the
+    card and with device="cpu": byte-equal streams, the card's searches
+    through the SAD kernel (one launch per list0 entry and P picture),
+    the CPU's through its plain version (0)."""
+    from video_codecs_tpu_torch.models.h264 import inter_codec as h264
+    tag = "h264-conf-cuda-vs-cpu"
+    words = []
+    for kind in ("ltr", "wp", "perc", "loss"):
+        frames = h264_conf_clip(kind, 64, 48)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            enc = h264.H264Encoder(64, 48, device=dev, **H264_CONF_KW[kind])
+            lists = []
+            orig = enc._card_stage
+
+            def card_stage(y, refs, _orig=orig, _lists=lists):
+                _lists.append(len(refs))
+                return _orig(y, refs)
+
+            enc._card_stage = card_stage
+            ss.sad_surface.launches = 0
+            t0 = time.perf_counter()
+            stream, _ = enc.encode_sequence(frames)
+            res[dev] = (stream, ss.sad_surface.launches, sum(lists),
+                        time.perf_counter() - t0)
+        (g, ng, kg, tg), (c, nc, kc, tc) = res["cuda"], res["cpu"]
+        check(g == c, f"[{tag}] {kind}: the card's stream ({len(g)} bytes) "
+                      f"!= the CPU's ({len(c)} bytes)")
+        check(ng == kg == kc > 0 and nc == 0,
+              f"[{tag}] {kind}: SAD-kernel launches card {ng}, CPU {nc} "
+              f"(want {kg}, 0)")
+        words.append(f"{kind} ({len(frames)} pictures) byte-equal "
+                      f"({len(g)} bytes), SAD-kernel launches card {ng}, "
+                      f"CPU 0, cuda {tg:.2f} s, cpu {tc:.2f} s")
     print(f"[{tag}] 64x48: {'; '.join(words)}")
 
 
@@ -3652,6 +4026,9 @@ POOL_TASKS = [
     ("cli-ra-cuda-vs-cpu", phase_cli_ra_cuda_vs_cpu, (), {}),
     ("ldp-cuda-vs-cpu", phase_ldp_cuda_vs_cpu, (), {}),
     ("jm-cuda-vs-cpu", phase_jm_cuda_vs_cpu, (), {}),
+    ("h264-high", phase_h264_high_b, ("high",), {}),
+    ("h264-b", phase_h264_high_b, ("b",), {}),
+    ("h264-hb-cuda-vs-cpu", phase_h264_hb_cuda_vs_cpu, (), {}),
 ]
 # Processes stage 2 runs its phases in, and the CPU threads each gives
 # torch: the host has 8 cores.
@@ -3770,12 +4147,14 @@ def main() -> None:
     cli_ra_sad = res["cli-ra"]
     jm_main = res["jm-main"]
     jm_base = res["jm-baseline"]
+    h264_high = res["h264-high"]
+    h264_b = res["h264-b"]
     # Stage 3: this slice's paths, alone again.
     t3 = time.perf_counter()
-    h264_high = phase_h264_high_b("high")
-    h264_b = phase_h264_high_b("b")
-    phase_h264_hb_cuda_vs_cpu()
-    print(f"[time] stage 3 (phase 15 alone) {time.perf_counter() - t3:.1f} "
+    conf = {kind: phase_h264_conf(kind)
+            for kind in ("ltr", "wp", "perc", "loss")}
+    phase_h264_conf_cuda_vs_cpu()
+    print(f"[time] stage 3 (phase 16 alone) {time.perf_counter() - t3:.1f} "
           "s")
     jax_mods = jax_modules()
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
@@ -3786,7 +4165,7 @@ def main() -> None:
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
                 hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad +
                 cli_ra_sad + cli_ldp_sad + jm_main + jm_base + h264_high +
-                h264_b)
+                h264_b + sum(conf.values()))
     sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
                cli_ldp_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
@@ -3801,7 +4180,9 @@ def main() -> None:
           f"{cli_ra_sad} and on its LD-P main cfg {cli_ldp_sad}, the JM "
           f"encoder CLI's Main run {jm_main} and baseline run {jm_base}, "
           f"the host H.264 coder's High-profile run {h264_high} and B run "
-          f"{h264_b}, together "
+          f"{h264_b}, its long-term / MMCO / reordering run {conf['ltr']}, "
+          f"weighted-prediction run {conf['wp']}, perceptual run "
+          f"{conf['perc']} and intra-refresh run {conf['loss']}, together "
           f"{launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "

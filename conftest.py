@@ -117,6 +117,15 @@ _TWINS = (
      "[cavlc]"),
     ("tests/test_h264_bslice.py::test_b_display_reorder[2]",
      "tests/test_torch_h264_high_b.py::test_b_stream_64x48[cabac-2]"),
+    ("tests/test_intra_refresh.py::"
+     "test_intra_refresh_forces_intra_on_static_content",
+     "tests/test_torch_h264_conf.py::"
+     "test_intra_refresh_forces_intra_on_static_content"),
+    ("tests/test_h264_conceal.py::test_conceal_fills_lost_frame",
+     "tests/test_torch_h264_conf.py::test_conceal_fills_lost_frame"),
+    ("tests/test_metrics_tools.py::test_saliency_and_lambda_weights",
+     "tests/test_torch_h264_conf.py::"
+     "test_perceptual_stream_equal[att+ssim-size0]"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared

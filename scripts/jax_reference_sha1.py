@@ -5,7 +5,7 @@ the port's to, computed with the JAX package on the CPU.
         [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
         [--ldp-sao] [--ldp-conf] [--ldp-host] [--ldp-wp] [--ldp-dqp] \
         [--cli-ra] [--jm-main] [--jm-baseline] [--h264-high] [--h264-b] \
-        [--no-ldp]
+        [--h264-ltr] [--h264-wp] [--h264-perc] [--h264-loss] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -76,7 +76,15 @@ coder as chip_smoke.py's `[h264-high]` / `[h264-b]` do (176x144, QP 28,
 search range 16: `H264Encoder` with the 8x8 transform, CABAC, EPZS, 3
 references and trellis over 5 pictures; `H264BEncoder` with 2 B pictures
 between anchors, CABAC and b_qp_offset 2 over 7) and decode the stream
-with both packages' decoders.  This is a tool for the reference side: it
+with both packages' decoders.  --h264-ltr, --h264-wp, --h264-perc and
+--h264-loss run it on chip_smoke.py's phase 16 (`H264_CONF_KW` on
+`h264_conf_clip`, 176x144): long-term references with MMCO 4+6 and list
+reordering over 9 pictures, weighted prediction at [jm-main]'s settings
+on 5 faded pictures, perceptual RDO over 5, and intra refresh over 12,
+whose stream --h264-loss then sends through `chip_smoke.h264_lossy` (the
+JAX package's SEI and RTP modules) and decodes with both concealment
+modes, printing the `concealed` lists and the pictures' SHA-1.  This is
+a tool for the reference side: it
 imports the JAX package, the port's `motion` module for the repaired
 function and the port's decoders for a second opinion.
 """
@@ -393,6 +401,58 @@ def h264_high_b(kind: str) -> None:
               f"encoder's: {same}", flush=True)
 
 
+def h264_conf(kind: str) -> None:
+    """The JAX package's host H.264 coder on chip_smoke.py's phase 16 run
+    `kind` ("ltr", "wp", "perc", "loss": chip_smoke's H264_CONF_KW on
+    `h264_conf_clip`, 176x144): bytes, SHA-1, the list0 lengths of its P
+    pictures (the SAD launches the port's card stage makes), and whether
+    both packages' H264Decoders give the encoder's pictures.  For "loss"
+    also the lossy stream `chip_smoke.h264_lossy` makes with the JAX
+    package's SEI and RTP modules, and per concealment mode the JAX
+    H264Decoder's `concealed` list and the SHA-1 of its pictures."""
+    from video_codecs_tpu.models.h264 import inter_codec, sei
+    from video_codecs_tpu.tools import rtp
+    from video_codecs_tpu_torch.models.h264 import inter_codec as ti
+    w, h = chip_smoke.JM_W, chip_smoke.JM_H
+    frames = chip_smoke.h264_conf_clip(kind, w, h)
+    enc = inter_codec.H264Encoder(w, h, **chip_smoke.H264_CONF_KW[kind])
+    lists = []
+    orig = enc._encode_p_frame
+
+    def p_frame(y, u, v, refs, *a, **kw):
+        lists.append(len(refs))
+        return orig(y, u, v, refs, *a, **kw)
+
+    enc._encode_p_frame = p_frame
+    t0 = time.time()
+    stream, recons = enc.encode_sequence(frames)
+    t = time.time() - t0
+    print(f"h264 {kind}: {len(stream)} bytes, SHA-1 "
+          f"{hashlib.sha1(stream).hexdigest()}, encode {t:.1f} s; list0 "
+          f"lengths {lists} (sum {sum(lists)})", flush=True)
+    for label, dec in (("JAX H264Decoder", inter_codec.H264Decoder()),
+                       ("the port's H264Decoder", ti.H264Decoder())):
+        got = dec.decode(stream)
+        same = len(got) == len(frames) and all(
+            (g[c] == r[c]).all() for g, r in zip(got, recons)
+            for c in range(3))
+        print(f"h264 {kind}: {label} {len(got)} pictures, equal to the "
+              f"encoder's: {same}", flush=True)
+    if kind != "loss":
+        return
+    sent, lossy, n_sent, n_kept = chip_smoke.h264_lossy(stream, sei, rtp, h)
+    print(f"h264 loss: sent {len(sent)} bytes SHA-1 "
+          f"{hashlib.sha1(sent).hexdigest()} in {n_sent} packets; "
+          f"received {n_kept} packets, {len(lossy)} bytes SHA-1 "
+          f"{hashlib.sha1(lossy).hexdigest()}", flush=True)
+    for mode in (1, 2):
+        dec = inter_codec.H264Decoder(conceal=mode)
+        got = dec.decode(lossy)
+        print(f"h264 loss: JAX H264Decoder(conceal={mode}) {len(got)} "
+              f"pictures, concealed {dec.concealed}, pictures SHA-1 "
+              f"{chip_smoke.pictures_sha1(got)}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -437,6 +497,15 @@ def main() -> None:
                     help="the host H.264 coder at High profile (h264-high)")
     ap.add_argument("--h264-b", action="store_true",
                     help="the host H.264 B coder (h264-b)")
+    for kind, what in (("ltr", "long-term references, MMCO and list "
+                                "reordering"),
+                       ("wp", "weighted prediction on the faded clip"),
+                       ("perc", "perceptual RDO"),
+                       ("loss", "intra refresh, SEI, RTP loss and "
+                                "concealment")):
+        ap.add_argument(f"--h264-{kind}", action="store_true",
+                        help=f"the host H.264 coder with {what} "
+                             f"(h264-{kind})")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -478,6 +547,9 @@ def main() -> None:
         h264_high_b("high")
     if args.h264_b:
         h264_high_b("b")
+    for kind in ("ltr", "wp", "perc", "loss"):
+        if getattr(args, f"h264_{kind}"):
+            h264_conf(kind)
 
 
 if __name__ == "__main__":

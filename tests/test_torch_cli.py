@@ -41,6 +41,7 @@ import pytest
 import torch
 from chip_smoke import (HM_LDP_STRUCTURE, HM_MAIN_CFG, HM_RA_STRUCTURE,
                         HM_SEQUENCE_CFG, bench_synth_clip, hm_cli_files)
+from test_torch_h264_host import _ported
 from test_torch_hevc_host import _defs
 
 from video_codecs_tpu.models.hevc import motion as jmotion
@@ -66,7 +67,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 # ---- the copied text --------------------------------------------------------
 
 # port module -> (functions whose text the port changed, functions only
-# the port has); every other function must be the original's text
+# the port has); every other function must be the original's text, its
+# imports of the JAX package's modules read as the port's
 _CLI_COPIES = {
     "utils/yuv.py": (set(), set()),
     "utils/config.py": ({"to_encoder_settings"}, set()),
@@ -90,7 +92,7 @@ def test_cli_copies_are_the_originals(mod):
         assert m, f"{mod}: {name} lacks its provenance comment"
         assert int(m.group(1)) == orig[name][0], f"{mod}: {name} line"
         if name not in trimmed:
-            assert src == orig[name][1], f"{mod}: {name} differs"
+            assert src == _ported(orig[name][1]), f"{mod}: {name} differs"
     if mod == "utils/config.py":
         assert tconfig._SUPPORTED == jconfig._SUPPORTED
         assert [(f.name, f.default) for f in

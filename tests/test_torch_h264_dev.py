@@ -180,6 +180,29 @@ def test_port_runs_without_jax(tmp_path):
         assert gdec.hash_status == [True] * 3
         assert all(np.array_equal(r[c], o[c])
                    for r, o in zip(brec, bout) for c in range(3))
+        from video_codecs_tpu_torch.models.h264 import sei
+        from video_codecs_tpu_torch.models.h264.inter_codec import (
+            H264Encoder)
+        from video_codecs_tpu_torch.ops import metrics
+        from video_codecs_tpu_torch.tools import analyze, h264_syntax, rtp
+        conf = H264Encoder(48, 32, qp=28, search_range=8, device="cpu",
+                           n_refs=2, long_term=True, lt_period=2,
+                           reorder="lt_first", weighted_pred=True,
+                           intra_refresh=2, perceptual="att+ssim")
+        cstream, crec = conf.encode_sequence(frames)
+        lossy = rtp.depacketize(rtp.packetize(cstream)[:-1])
+        cdec = H264Decoder(conceal=2)
+        assert len(cdec.decode(lossy + rtp.depacketize(
+            rtp.packetize(cstream)[-1:]))) == 3
+        assert len(H264Decoder(conceal=1).decode(lossy)) == 2
+        rows = analyze.analyze(cstream)
+        assert any("mmco" in r for r in rows)
+        assert h264_syntax.parse_sps_full(
+            analyze.bs.strip_emulation_prevention(
+                analyze.bs.split_annexb(cstream)[0][1:]))["width"] == 48
+        assert sei.parse_sei_rbsp(sei.write_sei_rbsp(
+            [sei.RecoveryPoint(1)])) == [sei.RecoveryPoint(1)]
+        assert abs(metrics.ssim(base, base, device="cpu") - 1) < 1e-5
         bad = [m for m in sys.modules
                if m in ("jax", "video_codecs_tpu")
                or m.startswith(("jax.", "video_codecs_tpu."))

@@ -525,22 +525,16 @@ def test_cli_needs_card_without_device_flag(monkeypatch, tmp_path):
     dict(weighted_pred=True), dict(long_term=True), dict(lt_period=2),
     dict(reorder="lt_first"), dict(intra_refresh=4)])
 def test_host_coder_cut_options_raise(opt):
-    """The options the port does not carry raise.  The 8x8 transform
-    (High profile), which it carries, is held to the JAX encoder's stream
-    instead."""
-    if opt.get("transform8x8"):
-        jx = _jax()
-        frames = _clip(32, 32, 2, seed=3)
-        st, rt = tinter.H264Encoder(32, 32, qp=26, search_range=4,
-                                    device="cpu", **opt
-                                    ).encode_sequence(frames)
-        sj, rj = jx["inter"].H264Encoder(32, 32, qp=26, search_range=4,
-                                         **opt).encode_sequence(frames)
-        assert st == sj
-        _planes_equal(rt, rj)
-        return
-    with pytest.raises(NotImplementedError):
-        tinter.H264Encoder(32, 32, device="cpu", **opt)
+    """The options the port once refused (it carries them all now) give
+    the JAX encoder's stream and pictures."""
+    jx = _jax()
+    frames = _clip(32, 32, 3, seed=3)
+    st, rt = tinter.H264Encoder(32, 32, qp=26, search_range=4,
+                                device="cpu", **opt).encode_sequence(frames)
+    sj, rj = jx["inter"].H264Encoder(32, 32, qp=26, search_range=4,
+                                     **opt).encode_sequence(frames)
+    assert st == sj
+    _planes_equal(rt, rj)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -585,3 +579,45 @@ def test_host_coder_on_card_equals_cpu(case):
     _planes_equal(rg, rc)
     assert nc == 0
     assert ng == {0: 1 + 2 + 3, 2: 1 + 1}[case["gop"]]
+
+
+_CONF_CASES = {
+    "ltr-mmco-reorder": dict(entropy="cavlc", n_refs=2, long_term=True,
+                             lt_period=2, reorder="lt_first"),
+    "wp-epzs-3": dict(entropy="cabac", me="epzs", n_refs=3,
+                      weighted_pred=True),
+    "perceptual": dict(perceptual="att+ssim"),
+    "intra-refresh": dict(intra_refresh=4, quant="around"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_CONF_CASES))
+def test_conf_options_on_card_equal_cpu(name, monkeypatch):
+    """Long-term references with MMCO and reordering, weighted prediction,
+    perceptual RDO (the saliency maps on the card) and intra refresh: the
+    card's stream is the CPU's, one SAD-kernel launch per list0 entry and
+    P picture on the card and none on the CPU."""
+    _needs_card()
+    frames = _clip(64, 48, 5, seed=7)
+    stages = []
+    orig = tinter.H264Encoder._card_stage
+
+    def card_stage(self, y, refs):
+        stages.append(len(refs))
+        return orig(self, y, refs)
+
+    monkeypatch.setattr(tinter.H264Encoder, "_card_stage", card_stage)
+    out = []
+    for dev in ("cuda", "cpu"):
+        tsad.sad_surface.launches = 0
+        stages.clear()
+        enc = tinter.H264Encoder(64, 48, qp=28, search_range=8, device=dev,
+                                 **_CONF_CASES[name])
+        out.append(enc.encode_sequence(frames) +
+                   (tsad.sad_surface.launches, sum(stages)))
+    (sg, rg, ng, kg), (sc, rc, nc, kc) = out
+    assert sg == sc
+    _planes_equal(rg, rc)
+    assert nc == 0 and ng == kg == kc > 0
+    _planes_equal(tinter.H264Decoder().decode(sg), rg)

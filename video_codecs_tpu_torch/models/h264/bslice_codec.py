@@ -260,6 +260,7 @@ class H264BEncoder(H264Encoder):
         nc_v = NcGrid(mbw * 2, mbh * 2)
         self._mode4 = np.full((mbh * 4, mbw * 4), 2, np.int32)
         self._is_i4 = np.zeros((mbh, mbw), bool)
+        self._eta = None
         mvg0 = np.zeros((mbh * 4, mbw * 4, 2), np.int32)
         refg0 = np.full((mbh * 4, mbw * 4), -1, np.int32)
         mvg1 = np.zeros((mbh * 4, mbw * 4, 2), np.int32)

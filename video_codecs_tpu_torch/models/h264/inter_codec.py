@@ -9,11 +9,11 @@ comment giving the original's line.  The host coder's integer SADs and
 sub-pel candidates come from its card stage (models/h264/host_me.py:
 one SAD-kernel launch and 16 phase planes per reference and P picture)
 instead of per-call numpy; its decisions, in the reference's order and
-types, stay on the host.  Cut, with the branches behind them: weighted
-prediction of P slices (`wp_apply` is kept for the B decoder's weighted
-bipred), perceptual RDO, long-term references, list reordering, MMCO,
-intra refresh, the trace / statistics wrappers and error concealment.
-The constructors and the decoder raise NotImplementedError on those.
+types, stay on the host.  Every option of the reference's coder and
+decoder is carried: weighted prediction of P slices, perceptual RDO,
+long-term references with MMCO, list reordering, intra refresh and
+error concealment.  Cut: the trace / statistics wrappers of the CABAC
+coder.
 
 Mirrors the JM encoder/decoder behavior (reference: jm18.5 lencod/ldecod —
 mv prediction lcommon/src/mv_prediction.c GetMotionVectorPredictorNormal,
@@ -34,10 +34,10 @@ from video_codecs_tpu_torch.entropy.bitstream import (
 from video_codecs_tpu_torch.models.h264 import dpb as dpb_mod
 from video_codecs_tpu_torch.models.h264 import host_me
 from video_codecs_tpu_torch.models.h264.intra_codec import (
-    _BLK_X, _BLK_Y, _decoded_before, _checked_pps,
+    _BLK_X, _BLK_Y, _decoded_before,
     H264IntraDecoder, H264IntraEncoder, NcGrid, annexb, gather_ref4,
-    nal_unit, parse_sps, pred_chroma8, pred_luma4, pred_luma16, write_pps,
-    write_sps, NAL_SPS, NAL_PPS, NAL_SLICE_IDR)
+    nal_unit, parse_pps, parse_sps, pred_chroma8, pred_luma4, pred_luma16,
+    write_pps, write_sps, NAL_SPS, NAL_PPS, NAL_SLICE_IDR)
 from video_codecs_tpu_torch.ops import h264_transform as ht
 from video_codecs_tpu_torch.ops.h264_deblock import deblock_frame
 from video_codecs_tpu_torch.ops.h264_interp import mc_chroma_np, mc_luma_np
@@ -208,6 +208,63 @@ def wp_apply(pred, w: int, o: int, logd: int):
     return np.clip(out, 0, 255).astype(np.int32)
 
 
+# video_codecs_tpu/models/h264/inter_codec.py:187
+def estimate_wp(cur_planes, ref_planes, logd: int = 6):
+    """AC/DC weight+offset estimation per plane (wp_lms.c:887 shape)."""
+    ws, os_ = [], []
+    for c, r in zip(cur_planes, ref_planes):
+        c = np.asarray(c, np.float64)
+        r = np.asarray(r, np.float64)
+        dc_c, dc_r = c.mean(), r.mean()
+        ac_c = np.abs(c - dc_c).sum()
+        ac_r = np.abs(r - dc_r).sum()
+        w = int(round((1 << logd) * ac_c / ac_r)) if ac_r > 0 else (1 << logd)
+        w = max(-128, min(127, w))
+        o = int(round(dc_c - (w * dc_r) / (1 << logd)))
+        ws.append(w)
+        os_.append(max(-128, min(127, o)))
+    return dict(w=tuple(ws), o=tuple(os_), logd=logd)
+
+
+# video_codecs_tpu/models/h264/inter_codec.py:204
+def write_pred_weight_table(w, wp_list, logd: int):
+    """pred_weight_table (spec 7.3.3.2), P slice, list0 only."""
+    w.ue(logd)                       # luma_log2_weight_denom
+    w.ue(logd)                       # chroma_log2_weight_denom
+    for wp in wp_list:
+        default_l = wp["w"][0] == (1 << logd) and wp["o"][0] == 0
+        w.flag(0 if default_l else 1)
+        if not default_l:
+            w.se(wp["w"][0])
+            w.se(wp["o"][0])
+        default_c = all(wp["w"][j] == (1 << logd) and wp["o"][j] == 0
+                        for j in (1, 2))
+        w.flag(0 if default_c else 1)
+        if not default_c:
+            for j in (1, 2):
+                w.se(wp["w"][j])
+                w.se(wp["o"][j])
+
+
+# video_codecs_tpu/models/h264/inter_codec.py:223
+def parse_pred_weight_table(r, n_active: int):
+    logd = r.ue()
+    logdc = r.ue()
+    out = []
+    for _ in range(n_active):
+        ws = [1 << logd, 1 << logdc, 1 << logdc]
+        os_ = [0, 0, 0]
+        if r.flag():
+            ws[0] = r.se()
+            os_[0] = r.se()
+        if r.flag():
+            for j in (1, 2):
+                ws[j] = r.se()
+                os_[j] = r.se()
+        out.append(dict(w=tuple(ws), o=tuple(os_), logd=logd, logdc=logdc))
+    return out
+
+
 # video_codecs_tpu/models/h264/inter_codec.py:241
 def _code_residual_16(w, lv, nc_grid, gx, gy):
     coeffs = lv.reshape(16)[cavlc.ZIGZAG_4x4]
@@ -243,9 +300,8 @@ class H264Encoder(H264IntraEncoder):
     (`host_me.RefSearch`, one per reference and P picture) on `device`,
     the card unless the caller passes "cpu"; the decisions, the
     transforms and the entropy coder run on the host as the reference's.
-    The options the port does not carry (perceptual RDO, weighted
-    prediction, long-term references, list reordering, intra refresh)
-    raise NotImplementedError."""
+    With `reorder` the card stage follows the reordered list, so
+    `refs[0]` is the long-term picture there too."""
 
     # video_codecs_tpu/models/h264/inter_codec.py:267
     def __init__(self, width: int, height: int, qp: int = 28,
@@ -258,51 +314,80 @@ class H264Encoder(H264IntraEncoder):
                  long_term: bool = False, lt_period: int = 0,
                  reorder: str = "", intra_refresh: int = 0,
                  device="cuda") -> None:
-        cut = {"weighted_pred": weighted_pred,
-               "long_term": long_term or lt_period > 0,
-               "reorder": reorder != "", "intra_refresh": intra_refresh}
-        bad = [k for k, v in cut.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"H264Encoder: {', '.join(bad)} not ported (no WP, "
-                "long-term references, reordering or intra refresh)")
         super().__init__(width, height, qp=qp, deblock=True, entropy=entropy,
                          perceptual=perceptual, quant=quant,
-                         transform8x8=transform8x8)
+                         transform8x8=transform8x8, device=device)
+        # DPB command surface (mbuffer.c parity):
+        #   long_term: mark the IDR long-term (long_term_reference_flag)
+        #   lt_period: every Nth P ref replaces the long-term via MMCO 4+6
+        #   reorder:   "lt_first" emits ref_pic_list_modification moving
+        #              the long-term picture to ref_idx 0
+        self.long_term = long_term or lt_period > 0
+        self.lt_period = lt_period
+        assert reorder in ("", "lt_first")
+        self.reorder = reorder
         assert me in ("full", "epzs", "umhex")
         self.sr = search_range
         self.gop = gop                 # 0 = only first frame is IDR
         self.n_refs = n_refs           # sliding-window DPB size (list0)
         self.me = me                   # integer ME engine (mv_search.c:143)
+        self.weighted_pred = weighted_pred
         self.partitions = partitions   # 16x8/8x16/P8x8 mode loops (md_low)
+        self._wp = None                # per-ref WP params of this slice
         self._prev_mvg = None          # temporal predictor source (EPZS)
-        self.device = torch.device(device)
+        # intrarefresh.c semantics: N MBs per P picture forced to intra,
+        # cycling through the picture so every MB refreshes periodically
+        self.intra_refresh = intra_refresh
+        self._refresh_cursor = 0
 
     # video_codecs_tpu/models/h264/inter_codec.py:302
     def encode_sequence(self, frames):
+        from video_codecs_tpu_torch.models.h264 import dpb as dpb_mod
         cabac = self.entropy == "cabac"
         profile = 100 if self.transform8x8 else (77 if cabac else 66)
+        n_sps_refs = self.n_refs + (1 if self.long_term else 0)
         nals = [nal_unit(NAL_SPS, write_sps(self.w // 16, self.h // 16,
                                             profile=profile,
-                                            num_ref_frames=self.n_refs)),
+                                            num_ref_frames=n_sps_refs)),
                 nal_unit(NAL_PPS, write_pps(
-                    cabac=cabac, transform8x8=self.transform8x8))]
+                    cabac=cabac, weighted_pred=self.weighted_pred,
+                    transform8x8=self.transform8x8))]
         recons = []
-        dpb = dpb_mod.Dpb(self.n_refs, 8)
+        dpb = dpb_mod.Dpb(n_sps_refs, 8)
         frame_num = 0
+        n_p = 0
         for idx, (y, u, v) in enumerate(frames):
             is_idr = not dpb.pics or (self.gop and idx % self.gop == 0)
             if is_idr:
                 rbsp, rec = self.encode_frame(y, u, v, idr_id=idx & 1)
                 nals.append(nal_unit(NAL_SLICE_IDR, rbsp))
                 dpb.idr_reset()
-                dpb.mark(dpb_mod.RefPic(rec, frame_num=0))
+                dpb.mark(dpb_mod.RefPic(
+                    rec, frame_num=0,
+                    lt_idx=0 if self.long_term else None))
                 frame_num = 1
+                n_p = 0
             else:
-                refs = [p.planes for p in dpb.default_list0(frame_num)]
-                rbsp, rec = self._encode_p_frame(y, u, v, refs, frame_num)
+                list0 = dpb.default_list0(frame_num)
+                cmds = None
+                if self.reorder == "lt_first" and \
+                        any(p.long_term for p in list0):
+                    lt = next(p for p in list0 if p.long_term)
+                    cmds = [(2, lt.lt_idx)]
+                    list0 = dpb.apply_reorder(list0, cmds, frame_num,
+                                              len(list0))
+                refs = [p.planes for p in list0]
+                n_p += 1
+                mmco = None
+                if self.lt_period and n_p % self.lt_period == 0:
+                    # cap MaxLongTermFrameIdx at 0 (evicts the previous
+                    # long-term) then mark the current picture long-term
+                    mmco = [(4, 1), (6, 0)]
+                rbsp, rec = self._encode_p_frame(y, u, v, refs, frame_num,
+                                                 reorder_cmds=cmds,
+                                                 mmco=mmco)
                 nals.append(nal_unit(1, rbsp, ref_idc=2))
-                dpb.mark(dpb_mod.RefPic(rec, frame_num=frame_num))
+                dpb.mark(dpb_mod.RefPic(rec, frame_num=frame_num), mmco)
                 frame_num = (frame_num + 1) & 0xFF
             recons.append(rec)
         return annexb(nals), recons
@@ -507,7 +592,9 @@ class H264Encoder(H264IntraEncoder):
         |mvd| ctx at 4x4 granularity), writeCBP :1326, writeDquant
         :1116, residual blocks via entropy/h264_cabac.py.
         """
-        zz = cavlc.ZIGZAG_4x4
+        from video_codecs_tpu_torch.entropy import h264_cabac as hc
+        from video_codecs_tpu_torch.entropy import cavlc as _cavlc
+        zz = _cavlc.ZIGZAG_4x4
         cbf = self._cbf
         gx, gy = mbx * 4, mby * 4
         a, b = skip_ctx_terms(mbx, mby)
@@ -544,6 +631,7 @@ class H264Encoder(H264IntraEncoder):
         ce.cbp(cbp, nbr(0, -1), nbr(-1, 0))
         self._cbp_arr[mby, mbx] = cbp
         cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        from video_codecs_tpu_torch.models.h264.intra_codec import _BLK_X, _BLK_Y
         if self.transform8x8 and cbp_luma and \
                 all(p_[2] >= 8 and p_[3] >= 8 for p_ in parts):
             ta = 1 if (mbx > 0 and self._trans8[mby, mbx - 1]) else 0
@@ -606,13 +694,15 @@ class H264Encoder(H264IntraEncoder):
 
     # -- P frame -----------------------------------------------------------
     # video_codecs_tpu/models/h264/inter_codec.py:654
-    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None):
+    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None,
+                        reorder_cmds=None, mmco=None):
         qp = self.qp
         qpc = int(ht.CHROMA_QP[min(max(qp, 0), 51)])
         mbw, mbh = self.w // 16, self.h // 16
         w4 = mbw * 4
         yv, uv, vv = (p.astype(np.int32) for p in (y, u, v))
         n_active = len(refs)
+        ref_y, ref_u, ref_v = refs[0]
         rec_y = np.zeros_like(yv)
         rec_u = np.zeros_like(uv)
         rec_v = np.zeros_like(vv)
@@ -630,8 +720,11 @@ class H264Encoder(H264IntraEncoder):
         intra_mb = np.zeros((mbh, mbw), bool)
         lam = 0.85 * 2.0 ** ((qp - 12) / 3.0)
         lam_me = lam ** 0.5
+        if self.att:
+            self._eta = self._att_eta(y)
         zz = cavlc.ZIGZAG_4x4
-        # the card stage: every reference's SAD surfaces and phase planes
+        # the card stage: every reference's SAD surfaces and phase planes,
+        # in the (reordered) list's order
         mes = self._card_stage(y, refs)
 
         w = BitWriter()
@@ -646,8 +739,37 @@ class H264Encoder(H264IntraEncoder):
             w.ue(n_active - 1)   # num_ref_idx_l0_active_minus1
         else:
             w.flag(0)            # num_ref_idx_active_override_flag
-        w.flag(0)                # ref_pic_list_modification_flag_l0
-        w.flag(0)                # adaptive_ref_pic_marking_mode_flag
+        if reorder_cmds:         # ref_pic_list_modification (7.3.3.1)
+            w.flag(1)
+            for op, arg in reorder_cmds:
+                w.ue(op)
+                w.ue(arg - 1 if op in (0, 1) else arg)
+            w.ue(3)              # end of commands
+        else:
+            w.flag(0)            # ref_pic_list_modification_flag_l0
+        self._wp = None
+        if self.weighted_pred:
+            self._wp = [estimate_wp((yv, uv, vv), refs[ri])
+                        for ri in range(n_active)]
+            write_pred_weight_table(w, self._wp, 6)
+        if mmco:                 # dec_ref_pic_marking (7.3.3.3)
+            w.flag(1)            # adaptive_ref_pic_marking_mode_flag
+            for cmd in mmco:
+                op = cmd[0]
+                w.ue(op)
+                if op in (1, 3):
+                    w.ue(cmd[1] - 1)   # difference_of_pic_nums_minus1
+                if op == 2:
+                    w.ue(cmd[1])
+                if op == 3:
+                    w.ue(cmd[2])
+                if op == 4:
+                    w.ue(cmd[1])       # max_long_term_frame_idx_plus1
+                if op == 6:
+                    w.ue(cmd[1])       # long_term_frame_idx
+            w.ue(0)              # op 0: end
+        else:
+            w.flag(0)            # adaptive_ref_pic_marking_mode_flag
         if self.entropy == "cabac":
             w.ue(0)              # cabac_init_idc
         w.se(qp - 26)            # slice_qp_delta
@@ -657,16 +779,26 @@ class H264Encoder(H264IntraEncoder):
 
         ce = None
         if self.entropy == "cabac":
+            from video_codecs_tpu_torch.entropy import h264_cabac as hc
             ce = hc.H264CabacEncoder(w, "P", qp, model=0)
             self._cbf = hc.CbfState(mbw, mbh)
             self._cbp_arr = np.zeros((mbh, mbw), np.int32)
             self._cipred = np.zeros((mbh, mbw), np.int32)
             self._skip = np.zeros((mbh, mbw), bool)
+            self._decoded = np.zeros((mbh, mbw), bool)
 
         def skip_ctx_terms(mbx, mby):
             a = 1 if (mbx > 0 and not self._skip[mby, mbx - 1]) else 0
             b = 1 if (mby > 0 and not self._skip[mby - 1, mbx]) else 0
             return a, b
+
+        refresh_set: set = set()
+        if self.intra_refresh:
+            nmb = mbw * mbh
+            nref = min(self.intra_refresh, nmb)
+            c0 = self._refresh_cursor
+            refresh_set = {(c0 + i) % nmb for i in range(nref)}
+            self._refresh_cursor = (c0 + nref) % nmb
 
         skip_run = 0
         for mby in range(mbh):
@@ -677,7 +809,8 @@ class H264Encoder(H264IntraEncoder):
                 orig = yv[yy:yy + 16, x:x + 16]
                 last_mb = (mby == mbh - 1 and mbx == mbw - 1)
 
-                lam_me_mb = lam_me
+                lam_me_mb = lam_me if self._eta is None else \
+                    (lam * float(self._eta[mby, mbx])) ** 0.5
                 smv = skip_mv(mvg, refg, gx, gy, w4)
                 best_ref, cost, mvx, mvy, pmv = 0, None, 0, 0, (0, 0)
                 for ri in range(n_active):
@@ -804,8 +937,10 @@ class H264Encoder(H264IntraEncoder):
                     int(np.abs(orig - pred_luma16(rec_y, x, yy, m)).sum())
                     for m in ([2] + ([0] if mby else [])
                               + ([1] if mbx else [])))
-                if isad + round(lam_me_mb * 8) < best_mode[0]:
-                    # intra MB inside the P slice
+                if (mby * mbw + mbx) in refresh_set or \
+                        isad + round(lam_me_mb * 8) < best_mode[0]:
+                    # intra MB inside the P slice (mode choice or forced
+                    # by the cyclic intra-refresh map, intrarefresh.c)
                     if ce is not None:
                         a, b = skip_ctx_terms(mbx, mby)
                         ce.mb_skip_flag_p(0, a, b)
@@ -838,6 +973,14 @@ class H264Encoder(H264IntraEncoder):
                                        mv_[0], mv_[1], pw_ // 2, ph_ // 2)
                     pcv = mc_chroma_np(rpv, cx + ox // 2, cy + oy // 2,
                                        mv_[0], mv_[1], pw_ // 2, ph_ // 2)
+                    if self._wp is not None:
+                        wp = self._wp[ri_]
+                        pl = wp_apply(pl, wp["w"][0], wp["o"][0],
+                                      wp["logd"])
+                        pcu = wp_apply(pcu, wp["w"][1], wp["o"][1],
+                                       wp["logd"])
+                        pcv = wp_apply(pcv, wp["w"][2], wp["o"][2],
+                                       wp["logd"])
                     pred[oy:oy + ph_, ox:ox + pw_] = pl
                     pu[oy // 2:(oy + ph_) // 2, ox // 2:(ox + pw_) // 2] \
                         = pcu
@@ -863,7 +1006,8 @@ class H264Encoder(H264IntraEncoder):
                         ox8, oy8 = (b & 1) * 8, (b >> 1) * 8
                         r8[oy8:oy8 + 8, ox8:ox8 + 8] = ht.inverse8x8(
                             ht.dequant8x8(lv8[b], qp))
-                    lam_mb = lam
+                    lam_mb = lam if self._eta is None else \
+                        lam * float(self._eta[mby, mbx])
                     c4 = int(np.abs(res - r4).sum()) + \
                         round(lam_mb * 3 * int((lv != 0).sum()))
                     c8 = int(np.abs(res - r8).sum()) + \
@@ -1074,27 +1218,59 @@ class H264Decoder(H264IntraDecoder):
 
     # video_codecs_tpu/models/h264/inter_codec.py:1176
     def __init__(self, conceal: int = 0) -> None:
-        """conceal: only 0 (errors raise); concealment is not ported."""
-        if conceal:
-            raise NotImplementedError("error concealment is not ported")
+        """conceal: 0 = off (errors raise), 1 = frame copy, 2 = motion
+        copy (jm18.5/ldecod ConcealMode semantics / erc_do_p.c)."""
         super().__init__()
         self.dpb = []            # list0: most recently decoded first
         self.max_refs = 1
-        self._next_fn = 0
+        self.conceal = conceal
+        self.concealed: list[int] = []
         self._last_mv = None     # (mvg, refg) of the last decoded P slice
+        self._next_fn = 0
+
+    # video_codecs_tpu/models/h264/inter_codec.py:1187
+    def _conceal_frame(self):
+        """Synthesize a lost picture from dpb[0]: frame copy, or motion
+        copy reusing the previous picture's MV field (erc_do_p.c)."""
+        ref = self.dpb[0]
+        if self.conceal != 2 or self._last_mv is None:
+            return tuple(p.copy() for p in ref)
+        mvg, refg = self._last_mv
+        mbw, mbh = self.size
+        rec_y = np.zeros((mbh * 16, mbw * 16), np.int32)
+        rec_u = np.zeros((mbh * 8, mbw * 8), np.int32)
+        rec_v = np.zeros_like(rec_u)
+        for mby in range(mbh):
+            for mbx in range(mbw):
+                gx, gy = mbx * 4, mby * 4
+                mvx = mvy = 0
+                if refg[gy, gx] >= 0:
+                    mvx, mvy = int(mvg[gy, gx, 0]), int(mvg[gy, gx, 1])
+                x, yy = mbx * 16, mby * 16
+                cx, cy = mbx * 8, mby * 8
+                rec_y[yy:yy + 16, x:x + 16] = mc_luma_np(
+                    ref[0], x, yy, mvx, mvy, 16, 16)
+                rec_u[cy:cy + 8, cx:cx + 8] = mc_chroma_np(
+                    ref[1], cx, cy, mvx, mvy, 8, 8)
+                rec_v[cy:cy + 8, cx:cx + 8] = mc_chroma_np(
+                    ref[2], cx, cy, mvx, mvy, 8, 8)
+        return rec_y, rec_u, rec_v
 
     # video_codecs_tpu/models/h264/inter_codec.py:1214
-    def _push(self, rec, frames, fn=None, is_ref=True):
+    def _push(self, rec, frames, fn=None, lt=False, mmco=None,
+              is_ref=True):
         frames.append(rec)
         if getattr(self, "_ext_dpb", False) or not hasattr(self, "_dpbm"):
             self.dpb.insert(0, rec)
             del self.dpb[self.max_refs:]
             return
+        from video_codecs_tpu_torch.models.h264 import dpb as dpb_mod
         if fn is None:
             fn = self._next_fn
         if is_ref:
-            self._dpbm.mark(dpb_mod.RefPic(rec, frame_num=fn))
-        # default skip reference
+            self._dpbm.mark(dpb_mod.RefPic(
+                rec, frame_num=fn, lt_idx=0 if lt else None), mmco)
+        # mirror for concealment + default skip reference
         self.dpb = [p.planes
                     for p in self._dpbm.default_list0(fn)] or [rec]
 
@@ -1113,6 +1289,7 @@ class H264Decoder(H264IntraDecoder):
 
     # video_codecs_tpu/models/h264/inter_codec.py:1243
     def decode(self, stream: bytes) -> list:
+        from video_codecs_tpu_torch.entropy.bitstream import split_annexb
         frames = []
         for nal in split_annexb(stream):
             nal_type = nal[0] & 0x1F
@@ -1122,29 +1299,50 @@ class H264Decoder(H264IntraDecoder):
                 self.size = (wmb, hmb)
                 self.sps_info = info
                 self.max_refs = max(info["num_ref_frames"], 1)
-                self._dpbm = dpb_mod.Dpb(self.max_refs,
-                                         info["log2_max_frame_num"])
+                from video_codecs_tpu_torch.models.h264 import dpb as dpbm
+                self._dpbm = dpbm.Dpb(self.max_refs,
+                                      info["log2_max_frame_num"])
             elif nal_type == NAL_PPS:
                 self.dbf_present, self.cabac, ppsinfo = \
-                    _checked_pps(rbsp)
+                    parse_pps(rbsp, full=True)
                 self.default_l0 = ppsinfo["num_ref_idx_l0_default_active"]
+                self.wp_enabled = ppsinfo.get("weighted_pred", False)
                 self.trans8_enabled = ppsinfo.get("transform_8x8_mode",
                                                   False)
             elif nal_type in (NAL_SLICE_IDR, 1):
                 self._cur_ref_idc = nal[0] >> 5
                 if nal_type == NAL_SLICE_IDR:
                     self.dpb = []        # IDR: sliding window resets
-                    self._dpbm.idr_reset()
-                    if self._idr_lt_flag(rbsp):
-                        raise NotImplementedError(
-                            "long-term reference pictures are not decoded")
-                rec = self._decode_any_slice(rbsp, nal_type == NAL_SLICE_IDR)
+                    if hasattr(self, "_dpbm"):
+                        self._dpbm.idr_reset()
+                elif self.conceal and self.dpb:
+                    # frame_num gap = lost picture(s): synthesize them
+                    r0 = BitReader(rbsp)
+                    r0.ue(), r0.ue(), r0.ue()
+                    fn = r0.read(8)
+                    gap = (fn - self._next_fn) & 0xFF
+                    for _ in range(min(gap, 16)):
+                        self.concealed.append(len(frames))
+                        self._push(self._conceal_frame(), frames)
+                        self._next_fn = (self._next_fn + 1) & 0xFF
+                if self.conceal and self.dpb:
+                    try:
+                        rec = self._decode_any_slice(
+                            rbsp, nal_type == NAL_SLICE_IDR)
+                    except Exception:
+                        self.concealed.append(len(frames))
+                        rec = self._conceal_frame()
+                else:
+                    rec = self._decode_any_slice(
+                        rbsp, nal_type == NAL_SLICE_IDR)
                 if nal_type == NAL_SLICE_IDR:
-                    self._push(rec, frames, fn=0)
+                    self._push(rec, frames, fn=0,
+                               lt=self._idr_lt_flag(rbsp))
                 else:
                     self._push(rec, frames,
                                fn=getattr(self, "_cur_fn", None),
-                               is_ref=self._cur_ref_idc != 0)
+                               mmco=getattr(self, "_cur_mmco", None),
+                               is_ref=getattr(self, "_cur_ref_idc", 1) != 0)
                 self._next_fn = 1 if nal_type == NAL_SLICE_IDR else \
                     (self._next_fn + 1) & 0xFF
         return frames
@@ -1177,17 +1375,48 @@ class H264Decoder(H264IntraDecoder):
         ext = getattr(self, "_ext_dpb", False) or \
             not hasattr(self, "_dpbm")
         # ref_pic_list_modification (spec 7.3.3.1 / 8.2.4.3)
+        cmds = []
         if r.flag():
-            raise NotImplementedError("ref_pic_list_modification is not "
-                                      "decoded")
+            while True:
+                op = r.ue()         # reordering_of_pic_nums_idc
+                if op == 3:
+                    break
+                cmds.append((op, r.ue() + 1) if op in (0, 1)
+                            else (op, r.ue()))
         if not ext:
             list0 = self._dpbm.default_list0(fn)
-            self.dpb = [p.planes for p in list0[:max(n_active, 1)]]
+            if cmds:
+                list0 = self._dpbm.apply_reorder(list0, cmds, fn, n_active)
+            else:
+                list0 = list0[:max(n_active, 1)]
+            self.dpb = [p.planes for p in list0]
+        else:
+            assert not cmds, "external DPB: list reordering unsupported"
         assert n_active <= len(self.dpb), "ref list underrun"
+        self._wp = None
+        if getattr(self, "wp_enabled", False):
+            self._wp = parse_pred_weight_table(r, n_active)
         # dec_ref_pic_marking (spec 7.3.3.3 / 8.2.5.4)
-        if getattr(self, "_cur_ref_idc", 1) and r.flag():
-            # adaptive_ref_pic_marking_mode_flag
-            raise NotImplementedError("MMCO is not decoded")
+        self._cur_mmco = None
+        if getattr(self, "_cur_ref_idc", 1):
+            if r.flag():            # adaptive_ref_pic_marking_mode_flag
+                assert not ext, "external DPB: MMCO unsupported"
+                mmco = []
+                while True:
+                    op = r.ue()     # memory_management_control_operation
+                    if op == 0:
+                        break
+                    args = []
+                    if op in (1, 3):
+                        args.append(r.ue() + 1)
+                    if op == 2:
+                        args.append(r.ue())
+                    if op in (3, 6):
+                        args.append(r.ue())
+                    if op == 4:
+                        args.append(r.ue())
+                    mmco.append((op, *args))
+                self._cur_mmco = mmco
         cabac = getattr(self, "cabac", False)
         model = r.ue() if cabac else 0  # cabac_init_idc
         qp = 26 + r.se()
@@ -1198,6 +1427,7 @@ class H264Decoder(H264IntraDecoder):
                 aoff = 2 * r.se()
                 boff = 2 * r.se()
         qpc = int(ht.CHROMA_QP[min(max(qp, 0), 51)])
+        ref_y, ref_u, ref_v = self.dpb[0]
 
         rec_y = np.zeros((mbh * 16, mbw * 16), np.int32)
         rec_u = np.zeros((mbh * 8, mbw * 8), np.int32)
@@ -1241,12 +1471,12 @@ class H264Decoder(H264IntraDecoder):
             dec4[gy:gy + 4, gx:gx + 4] = True
             x, yy = mbx * 16, mby * 16
             cx, cy = mbx * 8, mby * 8
-            rec_y[yy:yy + 16, x:x + 16] = mc_luma_np(
-                skip_ref[0], x, yy, mvx, mvy, 16, 16)
-            rec_u[cy:cy + 8, cx:cx + 8] = mc_chroma_np(
-                skip_ref[1], cx, cy, mvx, mvy, 8, 8)
-            rec_v[cy:cy + 8, cx:cx + 8] = mc_chroma_np(
-                skip_ref[2], cx, cy, mvx, mvy, 8, 8)
+            rec_y[yy:yy + 16, x:x + 16] = self._mc_wp(
+                mc_luma_np(skip_ref[0], x, yy, mvx, mvy, 16, 16), 0, 0)
+            rec_u[cy:cy + 8, cx:cx + 8] = self._mc_wp(
+                mc_chroma_np(skip_ref[1], cx, cy, mvx, mvy, 8, 8), 0, 1)
+            rec_v[cy:cy + 8, cx:cx + 8] = self._mc_wp(
+                mc_chroma_np(skip_ref[2], cx, cy, mvx, mvy, 8, 8), 0, 2)
             for bx4 in range(4):
                 for by4 in range(4):
                     nc_y.set(gx + bx4, gy + by4, 0)
@@ -1257,9 +1487,10 @@ class H264Decoder(H264IntraDecoder):
 
         if cabac:
             self._decode_p_mbs_cabac(
-                r, qp, qpc, model, rec_y, rec_u, rec_v, nc_y, nc_u, nc_v,
-                mvg, refg, intra_mb, mode4, is_i4, pred_mode4, decode_skip,
-                n_active=n_active, dec4=dec4, trans8=trans8, nz8=nz8)
+                r, qp, qpc, model, rec_y, rec_u, rec_v, ref_y, ref_u, ref_v,
+                nc_y, nc_u, nc_v, mvg, refg, intra_mb, mode4, is_i4,
+                pred_mode4, decode_skip, n_active=n_active, dec4=dec4,
+                trans8=trans8, nz8=nz8)
             if dbf_idc != 1:
                 bs_ver, bs_hor = bs_maps_p(intra_mb,
                                            nc_y.tc + nz8.astype(np.int32),
@@ -1321,14 +1552,17 @@ class H264Decoder(H264IntraDecoder):
             pv = np.zeros((8, 8), np.int32)
             for ox, oy, pw_, ph_, ri_, (mvx, mvy) in parts:
                 rpy, rpu, rpv = self.dpb[ri_]
-                pred[oy:oy + ph_, ox:ox + pw_] = mc_luma_np(
-                    rpy, x + ox, yy + oy, mvx, mvy, pw_, ph_)
+                pred[oy:oy + ph_, ox:ox + pw_] = self._mc_wp(
+                    mc_luma_np(rpy, x + ox, yy + oy, mvx, mvy, pw_, ph_),
+                    ri_, 0)
                 pu[oy // 2:(oy + ph_) // 2, ox // 2:(ox + pw_) // 2] = \
-                    mc_chroma_np(rpu, cx + ox // 2, cy + oy // 2, mvx, mvy,
-                                 pw_ // 2, ph_ // 2)
+                    self._mc_wp(mc_chroma_np(
+                        rpu, cx + ox // 2, cy + oy // 2, mvx, mvy,
+                        pw_ // 2, ph_ // 2), ri_, 1)
                 pv[oy // 2:(oy + ph_) // 2, ox // 2:(ox + pw_) // 2] = \
-                    mc_chroma_np(rpv, cx + ox // 2, cy + oy // 2, mvx, mvy,
-                                 pw_ // 2, ph_ // 2)
+                    self._mc_wp(mc_chroma_np(
+                        rpv, cx + ox // 2, cy + oy // 2, mvx, mvy,
+                        pw_ // 2, ph_ // 2), ri_, 2)
             cbp = _CBP_FROM_CODE_INTER_420[r.ue()]
             cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
             mb_t8 = False
@@ -1428,6 +1662,16 @@ class H264Decoder(H264IntraDecoder):
         self._last_mv = (mvg.copy(), refg.copy())
         return rec_y, rec_u, rec_v
 
+    # video_codecs_tpu/models/h264/inter_codec.py:1615
+    def _mc_wp(self, pred, ref_idx: int, comp: int):
+        """Apply the slice's explicit WP to an interpolated block."""
+        wp = getattr(self, "_wp", None)
+        if wp is None:
+            return pred
+        e = wp[ref_idx]
+        logd = e["logd"] if comp == 0 else e["logdc"]
+        return wp_apply(pred, e["w"][comp], e["o"][comp], logd)
+
     # video_codecs_tpu/models/h264/inter_codec.py:1624
     def _parse_p_parts_cavlc(self, r, mb_type, mvg, refg, dec4, gx, gy,
                              n_active):
@@ -1475,11 +1719,14 @@ class H264Decoder(H264IntraDecoder):
 
     # video_codecs_tpu/models/h264/inter_codec.py:1668
     def _decode_p_mbs_cabac(self, r, qp, qpc, model, rec_y, rec_u, rec_v,
-                            nc_y, nc_u, nc_v, mvg, refg, intra_mb, mode4,
-                            is_i4, pred_mode4, decode_skip, n_active=1,
-                            dec4=None, trans8=None, nz8=None):
+                            ref_y, ref_u, ref_v, nc_y, nc_u, nc_v, mvg,
+                            refg, intra_mb, mode4, is_i4, pred_mode4,
+                            decode_skip, n_active=1, dec4=None,
+                            trans8=None, nz8=None):
         """CABAC P-slice MB loop (mirror of the encoder's CABAC path)."""
+        from video_codecs_tpu_torch.entropy import h264_cabac as hc
         mbw, mbh = self.size
+        w4 = mbw * 4
         zz = cavlc.ZIGZAG_4x4
         cd = hc.H264CabacDecoder(r, "P", qp, model)
         cbf = hc.CbfState(mbw, mbh)
@@ -1595,16 +1842,17 @@ class H264Decoder(H264IntraDecoder):
                 pred_v = np.zeros((8, 8), np.int32)
                 for (ox, oy, pw_, ph_, ri_, (mvx, mvy)) in parts:
                     rpy, rpu, rpv = self.dpb[ri_]
-                    pred[oy:oy + ph_, ox:ox + pw_] = mc_luma_np(
-                        rpy, x + ox, yy + oy, mvx, mvy, pw_, ph_)
+                    pred[oy:oy + ph_, ox:ox + pw_] = self._mc_wp(
+                        mc_luma_np(rpy, x + ox, yy + oy, mvx, mvy, pw_,
+                                   ph_), ri_, 0)
                     pred_u[oy // 2:(oy + ph_) // 2,
-                           ox // 2:(ox + pw_) // 2] = mc_chroma_np(
-                        rpu, cx + ox // 2, cy + oy // 2, mvx, mvy, pw_ // 2,
-                        ph_ // 2)
+                           ox // 2:(ox + pw_) // 2] = self._mc_wp(
+                        mc_chroma_np(rpu, cx + ox // 2, cy + oy // 2,
+                                     mvx, mvy, pw_ // 2, ph_ // 2), ri_, 1)
                     pred_v[oy // 2:(oy + ph_) // 2,
-                           ox // 2:(ox + pw_) // 2] = mc_chroma_np(
-                        rpv, cx + ox // 2, cy + oy // 2, mvx, mvy, pw_ // 2,
-                        ph_ // 2)
+                           ox // 2:(ox + pw_) // 2] = self._mc_wp(
+                        mc_chroma_np(rpv, cx + ox // 2, cy + oy // 2,
+                                     mvx, mvy, pw_ // 2, ph_ // 2), ri_, 2)
 
                 def nbr(dx, dy):
                     nx, ny = mbx + dx, mby + dy
@@ -1734,6 +1982,7 @@ class H264Decoder(H264IntraDecoder):
                                mode4, is_i4, pred_mode4, i16, trans8=None):
         """Intra MB inside a CABAC P slice (act 6 = I_4x4/I_8x8,
         7 = I_16x16)."""
+        from video_codecs_tpu_torch.entropy import h264_cabac as hc
         from video_codecs_tpu_torch.models.h264 import intra8
         mbw, mbh = self.size
         zz = cavlc.ZIGZAG_4x4
@@ -1872,6 +2121,8 @@ class H264Decoder(H264IntraDecoder):
         cbf.mark(mbx, mby)
 
         # ---- reconstruction ----
+        from video_codecs_tpu_torch.models.h264.intra_codec import (
+            gather_ref4, pred_luma4)
         if use_i8:
             for b8 in range(4):
                 ox, oy = (b8 & 1) * 8, (b8 >> 1) * 8
@@ -1896,6 +2147,7 @@ class H264Decoder(H264IntraDecoder):
             rr = ht.inverse4x4(d)
             rec_y[y:y + 16, x:x + 16] = np.clip(
                 pred + rr.transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
+        from video_codecs_tpu_torch.models.h264.intra_codec import pred_chroma8
         for comp, plane in ((0, rec_u), (1, rec_v)):
             cpred = pred_chroma8(plane, cx, cy, cmode)
             cdc_deq = ht.dequant_chroma_dc(c_dc_q[comp], qpc)

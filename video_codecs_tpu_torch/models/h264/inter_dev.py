@@ -276,7 +276,10 @@ class DeviceH264Encoder(H264Encoder):
                          search_range=search_range, device=device, **kw)
         self.p_times: list[tuple[float, float]] = []
 
-    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None):
+    def _encode_p_frame(self, y, u, v, refs, frame_num, poc=None,
+                        reorder_cmds=None, mmco=None):
+        # the constructor refuses long-term references and reordering,
+        # so `encode_sequence` hands no commands here
         t0 = time.perf_counter()
         st = self._device_phase(y, u, v, refs[0])
         t1 = time.perf_counter()

@@ -3,13 +3,14 @@ and CABAC.
 
 The port's copy of video_codecs_tpu/models/h264/intra_codec.py.  Each
 function and class kept is carried as it is under its own name, with a
-comment giving the original's line; the branches behind options the
-port rejects are cut: perceptual RDO ("att", "ssim") and the
-VCT_FORCE_I4 / VCT_FORCE_I8 debug flags (fixed off, no environment
-variable is read).  The constructor raises on perceptual RDO, and the
-decoder on weighted-prediction streams.  Kept: CAVLC and CABAC (Main
-and High profile: the 8x8 transform and I_8x8), hard, trellis and
-adaptive-rounding quantization, the intra MB of a B slice.
+comment giving the original's line.  Cut: the VCT_FORCE_I4 /
+VCT_FORCE_I8 debug flags (fixed off, no environment variable is read)
+and the trace / statistics wrappers of the CABAC coder.  Kept: CAVLC
+and CABAC (Main and High profile: the 8x8 transform and I_8x8), hard,
+trellis and adaptive-rounding quantization, perceptual RDO ("att",
+"ssim": the saliency model of ops/metrics.py runs on the encoder's
+`device`, the card unless the caller passes "cpu"), the intra MB of a
+B slice.
 
 Toolset: baseline, Main and High profile, 4:2:0 8-bit, I slices of
 I_16x16, I_4x4 and I_8x8 macroblocks, in-loop deblocking.
@@ -24,6 +25,7 @@ cabac.c (entropy/h264_cabac.py), lcommon transform.c + spec 8.5.10-12
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from video_codecs_tpu_torch.entropy import cavlc
 from video_codecs_tpu_torch.entropy import h264_cabac as hc
@@ -200,16 +202,6 @@ def parse_pps(rbsp: bytes, full: bool = False):
                                     weighted_bipred_idc,
                                     "transform_8x8_mode": trans8}
     return dbf_present, cabac
-
-
-def _checked_pps(rbsp: bytes):
-    """parse_pps(full=True) for the streams this decoder reads: raises
-    NotImplementedError on weighted prediction.
-    Returns (deblocking_filter_control_present, cabac, info)."""
-    dbf_present, cabac, info = parse_pps(rbsp, full=True)
-    if info["weighted_pred"] or info["weighted_bipred_idc"]:
-        raise NotImplementedError("weighted prediction is not decoded")
-    return dbf_present, cabac, info
 
 
 # ---------------------------------------------------------------------------
@@ -501,41 +493,77 @@ class NcGrid:
         self.tc[by, bx] = total
 
 
+# video_codecs_tpu/models/h264/intra_codec.py:463
+def block_ssim(a: np.ndarray, b: np.ndarray) -> float:
+    """Single-window SSIM over one block (stvssim.c compute_SSIM per-MB
+    distortion, one window = the whole block)."""
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    ma, mb_ = a.mean(), b.mean()
+    cov = ((a - ma) * (b - mb_)).mean()
+    return float(((2 * ma * mb_ + c1) * (2 * cov + c2)) /
+                 ((ma * ma + mb_ * mb_ + c1) * (a.var() + b.var() + c2)))
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 
 # video_codecs_tpu/models/h264/intra_codec.py:479
 class H264IntraEncoder:
+    """`device` runs the perceptual model's saliency maps (`perceptual`
+    "att"): the card unless the caller passes "cpu"."""
+
     # video_codecs_tpu/models/h264/intra_codec.py:480
     def __init__(self, width: int, height: int, qp: int = 28,
                  deblock: bool = True, entropy: str = "cavlc",
                  perceptual: str = "", quant: str = "normal",
-                 transform8x8: bool = False) -> None:
+                 transform8x8: bool = False, device="cuda") -> None:
         assert width % 16 == 0 and height % 16 == 0
         assert entropy in ("cavlc", "cabac")
         assert quant in ("normal", "trellis", "around")
         self.transform8x8 = transform8x8   # High profile: I_8x8 + T8x8
-        if perceptual:
-            raise NotImplementedError(
-                f"perceptual={perceptual!r}: no perceptual RDO")
         if quant == "around":
             self._around = h264_rdoq.AdaptiveRounding()
         self.w, self.h, self.qp = width, height, qp
         self.deblock = deblock
         self.entropy = entropy
         self.quant = quant   # "trellis" = soft-decision (rdoq.c analog)
+        # perceptual RDO (stvssim fork parity): "att" = saliency-driven
+        # per-MB lambda (mode_decision.c:140-151 adjust_lambda);
+        # "ssim" = SSIM-augmented mode-decision distortion
+        # (rdopt.c:469-481 SSE + scale*(1-SSIM)). Combine with "att+ssim".
+        self.att = "att" in perceptual
+        self.ssim_rdo = "ssim" in perceptual
+        self.ssim_weight = 1024.0   # rdopt.c ssimscale analog (per 16x16)
+        self._eta = None            # per-MB lambda weights, set per frame
+        self._prev_y = None
+        self.device = torch.device(device)
 
     # video_codecs_tpu/models/h264/intra_codec.py:512
     def _quant_ac(self, wt, qp, intra: bool = True) -> np.ndarray:
         """Luma AC quantization: hard (quant4x4_normal.c) or trellis
         (quant4x4_trellis.c/rdoq.c) per the `quant` option."""
         if self.quant == "trellis":
+            from video_codecs_tpu_torch.ops import h264_rdoq
             lam = 0.85 * 2.0 ** ((qp - 12) / 3.0)
             return h264_rdoq.trellis_quant_ac(wt, qp, lam, intra)
         if self.quant == "around":
             return self._around.quant_ac(wt, qp, intra)
         return ht.quant_ac(wt, qp, intra)
+
+    # video_codecs_tpu/models/h264/intra_codec.py:523
+    def _att_eta(self, y) -> np.ndarray:
+        """Per-MB lambda modulation from the Gabor/motion saliency model
+        (attention.c/spatialattention.c -> att_mbWgt -> adjust_lambda).
+        The maps are made on `self.device`; the previous picture stays
+        there."""
+        from video_codecs_tpu_torch.ops import metrics
+        sal = metrics.saliency_map(y, self._prev_y, device=self.device)
+        eta = metrics.attention_lambda_weights(sal, block=16).cpu().numpy()
+        self._prev_y = torch.as_tensor(np.asarray(y), device=self.device)
+        return eta
 
     # video_codecs_tpu/models/h264/intra_codec.py:532
     def encode_sequence(self, frames) -> tuple[bytes, list]:
@@ -557,6 +585,8 @@ class H264IntraEncoder:
         qp = self.qp
         qpc = int(ht.CHROMA_QP[min(max(qp, 0), 51)])
         mbw, mbh = self.w // 16, self.h // 16
+        if self.att:
+            self._eta = self._att_eta(y)
         yv, uv, vv = (p.astype(np.int32) for p in (y, u, v))
         rec_y = np.zeros_like(yv)
         rec_u = np.zeros_like(uv)
@@ -578,7 +608,10 @@ class H264IntraEncoder:
         if poc is not None:  # pic_order_cnt_lsb (poc_type 0 streams)
             w.write(poc & 0xFFFF, 16)
         w.flag(0)            # dec_ref_pic_marking: no_output_of_prior_pics
-        w.flag(0)            # long_term_reference_flag
+        # long_term_reference_flag: subclasses that keep the IDR as a
+        # long-term reference (H264Encoder long_term=True) must signal
+        # it here or decoder DPBs keep it short-term (spec 8.2.5.1).
+        w.flag(1 if getattr(self, "long_term", False) else 0)
         w.se(qp - 26)        # slice_qp_delta
         if self.deblock:
             w.ue(0)          # disable_deblocking_filter_idc = 0 (on)
@@ -589,6 +622,7 @@ class H264IntraEncoder:
 
         ce = None
         if self.entropy == "cabac":
+            from video_codecs_tpu_torch.entropy import h264_cabac as hc
             ce = hc.H264CabacEncoder(w, "I", qp)
             self._cbf = hc.CbfState(mbw, mbh)
             self._cbp_arr = np.zeros((mbh, mbw), np.int32)
@@ -607,6 +641,7 @@ class H264IntraEncoder:
         if self.deblock:
             # intra pred above used the unfiltered recon (spec 8.3); the
             # output picture is the deblocked one (spec 8.7).
+            from video_codecs_tpu_torch.ops.h264_deblock import deblock_frame_intra
             rec_y, rec_u, rec_v = deblock_frame_intra(
                 rec_y, rec_u, rec_v, qp, qpc,
                 trans8=self._trans8 if self._trans8.any() else None)
@@ -623,6 +658,8 @@ class H264IntraEncoder:
         mbw = self.w // 16
         avail_t, avail_l = mby > 0, mbx > 0
         lam = 0.85 * 2.0 ** ((qp - 12) / 3.0)
+        if self._eta is not None:
+            lam *= float(self._eta[mby, mbx])
         orig = yv[y:y + 16, x:x + 16]
 
         # ---- I_16x16 candidate ----
@@ -680,6 +717,12 @@ class H264IntraEncoder:
             cost4_bits += 1 if m4 == pm else 4
         cost4 = int(np.abs(rec_trial[y:y + 16, x:x + 16] - orig).sum()) + \
             round(lam * cost4_bits)
+        if self.ssim_rdo:
+            # rdopt.c:469-481 semantics: D = SAD + scale*(1 - SSIM(rec))
+            cost16 += round(self.ssim_weight * (1.0 - block_ssim(orig, rec16)))
+            cost4 += round(self.ssim_weight *
+                           (1.0 - block_ssim(
+                               orig, rec_trial[y:y + 16, x:x + 16])))
         # ---- I_8x8 candidate (High profile; trial recon like I_4x4) ----
         modes4_cells = self._mode4[mby * 4:mby * 4 + 4,
                                    mbx * 4:mbx * 4 + 4].copy()
@@ -717,6 +760,10 @@ class H264IntraEncoder:
                 cost8_bits += 1 if m8 == pm else 4
             cost8 = int(np.abs(rec_t8[y:y + 16, x:x + 16] - orig).sum()) + \
                 round(lam * cost8_bits)
+            if self.ssim_rdo:
+                cost8 += round(self.ssim_weight *
+                               (1.0 - block_ssim(
+                                   orig, rec_t8[y:y + 16, x:x + 16])))
 
         use_i8 = (cost8 is not None and
                   ((cost8 < cost16 and cost8 <= cost4) or
@@ -921,6 +968,7 @@ class H264IntraEncoder:
         writeIntraPredMode, writeCIPredMode, writeCBP, writeDquant,
         writeRunLevel (via entropy/h264_cabac.py).
         """
+        from video_codecs_tpu_torch.entropy import h264_cabac as hc
         zz = cavlc.ZIGZAG_4x4
         cbf = self._cbf
         mbw, mbh = self.w // 16, self.h // 16
@@ -1092,6 +1140,7 @@ class H264IntraDecoder:
 
     # video_codecs_tpu/models/h264/intra_codec.py:1102
     def decode(self, stream: bytes) -> list:
+        from video_codecs_tpu_torch.entropy.bitstream import split_annexb
         frames = []
         for nal in split_annexb(stream):
             nal_type = nal[0] & 0x1F
@@ -1100,7 +1149,8 @@ class H264IntraDecoder:
                 wmb, hmb, self.sps_info = parse_sps(rbsp, full=True)
                 self.size = (wmb, hmb)
             elif nal_type == NAL_PPS:
-                self.dbf_present, self.cabac, ppsi = _checked_pps(rbsp)
+                self.dbf_present, self.cabac, ppsi = \
+                    parse_pps(rbsp, full=True)
                 self.trans8_enabled = ppsi["transform_8x8_mode"]
             elif nal_type in (NAL_SLICE_IDR, 1):
                 frames.append(self._decode_slice(rbsp))
@@ -1187,6 +1237,7 @@ class H264IntraDecoder:
                     self._decode_i16_mb(r, mb_type - 1, rec_y, rec_u, rec_v,
                                         nc_y, nc_u, nc_v, mbx, mby, qp, qpc)
         if dbf_idc != 1:
+            from video_codecs_tpu_torch.ops.h264_deblock import deblock_frame_intra
             rec_y, rec_u, rec_v = deblock_frame_intra(
                 rec_y, rec_u, rec_v, qp, qpc, aoff, boff,
                 trans8=trans8 if trans8.any() else None)
@@ -1196,6 +1247,7 @@ class H264IntraDecoder:
     def _decode_slice_mbs_cabac(self, r, qp, qpc, rec_y, rec_u, rec_v,
                                 mode4, is_i4, pred_mode4, trans8=None):
         """CABAC I-slice MB loop (mirror of _write_mb_cabac)."""
+        from video_codecs_tpu_torch.entropy import h264_cabac as hc
         from video_codecs_tpu_torch.models.h264 import intra8
         mbw, mbh = self.size
         if trans8 is None:
