@@ -21,7 +21,10 @@ I_8x8) and with B slices (spatial direct) at 176x144, and the rest of
 that coder's options at 176x144 -- long-term references with MMCO and
 list reordering, weighted prediction, perceptual RDO, intra refresh with
 an SEI stream sent over RTP with loss and concealed by its receivers --
-in phases:
+and HEVC's parallel tools at 1920x1072 (tiles, the tile columns coded
+as one batch; WPP), the encoder CLI on HM's all-intra structure with
+tiles at 832x480 and the host quadtree RD encoder at 192x128, in
+phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -300,20 +303,51 @@ in phases:
      e. h264-conf-cuda-vs-cpu: a-d at 64x48 on the card and with
         device="cpu": byte-equal streams, the SAD launches on the card,
         none on the CPU;
- 17. require that nothing of the JAX package was imported, in this
+ 17. HEVC tiles, WPP and the rest of the host paths (no SAD or RDOQ
+     launch; SAO statistics in c):
+     a. hevc-tiles: `parallel.tiles.encode_sequence_tiles` at 1920x1072
+        with 4 uniform tile columns of 30 CTBs (`tiles_cfg`: QP 32, rdoq
+        off, deblocking and the hash SEI on) over 3 pictures of
+        synth_clip(1920, 1072, 3, seed=5): the columns stacked as one
+        batch, 162 diagonals of 4 tiles' blocks (252 untiled); per
+        picture the tile batch's device ms, the host ms (the slice writer
+        with 4 substreams, the hash SEI) and the same picture's device ms
+        untiled; `IntraEncoder(cfg).encode_sequence` gives the same
+        bytes; TILES_SHA1 (scripts/jax_reference_sha1.py --tiles); the
+        port's GeneralDecoder and IntraDecoder hash OK 3 of 3 with the
+        encoder's pictures (`phase_hevc_tiles`);
+     b. hevc-wpp: the same clip and settings with WPP through
+        `IntraEncoder` on the card (one substream per CTB row), checked
+        the same way against WPP_SHA1 (--wpp);
+     c. cli-ai-tiles: the port's encoder CLI on HM's all-intra structure
+        (`hm_cli_files(..., "ai", tile_columns=2)`: RDOQ 1, SAO 1,
+        SignHideFlag 1) at 832x480 over 3 pictures: the host CTB loop
+        tile by tile with the full RDOQ, 3 SAO launches a picture (9);
+        per picture the loop, the SAO decision and the slice writer;
+        CLI_AI_TILES_SHA1 (--cli-ai-tiles); the port's decoder CLI (OK)
+        3 of 3 (`phase_cli_ai_tiles`);
+     d. hevc-qt-host: `QuadtreeIntraEncoder` on the card at 192x128, CTB
+        32, full RDOQ and SBH: its mode sweeps on the card, QT_HOST_SHA1
+        (--qt-host), the port's GeneralDecoder and QuadtreeIntraDecoder
+        hash OK (`phase_hevc_qt_host`);
+ 18. require that nothing of the JAX package was imported, in this
      process or in any worker.
 
 The phases run in three stages, to end well inside the 1,200 s the
 script is given.  Stage 1, alone on the card: phases 1-2 and every
 kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a).
-Stage 2: the end-to-end phases of 4-15 (POOL_TASKS), WORKERS at a time,
+Stage 2: the end-to-end phases of 4-16, 17c and 17d (POOL_TASKS),
+WORKERS at a time,
 each worker a spawned process of its own on the same card with
 WORKER_THREADS CPU threads for torch; every phase zeroes the kernels'
 counts it reads, and its launches come back to this process, which
 prints each phase's output as the phase ends (so in the order they
 end, not in the order above) and stops every worker at the first
 failure.  Their times are taken beside three other phases sharing the
-host and the card.  Stage 3, alone again: phase 16, this slice's.
+host and the card.  Stage 3, alone on the card again: 17a and 17b, the
+1080p tile and WPP encodes, whose streams the port's decoders check in
+DECODERS spawned processes of their own while the card codes on
+(`run_stage3`).
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -361,14 +395,16 @@ from video_codecs_tpu_torch.models.hevc import intra_codec as hevc_intra_codec
 from video_codecs_tpu_torch.models.hevc import inter_codec as hevc_pc
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ra_codec as hevc_ra
-from video_codecs_tpu_torch.models.hevc import ratectrl
+from video_codecs_tpu_torch.models.hevc import encoder_dev, ratectrl
 from video_codecs_tpu_torch.models.hevc import sei as sei_mod
 from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops import transform as tr_ops
+from video_codecs_tpu_torch.parallel import tiles
 from video_codecs_tpu_torch.tools import decoder_app, encoder_app
 from video_codecs_tpu_torch.utils import yuv
+from video_codecs_tpu_torch.utils.device import to_device
 
 # Files this script writes (the resumed run's checkpoint), in the
 # repository's build directory.
@@ -791,6 +827,11 @@ Frame1:  P    1   3        0.4624   0            0              0           4   
 Frame2:  P    2   2        0.4624   0            0              0           4                4         -1 -2 -6 -10       1      -1       5         1 1 1 0 1
 Frame3:  P    3   3        0.4624   0            0              0           4                4         -1 -3 -7 -11       1      -1       5         0 1 1 1 1
 Frame4:  P    4   1        0.578    0            0              0           4                4         -1 -4 -8 -12       1      -1       5         0 1 1 1 1"""
+# encoder_intra_main.cfg's coding structure: every picture an IDR.
+HM_AI_STRUCTURE = """\
+IntraPeriod                   : 1           # Period of I-Frame ( -1 = only first)
+DecodingRefreshType           : 0           # Random Accesss 0:none, 1:CRA, 2:IDR, 3:Recovery Point SEI
+GOPSize                       : 1           # GOP Size (number of B slice = GOPSize-1)"""
 # The per-sequence cfg (hm-16.5rc1/cfg/per-sequence/, HM class C's
 # 832x480 layout) of a seeded clip.
 HM_SEQUENCE_CFG = """\
@@ -805,19 +846,26 @@ FramesToBeEncoded             : {n}         # Number of frames to be coded
 Level                         : 3.1
 """
 CLI_W, CLI_H = 832, 480
-CLI_RA_PICTURES, CLI_LDP_PICTURES = 9, 3
+CLI_RA_PICTURES, CLI_LDP_PICTURES, CLI_AI_PICTURES = 9, 3, 3
+# [cli-ai-tiles]: HM's all-intra structure with two tile columns (HM's
+# NumTileColumnsMinus1 : 1; 26 CTBs of 16 each, above its 256-sample
+# minimum).
+CLI_AI_TILE_COLUMNS = 2
 
 
 def hm_cli_files(d: Path, kind: str, frames, w: int = CLI_W,
-                 h: int = CLI_H) -> list:
-    """Write HM's main cfg of `kind` ("ra" or "ldp"), the per-sequence
-    cfg and the clip's YUV file into directory d; returns the encoder
-    CLI's arguments (`-c main -c sequence -i in.yuv -b out.bin -o
-    rec.yuv`, all in d)."""
+                 h: int = CLI_H, tile_columns: int = 1) -> list:
+    """Write HM's main cfg of `kind` ("ra", "ldp" or "ai") with
+    NumTileColumnsMinus1 = tile_columns - 1, the per-sequence cfg and the
+    clip's YUV file into directory d; returns the encoder CLI's arguments
+    (`-c main -c sequence -i in.yuv -b out.bin -o rec.yuv`, all in d)."""
     from video_codecs_tpu_torch.utils import yuv
-    structure = {"ra": HM_RA_STRUCTURE, "ldp": HM_LDP_STRUCTURE}[kind]
+    structure = {"ra": HM_RA_STRUCTURE, "ldp": HM_LDP_STRUCTURE,
+                 "ai": HM_AI_STRUCTURE}[kind]
     main = d / f"encoder_{kind}_main.cfg"
-    main.write_text(HM_MAIN_CFG.format(structure=structure))
+    tiles_line = "NumTileColumnsMinus1                : "
+    main.write_text(HM_MAIN_CFG.format(structure=structure).replace(
+        tiles_line + "0", tiles_line + str(tile_columns - 1)))
     seq = d / f"Synth_{w}x{h}.cfg"
     seq.write_text(HM_SEQUENCE_CFG.format(w=w, h=h, n=len(frames)))
     src = d / "in.yuv"
@@ -1168,6 +1216,48 @@ def hevc_cfg(w: int, h: int):
     return hevc_headers.HevcConfig(
         width=w, height=h, qp=HEVC_QP, log2_ctb=5, log2_min_cb=3,
         log2_max_tb=5, sign_data_hiding=True, rdoq="lite", hash_sei=True)
+
+
+# [hevc-tiles] / [hevc-wpp]: the flat CTB16 all-intra coder at the
+# headline's 1920x1072 on synth_clip(1920, 1072, 3, seed=5): QP 32, rdoq
+# off, deblocking and the MD5 hash SEI on; 4 uniform tile columns of 30
+# CTBs (480 samples, above HM's 256-sample minimum), or WPP.
+TILES_PICTURES, TILE_COLUMNS = 3, 4
+# The JAX package's streams on the CPU (scripts/jax_reference_sha1.py
+# --tiles --wpp --cli-ai-tiles --qt-host: parallel.tiles over 4 host
+# devices; encode_frame_jit + the WPP slice writer; its encoder CLI; its
+# QuadtreeIntraEncoder), the first three with the port's repaired slice
+# writers swapped in (entry points in EBSP bytes, ROADMAP queue 3
+# reference fault 16), each hash OK 3 of 3 (1 of 1) in its
+# GeneralDecoder with its pictures the encoder's: bytes and SHA-1.  As
+# written, the tile stream's SHA-1 is aa35efd1..., whose picture 2 (an
+# emulation prevention byte in its third substream) fails a spec
+# decoder's hash; the WPP and CLI streams hold no such byte.
+TILES_BYTES, TILES_SHA1 = 880842, "16444e8f08a7bf7d1b34fc75df8cee173ad4c355"
+WPP_BYTES, WPP_SHA1 = 881244, "0d81a19ee1e28276cec1e3c4112a74a967ab7a26"
+CLI_AI_TILES_BYTES = 239131
+CLI_AI_TILES_SHA1 = "c83787538f603f1b717a1138d7a039d90a602c33"
+QT_HOST_BYTES, QT_HOST_SHA1 = 3351, "82d2108c5b971d2d05f7065b85b1685518dae411"
+# [hevc-qt-host]: the host quadtree RD encoder (QuadtreeIntraEncoder) at
+# CTB 32 on one 192x128 picture of synth_clip(192, 128, 1, seed=5).
+QT_HOST_W, QT_HOST_H = 192, 128
+
+
+def tiles_cfg(w: int, h: int, tile_columns: int = TILE_COLUMNS,
+              wpp: bool = False):
+    """[hevc-tiles]' settings (`tile_columns` 1 and `wpp` for [hevc-wpp]
+    and the untiled timing): the HevcConfig defaults (CTB = CU = TU 16,
+    deblocking and the hash SEI on) at QP 32."""
+    return hevc_headers.HevcConfig(width=w, height=h, qp=HEVC_QP,
+                                   tile_columns=tile_columns, wpp=wpp)
+
+
+def qt_host_cfg(w: int, h: int):
+    """[hevc-qt-host]'s settings: CTB 32, min CU 8, max TB 32, QP 32, SBH
+    and HM's RDOQ : 1 (rdoq="full"), deblocking and the hash SEI on."""
+    return hevc_headers.HevcConfig(
+        width=w, height=h, qp=HEVC_QP, log2_ctb=5, log2_min_cb=3,
+        log2_max_tb=5, sign_data_hiding=True, rdoq="full")
 
 
 def rdoq_coeffs(cur: np.ndarray, ref: np.ndarray | None,
@@ -3969,6 +4059,282 @@ def phase_flat_ra_cuda_vs_cpu(sao: bool = False) -> None:
           f"{tg:.2f} s, cpu {tc:.2f} s")
 
 
+def decode_check(kind: str, stream: bytes) -> tuple:
+    """Decode an all-intra stream with the port's GeneralDecoder
+    ("general"), IntraDecoder ("intra") or QuadtreeIntraDecoder ("qt"):
+    (hash_status, SHA-1 of the pictures, seconds).  Stage 3 runs it in
+    processes of its own beside the card's encodes (host work only)."""
+    dec = {"general": hevc_decoder.GeneralDecoder,
+           "intra": hevc_intra_codec.IntraDecoder,
+           "qt": quadtree_codec.QuadtreeIntraDecoder}[kind]()
+    t0 = time.perf_counter()
+    pics = dec.decode(stream)
+    return list(dec.hash_status), pictures_sha1(pics), \
+        time.perf_counter() - t0
+
+
+def submit_decodes(pool, stream: bytes) -> dict:
+    """An all-intra stream's pictures are independent: submit each
+    picture (the parameter sets, its slice and its hash SEI) to `pool`
+    for the port's GeneralDecoder and IntraDecoder; returns {kind: [one
+    future of decode_check a picture]}."""
+    nals = hevc_bs.split_annexb(stream)
+    pics = [hevc_bs.annexb(nals[:3] + nals[k:k + 2])
+            for k in range(3, len(nals), 2)]
+    return {kind: [pool.submit(decode_check, kind, p) for p in pics]
+            for kind in ("general", "intra")}
+
+
+def check_decodes(tag: str, futs: dict, recons, n: int) -> str:
+    """Every decode of futs ({kind: futures of decode_check, a picture
+    each}) reports its hash OK and the encoder's picture; returns each
+    decoder's seconds, summed over the pictures."""
+    words = []
+    for kind, picture_futs in futs.items():
+        check(len(picture_futs) == n, f"[{tag}] {len(picture_futs)} "
+                                      f"pictures, not {n}")
+        secs = 0.0
+        for rec, fut in zip(recons, picture_futs):
+            status, sha, t = fut.result()
+            secs += t
+            check(status == [True],
+                  f"[{tag}] the port's {kind} decoder: hash OK {status}")
+            check(sha == pictures_sha1([rec]), f"[{tag}] the port's {kind} "
+                  "decoder's pictures are not the encoder's")
+        words.append(f"{kind} {secs:.2f} s")
+    return ", ".join(words)
+
+
+def _timed(obj, name: str, sink: list, sync: bool = False):
+    """Wrap obj.name so that each call appends its seconds to sink (the
+    card synchronised before and after with `sync`); returns a function
+    that restores the original."""
+    orig = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapped)
+    return lambda: setattr(obj, name, orig)
+
+
+def untiled_ms(y, u, v, cfg) -> float:
+    """Device ms of one picture through the untiled flat CTB16 encoder
+    (`encoder_dev.encode_frame`, tile_columns 1), as [hevc-tiles] times
+    the tile batch (`tiles.encode_tiles_dev`): the mode sweep, the
+    wavefront (252 diagonals at 1920x1072) and the deblock, synchronised,
+    without the upload and the copy back."""
+    bw, bh = cfg.width // 16, cfg.height // 16
+    with torch.inference_mode():
+        planes = [to_device(np.asarray(p, np.uint8), "cuda")
+                  for p in (y, u, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encoder_dev.encode_frame(*planes, cfg.qp, bw, bh)
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_hevc_tiles(pool, wpp: bool = False) -> tuple:
+    """Phase 17a/b, stage 3: the all-intra CTB16 coder at 1920x1072 on
+    TILES_PICTURES pictures of synth_clip(1920, 1072, 3, seed=5)
+    (`tiles_cfg`: QP 32, rdoq off, deblocking and the hash SEI on).
+    [hevc-tiles]: `parallel.tiles.encode_sequence_tiles` with 4 uniform
+    tile columns of 30 CTBs: the columns stacked as one batch, 162
+    diagonals of 4 tiles' blocks where the untiled picture has 252; per
+    picture the tile batch's device ms (`tiles.encode_tiles_dev`: the
+    sweep, the wavefront and the deblock of the assembled picture,
+    synchronised, without the upload and the copy back), the host
+    ms (the Python slice writer with its 4 substreams, the hash SEI) and,
+    before the decodes start, the same pictures' device ms untiled
+    (`untiled_ms`); `phase_tiles_untiled` prints them side by side and
+    holds `IntraEncoder(cfg).encode_sequence` on the card to the same
+    bytes.
+    [hevc-wpp] (`wpp`): `IntraEncoder` with WPP on the card (the
+    device encoder, then the WPP slice writer: one substream per CTB
+    row); per picture device ms (`_dispatch`, the upload included) and
+    host ms.  Each stream's SHA-1 is the JAX
+    package's (TILES_SHA1 / WPP_SHA1); the port's GeneralDecoder and
+    IntraDecoder decode it in `pool`'s processes (hash OK for every
+    picture, the encoder's pictures).  Returns (the decodes' futures, the
+    recons, (the clip, the stream, the device seconds a picture))."""
+    w, h, n = HEVC_W, HEVC_H, TILES_PICTURES
+    tag = "hevc-wpp" if wpp else "hevc-tiles"
+    frames = synth_clip(w, h, n, seed=5)
+    cfg = tiles_cfg(w, h, 1, True) if wpp else tiles_cfg(w, h)
+    bw, bh = w // 16, h // 16
+    tbw = bw // TILE_COLUMNS
+    dev_s, host_s = [], []
+    ic = hevc_intra_codec.IntraEncoder
+    undo = [_timed(ic, "_encode_slice", host_s),
+            _timed(ic, "_hash_sei", host_s)]
+    if wpp:
+        undo.append(_timed(ic, "_dispatch", dev_s, sync=True))
+    else:
+        undo.append(_timed(tiles, "encode_tiles_dev", dev_s, sync=True))
+    t0 = time.perf_counter()
+    try:
+        if wpp:
+            stream, recons = ic(cfg).encode_sequence(frames)
+        else:
+            stream, recons = tiles.encode_sequence_tiles(cfg, frames)
+    finally:
+        for f in undo:
+            f()
+    t_enc = time.perf_counter() - t0
+    # the untiled times before the decodes load the host, as the tile
+    # batch's were taken
+    untiled = [] if wpp else [untiled_ms(*f, cfg) for f in frames]
+    futs = submit_decodes(pool, stream)
+    sha = hashlib.sha1(stream).hexdigest()
+    want = (WPP_BYTES, WPP_SHA1) if wpp else (TILES_BYTES, TILES_SHA1)
+    check((len(stream), sha) == want,
+          f"[{tag}] {len(stream)} bytes, SHA-1 {sha}: not the JAX "
+          f"package's {want}")
+    for i in range(n):
+        print(f"[{tag}] POC {i}: device {1e3 * dev_s[i]:.1f} ms, host "
+              f"{1e3 * (host_s[2 * i] + host_s[2 * i + 1]):.1f} ms (slice "
+              f"writer {1e3 * host_s[2 * i]:.1f}, hash SEI "
+              f"{1e3 * host_s[2 * i + 1]:.1f})")
+    what = (f"WPP ({bh} substreams a picture)" if wpp else
+            f"{TILE_COLUMNS} tile columns of {tbw} CTBs")
+    entry = ("IntraEncoder.encode_sequence" if wpp
+             else "encode_sequence_tiles")
+    print(f"[{tag}] {w}x{h}, {n} pictures, {what}: {len(stream)} bytes, "
+          f"SHA-1 {sha[:12]}... = the JAX package's; {entry} "
+          f"{t_enc:.2f} s")
+    return futs, recons, (frames, stream, dev_s, untiled)
+
+
+def phase_tiles_untiled(frames, stream, dev_s, untiled) -> None:
+    """The rest of [hevc-tiles], while the decoders run: each picture's
+    device ms untiled (`untiled_ms`, 252 diagonals, taken before the
+    decodes started) beside the tile batch's (162 diagonals of 4 tiles'
+    blocks), and `IntraEncoder(cfg).encode_sequence` on the card, whose
+    device route takes the tile batch: the same bytes."""
+    w, h = HEVC_W, HEVC_H
+    cfg = tiles_cfg(w, h)
+    bw, bh = w // 16, h // 16
+    tbw = bw // TILE_COLUMNS
+    steps_t, steps_f = tbw + 2 * (bh - 1), bw + 2 * (bh - 1)
+    check((steps_t, steps_f) == (162, 252),
+          f"[hevc-tiles] diagonals {steps_t} / {steps_f}")
+    for i in range(len(frames)):
+        print(f"[hevc-tiles] POC {i}: tile batch {1e3 * dev_s[i]:.1f} ms of "
+              f"device time ({steps_t} diagonals), the same picture "
+              f"untiled {untiled[i]:.1f} ms ({steps_f})")
+    t0 = time.perf_counter()
+    again, _ = hevc_intra_codec.IntraEncoder(cfg).encode_sequence(frames)
+    check(again == stream, "[hevc-tiles] IntraEncoder(cfg).encode_sequence "
+                           "!= parallel.tiles' stream")
+    print(f"[hevc-tiles] IntraEncoder(cfg).encode_sequence on the card: the "
+          f"same bytes, {time.perf_counter() - t0:.2f} s")
+
+
+def phase_cli_ai_tiles() -> int:
+    """Phase cli-ai-tiles: the port's encoder CLI on HM's all-intra
+    structure (`hm_cli_files(d, "ai", ..., tile_columns=2)`:
+    IntraPeriod 1, RDOQ 1, SAO 1, SignHideFlag 1, NumTileColumnsMinus1
+    1) over CLI_AI_PICTURES pictures of bench_synth_clip(832, 480, 3), in
+    this process: it builds `IntraEncoder` on the card, whose host CTB
+    loop codes the two tile columns one after the other with the full
+    RDOQ on the host, deblocks on the card and decides SAO from the SAO
+    kernel's statistics (3 launches a picture, 9 in all).  Per picture
+    the host loop (with its deblock), the SAO decision and the slice
+    writer; CLI_AI_TILES_SHA1; the port's decoder CLI "(OK)" for 3 of 3
+    and its output file the recon file.  Returns the SAO launches."""
+    w, h, n = CLI_W, CLI_H, CLI_AI_PICTURES
+    tag = "cli-ai-tiles"
+    frames = bench_synth_clip(w, h, n)
+    d = BUILD_DIR / "cli_ai_tiles"
+    d.mkdir(parents=True, exist_ok=True)
+    argv = hm_cli_files(d, "ai", frames, w, h,
+                        tile_columns=CLI_AI_TILE_COLUMNS)
+    ic = hevc_intra_codec.IntraEncoder
+    loop_s, sao_s, cabac_s = [], [], []
+    undo = [_timed(ic, "_encode_frame_host", loop_s, sync=True),
+            _timed(ic, "_sao_decide_apply", sao_s, sync=True),
+            _timed(ic, "_encode_slice", cabac_s)]
+    try:
+        out, err, t_enc, sad_n, sao_n, rdoq_n, rdoq_ref, sao_ref = \
+            _cli_launches(encoder_app.main, argv)
+    finally:
+        for f in undo:
+            f()
+    for ln in out.strip().splitlines():
+        print(f"[{tag}] {ln}")
+    check(sao_n == 3 * n and sao_ref == 0 and sad_n == 0 and rdoq_n == 0
+          and rdoq_ref == 0,
+          f"[{tag}] sao_stats launches {sao_n} (want {3 * n}), plain SAO "
+          f"{sao_ref}, SAD {sad_n}, rdoq_dev {rdoq_n}, plain RDOQ "
+          f"{rdoq_ref}")
+    stream = (d / "out.bin").read_bytes()
+    sha = hashlib.sha1(stream).hexdigest()
+    check((len(stream), sha) == (CLI_AI_TILES_BYTES, CLI_AI_TILES_SHA1),
+          f"[{tag}] {len(stream)} bytes, SHA-1 {sha}: not the JAX "
+          "package's")
+    for i in range(n):
+        print(f"[{tag}] POC {i}: host CTB loop (full RDOQ, the deblock on "
+              f"the card) {1e3 * loop_s[i]:.1f} ms, SAO decision "
+              f"{1e3 * sao_s[i]:.1f} ms, slice writer "
+              f"{1e3 * cabac_s[i]:.1f} ms")
+    t_app = _decoder_app(tag, d, n)
+    print(f"[{tag}] HM's all-intra structure with {CLI_AI_TILE_COLUMNS} "
+          f"tile columns through the port's encoder CLI: {w}x{h}, {n} "
+          f"pictures, {len(stream)} bytes, SHA-1 {sha[:12]}... = the JAX "
+          f"package's; encoder_app.main {t_enc:.2f} s; sao_stats launches "
+          f"{sao_n}, SAD 0, rdoq_dev 0; the port's decoder_app: (OK) for "
+          f"{n} of {n}, its output file equals the recon file, "
+          f"{t_app:.2f} s; {len(err.splitlines())} warnings")
+    return sao_n
+
+
+def phase_hevc_qt_host() -> None:
+    """Phase hevc-qt-host: `QuadtreeIntraEncoder`, the host quadtree RD
+    encoder, on the card (`qt_host_cfg`: CTB 32, min CU 8, QP 32, SBH,
+    the full RDOQ on the host) over one 192x128 picture of
+    synth_clip(192, 128, 1, seed=5): each node's 35-mode prediction on
+    the card (`_best_mode`, one call and one copy back), the deblock on
+    the card; QT_HOST_SHA1; the port's GeneralDecoder and
+    QuadtreeIntraDecoder hash OK with the encoder's picture."""
+    w, h = QT_HOST_W, QT_HOST_H
+    tag = "hevc-qt-host"
+    enc = quadtree_codec.QuadtreeIntraEncoder(qt_host_cfg(w, h))
+    modes_s = []
+    undo = _timed(enc, "_best_mode", modes_s, sync=True)
+    t0 = time.perf_counter()
+    try:
+        nals, rec = enc.encode_frame(*synth_clip(w, h, 1, seed=5)[0])
+    finally:
+        undo()
+    t_enc = time.perf_counter() - t0
+    stream = hevc_bs.annexb(enc.stream_headers() + nals)
+    sha = hashlib.sha1(stream).hexdigest()
+    check((len(stream), sha) == (QT_HOST_BYTES, QT_HOST_SHA1),
+          f"[{tag}] {len(stream)} bytes, SHA-1 {sha}: not the JAX "
+          "package's")
+    words = []
+    for kind in ("general", "qt"):
+        status, pic_sha, secs = decode_check(kind, stream)
+        check(status == [True] and pic_sha == pictures_sha1([rec]),
+              f"[{tag}] the port's {kind} decoder: hash {status}, "
+              "pictures the encoder's: " + str(pic_sha ==
+                                                pictures_sha1([rec])))
+        words.append(f"{kind} {secs:.2f} s")
+    print(f"[{tag}] QuadtreeIntraEncoder on the card, {w}x{h} at CTB 32: "
+          f"{len(stream)} bytes, SHA-1 {sha[:12]}... = the JAX package's; "
+          f"encode_frame {t_enc:.2f} s, of it {len(modes_s)} mode sweeps "
+          f"on the card {sum(modes_s):.2f} s; the port's decoders hash OK "
+          f"1 of 1 with the encoder's picture ({', '.join(words)})")
+
+
 def jax_modules() -> list:
     """The modules of the JAX package or of JAX this process imported."""
     return [m for m in sys.modules
@@ -4007,6 +4373,7 @@ POOL_TASKS = [
     ("hevc-ldp-wp", pick, (phase_hevc_ldp_host, (0, 2), "wp"), {}),
     ("hevc-ldp-dqp", pick, (phase_hevc_ldp_host, 0, "dqp"), {}),
     ("hevc-hierb", pick, (phase_hevc_flat, (0, 1), "hierb"), {}),
+    ("cli-ai-tiles", phase_cli_ai_tiles, (), {}),
     ("ra-cuda-vs-cpu", phase_ra_cuda_vs_cpu, (), {}),
     ("hevc-ra-sao", phase_hevc_ra, (), {"sao": True}),
     ("hevc-ldp-rc", task_ldp_rc, (), {}),
@@ -4029,6 +4396,12 @@ POOL_TASKS = [
     ("h264-high", phase_h264_high_b, ("high",), {}),
     ("h264-b", phase_h264_high_b, ("b",), {}),
     ("h264-hb-cuda-vs-cpu", phase_h264_hb_cuda_vs_cpu, (), {}),
+    ("h264-conf-cuda-vs-cpu", phase_h264_conf_cuda_vs_cpu, (), {}),
+    ("h264-loss", phase_h264_conf, ("loss",), {}),
+    ("h264-ltr", phase_h264_conf, ("ltr",), {}),
+    ("h264-wp", phase_h264_conf, ("wp",), {}),
+    ("h264-perc", phase_h264_conf, ("perc",), {}),
+    ("hevc-qt-host", phase_hevc_qt_host, (), {}),
 ]
 # Processes stage 2 runs its phases in, and the CPU threads each gives
 # torch: the host has 8 cores.
@@ -4099,6 +4472,39 @@ def run_pool(tasks: list) -> dict:
     return results
 
 
+def run_stage3() -> None:
+    """Stage 3: [hevc-tiles] (with its untiled times), [hevc-wpp], then
+    the IntraEncoder check of [hevc-tiles], alone on the card; each
+    stream's pictures go to the GeneralDecoder and the IntraDecoder one
+    by one in DECODERS spawned processes (host work) while the card codes
+    on, and every decode must report its hash OK with the encoder's
+    picture.  A failure stops the decoders."""
+    n = TILES_PICTURES
+    dpool = concurrent.futures.ProcessPoolExecutor(
+        DECODERS, mp_context=multiprocessing.get_context("spawn"))
+    done = False
+    try:
+        t_f, t_rec, tiled = phase_hevc_tiles(dpool)
+        w_f, w_rec, _ = phase_hevc_tiles(dpool, wpp=True)
+        phase_tiles_untiled(*tiled)
+        for tag, futs, recons in (("hevc-tiles", t_f, t_rec),
+                                  ("hevc-wpp", w_f, w_rec)):
+            times = check_decodes(tag, futs, recons, n)
+            print(f"[{tag}] the port's decoders, a picture at a time: hash "
+                  f"OK {n} of {n} with the encoder's pictures in each "
+                  f"({times} of decoding)")
+        done = True
+    finally:
+        if not done:
+            for proc in list((dpool._processes or {}).values()):
+                proc.terminate()
+        dpool.shutdown(wait=True, cancel_futures=True)
+
+
+# Processes that decode stage 3's streams beside the card's encodes.
+DECODERS = 4
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device: this run needs a GPU")
@@ -4149,13 +4555,15 @@ def main() -> None:
     jm_base = res["jm-baseline"]
     h264_high = res["h264-high"]
     h264_b = res["h264-b"]
-    # Stage 3: this slice's paths, alone again.
-    t3 = time.perf_counter()
-    conf = {kind: phase_h264_conf(kind)
+    conf = {kind: res[f"h264-{kind}"]
             for kind in ("ltr", "wp", "perc", "loss")}
-    phase_h264_conf_cuda_vs_cpu()
-    print(f"[time] stage 3 (phase 16 alone) {time.perf_counter() - t3:.1f} "
-          "s")
+    cli_ai_sao = res["cli-ai-tiles"]
+    # Stage 3: this slice's 1080p paths, alone on the card; the port's
+    # decoders check their streams in processes of their own meanwhile.
+    t3 = time.perf_counter()
+    run_stage3()
+    print(f"[time] stage 3 ([hevc-tiles], [hevc-wpp] and their decodes) "
+          f"{time.perf_counter() - t3:.1f} s")
     jax_mods = jax_modules()
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported, "
@@ -4167,7 +4575,7 @@ def main() -> None:
                 cli_ra_sad + cli_ldp_sad + jm_main + jm_base + h264_high +
                 h264_b + sum(conf.values()))
     sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
-               cli_ldp_sao)
+               cli_ldp_sao + cli_ai_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
           f"with SAO {ra_sao_sad}, LD-P run {ldp_launches}, LD-P SAO run "
           f"{ldp_sao}, LD-P conferencing run {ldp_conf}, LD-P TZ run "
@@ -4189,7 +4597,8 @@ def main() -> None:
           f"launches: RA GOP with SAO {sao_launches}, LD-P SAO run "
           f"{ldp_sao_stats}, flat RA GOP with SAO {flat_sao_stats}, host "
           f"LD-P run {host_sao}, the encoder CLI on HM's LD-P main cfg "
-          f"{cli_ldp_sao}, together {sao_all} (the plain version 0 "
+          f"{cli_ldp_sao} and on its all-intra structure with tiles "
+          f"{cli_ai_sao}, together {sao_all} (the plain version 0 "
           "times in them); its "
           "times and bound are per 1080p RA picture (3 planes; the flat "
           "shapes' on the sao_stats_flat line)")

@@ -69,7 +69,8 @@ JAX_CACHE_MIN_COMPILE_S = 0.2
 
 #: (leader, follower): the follower compiles the leader's JAX encoder at
 #: the leader's size and settings, so it reads the leader's programs
-#: from the shared cache when it runs after it
+#: from the shared cache when it runs after it (and, on the same worker,
+#: the eager operations the leader compiled)
 _TWINS = (
     ("tests/test_inter_qt.py::test_qt_ra_cu8_and_multiref_roundtrip",
      "tests/test_torch_hevc_ra.py::test_ra_cu8_two_refs_per_list"),
@@ -126,6 +127,18 @@ _TWINS = (
     ("tests/test_metrics_tools.py::test_saliency_and_lambda_weights",
      "tests/test_torch_h264_conf.py::"
      "test_perceptual_stream_equal[att+ssim-size0]"),
+    ("tests/test_tiles.py::test_shard_map_tiles_match_host[2]",
+     "tests/test_torch_hevc_tiles.py::test_tile_batch_equals_jax_shard_map"),
+    ("tests/test_encoder_jax.py::test_fast_path_matches_host_path",
+     "tests/test_torch_hevc_tiles.py::test_wpp_equals_jax_and_decodes"),
+    ("tests/test_quadtree.py::test_quadtree_roundtrip[4]",
+     "tests/test_torch_hevc_tiles.py::"
+     "test_quadtree_intra_encoder_equals_jax[ctb16]"),
+    ("tests/test_quadtree.py::test_quadtree_roundtrip[5]",
+     "tests/test_torch_hevc_tiles.py::"
+     "test_quadtree_intra_encoder_equals_jax[ctb32]"),
+    ("tests/test_quadtree.py::test_dump_mode_statistics",
+     "tests/test_torch_hevc_tiles.py::test_dump_mode_statistics_equals_jax"),
 )
 
 #: seconds of the other long tests in a 6-worker run without the shared

@@ -5,7 +5,8 @@ the port's to, computed with the JAX package on the CPU.
         [--ldp-tz] [--ra-tz] [--ldp-rc] [--flat-ra] [--hierb] \
         [--ldp-sao] [--ldp-conf] [--ldp-host] [--ldp-wp] [--ldp-dqp] \
         [--cli-ra] [--jm-main] [--jm-baseline] [--h264-high] [--h264-b] \
-        [--h264-ltr] [--h264-wp] [--h264-perc] [--h264-loss] [--no-ldp]
+        [--h264-ltr] [--h264-wp] [--h264-perc] [--h264-loss] \
+        [--tiles] [--wpp] [--cli-ai-tiles] [--qt-host] [--no-ldp]
 
 LD-P: bench.py's `bench_ldp_480` (bench.py:171-186) on bench.py's clip,
 `inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)` with the config's
@@ -83,7 +84,17 @@ reordering over 9 pictures, weighted prediction at [jm-main]'s settings
 on 5 faded pictures, perceptual RDO over 5, and intra refresh over 12,
 whose stream --h264-loss then sends through `chip_smoke.h264_lossy` (the
 JAX package's SEI and RTP modules) and decodes with both concealment
-modes, printing the `concealed` lists and the pictures' SHA-1.  This is
+modes, printing the `concealed` lists and the pictures' SHA-1.
+--tiles, --wpp, --cli-ai-tiles and --qt-host give the SHA-1s of
+chip_smoke.py's `[hevc-tiles]` (`parallel.tiles.encode_sequence_tiles`
+with its 4 tile columns on 4 forced host devices), `[hevc-wpp]` (the
+device encoder `encode_frame_jit` then the WPP slice writer, which
+tests/test_encoder_jax.py:9 holds to the host loop at rdoq off),
+`[cli-ai-tiles]` (the JAX encoder CLI on HM's all-intra structure with
+2 tile columns) and `[hevc-qt-host]` (`QuadtreeIntraEncoder`), each
+decoded by the JAX package's GeneralDecoder; the first three with the
+port's repaired tile / WPP slice writers swapped in (entry points in
+EBSP bytes, `repair_entry_points`).  This is
 a tool for the reference side: it
 imports the JAX package, the port's `motion` module for the repaired
 function and the port's decoders for a second opinion.
@@ -102,7 +113,15 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "--tiles" in sys.argv:
+    # parallel.tiles shards the tile columns over one host device each,
+    # which XLA creates only when asked before JAX's first use
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") +
+        " --xla_force_host_platform_device_count=4").strip()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -453,6 +472,137 @@ def h264_conf(kind: str) -> None:
               f"{chip_smoke.pictures_sha1(got)}", flush=True)
 
 
+def intra_frames(frames_fn, enc, cfg) -> tuple[bytes, list]:
+    """The JAX package's device CTB16 encoder (`encode_frame_jit`) for
+    every picture, then `enc`'s Python slice writer (`_encode_slice`,
+    which takes `_encode_slice_wpp` with WPP) and hash SEI, as
+    `serialize_frame` assembles them: (Annex B stream, recons)."""
+    import jax
+    from video_codecs_tpu.models.hevc import encoder_jax
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    bw, bh = cfg.width // 16, cfg.height // 16
+    nals, recons = enc.stream_headers(), []
+    for (y, u, v) in frames_fn:
+        st = jax.device_get(encoder_jax.encode_frame_jit(
+            y, u, v, cfg.qp, bw, bh, deblock=not cfg.deblocking_disabled,
+            sbh=cfg.sign_data_hiding, rdoq=bool(cfg.rdoq)))
+        cbf, modes = st["cbf"], st["modes"].reshape(-1)
+        ctus = [jic.CtuData(
+            mode=int(modes[i]),
+            levels_y=st["levels_y"][i] if cbf[0, i] else None,
+            levels_cb=st["levels_cb"][i] if cbf[1, i] else None,
+            levels_cr=st["levels_cr"][i] if cbf[2, i] else None)
+            for i in range(bw * bh)]
+        rec = (st["rec_y"], st["rec_u"], st["rec_v"])
+        nals += [enc._encode_slice(ctus), enc._hash_sei(*rec)]
+        recons.append(rec)
+    return bitstream.annexb(nals), recons
+
+
+def repair_entry_points() -> None:
+    """Swap the port's repaired tile / WPP slice writers
+    (`IntraEncoder._encode_slice` and `_encode_slice_wpp`, whose entry
+    points count the substreams' bytes with their emulation prevention
+    bytes) into the JAX package's IntraEncoder, in memory (reference
+    fault 16: it counts RBSP bytes, and a spec decoder misplaces every
+    substream after an emulation prevention byte)."""
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    from video_codecs_tpu_torch.models.hevc import intra_codec as tic
+    jic.IntraEncoder._encode_slice = tic.IntraEncoder._encode_slice
+    jic.IntraEncoder._encode_slice_wpp = tic.IntraEncoder._encode_slice_wpp
+
+
+def intra_report(what: str, stream: bytes, recons, n: int, t: float) -> None:
+    """Bytes and SHA-1 of an all-intra stream, and the JAX package's
+    GeneralDecoder's hash results and whether its pictures are the
+    encoder's (its IntraDecoder reads the entry points as RBSP sizes, as
+    its writer signals them, so it is not asked)."""
+    print(f"{what}: {len(stream)} bytes, SHA-1 "
+          f"{hashlib.sha1(stream).hexdigest()}, encode {t:.1f} s",
+          flush=True)
+    t0 = time.time()
+    dec = decoder.GeneralDecoder()
+    out = dec.decode(stream)
+    same = all(np.array_equal(np.asarray(o[c]), np.asarray(r[c]))
+               for o, r in zip(out, recons) for c in range(3))
+    print(f"{what}: JAX GeneralDecoder hash OK {sum(dec.hash_status)} of "
+          f"{n} {dec.hash_status}, pictures the encoder's: {same}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def tiles_wpp(kind: str) -> None:
+    """chip_smoke.py's [hevc-tiles] ("tiles": `parallel.tiles.
+    encode_sequence_tiles`, the tile columns sharded over 4 host devices)
+    or [hevc-wpp] ("wpp": `intra_frames` with the WPP slice writer) on
+    synth_clip(1920, 1072, 3, seed=5) at `chip_smoke.tiles_cfg`."""
+    from video_codecs_tpu.models.hevc import intra_codec as jic
+    from video_codecs_tpu.parallel import tiles
+    w, h, n = chip_smoke.HEVC_W, chip_smoke.HEVC_H, chip_smoke.TILES_PICTURES
+    frames = chip_smoke.synth_clip(w, h, n, seed=5)
+    cfg = headers.HevcConfig(**dataclasses.asdict(
+        chip_smoke.tiles_cfg(w, h) if kind == "tiles"
+        else chip_smoke.tiles_cfg(w, h, tile_columns=1, wpp=True)))
+    t0 = time.time()
+    if kind == "tiles":
+        stream, recons = tiles.encode_sequence_tiles(cfg, frames)
+    else:
+        stream, recons = intra_frames(frames, jic.IntraEncoder(cfg), cfg)
+    intra_report(f"hevc {kind}", stream, recons, n, time.time() - t0)
+
+
+def cli_ai_tiles() -> None:
+    """The JAX package's encoder CLI on HM's all-intra structure with two
+    tile columns (`chip_smoke.hm_cli_files(d, "ai", ...,
+    tile_columns=2)`: 832x480, 3 pictures of bench_synth_clip, RDOQ 1,
+    SAO 1, SignHideFlag 1), which builds its IntraEncoder (the host CTB
+    loop with the full RDOQ and the host SAO decision): bytes, SHA-1, the
+    summary and both JAX decoders' hash results."""
+    from video_codecs_tpu.tools import encoder_app
+    from video_codecs_tpu.utils import yuv
+    n, w, h = chip_smoke.CLI_AI_PICTURES, chip_smoke.CLI_W, chip_smoke.CLI_H
+    frames = chip_smoke.bench_synth_clip(w, h, n)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        argv = chip_smoke.hm_cli_files(
+            d, "ai", frames, w, h,
+            tile_columns=chip_smoke.CLI_AI_TILE_COLUMNS)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            encoder_app.main(argv)
+        t = time.time() - t0
+        stream = (d / "out.bin").read_bytes()
+        ry, ru, rv = yuv.read_frames(str(d / "rec.yuv"), w, h)
+        print(f"cli ai tiles: encoder_app.main's summary:\n{buf.getvalue()}")
+        intra_report("cli ai tiles", stream, list(zip(ry, ru, rv)), n, t)
+
+
+def qt_host() -> None:
+    """chip_smoke.py's [hevc-qt-host]: the JAX package's
+    QuadtreeIntraEncoder on one 192x128 picture of synth_clip(192, 128,
+    1, seed=5) at `chip_smoke.qt_host_cfg`, decoded by its
+    QuadtreeIntraDecoder and GeneralDecoder."""
+    from video_codecs_tpu.models.hevc import quadtree_codec
+    w, h = chip_smoke.QT_HOST_W, chip_smoke.QT_HOST_H
+    cfg = headers.HevcConfig(**dataclasses.asdict(
+        chip_smoke.qt_host_cfg(w, h)))
+    enc = quadtree_codec.QuadtreeIntraEncoder(cfg)
+    t0 = time.time()
+    nals, rec = enc.encode_frame(*chip_smoke.synth_clip(w, h, 1, seed=5)[0])
+    stream = bitstream.annexb(enc.stream_headers() + nals)
+    t = time.time() - t0
+    print(f"qt host: {len(stream)} bytes, SHA-1 "
+          f"{hashlib.sha1(stream).hexdigest()}, encode {t:.1f} s", flush=True)
+    for label, dec in (("QuadtreeIntraDecoder",
+                        quadtree_codec.QuadtreeIntraDecoder()),
+                       ("GeneralDecoder", decoder.GeneralDecoder())):
+        out = dec.decode(stream)
+        same = all(np.array_equal(np.asarray(out[0][c]), np.asarray(rec[c]))
+                   for c in range(3))
+        print(f"qt host: JAX {label} hash OK {dec.hash_status}, picture "
+              f"the encoder's: {same}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -506,6 +656,16 @@ def main() -> None:
         ap.add_argument(f"--h264-{kind}", action="store_true",
                         help=f"the host H.264 coder with {what} "
                              f"(h264-{kind})")
+    ap.add_argument("--tiles", action="store_true",
+                    help="the 1080p all-intra stream in 4 tile columns "
+                         "through parallel.tiles (hevc-tiles)")
+    ap.add_argument("--wpp", action="store_true",
+                    help="the same clip with WPP (hevc-wpp)")
+    ap.add_argument("--cli-ai-tiles", action="store_true",
+                    help="the JAX package's encoder CLI on HM's all-intra "
+                         "structure with 2 tile columns (cli-ai-tiles)")
+    ap.add_argument("--qt-host", action="store_true",
+                    help="the host quadtree RD encoder (hevc-qt-host)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -550,6 +710,15 @@ def main() -> None:
     for kind in ("ltr", "wp", "perc", "loss"):
         if getattr(args, f"h264_{kind}"):
             h264_conf(kind)
+    if args.tiles or args.wpp or args.cli_ai_tiles:
+        repair_entry_points()
+    for kind in ("tiles", "wpp"):
+        if getattr(args, kind):
+            tiles_wpp(kind)
+    if args.cli_ai_tiles:
+        cli_ai_tiles()
+    if args.qt_host:
+        qt_host()
 
 
 if __name__ == "__main__":

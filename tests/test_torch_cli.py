@@ -293,12 +293,16 @@ def _files(d, case):
         return hm_cli_files(d, "ra", bench_synth_clip(80, 48, 9), 80, 48)
     from test_intra_codec import synth_frame
     n = 3 if case == "ldp" else 2
-    frames = [synth_frame(64, 48, s) for s in range(n)]
+    w = 128 if case == "intra-tiles" else 64
+    frames = [synth_frame(w, 48, s) for s in range(n)]
     src = d / "in.yuv"
     tyuv.write_frames(str(src), *(np.stack([f[c] for f in frames])
                                   for c in range(3)))
     cfg = d / "test.cfg"
-    cfg.write_text(_CFG_TEXTS["apps"] if case == "ldp" else _INTRA_CFG)
+    cfg.write_text(_CFG_TEXTS["apps"] if case == "ldp" else
+                   _INTRA_CFG.replace("Width : 64", "Width : 128") +
+                   "NumTileColumnsMinus1 : 1\n" if case == "intra-tiles"
+                   else _INTRA_CFG)
     argv = ["-c", str(cfg), "-i", str(src), "-b", str(d / "out.bin"),
             "-o", str(d / "rec.yuv")]
     return argv + (["--fast=1"] if case == "intra-fast" else [])
@@ -316,10 +320,12 @@ def _summary(text):
     return [ln for ln in text.splitlines() if "Total Time" not in ln]
 
 
-@pytest.mark.parametrize("case", ["ldp", "ra", "intra", "intra-fast"])
+@pytest.mark.parametrize("case", ["ldp", "ra", "intra", "intra-fast",
+                                  "intra-tiles"])
 def test_cli_matches_jax(tmp_path, monkeypatch, case):
     """Both encoder CLIs on the same files: the same stream, recon file,
-    summary (but its time) and warnings; then both decoder CLIs."""
+    summary (but its time) and warnings; then both decoder CLIs.
+    "intra-tiles": the all-intra cfg with two tile columns at 128x48."""
     if case == "ldp":
         monkeypatch.setattr(jmotion, "amvp_candidates",
                             tmotion.amvp_candidates)

@@ -1,6 +1,7 @@
 """The HEVC all-intra quadtree, the RA B-picture and LD-P P-picture
-device phases (with the pyramid search and with HM's TZSearch) on the
-card against the same port on the CPU.
+device phases (with the pyramid search and with HM's TZSearch), the tile
+batch, WPP and the host quadtree RD encoder on the card against the same
+port on the CPU.
 
 Needs an NVIDIA GPU (the `cuda` marker; the cases skip where none is
 present).  The card's machine has no JAX, so this file imports nothing
@@ -167,3 +168,45 @@ def test_ldp_tz_card_equals_cpu():
     """The same with HM's TZSearch at search range 64: one SAD surface
     per reference."""
     _ldp_card_vs_cpu("tz")
+
+
+@pytest.mark.cuda
+def test_tile_batch_card_equals_cpu():
+    """The tile columns as one batch (`parallel.tiles`) at 256x64 in 4
+    tile columns, WPP through `IntraEncoder`: the card's streams and
+    pictures are the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from video_codecs_tpu_torch.models.hevc import intra_codec
+    from video_codecs_tpu_torch.parallel import tiles
+    frames = [_picture(256, 64, seed=s) for s in (3, 4)]
+    cfg = headers.HevcConfig(width=256, height=64, qp=30, tile_columns=4)
+    got = {dev: tiles.encode_sequence_tiles(cfg, frames, device=dev)
+           for dev in ("cuda", "cpu")}
+    assert got["cuda"][0] == got["cpu"][0]
+    for a, b in zip(got["cuda"][1], got["cpu"][1]):
+        for c in range(3):
+            np.testing.assert_array_equal(a[c], b[c])
+    wcfg = headers.HevcConfig(width=256, height=64, qp=30, wpp=True,
+                              sign_data_hiding=True)
+    streams = [intra_codec.IntraEncoder(wcfg, device=dev).encode_sequence(
+        frames)[0] for dev in ("cuda", "cpu")]
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_quadtree_host_encoder_card_equals_cpu():
+    """`QuadtreeIntraEncoder` (the host RD encoder; its mode sweeps and
+    deblock on the encoder's device) at 64x64, CTB 32, full RDOQ: the
+    card's NAL units and picture are the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    cfg = headers.HevcConfig(width=64, height=64, qp=32, log2_ctb=5,
+                             log2_min_cb=3, log2_max_tb=5,
+                             sign_data_hiding=True, rdoq="full")
+    pic = _picture(64, 64, seed=11)
+    out = {dev: quadtree_codec.QuadtreeIntraEncoder(
+        cfg, device=dev).encode_frame(*pic) for dev in ("cuda", "cpu")}
+    assert out["cuda"][0] == out["cpu"][0]
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_array_equal(a, b)

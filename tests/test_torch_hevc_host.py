@@ -79,7 +79,8 @@ _COPIES = {
                                     "_code_blocks_rate",
                                     "_predict_single_mode",
                                     "encode_frame_device"},
-                                   {"encode_frame", "_put_blocks"}),
+                                   {"encode_frame", "_put_blocks",
+                                    "_tile_schedule", "_proxy_sum"}),
     "models/hevc/encoder_qt_dev.py": (
         "models/hevc/encoder_jax_qt.py", set(),
         {"z_index_dev", "gather_refs_z", "_grid", "_mode_sweep",
@@ -90,12 +91,15 @@ _COPIES = {
     "models/hevc/intra_codec.py": (
         "models/hevc/intra_codec.py",
         {"code_tb_np", "IntraEncoder.__init__", "IntraEncoder.encode_frame",
-         "IntraEncoder._sao_decide_apply", "IntraEncoder._encode_slice", "IntraEncoder._encode_ctu",
+         "IntraEncoder._sao_decide_apply", "IntraEncoder._encode_slice",
+         "IntraEncoder._encode_slice_wpp", "IntraEncoder._encode_ctu",
+         "IntraDecoder.decode",
          "IntraEncoder.encode_frame_fast", "IntraEncoder.serialize_frame",
          "IntraEncoder.encode_sequence", "IntraDecoder._decode_slice",
          "IntraDecoder._decode_slice_wpp", "IntraDecoder._decode_ctu"},
         {"IntraEncoder.decide_modes"},
-        {"IntraEncoder._dispatch", "IntraEncoder._encode_frame_host"}),
+        {"IntraEncoder._dispatch", "IntraEncoder._encode_frame_host",
+         "entry_point_offsets", "substream_starts"}),
     "ops/interp.py": (
         "ops/interp.py", set(),
         {"_taps_dev", "mc_luma", "mc_chroma", "_gather_window_multi",
@@ -130,7 +134,7 @@ _COPIES = {
     "models/hevc/inter_codec.py": (
         "models/hevc/inter_codec.py",
         {"LowDelayEncoder.__init__", "LowDelayEncoder.encode_frames",
-         "LowDelayDecoder._store", "LowDelayDecoder._decode_p_slice",
+         "LowDelayDecoder.decode", "LowDelayDecoder._store", "LowDelayDecoder._decode_p_slice",
          "LowDelayDecoder._decode_p_ctu"},
         {"LowDelayEncoder.encode_p_frame", "_satd8"},
         {"LowDelayEncoder._p_pass1", "LowDelayEncoder._p_raster",
@@ -139,12 +143,13 @@ _COPIES = {
                                   set()),
     "models/hevc/bframe_codec.py": (
         "models/hevc/bframe_codec.py",
-        {"HierarchicalBDecoder._decode_b_slice"},
+        {"HierarchicalBDecoder.decode", "HierarchicalBDecoder._decode_b_slice"},
         {"HierarchicalBEncoder._encode_b_frame"},
         {"check_flat_b", "HierarchicalBEncoder.__init__",
          "HierarchicalBEncoder._b_raster"}),
     "models/hevc/ra_codec.py": ("models/hevc/ra_codec.py",
                                 {"RandomAccessEncoder.__init__",
+                                 "RandomAccessDecoder.decode",
                                  "RandomAccessDecoder._decode_b_body"},
                                 set(), set()),
     "models/hevc/inter_qt.py": (
@@ -158,10 +163,7 @@ _COPIES = {
         {"_sao_stats"}),
     "models/hevc/decoder.py": (
         "models/hevc/decoder.py",
-        {"parse_sps", "parse_pps", "parse_slice_header",
-         "GeneralDecoder.decode", "GeneralDecoder._decode_picture",
-         "GeneralDecoder._decode_slice_segment",
-         "GeneralDecoder._decode_intra_cu", "GeneralDecoder._parse_mvd"},
+        {"GeneralDecoder._decode_slice_segment", "GeneralDecoder._parse_mvd"},
         set(), set()),
     "ops/sao.py": ("ops/sao.py", set(), set(),
                    {"build", "_load", "sao_stats_ref", "sao_stats",
@@ -171,7 +173,13 @@ _COPIES = {
         {"QuadtreeFastEncoder.__init__", "QuadtreeFastEncoder._dispatch",
          "QuadtreeFastEncoder.serialize_frame",
          "QuadtreeFastEncoder._serialize_slice",
-         "QuadtreeFastEncoder.encode_sequence"}, set(), set()),
+         "QuadtreeFastEncoder.encode_sequence", "code_tb",
+         "QuadtreeIntraEncoder.__init__", "QuadtreeIntraEncoder.encode_frame"},
+        {"QuadtreeIntraEncoder._best_mode"}, set()),
+    "parallel/tiles.py": ("parallel/tiles.py", set(),
+                          {"encode_frame_tiles", "encode_sequence_tiles"},
+                          {"encode_tiles_dev"}),
+    "utils/debug.py": ("utils/debug.py", set(), set(), set()),
 }
 
 

@@ -212,8 +212,16 @@ def test_code_blocks_rate(log2, is_luma, sbh):
         is_luma=is_luma, rdoq="full", lam=lam)
     for a, b_ in zip(got, want):
         _eq(a, b_)
-    with pytest.raises(NotImplementedError):
-        tenc._code_blocks_rate(T(orig), T(pred), qp, log2, rdoq="lite")
+    # without the full RDOQ, the reference's proxy rate (held to the JAX
+    # function in tests/test_torch_hevc_tiles.py) beside _code_blocks'
+    # levels, recon and cbf
+    got = tenc._code_blocks_rate(T(orig), T(pred), qp, log2, sbh=sbh,
+                                 is_luma=is_luma, rdoq="lite", lam=lam)
+    want = tenc._code_blocks(T(orig), T(pred), qp, log2, intra_slice=False,
+                             sbh=sbh, rdoq="lite", is_luma=is_luma, lam=lam)
+    for a, b_ in zip(got[:3], want):
+        _eq(a, b_)
+    assert got[3].shape == (b,) and bool((got[3] >= 0).all())
 
 
 def test_code_blocks_all_quantizers():

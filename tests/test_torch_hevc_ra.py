@@ -231,9 +231,10 @@ def test_ra_cut_options_raise():
                                      "weighted_pred", "cu_qp_delta",
                                      "long_term_idr"])
 def test_general_decoder_cut_syntax_raises(feature):
-    """The parameter sets of syntax the decoder does not carry raise;
-    long-term reference pictures, weighted prediction and cu_qp_delta,
-    ported since, are parsed."""
+    """Parameter sets of syntax the decoder once cut: long-term reference
+    pictures, weighted prediction, cu_qp_delta, tiles and WPP, ported
+    since, are parsed (tests/test_torch_hevc_dec_tools.py decodes
+    them)."""
     cfg = _cfg(theaders, 64, 64)
     setattr(cfg, feature, 2 if feature == "tile_columns" else True)
     stream = tbs.annexb([
@@ -250,8 +251,9 @@ def test_general_decoder_cut_syntax_raises(feature):
         assert getattr(dec.pps, feature)
         assert dec.pps.diff_cu_qp_delta_depth == 0
         return
-    with pytest.raises(NotImplementedError):
-        dec.decode(stream)
+    assert dec.decode(stream) == []
+    assert (dec.pps.tiles, dec.pps.tile_cols, dec.pps.entropy_sync) == (
+        (True, 2, False) if feature == "tile_columns" else (False, 1, True))
 
 
 def test_ra_runs_without_jax(tmp_path):

@@ -74,13 +74,18 @@ Module map (port -> JAX counterpart):
                              rdoq_dev_ref)
     + csrc/rdoq.cu             the Hopper kernel for it
   models/hevc/encoder_dev.py models/hevc/encoder_jax.py (helpers and
-                             the flat CTB16 intra encoder encode_frame)
+                             the flat CTB16 intra encoder encode_frame;
+                             tile-column stacks)
+  parallel/tiles.py          parallel/tiles.py (the tile columns as one
+                             batch where the reference shards them)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)
   models/hevc/intra_codec.py models/hevc/intra_codec.py (helpers, the
                              flat IDR host tail, sao() syntax, hash SEI,
                              decoder NAL loop)
-  models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (syntax,
-                             QuadtreeIntraDecoder, QuadtreeFastEncoder)
+  models/hevc/quadtree_codec.py  models/hevc/quadtree_codec.py (whole:
+                             syntax, QuadtreeIntraDecoder,
+                             QuadtreeIntraEncoder, QuadtreeFastEncoder)
+  utils/debug.py             utils/debug.py (whole)
   models/hevc/motion.py,     models/hevc/motion.py, motion_hm.py (whole;
     motion_hm.py               amvp_candidates repaired to the spec)
   models/hevc/checkpoint.py  models/hevc/checkpoint.py (whole)
@@ -91,7 +96,8 @@ Module map (port -> JAX counterpart):
     ra_codec.py                encoder's chain of bases and helpers)
   models/hevc/inter_qt.py    models/hevc/inter_qt.py (qt_merge_dev,
                              QtDeviceRandomAccessEncoder)
-  models/hevc/decoder.py     models/hevc/decoder.py (GeneralDecoder)
+  models/hevc/decoder.py     models/hevc/decoder.py (GeneralDecoder,
+                             whole)
 """
 
 import torch

@@ -19,11 +19,14 @@ are parsed from the SPS and the slice header, resolved to POCs by
 picture hash (the HRD timing messages) is skipped.  Explicit weighted
 prediction (`pred_weight_table`, `WpTable`) and cu_qp_delta (the QP
 groups, `_maybe_qp_delta` and the per-4x4 QP map that sets the deblock's
-edge QPs) decode the host low-delay P coder's streams.  Cut, raising
-NotImplementedError from the parameter sets that enable them (no port
-encoder emits them): PCM, scaling lists, tiles and WPP entry points and
-transform skip.  The branches those flags guard inside the CU decode
-stay as in the reference and are never entered.
+edge QPs) decode the host low-delay P coder's streams.  HM's parallel
+and conformance tools as the reference decodes them: tiles (uniform or
+explicit grids of columns and rows, one CABAC substream per tile in
+tile-scan order) and WPP (one substream per CTB row, the contexts
+carried from the second CTB of the row above), their entry points
+converted from EBSP to RBSP offsets (`_strip_ep_with_pos`); scaling
+lists (the default tables and `scaling_list_data` in the SPS or PPS);
+PCM CUs (`_decode_pcm_cu`); transform skip.
 
 Parity references: hm-16.5rc1/source/Lib/TLibDecoder/TDecCAVLC.cpp
 (parameter-set and slice-header parsing), TDecTop.cpp:820 (picture
@@ -166,6 +169,85 @@ def parse_st_rps(r: bs.BitReader, idx: int, prev: list,
 
 # Default quantization matrices (spec Tables 7-5/7-6; HM TComRom
 # g_quantIntraDefault8x8 / g_quantInterDefault8x8) — spec constants.
+_SL_INTRA8 = np.array([
+    16, 16, 16, 16, 17, 18, 21, 24,
+    16, 16, 16, 16, 17, 19, 22, 25,
+    16, 16, 17, 18, 20, 22, 25, 29,
+    16, 16, 18, 21, 24, 27, 31, 36,
+    17, 17, 20, 24, 30, 35, 41, 47,
+    18, 19, 22, 27, 35, 44, 54, 65,
+    21, 22, 25, 31, 41, 54, 70, 88,
+    24, 25, 29, 36, 47, 65, 88, 115], np.int32).reshape(8, 8)
+_SL_INTER8 = np.array([
+    16, 16, 16, 16, 17, 18, 20, 24,
+    16, 16, 16, 17, 18, 20, 24, 25,
+    16, 16, 17, 18, 20, 24, 25, 28,
+    16, 17, 18, 20, 24, 25, 28, 33,
+    17, 18, 20, 24, 25, 28, 33, 41,
+    18, 20, 24, 25, 28, 33, 41, 54,
+    20, 24, 25, 28, 33, 41, 54, 71,
+    24, 25, 28, 33, 41, 54, 71, 91], np.int32).reshape(8, 8)
+
+
+# video_codecs_tpu/models/hevc/decoder.py:174
+def _sl_default(size_id: int, matrix_id: int):
+    """(base matrix raster, dc) default entry (spec 7.4.5)."""
+    if size_id == 0:
+        return np.full((4, 4), 16, np.int32), 16
+    return (_SL_INTRA8 if matrix_id < 3 else _SL_INTER8).copy(), 16
+
+
+# video_codecs_tpu/models/hevc/decoder.py:181
+def _diag_scan_ungrouped(n: int) -> np.ndarray:
+    """Up-right diagonal scan -> raster index, UNGROUPED (spec 6.5.3;
+    scaling_list_data uses this, unlike the CG-grouped residual scan)."""
+    out = []
+    for d in range(2 * n - 1):
+        for y in range(min(d, n - 1), -1, -1):
+            x = d - y
+            if x < n:
+                out.append(y * n + x)
+    return np.array(out, np.int32)
+
+
+# video_codecs_tpu/models/hevc/decoder.py:193
+def parse_scaling_list_data(r: bs.BitReader) -> list:
+    """scaling_list_data() (spec 7.3.4; TDecCAVLC parseScalingList).
+
+    Returns sl[size_id][matrix_id] = (base NxN raster matrix, dc)."""
+    sl = [[None] * 6 for _ in range(4)]
+    for size_id in range(4):
+        step = 3 if size_id == 3 else 1
+        for matrix_id in range(0, 6, step):
+            if not r.flag():            # scaling_list_pred_mode_flag
+                delta = r.ue()
+                if delta == 0:
+                    sl[size_id][matrix_id] = _sl_default(size_id,
+                                                         matrix_id)
+                else:
+                    sl[size_id][matrix_id] = sl[size_id][
+                        matrix_id - delta * step]
+            else:
+                n = 4 if size_id == 0 else 8
+                coef_num = min(64, 1 << (4 + (size_id << 1)))
+                dc = 16
+                next_coef = 8
+                if size_id > 1:
+                    dc = 8 + r.se()
+                    next_coef = dc     # DC seeds the DPCM (spec 7.3.4)
+                scan = _diag_scan_ungrouped(n)
+                vals = np.zeros(n * n, np.int32)
+                for i in range(coef_num):
+                    next_coef = (next_coef + r.se() + 256) % 256
+                    vals[scan[i]] = next_coef
+                m = vals.reshape(n, n)
+                sl[size_id][matrix_id] = (
+                    m, dc if size_id > 1 else int(m[0, 0]))
+        if size_id == 3:                # unsignalled chroma 32 slots
+            sl[3][1] = sl[3][2] = sl[3][0]
+            sl[3][4] = sl[3][5] = sl[3][3]
+    return sl
+
 
 
 # video_codecs_tpu/models/hevc/decoder.py:231
@@ -258,12 +340,22 @@ def parse_sps(rbsp: bytes) -> Sps:
     s.max_tr_depth_intra = r.ue()
     s.scaling_list_enabled = bool(r.flag())
     if s.scaling_list_enabled:
-        raise NotImplementedError("GeneralDecoder: scaling lists")
+        if r.flag():                # sps_scaling_list_data_present
+            s.scaling_lists = parse_scaling_list_data(r)
+        else:
+            s.scaling_lists = [[_sl_default(sz, m) for m in range(6)]
+                               for sz in range(4)]
     s.amp = bool(r.flag())
     s.sao = bool(r.flag())
     s.pcm = bool(r.flag())
     if s.pcm:
-        raise NotImplementedError("GeneralDecoder: PCM")
+        s.pcm_bd_luma = 1 + r.read(4)
+        s.pcm_bd_chroma = 1 + r.read(4)
+        s.log2_min_ipcm = 3 + r.ue()
+        s.log2_max_ipcm = s.log2_min_ipcm + r.ue()
+        s.pcm_loop_filter_disabled = bool(r.flag())
+        assert not s.pcm_loop_filter_disabled, \
+            "pcm_loop_filter_disabled: later"
     s.rps_list = []
     num_rps = r.ue()
     for i in range(num_rps):
@@ -297,8 +389,6 @@ def parse_pps(rbsp: bytes) -> Pps:
     p.constrained_intra = bool(r.flag())
     assert not p.constrained_intra, "constrained intra not supported"
     p.transform_skip = bool(r.flag())
-    if p.transform_skip:
-        raise NotImplementedError("GeneralDecoder: transform skip")
     p.cu_qp_delta = bool(r.flag())
     if p.cu_qp_delta:
         p.diff_cu_qp_delta_depth = r.ue()
@@ -311,9 +401,19 @@ def parse_pps(rbsp: bytes) -> Pps:
     assert not p.transquant_bypass, "transquant bypass not supported"
     p.tiles = bool(r.flag())
     p.entropy_sync = bool(r.flag())
-    if p.tiles or p.entropy_sync:
-        raise NotImplementedError("GeneralDecoder: tiles and WPP entry "
-                                  "points")
+    assert not (p.tiles and p.entropy_sync), \
+        "tiles + WPP combined: unsupported"
+    if p.tiles:
+        p.tile_cols = 1 + r.ue()
+        p.tile_rows = 1 + r.ue()
+        p.tile_uniform = bool(r.flag())
+        if not p.tile_uniform:
+            p.tile_col_widths = [1 + r.ue()
+                                 for _ in range(p.tile_cols - 1)]
+            p.tile_row_heights = [1 + r.ue()
+                                  for _ in range(p.tile_rows - 1)]
+        assert r.flag(), \
+            "loop_filter_across_tiles disabled: unsupported"
     p.loop_filter_across_slices = bool(r.flag())
     p.deblocking_control = bool(r.flag())
     if p.deblocking_control:
@@ -323,7 +423,7 @@ def parse_pps(rbsp: bytes) -> Pps:
             p.beta_offset_div2 = r.se()
             p.tc_offset_div2 = r.se()
     if r.flag():                    # pps_scaling_list_data_present
-        raise NotImplementedError("GeneralDecoder: scaling lists")
+        p.scaling_lists = parse_scaling_list_data(r)
     p.lists_modification = bool(r.flag())
     p.log2_parallel_merge_level = 2 + r.ue()
     r.flag()                    # slice_segment_header_extension_present
@@ -520,6 +620,11 @@ def parse_slice_header(rbsp: bytes, nal_type: int, sps: Sps,
     if pps.loop_filter_across_slices and (h.sao_luma or h.sao_chroma or
                                           not h.deblocking_disabled):
         r.flag()                # slice_loop_filter_across_slices
+    if pps.tiles or pps.entropy_sync:
+        n_entry = r.ue()        # num_entry_point_offsets
+        if n_entry:
+            olen = 1 + r.ue()   # offset_len_minus1 + 1
+            h.entry_points = [1 + r.read(olen) for _ in range(n_entry)]
     # byte_alignment(): alignment_bit_equal_to_one is ALWAYS present, even
     # when the header already ends on a byte boundary (spec 7.3.2.10)
     one = r.flag()
@@ -592,6 +697,44 @@ def _wrap16(v: int) -> int:
     return ((v + 32768) & 65535) - 32768
 
 
+# video_codecs_tpu/models/hevc/decoder.py:667
+def _strip_ep_with_pos(payload: bytes):
+    """Emulation-prevention strip that also records, for each removed
+    0x03 byte, the RBSP index of the byte that followed it — needed to
+    convert signalled entry_point_offsets (EBSP bytes, spec 7.4.7.1)
+    into RBSP positions (HM TDecSlice 'adjust for emulation bytes')."""
+    out = bytearray()
+    pos = []
+    i, n = 0, len(payload)
+    while i < n:
+        if i + 2 < n and payload[i] == 0 and payload[i + 1] == 0 \
+                and payload[i + 2] == 3:
+            out += payload[i:i + 2]
+            pos.append(len(out))
+            i += 3
+        else:
+            out.append(payload[i])
+            i += 1
+    return bytes(out), pos
+
+# video_codecs_tpu/models/hevc/decoder.py:687
+def _tile_grid(pps: Pps, cw: int, ch: int):
+    """Tile CTU column/row boundaries (spec 6.5.1)."""
+    nc, nr = pps.tile_cols, pps.tile_rows
+    if pps.tile_uniform:
+        cols = [(i * cw) // nc for i in range(nc + 1)]
+        rows = [(i * ch) // nr for i in range(nr + 1)]
+    else:
+        cols, rows = [0], [0]
+        for w_ in pps.tile_col_widths:
+            cols.append(cols[-1] + w_)
+        cols.append(cw)
+        for h_ in pps.tile_row_heights:
+            rows.append(rows[-1] + h_)
+        rows.append(ch)
+    return cols, rows
+
+
 # video_codecs_tpu/models/hevc/decoder.py:704
 class GeneralDecoder:
     """Decodes conformant HEVC Main streams (incl. HM output): all-intra,
@@ -624,6 +767,10 @@ class GeneralDecoder:
             elif nal_type == bs.NAL_PPS:
                 self.pps = parse_pps(rbsp)
             elif nal_type <= 21:        # coded slice (TRAIL..CRA)
+                if self.pps.tiles or self.pps.entropy_sync:
+                    rbsp, self._cur_emu = _strip_ep_with_pos(nal[2:])
+                else:
+                    self._cur_emu = []
                 self._decode_picture(rbsp, nal_type, tid)
             elif nal_type in (bs.NAL_PREFIX_SEI, bs.NAL_SUFFIX_SEI):
                 self._check_hash(rbsp)
@@ -817,10 +964,26 @@ class GeneralDecoder:
         if h.cabac_init and h.slice_type != I_SLICE:
             init_type = B_SLICE if h.slice_type == P_SLICE else P_SLICE
         base = h.data_offset_bits // 8
+        # signalled entry offsets are EBSP bytes; convert to RBSP
+        # positions by discounting the emulation bytes in each span
+        emu = getattr(self, "_cur_emu", [])
+        starts, acc = [base], 0
+        for off_ in h.entry_points:
+            acc += off_
+            s = base + acc
+            while True:
+                c = sum(1 for r_ in emu if base < r_ <= s)
+                s2 = base + acc - c
+                if s2 == s:
+                    break
+                s = s2
+            starts.append(s)
 
-        def fresh_dec():
-            return cabac.CabacDecoder(bs.BitReader(rbsp[base:]),
-                                      ctx.init_states(init_type, h.qp))
+        def fresh_dec(k, states=None):
+            return cabac.CabacDecoder(
+                bs.BitReader(rbsp[starts[k]:]),
+                ctx.init_states(init_type, h.qp)
+                if states is None else states)
 
         def decode_ctu(dec, i, region):
             cx = (i % cw) * ctb
@@ -837,13 +1000,43 @@ class GeneralDecoder:
             self._decode_cqt(dec, st, cx, cy, sps.log2_ctb, 0)
             return dec.decode_terminate()
 
-        dec = fresh_dec()
-        i = h.slice_address
-        while i < cw * ch:
-            end = decode_ctu(dec, i, region0)
-            i += 1
-            if end:
-                break
+        if pps.tiles:
+            assert h.first_slice and h.slice_address == 0, \
+                "tiles with multiple slices: unsupported"
+            cols, rows = _tile_grid(pps, cw, ch)
+            k = 0
+            for tr in range(len(rows) - 1):
+                for tc in range(len(cols) - 1):
+                    dec = fresh_dec(k)
+                    st.qp = st.qp_prev = h.qp   # QG chain restarts
+                    for ty in range(rows[tr], rows[tr + 1]):
+                        for tx in range(cols[tc], cols[tc + 1]):
+                            decode_ctu(dec, ty * cw + tx, region0 | k)
+                    k += 1
+            i = cw * ch
+        elif pps.entropy_sync:
+            assert h.first_slice and h.slice_address == 0, \
+                "WPP with multiple slices: unsupported"
+            snap = None
+            for row in range(ch):
+                dec = fresh_dec(row, None if row == 0 or snap is None
+                                else snap.copy())
+                st.qp = st.qp_prev = h.qp   # QG chain restarts per row
+                for col in range(cw):
+                    decode_ctu(dec, row * cw + col, region0)
+                    if col == min(1, cw - 1):
+                        # context storage after the 2nd CTU of the row
+                        # (spec 9.3.1 sync process)
+                        snap = dec.states.copy()
+            i = cw * ch
+        else:
+            dec = fresh_dec(0)
+            i = h.slice_address
+            while i < cw * ch:
+                end = decode_ctu(dec, i, region0)
+                i += 1
+                if end:
+                    break
         if i < cw * ch:
             return None                 # more slices follow
         st.pm.cur_slice = None          # whole-picture motion hereafter
@@ -1357,6 +1550,11 @@ class GeneralDecoder:
         nxn = False
         if log2 == sps.log2_min_cb:
             nxn = dec.decode_bin(ctx.off("part_size")) == 0
+        if (sps.pcm and not nxn and
+                sps.log2_min_ipcm <= log2 <= sps.log2_max_ipcm and
+                dec.decode_terminate()):
+            self._decode_pcm_cu(dec, st, x, y, log2, depth)
+            return
         # luma intra modes: all prev flags first, then all idx/rem
         pus = 4 if nxn else 1
         half = size // 2
@@ -1422,6 +1620,33 @@ class GeneralDecoder:
             cache[key] = m
         return cache[key]
 
+
+    # video_codecs_tpu/models/hevc/decoder.py:1567
+    def _decode_pcm_cu(self, dec, st, x, y, log2, depth):
+        """pcm_sample (spec 7.3.8.7): raw samples at the PCM bit depth,
+        shifted up to the picture bit depth; the arithmetic engine
+        restarts after them (TDecSbac parseIPCMInfo + TDecBinCABAC
+        byte-wise positioning)."""
+        sps = self.sps
+        n = 1 << log2
+        dec.begin_pcm()
+        br = dec.br
+        sh_l = 8 - sps.pcm_bd_luma
+        st.rec_y[y:y + n, x:x + n] = np.array(
+            [[br.read(sps.pcm_bd_luma) << sh_l for _ in range(n)]
+             for _ in range(n)], np.int32)
+        cx, cy, cn = x // 2, y // 2, n // 2
+        sh_c = 8 - sps.pcm_bd_chroma
+        for plane in (st.rec_u, st.rec_v):
+            plane[cy:cy + cn, cx:cx + cn] = np.array(
+                [[br.read(sps.pcm_bd_chroma) << sh_c for _ in range(cn)]
+                 for _ in range(cn)], np.int32)
+        dec.reinit()
+        st.set_cu(x, y, n, depth)
+        st.pm.set_intra(x, y, n)
+        st.set_pu_mode(x, y, n, DC)        # neighbor contexts read DC
+        st.mark_pu(x, y, n, n)
+        st.mark_tu4(x, y, n, n, False)
 
     # video_codecs_tpu/models/hevc/decoder.py:1593
     def _min_tu_log2(self, log2_cb, nxn):

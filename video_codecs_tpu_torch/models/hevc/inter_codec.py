@@ -310,6 +310,15 @@ class LowDelayEncoder(ic.IntraEncoder):
     # video_codecs_tpu/models/hevc/inter_codec.py:334
     def __init__(self, cfg: headers.HevcConfig, search_range: int = 8,
                  me_method: str = "auto", *, device="cuda") -> None:
+        """Tiles and WPP raise ValueError: the reference's P and B slice
+        writers have no tile or row substreams, while its slice header
+        signals the entry points the PPS then requires, so its streams
+        do not decode (ROADMAP queue 3, reference fault 15)."""
+        if cfg.tile_columns != 1 or cfg.wpp:
+            raise ValueError(
+                f"{type(self).__name__}: tiles and WPP: the P and B slice "
+                "writers code one substream (the reference's streams do "
+                "not decode)")
         super().__init__(cfg, device=device)
         self.search_range = search_range
         # "full" (HM FastSearch:0) | "tz" (FastSearch:1) | "auto"
@@ -957,10 +966,14 @@ class LowDelayDecoder(ic.IntraDecoder):
 
     # video_codecs_tpu/models/hevc/inter_codec.py:900
     def decode(self, stream: bytes):
+        from video_codecs_tpu_torch.models.hevc.decoder import \
+            _strip_ep_with_pos
         frames = []
         for nal in bs.split_annexb(stream):
             nal_type = (nal[0] >> 1) & 0x3F
-            rbsp = bs.strip_emulation_prevention(nal[2:])
+            # the emulation bytes' positions convert tile / WPP
+            # entry points (intra_codec.substream_starts)
+            rbsp, self._cur_emu = _strip_ep_with_pos(nal[2:])
             if nal_type == bs.NAL_VPS:
                 continue
             if nal_type == bs.NAL_SPS:

@@ -18,8 +18,15 @@ statistics (`_sao_decide_apply`: luma CTB 16, chroma CTB 8) and write
 the slice with the Python writer (the sao() syntax, and a zero
 cu_qp_delta in coded CUs of cu_qp_delta pictures).  `IntraDecoder`
 decodes those slices (`_decode_slice`, SAO applied with
-`ops/sao.apply_ctus`).  Cut: WPP (the slice writer and decoder raise)
-and tiles in the encoder.
+`ops/sao.apply_ctus`).  Tiles (one CABAC substream per tile column,
+entry points in the slice header; `parallel/tiles.py` codes the columns
+as one batch on the device) and WPP (one substream per CTB row, the
+contexts carried from the second CTB of the row above) in both.  The
+entry points count the substreams' bytes with their emulation
+prevention bytes, as the spec has it (`entry_point_offsets`, repaired:
+the reference counts RBSP bytes, reference fault 16); the two differ
+only where a substream other than the last holds an emulation
+prevention byte.
 """
 from __future__ import annotations
 
@@ -136,6 +143,39 @@ def code_tb_np(orig: np.ndarray, pred: np.ndarray, qp: int, log2: int,
     dq = quant_ops.dequantize_np(levels, qp, log2)
     r = tr_ops.inverse_transform_np(dq, log2, dst=dst)
     return levels, np.clip(pred + r, 0, 255).astype(np.int32)
+
+
+def entry_point_offsets(substreams: list[bytes]) -> list[int]:
+    """entry_point_offset_minus1 + 1 of each substream but the last: its
+    size in the NAL unit, emulation prevention bytes included (spec
+    7.4.7.1; HM TEncGOP counts them per substream).  Repaired: the
+    reference signals the RBSP sizes, and a spec decoder (its own
+    GeneralDecoder, HM's) then starts the substreams after an emulation
+    prevention byte too early (ROADMAP queue 3, reference fault 16).  A
+    substream ends with a nonzero byte (its stop bit) and the slice
+    header with byte_alignment()'s, so no 0x000003 pattern spans two of
+    them, and each is counted on its own."""
+    return [len(bs.insert_emulation_prevention(ss)) for ss in substreams[:-1]]
+
+
+def substream_starts(entry_points, base: int, emu: list, end: int):
+    """RBSP offsets of the substreams of a slice whose data starts at
+    RBSP byte `base` and ends at `end`: each signalled start (EBSP bytes
+    from the slice data) less the emulation prevention bytes before it;
+    `emu` holds the RBSP index of the byte after each removed 0x03
+    (`decoder._strip_ep_with_pos`), as the general decoder converts them
+    (its `_decode_slice_segment`).  Returns [start_0, ..., end]."""
+    starts, acc = [base], 0
+    for off in entry_points:
+        acc += off
+        s = base + acc
+        while True:
+            s2 = base + acc - sum(1 for r in emu if base < r <= s)
+            if s2 == s:
+                break
+            s = s2
+        starts.append(s)
+    return starts + [end]
 
 
 # video_codecs_tpu/models/hevc/intra_codec.py:135
@@ -310,14 +350,15 @@ class IntraEncoder:
         encoder (`_dispatch`), which gives the host loop's bytes at rdoq
         off (tests/test_encoder_jax.py:9).  Then, with `cfg.sao`, the SAO
         decision and apply (`_sao_decide_apply`), and `_encode_slice`,
-        the Python writer that carries the sao() syntax.  WPP and tiles
-        raise ValueError."""
+        the Python writer that carries the sao() syntax, one CABAC
+        substream per tile column or, with WPP, per CTB row.  With tiles
+        the device route codes the tile columns as one batch
+        (`parallel.tiles.encode_tiles_dev`), which needs columns of one
+        width; other tile grids take the host loop, tile by tile in
+        tile-scan order, as the reference codes every tiled picture."""
         cfg = self.cfg
-        if cfg.wpp:
-            raise ValueError("IntraEncoder.encode_frame: WPP is not ported")
-        if cfg.tile_columns != 1:
-            raise ValueError("tiles are not ported (parallel.tiles)")
-        if cfg.rdoq or modes is not None:
+        widths = {b - a for a, b in cfg.tile_col_bounds()}
+        if cfg.rdoq or modes is not None or len(widths) > 1:
             ctus, (rec_y, rec_u, rec_v) = self._encode_frame_host(
                 y, u, v, modes)
         else:
@@ -460,9 +501,13 @@ class IntraEncoder:
     # video_codecs_tpu/models/hevc/intra_codec.py:413
     def _encode_slice(self, ctus: list[CtuData], sao_params=None) -> bytes:
         """Serialize the slice; with tiles, one CABAC substream per tile
-        in tile-scan order with entry-point offsets in the header."""
+        in tile-scan order with entry-point offsets in the header.  With
+        WPP, one substream per CTU row with CABAC context inheritance from
+        the second CTU of the row above (spec 9.3.1 sync)."""
         cfg = self.cfg
         bw, bh = cfg.width // 16, cfg.height // 16
+        if cfg.wpp:
+            return self._encode_slice_wpp(ctus, sao_params)
         bounds = cfg.tile_col_bounds()
         substreams = []
         for t, (tx0, tx1) in enumerate(bounds):
@@ -485,7 +530,7 @@ class IntraEncoder:
             substreams.append(w.data())
         hdr = headers.write_slice_header(
             cfg, bs.NAL_IDR_W_RADL,
-            entry_points=[len(ss) for ss in substreams[:-1]])
+            entry_points=entry_point_offsets(substreams))
         return bs.nal_unit(bs.NAL_IDR_W_RADL,
                            hdr.data() + b"".join(substreams))
 
@@ -530,7 +575,41 @@ class IntraEncoder:
             residual.encode_residual(enc, ctu.levels_cr, 3, rom.SCAN_DIAG,
                                      False, sign_hiding=sbh)
 
-# video_codecs_tpu/models/hevc/intra_codec.py:522
+    # video_codecs_tpu/models/hevc/intra_codec.py:489
+    def _encode_slice_wpp(self, ctus, sao_params=None) -> bytes:
+        """WPP: one byte-aligned substream per CTU row (TEncSlice.cpp:962
+        substream loop; context store/load at :755/:859-862)."""
+        cfg = self.cfg
+        bw, bh = cfg.width // 16, cfg.height // 16
+        assert not cfg.tiles_enabled and bw >= 2
+        substreams = []
+        sync_states = None
+        for by in range(bh):
+            w = bs.BitWriter()
+            states = (ctx.init_states(ctx.I, cfg.qp) if by == 0
+                      else sync_states.copy())
+            enc = cabac.CabacEncoder(w, states)
+            for bx in range(bw):
+                i = by * bw + bx
+                if sao_params is not None:
+                    encode_sao_ctu(enc, sao_params, i, bx, by, bw, 0)
+                left_mode = ctus[i - 1].mode if bx else DC
+                self._encode_ctu(enc, ctus[i], left_mode)
+                if bx == 1:
+                    sync_states = states.copy()
+                last_ctu = by == bh - 1 and bx == bw - 1
+                enc.encode_terminate(1 if last_ctu else 0)
+                if bx == bw - 1 and by != bh - 1:
+                    enc.encode_terminate(1)  # end_of_subset_one_bit
+            enc.finish_slice()
+            substreams.append(w.data())
+        hdr = headers.write_slice_header(
+            cfg, bs.NAL_IDR_W_RADL,
+            entry_points=entry_point_offsets(substreams))
+        return bs.nal_unit(bs.NAL_IDR_W_RADL,
+                           hdr.data() + b"".join(substreams))
+
+    # video_codecs_tpu/models/hevc/intra_codec.py:522
     def _hash_sei(self, rec_y, rec_u, rec_v) -> bytes | None:
         if not getattr(self.cfg, "hash_sei", True):
             return None           # annexb() drops None entries
@@ -553,17 +632,23 @@ class IntraEncoder:
         return self.serialize_frame(self._dispatch(y, u, v))
 
     def _dispatch(self, y, u, v) -> dict:
-        """Upload the 8-bit planes and run `encoder_dev.encode_frame`;
-        returns its dict of tensors on the device (not synchronised)."""
+        """Upload the 8-bit planes and run `encoder_dev.encode_frame`, or
+        with tiles `parallel.tiles.encode_tiles_dev` (the tile columns
+        as one batch); returns the dict of tensors on the device (not
+        synchronised), in picture raster order."""
         from video_codecs_tpu_torch.models.hevc import encoder_dev
+        from video_codecs_tpu_torch.parallel import tiles
 
         cfg = self.cfg
-        if cfg.tile_columns != 1:
-            raise ValueError("tiles are not ported (parallel.tiles)")
         bw, bh = cfg.width // 16, cfg.height // 16
         with torch.inference_mode():
             planes = [to_device(np.asarray(p, np.uint8), self.device)
                       for p in (y, u, v)]
+            if cfg.tiles_enabled:
+                return tiles.encode_tiles_dev(
+                    *planes, cfg.qp, bw, bh, cfg.tile_columns,
+                    deblock=not cfg.deblocking_disabled,
+                    sbh=cfg.sign_data_hiding, rdoq=bool(cfg.rdoq))
             return encoder_dev.encode_frame(
                 *planes, cfg.qp, bw, bh, deblock=not cfg.deblocking_disabled,
                 sbh=cfg.sign_data_hiding, rdoq=bool(cfg.rdoq))
@@ -575,6 +660,9 @@ class IntraEncoder:
         if cfg.sao:
             raise ValueError("SAO uses encode_frame (the native writer has "
                              "no sao() syntax)")
+        if use_native and (cfg.tiles_enabled or cfg.wpp):
+            raise ValueError("tiles and WPP use encode_frame (the native "
+                             "writer writes one substream)")
         bw, bh = cfg.width // 16, cfg.height // 16
         st = {k: (a.cpu().numpy() if isinstance(a, torch.Tensor)
                   else np.asarray(a)) for k, a in st.items()}
@@ -636,9 +724,11 @@ class IntraDecoder:
     def decode(self, stream: bytes) -> list[tuple[np.ndarray, ...]]:
         frames = []
         pending_hash: list[bytes] | None = None
+        from video_codecs_tpu_torch.models.hevc.decoder import \
+            _strip_ep_with_pos
         for nal in bs.split_annexb(stream):
             nal_type = (nal[0] >> 1) & 0x3F
-            rbsp = bs.strip_emulation_prevention(nal[2:])
+            rbsp, self._cur_emu = _strip_ep_with_pos(nal[2:])
             if nal_type == bs.NAL_VPS:
                 continue
             if nal_type == bs.NAL_SPS:
@@ -666,16 +756,17 @@ class IntraDecoder:
         bw, bh = cfg.width // 16, cfg.height // 16
 
         # CABAC payload starts at the (byte-aligned) slice data offset;
-        # tiles split it into independent substreams at the entry points.
-        data = rbsp[info.data_offset_bits // 8:]
+        # tiles split it into independent substreams at the entry points
+        # (EBSP bytes, converted to RBSP offsets: reference fault 16).
+        base = info.data_offset_bits // 8
+        data = rbsp[base:]
+        offs = [o - base for o in substream_starts(
+            info.entry_points, base, getattr(self, "_cur_emu", []),
+            len(rbsp))]
         if pps.wpp:
-            return self._decode_slice_wpp(data, info, qp, qp_c)
+            return self._decode_slice_wpp(data, info, qp, qp_c, offs)
         n_tiles = pps.tile_columns
         edges = [(i * bw) // n_tiles for i in range(n_tiles + 1)]
-        offs = [0]
-        for e in info.entry_points:
-            offs.append(offs[-1] + e)
-        offs.append(len(data))
         assert len(offs) == n_tiles + 1, "entry points != tile count"
 
         rec_y = np.zeros((cfg.height, cfg.width), np.int32)
@@ -735,9 +826,67 @@ class IntraDecoder:
         return rec_y, rec_u, rec_v
 
     # video_codecs_tpu/models/hevc/intra_codec.py:737
-    def _decode_slice_wpp(self, data, info, qp, qp_c):
-        """WPP decode is not ported."""
-        raise NotImplementedError("IntraDecoder: WPP is not ported")
+    def _decode_slice_wpp(self, data, info, qp, qp_c, offs):
+        """WPP decode: per-row substreams with context sync (TDecSlice);
+        `offs`: the rows' RBSP offsets in `data` and its end."""
+        cfg, pps = self.cfg, self.pps
+        bw, bh = cfg.width // 16, cfg.height // 16
+        assert len(offs) == bh + 1, "WPP entry points != row count"
+        rec_y = np.zeros((cfg.height, cfg.width), np.int32)
+        rec_u = np.zeros((cfg.height // 2, cfg.width // 2), np.int32)
+        rec_v = np.zeros_like(rec_u)
+        sao_params = [[None] * 3 for _ in range(bw * bh)]
+        sync_states = None
+        for by in range(bh):
+            states = (ctx.init_states(ctx.I, qp) if by == 0
+                      else sync_states.copy())
+            dec = cabac.CabacDecoder(bs.BitReader(data[offs[by]:offs[by + 1]]),
+                                     states)
+            left_mode = DC
+            for bx in range(bw):
+                if cfg.sao:
+                    decode_sao_ctu(dec, sao_params, by * bw + bx, bx, by,
+                                   bw, 0)
+                mode, lv_y, lv_cb, lv_cr = self._decode_ctu(dec, left_mode)
+                left_mode = mode
+                if bx == 1:
+                    sync_states = states.copy()
+                x, yy = bx * 16, by * 16
+                ref = build_ref_np(rec_y, x, yy, 16)
+                pred = intra_ops.predict_intra_np(ref, mode, 4)
+                if lv_y is not None:
+                    dq = quant_ops.dequantize_np(lv_y, qp, 4)
+                    r2 = tr_ops.inverse_transform_np(dq, 4)
+                    rec = np.clip(pred + r2, 0, 255)
+                else:
+                    rec = pred
+                rec_y[yy:yy + 16, x:x + 16] = rec
+                cx, cy = x // 2, yy // 2
+                for lv_c, plane in ((lv_cb, rec_u), (lv_cr, rec_v)):
+                    refc = build_ref_np(plane, cx, cy, 8)
+                    predc = intra_ops.predict_intra_np(refc, mode, 3,
+                                                       is_luma=False)
+                    if lv_c is not None:
+                        dq = quant_ops.dequantize_np(lv_c, qp_c, 3)
+                        r2 = tr_ops.inverse_transform_np(dq, 3)
+                        recc = np.clip(predc + r2, 0, 255)
+                    else:
+                        recc = predc
+                    plane[cy:cy + 8, cx:cx + 8] = recc
+                end = dec.decode_terminate()
+                last = by == bh - 1 and bx == bw - 1
+                assert end == (1 if last else 0)
+        if not pps.deblocking_disabled:
+            rec_y, rec_u, rec_v = deblock_ops.deblock_420_np(
+                rec_y, rec_u, rec_v, qp)
+        if cfg.sao:
+            # the reference's apply_ctu loop, with each EO class's map
+            # computed once per plane instead of once per CTB
+            rec_y, rec_u, rec_v = (
+                sao_ops.apply_ctus(p, [p3[c] for p3 in sao_params],
+                                   16 if c == 0 else 8, bw)
+                for c, p in enumerate((rec_y, rec_u, rec_v)))
+        return rec_y, rec_u, rec_v
 
     # video_codecs_tpu/models/hevc/intra_codec.py:805
     def _decode_ctu(self, dec: cabac.CabacDecoder, left_mode: int):

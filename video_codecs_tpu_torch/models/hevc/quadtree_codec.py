@@ -1,11 +1,16 @@
-"""HEVC all-intra CU quadtree: syntax writer, decoder and the device
-encoder `QuadtreeFastEncoder` (CTB 32, CUs 32/16/8).
+"""HEVC all-intra CU quadtree: syntax writer, decoder, the host RD
+encoder `QuadtreeIntraEncoder` and the device encoder
+`QuadtreeFastEncoder` (CTB 32, CUs 32/16/8).
 
-The port's copy of the part of video_codecs_tpu/models/hevc/quadtree_codec.py
-that the device quadtree path needs; each function keeps its name and a
-comment gives the original's line.  Cut: the host RD encoder
-`QuadtreeIntraEncoder` (and `code_tb`, `dump_mode_statistics`), which
-wait for a later slice.
+The port's copy of video_codecs_tpu/models/hevc/quadtree_codec.py
+(whole); each function keeps its name and a comment gives the
+original's line.  `QuadtreeIntraEncoder`, the host RD encoder, decides
+each CTB by the reference's recursive trial comparison in numpy, in its
+order (`_encode_node`, `_code_leaf`, `code_tb`), with each node's
+35-mode prediction on the encoder's device (`_best_mode`: one
+`predict_intra` call and one copy back) and the picture deblock there
+too (`deblock_420_bs`); VCT_DUMP_MODES=1 prints its leaves
+(`dump_mode_statistics`, utils/debug.py).
 
 `QuadtreeFastEncoder` runs its decision, reconstruction and deblocking on
 a torch device (models/hevc/encoder_qt_dev.py), on the card unless the
@@ -17,6 +22,7 @@ serializer of the same bytes.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -122,6 +128,37 @@ class CuInfo:
 Node = tuple
 
 
+# video_codecs_tpu/models/hevc/quadtree_codec.py:122
+def dump_mode_statistics(roots: list, ctb_shift: int) -> list[str]:
+    """Per-CU-leaf mode dump (hm-12.1-statistic-for-modes parity:
+    TEncCu.cpp:1088 xEncodeCU2 printf of absPartIdx, PredMode,
+    PartSize, WxH per leaf). Enabled at runtime by VCT_DUMP_MODES=1."""
+    lines = []
+
+    def walk(node):
+        kind, payload = node
+        if kind == "split":
+            for ch in payload:
+                walk(ch)
+            return
+        cu = payload
+        # absPartIdx: Morton index of the CU's 4x4 origin within its CTB
+        nbits = ctb_shift - 2
+        ix = (cu.x >> 2) & ((1 << nbits) - 1)
+        iy = (cu.y >> 2) & ((1 << nbits) - 1)
+        part = 0
+        for b_ in range(nbits):
+            part |= ((ix >> b_) & 1) << (2 * b_)
+            part |= ((iy >> b_) & 1) << (2 * b_ + 1)
+        lines.append(f"absPartIdx={part} PredMode=INTRA "
+                     f"PartSize={'NxN' if cu.nxn else '2Nx2N'} "
+                     f"{cu.size}x{cu.size} modes={cu.modes}")
+
+    for r in roots:
+        walk(r)
+    return lines
+
+
 # video_codecs_tpu/models/hevc/quadtree_codec.py:152
 class State:
     """Recon planes + neighbor grids (copyable for decision trials)."""
@@ -212,6 +249,29 @@ class State:
         self.cu_id[dy:dy + s8, dx:dx + s8] = cu_serial
 
 
+# video_codecs_tpu/models/hevc/quadtree_codec.py:235
+def code_tb(orig, pred, qp, log2, dst, rdoq, sbh, is_luma=True, mode=DC):
+    res = orig.astype(np.int32) - pred
+    coeff = tr_ops.forward_transform_np(res, log2, dst=dst)
+    lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+    if rdoq == "full":
+        from video_codecs_tpu_torch.ops import rdoq as rdoq_ops
+        levels = rdoq_ops.rdoq_np(coeff, qp, log2, lam=lam, is_luma=is_luma)
+    elif rdoq:
+        levels = quant_ops.rdoq_lite_np(coeff, qp, log2, lam=lam)
+    else:
+        levels = quant_ops.quantize_np(coeff, qp, log2)
+    if sbh and levels.any():
+        levels = quant_ops.apply_sbh_np(
+            levels, log2, coeff, qp,
+            scan_type=rom.intra_scan_type(log2, mode, is_luma))
+    if not levels.any():
+        return levels, pred.astype(np.int32)
+    dq = quant_ops.dequantize_np(levels, qp, log2)
+    r = tr_ops.inverse_transform_np(dq, log2, dst=dst)
+    return levels, np.clip(pred + r, 0, 255).astype(np.int32)
+
+
 # video_codecs_tpu/models/hevc/quadtree_codec.py:257
 def bs_maps_from_cu_ids(cu_id: np.ndarray, w: int, h: int):
     """All-intra BS maps on the 8-px grid: an edge is filtered (BS 2) iff
@@ -228,6 +288,192 @@ def bs_maps_from_cu_ids(cu_id: np.ndarray, w: int, h: int):
         diff = cu_id[k, :] != cu_id[k + 1, :]
         bs_hor[k, :] = 2 * diff
     return bs_ver, bs_hor
+
+
+# video_codecs_tpu/models/hevc/quadtree_codec.py:274
+class QuadtreeIntraEncoder(ic.IntraEncoder):
+    """All-intra encoder with a full CU quadtree (CTB 16/32/64 -> CU8/PU4)."""
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:277
+    def __init__(self, cfg: headers.HevcConfig, *, device="cuda") -> None:
+        assert cfg.log2_min_cb == 3, "quadtree build uses min CU 8"
+        assert cfg.tile_columns == 1, "tiles + quadtree: round 2"
+        super(ic.IntraEncoder, self).__init__()
+        ctb = 1 << cfg.log2_ctb
+        assert cfg.width % ctb == 0 and cfg.height % ctb == 0, \
+            "pad the input to the CTB size"
+        self.cfg = cfg
+        self._serial = 0
+        self.device = torch.device(device)
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:287
+    def encode_frame(self, y, u, v, modes=None):
+        cfg = self.cfg
+        w, h = cfg.width, cfg.height
+        qp, qp_c = cfg.qp, ic.chroma_qp(cfg.qp)
+        self._orig = tuple(p.astype(np.int32) for p in (y, u, v))
+        st = State(w, h, cfg.log2_ctb)
+        sl = math.sqrt(0.57 * 2.0 ** ((qp - 12) / 3.0))
+        self._qp, self._qp_c, self._sl = qp, qp_c, sl
+
+        ctb = 1 << cfg.log2_ctb
+        roots = []
+        for cy in range(0, h, ctb):
+            for cx in range(0, w, ctb):
+                _, node = self._encode_node(st, cx, cy, cfg.log2_ctb, 0)
+                roots.append(node)
+
+        rec_y, rec_u, rec_v = st.rec_y, st.rec_u, st.rec_v
+        from video_codecs_tpu_torch.utils import debug
+        if debug.env_flag("VCT_DUMP_MODES", False,
+                          "print per-CU/MB mode decisions"):
+            print("\n".join(dump_mode_statistics(roots, cfg.log2_ctb)))
+        if not cfg.deblocking_disabled:
+            bs_ver, bs_hor = bs_maps_from_cu_ids(st.cu_id, w, h)
+            with torch.inference_mode():
+                out = deblock_ops.deblock_420_bs(
+                    *(to_device(p, self.device)
+                      for p in (rec_y, rec_u, rec_v)), qp, bs_ver, bs_hor,
+                    block=8)
+                rec_y, rec_u, rec_v = (o.cpu().numpy() for o in out)
+        slice_nal = self._encode_slice_qt(roots)
+        sei_nal = self._hash_sei(rec_y, rec_u, rec_v)
+        return [slice_nal, sei_nal], (rec_y, rec_u, rec_v)
+
+    # ---- decision + reconstruction (recursive) ----
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:318
+    def _encode_node(self, st: State, x, y, log2, depth):
+        """Choose split vs unsplit for this node; mutates st with the
+        winner's reconstruction.  Returns (cost, tree node)."""
+        cfg = self.cfg
+        size = 1 << log2
+        force_split = log2 > 5  # keep TUs <= 32 (encoder choice)
+        can_split = log2 > 3
+
+        best = None
+        if not force_split:
+            trial = st.copy()
+            cost_u = self._code_leaf(trial, x, y, log2, depth)
+            cost_u += round(self._sl * (1 if can_split else 0))
+            best = (cost_u, ("cu", self._last_cu), trial)
+        if can_split:
+            trial = st.copy()
+            half = size // 2
+            cost_s = round(self._sl * 1)
+            children = []
+            for q in range(4):
+                c, node = self._encode_node(
+                    trial, x + (q & 1) * half, y + (q >> 1) * half,
+                    log2 - 1, depth + 1)
+                # children recurse on `trial` via a nested call that itself
+                # copies; _encode_node mutates its st argument with the win
+                children.append(node)
+                cost_s += c
+            if best is None or cost_s < best[0]:
+                best = (cost_s, ("split", children), trial)
+        cost, node, winner = best
+        st.assign(winner)
+        return cost, node
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:351
+    def _code_leaf(self, st: State, x, y, log2, depth) -> int:
+        """Code one CU (2Nx2N, or NxN when 8x8 and it wins); returns cost."""
+        size = 1 << log2
+        qp, qp_c, sl = self._qp, self._qp_c, self._sl
+        cfg = self.cfg
+        orig_y = self._orig[0]
+
+        mode, c2n, _ = self._best_mode(st, x, y, size)
+        if size == 8:
+            cnxn = round(sl * 2)
+            modes4 = []
+            for p in range(4):
+                px, py = x + (p & 1) * 4, y + (p >> 1) * 4
+                m4, c4, _ = self._best_mode(st, px, py, 4)
+                modes4.append(m4)
+                cnxn += c4
+            nxn = cnxn < c2n
+        else:
+            nxn = False
+        cu = CuInfo(x, y, size, depth, nxn,
+                    modes4 if nxn else [mode])
+        self._reconstruct_cu(st, cu)
+        d = int(np.abs(st.rec_y[y:y + size, x:x + size].astype(np.int64) -
+                       orig_y[y:y + size, x:x + size]).sum())
+        self._last_cu = cu
+        return d + round(sl * 3)
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:378
+    def _best_mode(self, st: State, x, y, n):
+        ref = build_ref_z(st.rec_y, x, y, n, st.w, st.h, st.ctb_shift)
+        orig = self._orig[0][y:y + n, x:x + n]
+        log2 = n.bit_length() - 1
+        with torch.inference_mode():
+            preds = intra_ops.predict_intra(
+                to_device(ref[None], self.device),
+                torch.arange(35, dtype=torch.int32,
+                             device=self.device)[None], log2)[0].cpu().numpy()
+        d = np.abs(preds.astype(np.int64) -
+                   orig[None]).reshape(35, -1).sum(axis=1)
+        mpm = st.mpm(x, y)
+        bits = np.full(35, 6.0)
+        bits[mpm[0]] = 2.0
+        bits[mpm[1]] = 3.0
+        bits[mpm[2]] = 3.0
+        cost = d + np.round(self._sl * bits).astype(np.int64)
+        mode = int(np.argmin(cost))
+        return mode, int(cost[mode]), preds[mode]
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:396
+    def _reconstruct_cu(self, st: State, cu: CuInfo) -> None:
+        cfg = self.cfg
+        qp, qp_c = self._qp, self._qp_c
+        rdoq, sbh = cfg.rdoq, cfg.sign_data_hiding
+        x, y, size = cu.x, cu.y, cu.size
+        yv, uv, vv = self._orig
+        if cu.nxn:
+            for p in range(4):
+                px, py = x + (p & 1) * 4, y + (p >> 1) * 4
+                ref = build_ref_z(st.rec_y, px, py, 4, st.w, st.h,
+                                  st.ctb_shift)
+                pred = intra_ops.predict_intra_np(ref, cu.modes[p], 2)
+                lv, rec = code_tb(yv[py:py + 4, px:px + 4], pred, qp, 2,
+                                  True, rdoq, sbh, mode=cu.modes[p])
+                cu.levels_y.append(lv if lv.any() else None)
+                st.rec_y[py:py + 4, px:px + 4] = rec
+        else:
+            log2 = size.bit_length() - 1
+            ref = build_ref_z(st.rec_y, x, y, size, st.w, st.h, st.ctb_shift)
+            pred = intra_ops.predict_intra_np(ref, cu.modes[0], log2)
+            lv, rec = code_tb(yv[y:y + size, x:x + size], pred, qp, log2,
+                              False, rdoq, sbh, mode=cu.modes[0])
+            cu.levels_y.append(lv if lv.any() else None)
+            st.rec_y[y:y + size, x:x + size] = rec
+        cs = max(size // 2, 4)
+        clog2 = cs.bit_length() - 1
+        cx, cy = x // 2, y // 2
+        for comp, (po, pr) in enumerate(((uv, st.rec_u), (vv, st.rec_v))):
+            refc = build_ref_z(pr, cx, cy, cs, st.w // 2, st.h // 2,
+                               st.ctb_shift - 1)
+            predc = intra_ops.predict_intra_np(refc, cu.modes[0], clog2,
+                                               is_luma=False)
+            lvc, recc = code_tb(po[cy:cy + cs, cx:cx + cs], predc, qp_c,
+                                clog2, False, rdoq, sbh, is_luma=False,
+                                mode=cu.modes[0])
+            if comp == 0:
+                cu.levels_cb = lvc if lvc.any() else None
+            else:
+                cu.levels_cr = lvc if lvc.any() else None
+            pr[cy:cy + cs, cx:cx + cs] = recc
+        self._serial += 1
+        st.set_cu(cu, self._serial)
+
+    # ---- CABAC ----
+
+    # video_codecs_tpu/models/hevc/quadtree_codec.py:441
+    def _encode_slice_qt(self, roots) -> bytes:
+        return encode_slice_qt(self.cfg, roots)
 
 
 # video_codecs_tpu/models/hevc/quadtree_codec.py:445

@@ -319,13 +319,17 @@ class RandomAccessDecoder(bc.HierarchicalBDecoder):
 
     # video_codecs_tpu/models/hevc/ra_codec.py:294
     def decode(self, stream: bytes):
+        from video_codecs_tpu_torch.models.hevc.decoder import \
+            _strip_ep_with_pos
         import hashlib
         out: dict[int, tuple] = {}
         self._dpb: dict[int, tuple] = {}
         last_poc = None
         for nal in bs.split_annexb(stream):
             nal_type = (nal[0] >> 1) & 0x3F
-            rbsp = bs.strip_emulation_prevention(nal[2:])
+            # the emulation bytes' positions convert tile / WPP
+            # entry points (intra_codec.substream_starts)
+            rbsp, self._cur_emu = _strip_ep_with_pos(nal[2:])
             if nal_type == bs.NAL_VPS:
                 continue
             if nal_type == bs.NAL_SPS:
