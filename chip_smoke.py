@@ -23,8 +23,10 @@ list reordering, weighted prediction, perceptual RDO, intra refresh with
 an SEI stream sent over RTP with loss and concealed by its receivers --
 and HEVC's parallel tools at 1920x1072 (tiles, the tile columns coded
 as one batch; WPP), the encoder CLI on HM's all-intra structure with
-tiles at 832x480 and the host quadtree RD encoder at 192x128, in
-phases:
+tiles at 832x480 and the host quadtree RD encoder at 192x128, and the
+reference's last modules -- the tile-sharded RA engine at 1920x1072 and
+its dry run, the experiment CLI, the syntax trace, the coding statistics
+and the conversion and leaky-bucket tools -- in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the three kernels at once, one nvcc each, from
@@ -330,13 +332,46 @@ phases:
         32, full RDOQ and SBH: its mode sweeps on the card, QT_HOST_SHA1
         (--qt-host), the port's GeneralDecoder and QuadtreeIntraDecoder
         hash OK (`phase_hevc_qt_host`);
- 18. require that nothing of the JAX package was imported, in this
+ 18. the last modules of the reference:
+     a. tiled-ra: the tile-sharded RA engine (`parallel/sharded.py`, the
+        counterpart of __graft_entry__.dryrun_multichip's encoders) at
+        1920x1072 on synth_clip(1920, 1072, 9, seed=5) in 4 tile columns
+        of 480 with a halo of 32 and the dry run's settings (QP 32,
+        GOP-8, SR8 pyramid, CU8 tree, merge 5, full RDOQ, SBH) plus the
+        MD5 hash SEI: first (stage 1) the SAD and RDOQ kernels against
+        their plain versions at the 544x1072 slab's shapes, timed beside
+        their bounds (`phase_tiled_kernels`); then (stage 3)
+        `ShardedQt` (each column's halos copied from its neighbours)
+        gives TILED_RA_SHA1 (scripts/jax_reference_sha1.py --tiled-ra),
+        as `TiledRefQt` (the columns one after another) does in stage 2
+        (`phase_tiled_ra_ref`), the two streams and launches equal; per
+        picture the tiled device ms against the untiled engine's and
+        the launches, TILED_COLUMNS x the untiled picture's;
+        the size difference against the untiled stream (reported); the
+        port's GeneralDecoder hash OK on every picture with the
+        encoder's pictures, in a process of its own (`phase_tiled_ra`);
+     b. dryrun: `graft_entry.dryrun_multichip(4)` on the card, its OK
+        line and DRYRUN_SHA1 (--dryrun) (`phase_dryrun`);
+     c. experiment: the experiment CLI on a seeded 832x480 YUV of 3
+        pictures at QPs 28-40, --codec intra and --codec ldp: QP, kbps
+        and Y-PSNR the JAX package's tables (EXPERIMENT_JAX,
+        --experiment), then BD-rate of ldp against intra
+        (`phase_experiment`);
+     d. trace and statistics: [jm-main]'s encode with the syntax trace
+        on, its trace equal to the port's decoder's; decoder_app --stats
+        on that stream and on [cli-ra]'s (`phase_trace_tools`,
+        `task_cli_ra`);
+     e. tools: annexb_byte_count on the phase's streams, the leaky
+        bucket over [jm-main]'s per-picture bits, convert_bitdepth 8 ->
+        10 -> 8 on its YUV file (`phase_trace_tools`);
+ 19. require that nothing of the JAX package was imported, in this
      process or in any worker.
 
 The phases run in three stages, to end well inside the 1,200 s the
 script is given.  Stage 1, alone on the card: phases 1-2 and every
-kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a).
-Stage 2: the end-to-end phases of 4-16, 17c and 17d (POOL_TASKS),
+kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a,
+18a's slab shapes).  Stage 2: the end-to-end phases of 4-17, 18a's
+sequential twin and 18b-e (POOL_TASKS),
 WORKERS at a time,
 each worker a spawned process of its own on the same card with
 WORKER_THREADS CPU threads for torch; every phase zeroes the kernels'
@@ -344,10 +379,10 @@ counts it reads, and its launches come back to this process, which
 prints each phase's output as the phase ends (so in the order they
 end, not in the order above) and stops every worker at the first
 failure.  Their times are taken beside three other phases sharing the
-host and the card.  Stage 3, alone on the card again: 17a and 17b, the
-1080p tile and WPP encodes, whose streams the port's decoders check in
-DECODERS spawned processes of their own while the card codes on
-(`run_stage3`).
+host and the card; 17a-b's streams go to the port's decoders in DECODERS
+processes of their worker.  Stage 3, alone on the card again: 18a's
+tile-sharded 1080p GOP and the untiled engine's, the stream decoded in
+a process of its own while the card codes on (`run_stage3`).
 
 Kernel times come from torch.profiler alone (asked up to three times);
 where it records none the time is "not measured" (null in the JSON
@@ -875,6 +910,32 @@ def hm_cli_files(d: Path, kind: str, frames, w: int = CLI_W,
             "-b", str(d / "out.bin"), "-o", str(d / "rec.yuv")]
 
 
+# Phase 18: the tile-sharded RA engine (parallel/sharded.py) on the
+# headline's clip in TILED_COLUMNS columns of TILED_WT with the dry run's
+# halo and encoder settings (graft_entry.dryrun_cfg, search range 8, the
+# CU8 tree), and the experiment CLI's QP sweep on a seeded 832x480 YUV.
+TILED_WT, TILED_HALO, TILED_SR = 480, 32, 8
+TILED_COLUMNS = HEVC_W // TILED_WT
+EXPERIMENT_PICTURES, EXPERIMENT_QPS = 3, "28,32,36,40"
+
+
+def experiment_yuv(d: Path) -> Path:
+    """Write bench_synth_clip(CLI_W, CLI_H, EXPERIMENT_PICTURES) as a YUV
+    file in directory d (the experiment CLI's input); returns its path."""
+    from video_codecs_tpu_torch.utils import yuv
+    frames = bench_synth_clip(CLI_W, CLI_H, EXPERIMENT_PICTURES)
+    path = d / f"exp_{CLI_W}x{CLI_H}.yuv"
+    yuv.write_frames(str(path), *(np.stack([f[c] for f in frames])
+                                  for c in range(3)))
+    return path
+
+
+def experiment_argv(path: Path, codec: str) -> list:
+    """The experiment CLI's arguments for `codec` ("intra" or "ldp")."""
+    return ["-i", str(path), "-W", str(CLI_W), "-H", str(CLI_H),
+            "--qps", EXPERIMENT_QPS, "--codec", codec]
+
+
 # The JM encoder CLI's runs (phases jm-main / jm-baseline): JM 18.5's
 # geometry of its stock cfgs (176x144, the QCIF of foreman_part_qcif.yuv
 # that bench.py's bench_jm_baseline and the JAX tests read), 5 pictures
@@ -1342,6 +1403,51 @@ def rdoq_lam(qp: int) -> float:
     return 0.57 * 2.0 ** ((qp - 12) / 3.0)
 
 
+def rdoq_row(tag: str, what: str, co, log2: int, luma: bool, st: int,
+             rate: bool, qp: int) -> dict:
+    """The full-RDOQ kernel against `rdoq_dev_ref` on the same CUDA
+    coefficients, levels exactly and rates bit for bit, timed beside its
+    bound and the plain version; prints one line under [tag] and returns
+    its row."""
+    b = co.shape[0]
+    kw = dict(lam=rdoq_lam(qp), is_luma=luma, slice_type=st,
+              return_rate=rate)
+    got = rdoq_ops.rdoq_dev(co, qp, log2, **kw)
+    torch.cuda.synchronize()
+    want = rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw)
+    (g, gb), (w_, wb) = (got, want) if rate else ((got, None),
+                                                  (want, None))
+    err = int((g - w_).abs().max())
+    same_bits = gb is None or torch.equal(gb.view(torch.int32),
+                                          wb.view(torch.int32))
+    check(err == 0 and same_bits,
+          f"RDOQ kernel != plain at {what} B={b} (levels max abs err "
+          f"{err}, rates bitwise equal {same_bits})")
+    ev = cuda_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw), reps=11)
+    ms, note = kernel_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw),
+                         "rdoq_kernel")
+    plain = cuda_ms(lambda: rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw),
+                    reps=3, warm=1)
+    tab, rl = rdoq_ops._kernel_tables(qp, log2, luma, st, 0, co.device)
+    bound, nbytes, ops = rdoq_bound(b, log2, rate,
+                                    4 * (tab.numel() + rl.numel()))
+    by = "operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES \
+        else "bytes"
+    nz = float((g != 0).float().mean())
+    print(f"[{tag}] {what}: B={b} QP{qp} slice type {st}"
+          f"{', with the rate' if rate else ''}: levels equal (max abs "
+          f"err 0){', rates bitwise equal' if rate else ''}, "
+          f"{nz:.2%} of levels nonzero; kernel {kms(ms)} (profiler"
+          f"{', ' + note if note else ''}), {ev:.4f} ms a wrapper call "
+          f"(CUDA events); bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} G float32 ops, {by}), "
+          f"{of_bound(bound, ms)}; plain {plain:.2f} ms"
+          f"{'' if ms is None else f' ({plain / ms:.0f}x the kernel)'}")
+    return dict(what=what, b=b, log2=log2, qp=qp, ms=ms, event_ms=ev,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, max_abs_err=err, note=note or None)
+
+
 def phase_rdoq_kernel() -> list:
     """Phase 6 (first): the full-RDOQ kernel against `rdoq_dev_ref` on the
     same CUDA tensors at the paths' shapes, levels exactly and rates bit
@@ -1349,45 +1455,9 @@ def phase_rdoq_kernel() -> list:
     one row per shape, the 1080p B picture's TU16 luma call first."""
     rows = []
     for what, co, log2, luma, st, rate, qp in rdoq_shapes():
-        b = co.shape[0]
-        kw = dict(lam=rdoq_lam(qp), is_luma=luma, slice_type=st,
-                  return_rate=rate)
-        got = rdoq_ops.rdoq_dev(co, qp, log2, **kw)
-        torch.cuda.synchronize()
-        want = rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw)
-        (g, gb), (w_, wb) = (got, want) if rate else ((got, None),
-                                                      (want, None))
-        err = int((g - w_).abs().max())
-        same_bits = gb is None or torch.equal(gb.view(torch.int32),
-                                              wb.view(torch.int32))
-        check(err == 0 and same_bits,
-              f"RDOQ kernel != plain at {what} B={b} (levels max abs err "
-              f"{err}, rates bitwise equal {same_bits})")
-        ev = cuda_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw), reps=11)
-        ms, note = kernel_ms(lambda: rdoq_ops.rdoq_dev(co, qp, log2, **kw),
-                             "rdoq_kernel")
-        plain = cuda_ms(lambda: rdoq_ops.rdoq_dev_ref(co, qp, log2, **kw),
-                        reps=3, warm=1)
-        tab, rl = rdoq_ops._kernel_tables(qp, log2, luma, st, 0, co.device)
-        bound, nbytes, ops = rdoq_bound(b, log2, rate,
-                                        4 * (tab.numel() + rl.numel()))
-        by = "operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES \
-            else "bytes"
-        nz = float((g != 0).float().mean())
-        print(f"[rdoq-kernel] {what}: B={b} QP{qp} slice type {st}"
-              f"{', with the rate' if rate else ''}: levels equal (max abs "
-              f"err 0){', rates bitwise equal' if rate else ''}, "
-              f"{nz:.2%} of levels nonzero; kernel {kms(ms)} (profiler"
-              f"{', ' + note if note else ''}), {ev:.4f} ms a wrapper call "
-              f"(CUDA events); bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e9:.3f} G float32 ops, {by}), "
-              f"{of_bound(bound, ms)}; plain {plain:.2f} ms"
-              f"{'' if ms is None else f' ({plain / ms:.0f}x the kernel)'}")
-        rows.append(dict(what=what, b=b, log2=log2, qp=qp, ms=ms,
-                         event_ms=ev, plain_ms=plain, bound_ms=bound,
-                         bound_by=by, library_ms=None, max_abs_err=err,
-                         note=note or None))
-        del co, got, want
+        rows.append(rdoq_row("rdoq-kernel", what, co, log2, luma, st, rate,
+                             qp))
+        del co
     torch.cuda.empty_cache()
     b_rows = [r for r in rows if r["what"] in RA_B_RDOQ_CALLS]
     timed = [r for r in b_rows if r["ms"] is not None]
@@ -4062,8 +4132,9 @@ def phase_flat_ra_cuda_vs_cpu(sao: bool = False) -> None:
 def decode_check(kind: str, stream: bytes) -> tuple:
     """Decode an all-intra stream with the port's GeneralDecoder
     ("general"), IntraDecoder ("intra") or QuadtreeIntraDecoder ("qt"):
-    (hash_status, SHA-1 of the pictures, seconds).  Stage 3 runs it in
-    processes of its own beside the card's encodes (host work only)."""
+    (hash_status, SHA-1 of the pictures, seconds).  `task_tiles_wpp`
+    runs it in processes of its own beside the card's encodes (host work
+    only)."""
     dec = {"general": hevc_decoder.GeneralDecoder,
            "intra": hevc_intra_codec.IntraDecoder,
            "qt": quadtree_codec.QuadtreeIntraDecoder}[kind]()
@@ -4143,7 +4214,7 @@ def untiled_ms(y, u, v, cfg) -> float:
 
 
 def phase_hevc_tiles(pool, wpp: bool = False) -> tuple:
-    """Phase 17a/b, stage 3: the all-intra CTB16 coder at 1920x1072 on
+    """Phase 17a/b (`task_tiles_wpp`): the all-intra CTB16 coder at 1920x1072 on
     TILES_PICTURES pictures of synth_clip(1920, 1072, 3, seed=5)
     (`tiles_cfg`: QP 32, rdoq off, deblocking and the hash SEI on).
     [hevc-tiles]: `parallel.tiles.encode_sequence_tiles` with 4 uniform
@@ -4335,6 +4406,435 @@ def phase_hevc_qt_host() -> None:
           f"1 of 1 with the encoder's picture ({', '.join(words)})")
 
 
+# ---- phase 18: the tile-sharded RA engine, the dry run, the tools ------
+
+# The JAX package's streams for phase 18 (scripts/jax_reference_sha1.py,
+# CPU): --tiled-ra (the dry run's TiledRefQt over the JAX encoder on
+# synth_clip(1920, 1072, 9, seed=5) in TILED_COLUMNS columns, repaired as
+# graft_entry.py says) and --dryrun (dryrun_multichip(4)'s decomposition).
+TILED_RA_BYTES = 623416
+TILED_RA_SHA1 = "be9e8712e042606fe090ee28bd71ddd5664f437b"
+DRYRUN_BYTES = 61388
+DRYRUN_SHA1 = "2d401f4bc21da44c96cca85f743fefe89517ac3e"
+# The JAX package's experiment CLI on experiment_yuv's file, per codec:
+# (QP, kbps, Y-PSNR) as its table prints them (--experiment; ldp with the
+# spec AMVP list, ROADMAP queue 3 fault 0).
+EXPERIMENT_JAX = {
+    "intra": [("28", "26173.76", "33.6646"), ("32", "17294.00", "29.7532"),
+              ("36", "9045.12", "26.3436"), ("40", "3216.32", "24.3451")],
+    "ldp": [("28", "16553.84", "33.7336"), ("32", "11125.28", "29.7969"),
+            ("36", "6524.80", "26.3825"), ("40", "2558.64", "24.3950")],
+}
+# Kernel calls per tile column and B picture of the tiled engine with the
+# CU8 tree: (n, r) -> SAD launches, (log2, luma) -> RDOQ launches; an
+# anchor P picture has one list: half the SAD launches, the same RDOQ.
+TILED_SAD_CALLS = {(4, 2): 2, (16, 3): 4, (2, 2): 2, (8, 3): 4}
+TILED_RDOQ_CALLS = {(4, True): 2, (3, False): 4, (3, True): 2,
+                    (2, False): 4}
+
+
+def tiled_cfg():
+    from video_codecs_tpu_torch import graft_entry
+    return graft_entry.dryrun_cfg(HEVC_W, HEVC_H, HEVC_QP)
+
+
+def tiled_slab(plane: np.ndarray, scale: int = 1) -> np.ndarray:
+    """Tile column 0's halo-padded slab of a picture plane, as
+    `sharded.TiledRefQt` gathers it (clamped column indices)."""
+    lo, hi = -TILED_HALO // scale, (TILED_WT + TILED_HALO) // scale
+    return np.ascontiguousarray(np.take(
+        plane, np.clip(np.arange(lo, hi), 0, plane.shape[1] - 1), axis=1))
+
+
+def phase_tiled_kernels() -> dict:
+    """Phase 18a (first part, stage 1): the SAD and RDOQ kernels against
+    their plain versions at the tile slab's shapes (a 544x1072 column of
+    1080p: 34 x 67 blocks of 16, 68 x 134 of 8), timed beside their bounds;
+    the per-picture sums are per tiled B picture (TILED_COLUMNS columns,
+    the pyramid of both trees per list, the CU8 tree's RDOQ)."""
+    tag = "tiled-kernels"
+    sw = TILED_WT + 2 * TILED_HALO
+    b16, b8 = (sw // 16) * (HEVC_H // 16), (sw // 8) * (HEVC_H // 8)
+    rng = np.random.default_rng(2031)
+    pic = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    rows = []
+    for (n, r), calls in TILED_SAD_CALLS.items():
+        b = b16 if n in (4, 16) else b8
+        cur = torch.from_numpy(rng.integers(0, 256, (b, n, n),
+                                            dtype=np.uint8)).cuda()
+        win = torch.from_numpy(rng.integers(
+            0, 256, (b, n + 2 * r, n + 2 * r), dtype=np.uint8)).cuda()
+        got = ss.sad_surface(cur, win, n, r)
+        torch.cuda.synchronize()
+        err = int((got - ss.sad_surface_ref(cur, win, n, r)).abs().max())
+        check(err == 0, f"[{tag}] SAD kernel != plain at n={n} B={b} r={r} "
+                        f"(max abs err {err})")
+        tm = sad_times(cur, win, n, r)
+        bound, nbytes, ops = sad_bound(n, b, r)
+        k = 2 * calls * TILED_COLUMNS
+        add_kernel_ms(pic, k, tm["ms"], tm["note"], f"SAD n={n} r={r}")
+        pic["plain_ms"] += k * tm["plain_ms"]
+        pic["bytes"] += k * nbytes
+        pic["ops"] += k * ops
+        print(f"[{tag}] SAD n={n} B={b} r={r}: equal; kernel {kms(tm['ms'])}"
+              f" (profiler{', ' + tm['note'] if tm['note'] else ''}), "
+              f"{tm['event_ms']:.4f} ms a wrapper call (CUDA events); bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+              f"ops), {of_bound(bound, tm['ms'])}; plain "
+              f"{tm['plain_ms']:.3f} ms; torch.cdist "
+              f"{tm['library_ms']:.3f} ms; {k} launches per tiled B picture")
+        rows.append(dict(kernel="sad_surface", n=n, b=b, r=r, ms=tm["ms"],
+                         plain_ms=tm["plain_ms"], bound_ms=bound,
+                         library_ms=tm["library_ms"], max_abs_err=err))
+    frames = synth_clip(HEVC_W, HEVC_H, 2, seed=5)
+    qb = HEVC_QP + 2                                  # a B picture's QP
+    for (log2, luma), calls in TILED_RDOQ_CALLS.items():
+        c = 0 if luma else 1
+        cur, ref = (tiled_slab(f[c], 1 if luma else 2) for f in
+                    (frames[1], frames[0]))
+        co = rdoq_coeffs(cur, ref, log2)
+        what = (f"slab TU{1 << log2} {'luma' if luma else 'chroma'}")
+        row = rdoq_row(tag, what, co, log2, luma, 0, True, qb)
+        k = calls * TILED_COLUMNS
+        add_kernel_ms(pic, k, row["ms"], row["note"], what)
+        pic["plain_ms"] += k * row["plain_ms"]
+        pic["bound_rdoq"] = pic.get("bound_rdoq", 0.0) + k * row["bound_ms"]
+        rows.append(dict(kernel="rdoq_dev", **row))
+        del co
+    torch.cuda.empty_cache()
+    sad_bound_ms = max(pic["bytes"] / PEAK_BYTES, pic["ops"] / PEAK_OPS) * 1e3
+    print(f"[{tag}] per tiled 1080p B picture ({TILED_COLUMNS} columns: "
+          f"{2 * sum(TILED_SAD_CALLS.values()) * TILED_COLUMNS} SAD and "
+          f"{sum(TILED_RDOQ_CALLS.values()) * TILED_COLUMNS} RDOQ launches):"
+          f" kernels {kms(pic['ms'])}, bound {sad_bound_ms:.4f} ms (SAD) + "
+          f"{pic['bound_rdoq']:.4f} ms (RDOQ), plain {pic['plain_ms']:.1f} ms"
+          f"{'; ' + pic['note'] if pic.get('note') else ''}")
+    print(json.dumps({"tiled_ra_kernels": rows}))
+    return pic
+
+
+def decode_ra(stream: bytes) -> tuple:
+    """Decode a random-access stream with the port's GeneralDecoder:
+    (hash_status, each picture's SHA-1, seconds).  Stage 3 runs it in a
+    process of its own beside the card's encodes (host work only)."""
+    dec = hevc_decoder.GeneralDecoder()
+    t0 = time.perf_counter()
+    pics = dec.decode(stream)
+    return list(dec.hash_status), [pictures_sha1([p]) for p in pics], \
+        time.perf_counter() - t0
+
+
+def _tiled_instrument(enc) -> list:
+    """Per picture of an RA encode: the device phase (synchronised, the
+    copy back included; the IDR's whole encode) and its SAD and RDOQ
+    launches, appended to the returned log."""
+    log = []
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            n0, r0 = ss.sad_surface.launches, rdoq_ops.rdoq_dev.launches
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append(dict(kind=name, ms=(time.perf_counter() - t0) * 1e3,
+                            sad=ss.sad_surface.launches - n0,
+                            rdoq=rdoq_ops.rdoq_dev.launches - r0))
+            return out
+        return run
+
+    enc.encode_frame = wrap("I", enc.encode_frame)
+    enc._device_phase = wrap("B/P", enc._device_phase)
+    orig = enc._encode_b_frame
+
+    def b_frame(frame, poc, refs, is_anchor):
+        out = orig(frame, poc, refs, is_anchor)
+        log[-1].update(poc=poc, kind="P" if is_anchor else "B")
+        return out
+
+    enc._encode_b_frame = b_frame
+    return log
+
+
+def phase_tiled_ra(dpool) -> tuple:
+    """Phase 18a (stage 3): the tile-sharded RA engine at 1920x1072 --
+    `sharded.ShardedQt`, TILED_COLUMNS columns of TILED_WT with a halo of
+    TILED_HALO, each column's halos copied from its neighbours, the dry
+    run's encoder settings with the hash SEI -- on the card; then the
+    untiled engine for the times.  The stream is the JAX package's
+    (TILED_RA_SHA1); the port's GeneralDecoder, in a process of its own,
+    gives every hash OK with the encoder's pictures; each B or P picture
+    launches TILED_COLUMNS times the untiled picture's SAD and RDOQ
+    kernels.  Returns the launches and the stream's SHA-1 (main holds
+    them to `phase_tiled_ra_ref`'s)."""
+    from video_codecs_tpu_torch.parallel import sharded
+    from video_codecs_tpu_torch.tools import convert
+    tag = "tiled-ra"
+    w, h, n = HEVC_W, HEVC_H, RA_PICTURES
+    frames = synth_clip(w, h, n, seed=5)
+    print(f"[{tag}] {w}x{h}, {n} pictures of the headline's clip in "
+          f"{TILED_COLUMNS} tile columns of {TILED_WT} (halo {TILED_HALO}): "
+          f"the dry run's engine (QP {HEVC_QP} GOP-8, SR{TILED_SR} pyramid, "
+          "CU8 tree, merge 5, full RDOQ, SBH) with the MD5 hash SEI; card "
+          + CARD)
+    kw = dict(search_range=TILED_SR, tile_width=TILED_WT, halo=TILED_HALO,
+              device="cuda")
+    enc = sharded.ShardedQt(tiled_cfg(), **kw)
+    log = _tiled_instrument(enc)
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
+    t0 = time.perf_counter()
+    stream, recons = enc.encode_sequence_ra(frames)
+    t_enc = time.perf_counter() - t0
+    sad, rdoq = ss.sad_surface.launches, rdoq_ops.rdoq_dev.launches
+    check(RDOQ_REF_CALLS["cuda"] == 0,
+          f"[{tag}] the plain RDOQ ran {RDOQ_REF_CALLS['cuda']} times on "
+          "the card")
+    dec = dpool.submit(decode_ra, stream)
+    sha = hashlib.sha1(stream).hexdigest()
+    print(f"[{tag}] ShardedQt on {[str(d) for d in enc.devices]}: "
+          f"{len(stream)} bytes, SHA-1 {sha}, encode {t_enc:.2f} s; SAD "
+          f"launches {sad}, RDOQ {rdoq} (the plain version 0 times)")
+    mono = inter_qt.QtDeviceRandomAccessEncoder(
+        tiled_cfg(), search_range=TILED_SR, device="cuda")
+    mlog = _tiled_instrument(mono)
+    mstream = mono.encode_sequence_ra(frames)[0]
+    for e, m in zip(log, mlog):
+        check(e["kind"] == m["kind"], f"[{tag}] picture order differs")
+        k = 1 if e["kind"] == "I" else TILED_COLUMNS
+        check(e["sad"] == k * m["sad"] and e["rdoq"] == k * m["rdoq"],
+              f"[{tag}] POC {e.get('poc', 0)}: SAD {e['sad']} RDOQ "
+              f"{e['rdoq']} launches, want {k} x the untiled {m['sad']} / "
+              f"{m['rdoq']}")
+        what = ("the IDR's quadtree encode (untiled in both runs)"
+                if e["kind"] == "I" else "device phase")
+        print(f"[{tag}] POC {e.get('poc', 0)} ({e['kind']}): {what} "
+              f"{e['ms']:.1f} ms tiled against {m['ms']:.1f} ms untiled "
+              f"(ratio {e['ms'] / m['ms']:.2f}); launches SAD {e['sad']} / "
+              f"RDOQ {e['rdoq']} = {k} x the untiled {m['sad']} / "
+              f"{m['rdoq']}")
+    print(f"[{tag}] the untiled engine's stream: {len(mstream)} bytes, the "
+          f"tiled one's differs by {len(stream) - len(mstream):+d} bytes "
+          "(float32 RD sums over other shapes; reported, not asserted)")
+    count = convert.annexb_byte_count(stream)
+    check(count["total"] + count["start_code"] == len(stream),
+          f"[{tag}] annexb_byte_count {count} does not add up")
+    print(f"[{tag}] annexb_byte_count: {count}")
+    print(f"[{tag}] the JAX package's decomposition on the CPU "
+          "(scripts/jax_reference_sha1.py --tiled-ra): "
+          f"{TILED_RA_BYTES} bytes SHA-1 {TILED_RA_SHA1}")
+    check((len(stream), sha) == (TILED_RA_BYTES, TILED_RA_SHA1),
+          f"[{tag}] stream {len(stream)} bytes SHA-1 {sha}, the JAX "
+          f"package's is {TILED_RA_BYTES} bytes {TILED_RA_SHA1}")
+    status, shas, t_dec = dec.result()
+    check(status == [True] * n, f"[{tag}] GeneralDecoder hash {status}")
+    check(shas == [pictures_sha1([r]) for r in recons],
+          f"[{tag}] the decoded pictures are not the encoder's")
+    print(f"[{tag}] the stream is the JAX package's (SHA-1); the port's "
+          f"GeneralDecoder: hash OK {n} of {n}, the encoder's pictures "
+          f"({t_dec:.2f} s in its own process)")
+    return sad, rdoq, sha
+
+
+def phase_tiled_ra_ref() -> tuple:
+    """Phase 18a's sequential decomposition (stage 2): `TiledRefQt` on the
+    card, the columns one after another with their halos gathered, on
+    [tiled-ra]'s clip and settings; its stream must be TILED_RA_SHA1, and
+    main holds [tiled-ra]'s ShardedQt stream to it.  Returns its SAD and
+    RDOQ launches and its stream's SHA-1."""
+    from video_codecs_tpu_torch.parallel import sharded
+    tag = "tiled-ra-ref"
+    frames = synth_clip(HEVC_W, HEVC_H, RA_PICTURES, seed=5)
+    enc = sharded.TiledRefQt(tiled_cfg(), search_range=TILED_SR,
+                             tile_width=TILED_WT, halo=TILED_HALO,
+                             device="cuda")
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence_ra(frames)[0]
+    secs = time.perf_counter() - t0
+    sad, rdoq = ss.sad_surface.launches, rdoq_ops.rdoq_dev.launches
+    check(RDOQ_REF_CALLS["cuda"] == 0, f"[{tag}] the plain RDOQ ran")
+    sha = hashlib.sha1(stream).hexdigest()
+    check((len(stream), sha) == (TILED_RA_BYTES, TILED_RA_SHA1),
+          f"[{tag}] stream {len(stream)} bytes SHA-1 {sha}, want "
+          f"{TILED_RA_BYTES} bytes {TILED_RA_SHA1}")
+    print(f"[{tag}] TiledRefQt (the {TILED_COLUMNS} columns one after "
+          f"another, halos gathered) on [tiled-ra]'s clip: {len(stream)} "
+          f"bytes, the JAX package's SHA-1, {secs:.2f} s beside the other "
+          f"workers; SAD launches {sad}, RDOQ {rdoq}")
+    return sad, rdoq, sha
+
+
+def phase_dryrun() -> tuple[int, int]:
+    """Phase 18b: `graft_entry.dryrun_multichip(4)` on the card (its
+    columns all on it, or on the cards round-robin): its OK line and its
+    stream the JAX package's decomposition's (DRYRUN_SHA1).  Returns its
+    SAD and RDOQ launches (three encodes of 9 pictures at 384x96)."""
+    from video_codecs_tpu_torch import graft_entry
+    tag = "dryrun"
+    ss.sad_surface.launches = 0
+    rdoq_ops.rdoq_dev.launches = 0
+    RDOQ_REF_CALLS["cuda"] = 0
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(4)
+    secs = time.perf_counter() - t0
+    sad, rdoq = ss.sad_surface.launches, rdoq_ops.rdoq_dev.launches
+    check(out["line"].startswith("dryrun_multichip OK:"),
+          f"[{tag}] {out['line']}")
+    check(RDOQ_REF_CALLS["cuda"] == 0, f"[{tag}] the plain RDOQ ran")
+    sha = hashlib.sha1(out["stream"]).hexdigest()
+    check((len(out["stream"]), sha) == (DRYRUN_BYTES, DRYRUN_SHA1),
+          f"[{tag}] stream {len(out['stream'])} bytes SHA-1 {sha}, the JAX "
+          f"package's decomposition's is {DRYRUN_BYTES} bytes {DRYRUN_SHA1}")
+    print(f"[{tag}] {secs:.2f} s; SAD launches {sad}, RDOQ {rdoq}; the "
+          f"stream ({len(out['stream'])} bytes) is the JAX package's "
+          "(scripts/jax_reference_sha1.py --dryrun, SHA-1)")
+    return sad, rdoq
+
+
+def _stdout_of(fn, *a) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*a)
+    return buf.getvalue()
+
+
+def phase_experiment() -> int:
+    """Phase 18c: the experiment CLI (`tools/experiment.main`, in this
+    process) on experiment_yuv's 832x480 file at EXPERIMENT_QPS, --codec
+    intra (the flat intra device encoder) and --codec ldp (the host LD-P
+    coder, one SAD launch per reference and P picture): each table's QP,
+    kbps and Y-PSNR columns the JAX package's (EXPERIMENT_JAX), then the
+    BD-rate and BD-PSNR of ldp against intra.  Returns the SAD launches."""
+    from video_codecs_tpu_torch.tools import experiment
+    tag = "experiment"
+    d = BUILD_DIR / "experiment"
+    d.mkdir(parents=True, exist_ok=True)
+    path = experiment_yuv(d)
+    pts, sad = {}, 0
+    for codec in ("intra", "ldp"):
+        ss.sad_surface.launches = 0
+        t0 = time.perf_counter()
+        text = _stdout_of(experiment.main, experiment_argv(path, codec))
+        secs = time.perf_counter() - t0
+        rows = [ln.split("\t") for ln in text.strip().splitlines()[2:]]
+        want_sad = (0 if codec == "intra" else
+                    (EXPERIMENT_PICTURES - 1) * len(rows))
+        check(ss.sad_surface.launches == want_sad,
+              f"[{tag}] {codec}: {ss.sad_surface.launches} SAD launches, "
+              f"want {want_sad}")
+        sad += ss.sad_surface.launches
+        print(f"[{tag}] --codec {codec}, {EXPERIMENT_PICTURES} pictures, "
+              f"{secs:.2f} s, SAD launches {ss.sad_surface.launches}:")
+        print(text.rstrip())
+        got = [tuple(r[:3]) for r in rows]
+        check(got == EXPERIMENT_JAX[codec],
+              f"[{tag}] {codec}: (QP, kbps, Y-PSNR) {got}, the JAX "
+              f"package's {EXPERIMENT_JAX[codec]}")
+        pts[codec] = [experiment.RDPoint(int(r[0]), float(r[1]),
+                                         float(r[2]), float(r[3]),
+                                         float(r[4])) for r in rows]
+    cmp = experiment.compare(pts["intra"], pts["ldp"])
+    print(f"[{tag}] both tables' QP, kbps and Y-PSNR are the JAX "
+          "package's (scripts/jax_reference_sha1.py --experiment); ldp "
+          f"against intra: BD-rate {cmp['bd_rate_pct']:.2f} %, BD-PSNR "
+          f"{cmp['bd_psnr_db']:.3f} dB")
+    return sad
+
+
+def phase_trace_tools() -> int:
+    """Phase 18d-e: [jm-main]'s encode (the JM CLI in this process) with
+    `utils/trace.start()`: the stream is still JM_SHA1 and its encode
+    trace equals the port's H264Decoder's decode trace line for line;
+    `decoder_app --stats` on the stream; `annexb_byte_count` (its total
+    plus the start codes is the stream's length), the leaky bucket over
+    its per-picture bits (the parameter file read back), and
+    `convert_bitdepth` 8 -> 10 -> 8 on its YUV file (the same bytes back).
+    Returns the SAD launches of the traced encode."""
+    from video_codecs_tpu_torch.tools import convert, jm_encoder_app, misc
+    from video_codecs_tpu_torch.utils import trace
+    tag = "trace-tools"
+    d = BUILD_DIR / "jm_trace"
+    d.mkdir(parents=True, exist_ok=True)
+    argv = jm_cli_files(d, "main", bench_synth_clip(JM_W, JM_H,
+                                                    JM_PICTURES))
+    ss.sad_surface.launches = 0
+    trace.start()
+    try:
+        _stdout_of(jm_encoder_app.main, argv)
+    finally:
+        enc_trace = trace.stop()
+    sad = ss.sad_surface.launches
+    stream = (d / "out.264").read_bytes()
+    sha = hashlib.sha1(stream).hexdigest()
+    check((len(stream), sha) == JM_SHA1["main"],
+          f"[{tag}] traced stream {len(stream)} bytes SHA-1 {sha}, want "
+          f"{JM_SHA1['main']}")
+    trace.start()
+    try:
+        H264Decoder().decode(stream)
+    finally:
+        dec_trace = trace.stop()
+    check(enc_trace == dec_trace and len(enc_trace) > 1000,
+          f"[{tag}] encode trace ({len(enc_trace)} lines) != decode trace "
+          f"({len(dec_trace)} lines)")
+    kinds = sorted({ln.split()[0] for ln in enc_trace})
+    print(f"[{tag}] [jm-main] with the trace on: the stream is still the "
+          f"JAX CLI's (SHA-1), {sad} SAD launches; encode trace == decode "
+          f"trace, {len(enc_trace)} lines of {kinds}")
+    text = _stdout_of(decoder_app.main, ["-b", str(d / "out.264"),
+                                         "--stats"])
+    check("TOTAL" in text and f"{JM_PICTURES} pictures decoded" in text,
+          f"[{tag}] decoder_app --stats: {text[-200:]}")
+    print(f"[{tag}] decoder_app --stats on it:\n{text.rstrip()}")
+    count = convert.annexb_byte_count(stream)
+    check(count["total"] + count["start_code"] == len(stream),
+          f"[{tag}] annexb_byte_count {count} does not add up")
+    bits = [8 * len(nal) for nal in hevc_bs.split_annexb(stream)
+            if nal[0] & 0x1F in (1, 5)]
+    check(len(bits) == JM_PICTURES, f"[{tag}] {len(bits)} slices")
+    params = misc.leaky_bucket_params(bits, 30.0)
+    misc.write_leaky_bucket_file(d / "leaky.bin", params)
+    check(misc.read_leaky_bucket_file(d / "leaky.bin") ==
+          [tuple(p) for p in params], f"[{tag}] leaky-bucket file differs")
+    src = (d / "in.yuv").read_bytes()
+    ten = convert.convert_bitdepth(src, 8, 10)
+    check(len(ten) == 2 * len(src) and
+          convert.convert_bitdepth(ten, 10, 8) == src,
+          f"[{tag}] 8 -> 10 -> 8 bits does not give the file back")
+    print(f"[{tag}] annexb_byte_count {count}; leaky bucket (R, B, F) per "
+          f"bucket over its {len(bits)} pictures' bits {bits}: {params} "
+          f"(file read back equal); convert_bitdepth 8 -> 10 -> 8 on its "
+          f"{len(src)}-byte YUV file gives the same bytes ({len(ten)} at "
+          "10 bits)")
+    return sad
+
+
+def task_cli_ra() -> int:
+    """cli-ra, then `decoder_app --stats` on its stream (the port routes
+    it to the GeneralDecoder; the HEVC CabacDecoder hooks count the bins
+    per context class) and its annexb_byte_count: cli-ra's SAD
+    launches."""
+    from video_codecs_tpu_torch.tools import convert
+    launches = phase_cli_ra()
+    path = BUILD_DIR / "cli_ra" / "out.bin"
+    t0 = time.perf_counter()
+    text = _stdout_of(decoder_app.main, ["-b", str(path), "--stats"])
+    check(text.count("[(OK)]") == CLI_RA_PICTURES and "TOTAL" in text,
+          f"[cli-ra-stats] decoder_app --stats: {text[-300:]}")
+    stream = path.read_bytes()
+    count = convert.annexb_byte_count(stream)
+    check(count["total"] + count["start_code"] == len(stream),
+          f"[cli-ra-stats] annexb_byte_count {count} does not add up")
+    print(f"[cli-ra-stats] decoder_app --stats on [cli-ra]'s stream "
+          f"({time.perf_counter() - t0:.2f} s):\n{text.rstrip()}\n"
+          f"[cli-ra-stats] annexb_byte_count {count}")
+    return launches
+
+
 def jax_modules() -> list:
     """The modules of the JAX package or of JAX this process imported."""
     return [m for m in sys.modules
@@ -4360,13 +4860,50 @@ def task_ldp_host() -> tuple:
     return (sad, sao) + tuple(phase_cli_ldp(stream))
 
 
+def _stop(pool, done: bool) -> None:
+    """Shut a process pool down, its running processes stopped first
+    unless the work ended (the executor has no call that stops a task)."""
+    if not done:
+        for proc in list((pool._processes or {}).values()):
+            proc.terminate()
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+def task_tiles_wpp() -> None:
+    """Phase 17a-b in a stage-2 worker: [hevc-tiles]
+    (with its untiled times), [hevc-wpp], then the IntraEncoder check of
+    [hevc-tiles]; each stream's pictures go to the GeneralDecoder and the
+    IntraDecoder one by one in DECODERS spawned processes of this worker
+    (host work) while the card codes on, and every decode must report its
+    hash OK with the encoder's picture.  A failure stops the decoders."""
+    n = TILES_PICTURES
+    dpool = concurrent.futures.ProcessPoolExecutor(
+        DECODERS, mp_context=multiprocessing.get_context("spawn"))
+    done = False
+    try:
+        t_f, t_rec, tiled = phase_hevc_tiles(dpool)
+        w_f, w_rec, _ = phase_hevc_tiles(dpool, wpp=True)
+        phase_tiles_untiled(*tiled)
+        for tag, futs, recons in (("hevc-tiles", t_f, t_rec),
+                                  ("hevc-wpp", w_f, w_rec)):
+            times = check_decodes(tag, futs, recons, n)
+            print(f"[{tag}] the port's decoders, a picture at a time: hash "
+                  f"OK {n} of {n} with the encoder's pictures in each "
+                  f"({times} of decoding)")
+        done = True
+    finally:
+        _stop(dpool, done)
+
+
 # Stage 2's phases as (name, function, arguments, keywords), the longest
 # first (their times alone on one H100: PERF.md), so that the workers end
 # together.  main reads each result by its name.
 POOL_TASKS = [
+    ("hevc-tiles-wpp", task_tiles_wpp, (), {}),
     ("hevc-ldp-host", task_ldp_host, (), {}),
     ("720p", phase_encode_720p, (), {}),
-    ("cli-ra", phase_cli_ra, (), {}),
+    ("experiment", phase_experiment, (), {}),
+    ("cli-ra", task_cli_ra, (), {}),
     ("hevc-flat-ra-sao", pick, (phase_hevc_flat, (0, 1, 2), "ra"),
      {"sao": True}),
     ("hevc-flat-ra", pick, (phase_hevc_flat, (0, 1), "ra"), {}),
@@ -4377,6 +4914,8 @@ POOL_TASKS = [
     ("ra-cuda-vs-cpu", phase_ra_cuda_vs_cpu, (), {}),
     ("hevc-ra-sao", phase_hevc_ra, (), {"sao": True}),
     ("hevc-ldp-rc", task_ldp_rc, (), {}),
+    ("tiled-ra-ref", phase_tiled_ra_ref, (), {}),
+    ("dryrun", phase_dryrun, (), {}),
     ("hevc-ldp-sao", pick, (phase_hevc_ldp, (0, 2, 3)), {"variant": "sao"}),
     ("hevc-ldp-conf", pick, (phase_hevc_ldp, (0, 2)), {"variant": "conf"}),
     ("hevc-ra", pick, (phase_hevc_ra, (0, 2)), {}),
@@ -4402,10 +4941,12 @@ POOL_TASKS = [
     ("h264-wp", phase_h264_conf, ("wp",), {}),
     ("h264-perc", phase_h264_conf, ("perc",), {}),
     ("hevc-qt-host", phase_hevc_qt_host, (), {}),
+    ("trace-tools", phase_trace_tools, (), {}),
 ]
 # Processes stage 2 runs its phases in, and the CPU threads each gives
-# torch: the host has 8 cores.
-WORKERS, WORKER_THREADS = 4, 2
+# torch: the host has 8 cores, and most phases keep one of them busy
+# with Python while the card waits.
+WORKERS, WORKER_THREADS = 5, 2
 
 
 def worker_init(card: str) -> None:
@@ -4462,46 +5003,29 @@ def run_pool(tasks: list) -> dict:
             results[name] = res
         done = True
     finally:
-        if not done:
-            # the executor has no public call that stops a running task
-            for proc in list((pool._processes or {}).values()):
-                proc.terminate()
-        pool.shutdown(wait=True, cancel_futures=True)
+        _stop(pool, done)
     print(f"[pool] {len(tasks)} phases on {WORKERS} workers in "
           f"{time.perf_counter() - t0:.1f} s")
     return results
 
 
-def run_stage3() -> None:
-    """Stage 3: [hevc-tiles] (with its untiled times), [hevc-wpp], then
-    the IntraEncoder check of [hevc-tiles], alone on the card; each
-    stream's pictures go to the GeneralDecoder and the IntraDecoder one
-    by one in DECODERS spawned processes (host work) while the card codes
-    on, and every decode must report its hash OK with the encoder's
-    picture.  A failure stops the decoders."""
-    n = TILES_PICTURES
+def run_stage3() -> tuple:
+    """Stage 3: [tiled-ra] alone on the card, its stream decoded by the
+    port's GeneralDecoder in a spawned process of its own meanwhile (host
+    work); returns its SAD and RDOQ launches and the stream's SHA-1."""
     dpool = concurrent.futures.ProcessPoolExecutor(
-        DECODERS, mp_context=multiprocessing.get_context("spawn"))
+        1, mp_context=multiprocessing.get_context("spawn"))
     done = False
     try:
-        t_f, t_rec, tiled = phase_hevc_tiles(dpool)
-        w_f, w_rec, _ = phase_hevc_tiles(dpool, wpp=True)
-        phase_tiles_untiled(*tiled)
-        for tag, futs, recons in (("hevc-tiles", t_f, t_rec),
-                                  ("hevc-wpp", w_f, w_rec)):
-            times = check_decodes(tag, futs, recons, n)
-            print(f"[{tag}] the port's decoders, a picture at a time: hash "
-                  f"OK {n} of {n} with the encoder's pictures in each "
-                  f"({times} of decoding)")
+        out = phase_tiled_ra(dpool)
         done = True
+        return out
     finally:
-        if not done:
-            for proc in list((dpool._processes or {}).values()):
-                proc.terminate()
-        dpool.shutdown(wait=True, cancel_futures=True)
+        _stop(dpool, done)
 
 
-# Processes that decode stage 3's streams beside the card's encodes.
+# Processes that decode [hevc-tiles]' and [hevc-wpp]'s pictures beside
+# the card's encodes.
 DECODERS = 4
 
 
@@ -4532,6 +5056,7 @@ def main() -> None:
     sao_flat, _ = phase_sao_kernel_flat()
     r64 = phase_sad_r64()
     sad_jm = phase_sad_jm()
+    phase_tiled_kernels()
     print(f"[time] stage 1 (the build and the kernels alone) ended at "
           f"{time.perf_counter() - t_start:.1f} s")
     # Stage 2: the earlier slices' paths, WORKERS at a time.
@@ -4558,12 +5083,23 @@ def main() -> None:
     conf = {kind: res[f"h264-{kind}"]
             for kind in ("ltr", "wp", "perc", "loss")}
     cli_ai_sao = res["cli-ai-tiles"]
-    # Stage 3: this slice's 1080p paths, alone on the card; the port's
-    # decoders check their streams in processes of their own meanwhile.
+    exp_sad = res["experiment"]
+    dry_sad, dry_rdoq = res["dryrun"]
+    trace_sad = res["trace-tools"]
+    # Stage 3: the tile-sharded 1080p GOP alone on the card; the port's
+    # decoder checks its stream in a process of its own meanwhile.
     t3 = time.perf_counter()
-    run_stage3()
-    print(f"[time] stage 3 ([hevc-tiles], [hevc-wpp] and their decodes) "
+    tiled_sad, tiled_rdoq, tiled_sha = run_stage3()
+    print(f"[time] stage 3 ([tiled-ra] and its decode) "
           f"{time.perf_counter() - t3:.1f} s")
+    ref_sad, ref_rdoq, ref_sha = res["tiled-ra-ref"]
+    check(tiled_sha == ref_sha and (ref_sad, ref_rdoq) == (tiled_sad,
+                                                           tiled_rdoq),
+          f"[tiled-ra] ShardedQt's stream {tiled_sha} ({tiled_sad} / "
+          f"{tiled_rdoq} launches) != TiledRefQt's {ref_sha} ({ref_sad} / "
+          f"{ref_rdoq})")
+    print("[tiled-ra] ShardedQt's stream (stage 3) is TiledRefQt's "
+          "(stage 2), byte for byte, with the same launches")
     jax_mods = jax_modules()
     check(not jax_mods, f"the JAX package was imported: {jax_mods[:5]}")
     print("[imports] nothing of video_codecs_tpu or jax was imported, "
@@ -4573,7 +5109,8 @@ def main() -> None:
                 ldp_conf + ldp_tz + ra_tz + ldp_rc + rc_resumed + flat_ra +
                 hierb + flat_sao + host_sad + wp_sad + wp_off_sad + dqp_sad +
                 cli_ra_sad + cli_ldp_sad + jm_main + jm_base + h264_high +
-                h264_b + sum(conf.values()))
+                h264_b + sum(conf.values()) + tiled_sad + ref_sad + dry_sad +
+                exp_sad + trace_sad)
     sao_all = (sao_launches + ldp_sao_stats + flat_sao_stats + host_sao +
                cli_ldp_sao + cli_ai_sao)
     print(f"[kernels] sad_surface launches: RA GOP {ra_launches}, RA GOP "
@@ -4590,8 +5127,11 @@ def main() -> None:
           f"the host H.264 coder's High-profile run {h264_high} and B run "
           f"{h264_b}, its long-term / MMCO / reordering run {conf['ltr']}, "
           f"weighted-prediction run {conf['wp']}, perceptual run "
-          f"{conf['perc']} and intra-refresh run {conf['loss']}, together "
-          f"{launches}; its "
+          f"{conf['perc']} and intra-refresh run {conf['loss']}, the "
+          f"tile-sharded RA GOP {tiled_sad} and its sequential twin "
+          f"{ref_sad}, the dry run {dry_sad}, the "
+          f"experiment CLI's LD-P sweep {exp_sad} and the traced JM run "
+          f"{trace_sad}, together {launches}; its "
           "times and bound below are the RA pyramid path's per B picture "
           "(the search range 64 surfaces' on the next line). sao_stats "
           f"launches: RA GOP with SAO {sao_launches}, LD-P SAO run "
@@ -4604,7 +5144,8 @@ def main() -> None:
           "shapes' on the sao_stats_flat line)")
     rdoq_launches = (ra_rdoq + ra_sao_rdoq + ldp_rdoq + ldp_sao_rdoq +
                      ldp_conf_rdoq + ldp_tz_rdoq + ra_tz_rdoq + ldp_rc_rdoq +
-                     resumed_rdoq + flat_ra_rdoq + hierb_rdoq + flat_sao_rdoq)
+                     resumed_rdoq + flat_ra_rdoq + hierb_rdoq + flat_sao_rdoq +
+                     tiled_rdoq + ref_rdoq + dry_rdoq)
     r = rq[0]
     print(f"[kernels] rdoq_dev launches: RA GOP {ra_rdoq}, RA GOP with SAO "
           f"{ra_sao_rdoq}, LD-P run {ldp_rdoq}, LD-P SAO run {ldp_sao_rdoq}, "
@@ -4613,7 +5154,9 @@ def main() -> None:
           f"RA TZ GOP {ra_tz_rdoq}, LD-P rate-controlled run {ldp_rc_rdoq} "
           f"and its resumed run {resumed_rdoq}, flat RA GOP {flat_ra_rdoq}, "
           f"flat hierarchical-B run {hierb_rdoq}, flat RA GOP with SAO "
-          f"{flat_sao_rdoq} (the host coders and the encoder CLI 0), "
+          f"{flat_sao_rdoq}, the tile-sharded RA GOP {tiled_rdoq} and its "
+          f"sequential twin {ref_rdoq}, the dry run {dry_rdoq} (the host "
+          "coders and the encoder CLI 0), "
           f"together {rdoq_launches}; "
           f"the plain version ran 0 times in them; its times and bound are "
           f"the {r['what']} call's (B={r['b']}; every shape on the next "

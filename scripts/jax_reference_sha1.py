@@ -603,6 +603,170 @@ def qt_host() -> None:
               f"the encoder's: {same}", flush=True)
 
 
+def jax_deblock_maps(qt, qp):
+    """`qt_merge_dev`'s deblock (video_codecs_tpu/models/hevc/inter_qt.py:
+    380-423) as jnp on the assembled picture's maps: the tiled runs'
+    repaired deblock (the port's `inter_qt.deblock_maps`)."""
+    import jax.numpy as jnp
+    from video_codecs_tpu.ops import deblock as deblock_ops
+
+    def up8(f):
+        return jnp.repeat(jnp.repeat(f, 2, axis=0), 2, axis=1)
+
+    q = {k: jnp.asarray(v) for k, v in qt.items()}
+    pm8 = up8(q["pred_mode"].astype(jnp.int32))
+    dir8 = q["dir8"].astype(jnp.int32)
+    m0x8, m0y8, m1x8, m1y8 = q["mv0x8"], q["mv0y8"], q["mv1x8"], q["mv1y8"]
+    r0_8f = q["r0_8"].astype(jnp.int32)
+    r1_8f = q["r1_8"].astype(jnp.int32)
+    tusplit, split8m = q["tusplit"], q["split8"]
+    eff8 = jnp.where(up8(tusplit | split8m), q["cbf_y8"], up8(q["cbf_y"]))
+
+    def bs_pair8(sl_a, sl_b):
+        intra2 = (pm8 == inter_qt.MODE_INTRA)[sl_a] | \
+            (pm8 == inter_qt.MODE_INTRA)[sl_b]
+        diff_dir = dir8[sl_a] != dir8[sl_b]
+        d0 = (jnp.abs(m0x8[sl_a] - m0x8[sl_b]) >= 4) | \
+             (jnp.abs(m0y8[sl_a] - m0y8[sl_b]) >= 4) | \
+             (r0_8f[sl_a] != r0_8f[sl_b])
+        d1 = (jnp.abs(m1x8[sl_a] - m1x8[sl_b]) >= 4) | \
+             (jnp.abs(m1y8[sl_a] - m1y8[sl_b]) >= 4) | \
+             (r1_8f[sl_a] != r1_8f[sl_b])
+        use0 = (dir8[sl_a] & 1) > 0
+        mv_diff = jnp.where(dir8[sl_a] == 3, d0 | d1,
+                            jnp.where(use0, d0, d1))
+        one = eff8[sl_a] | eff8[sl_b] | diff_dir | mv_diff
+        return jnp.where(intra2, 2, jnp.where(one, 1, 0)).astype(jnp.int32)
+
+    ver8 = bs_pair8(np.s_[:, :-1], np.s_[:, 1:]).T
+    hor8 = bs_pair8(np.s_[:-1, :], np.s_[1:, :])
+    inner = tusplit | split8m
+    ver8 = ver8.at[0::2].set(
+        jnp.where(jnp.repeat(inner.T, 2, axis=1), ver8[0::2], 0))
+    hor8 = hor8.at[0::2].set(
+        jnp.where(jnp.repeat(inner, 2, axis=1), hor8[0::2], 0))
+    return deblock_ops.deblock_420_bs(
+        q["rec_y"].astype(jnp.int32), q["rec_u"].astype(jnp.int32),
+        q["rec_v"].astype(jnp.int32), qp, ver8, hor8, block=8)
+
+
+def jax_tiled_qt(wt: int, halo: int, repaired: bool = True):
+    """The dry run's `TiledRefQt` (__graft_entry__.py:143-190) over the
+    JAX encoder, for tile columns of `wt` luma samples.  repaired=True
+    takes the picture's QP (`cfg.qp`, where the dry run passes its base
+    QP 32 whatever the picture's offset) and deblocks the assembled
+    picture (`jax_deblock_maps`) where the dry run deblocks each padded
+    column, the edge between a picture edge and its halo included: the
+    port's `parallel.sharded.TiledRefQt`.  repaired=False is the dry
+    run's as written."""
+    import jax.numpy as jnp
+    from video_codecs_tpu_torch.parallel import sharded
+
+    keys = sharded.KEYS
+
+    class TiledRefQt(inter_qt.QtDeviceRandomAccessEncoder):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.qt_log = {}
+            self._poc = None
+
+        def _encode_b_frame(self, frame, poc, refs, is_anchor):
+            self._poc = poc
+            return super()._encode_b_frame(frame, poc, refs, is_anchor)
+
+        def _device_phase(self, y, u, v, args, has_l1, lam):
+            cfg = self.cfg
+            qp = cfg.qp if repaired else 32
+            w, h = cfg.width, cfg.height
+
+            def slab(a, scale=1):
+                lo = (ti * wt - halo) // scale
+                hi = ((ti + 1) * wt + halo) // scale
+                a = np.asarray(a)
+                idx = np.clip(np.arange(lo, hi), 0, a.shape[-1] - 1)
+                return jnp.asarray(np.take(a, idx, axis=-1))
+
+            outs = {k: [] for k in keys}
+            for ti in range(w // wt):
+                wp = wt + 2 * halo
+                pl = [slab(y), slab(u, 2), slab(v, 2),
+                      slab(args[0]), slab(args[1], 2), slab(args[2], 2),
+                      slab(args[3]), slab(args[4], 2), slab(args[5], 2)]
+                st16 = inter_jax.encode_b_frame_dev(
+                    *pl, qp=qp, w=wp, h=h, has_l1=has_l1,
+                    search_range=self.search_range,
+                    sbh=cfg.sign_data_hiding, rdoq=True, me_method="pyr",
+                    deblock=False, allow_intra=False, merge_eval="best4",
+                    lam=lam, rqt=True, cu8=True,
+                    gx_blk0=jnp.int32((ti * wt - halo) // 16),
+                    pic_bw=jnp.int32(w // 16))
+                qt = inter_qt.qt_merge_dev(
+                    *pl, st16, qp=qp, w=wp, h=h, has_l1=has_l1,
+                    sbh=cfg.sign_data_hiding, rdoq=True,
+                    deblock=not repaired, lam=lam)
+                for k in keys:
+                    c = sharded.crop_cells(k, halo)
+                    outs[k].append(np.asarray(qt[k][:, c:-c]))
+            full = {k: np.concatenate(outs[k], axis=-1) for k in keys}
+            if repaired:
+                rec = jax_deblock_maps(full, qp)
+                for k, r in zip(("rec_y", "rec_u", "rec_v"), rec):
+                    full[k] = np.asarray(r).astype(np.uint8)
+            self.qt_log[self._poc] = full
+            return full
+
+    return TiledRefQt
+
+
+def tiled(kind: str) -> None:
+    """chip_smoke.py's `[tiled-ra]` ("ra": synth_clip(1920, 1072, 9,
+    seed=5) in 4 tile columns of 480, halo 32, the dry run's settings
+    with the hash SEI) or the dry run at 4 devices ("dryrun": its
+    384x96 clip in 4 columns of 96) through `jax_tiled_qt`, repaired,
+    each decoded by both packages' GeneralDecoders; for the dry run
+    also the stream as the dry run writes it and its hash results."""
+    from video_codecs_tpu_torch import graft_entry
+    if kind == "ra":
+        w, h, wt = chip_smoke.HEVC_W, chip_smoke.HEVC_H, chip_smoke.TILED_WT
+        frames = chip_smoke.synth_clip(w, h, chip_smoke.RA_PICTURES, seed=5)
+        runs = ((True, "tiled ra 1080p"),)
+    else:
+        wt, h = 96, 96
+        w = 4 * wt
+        frames = graft_entry.dryrun_clip(w, h)
+        runs = ((True, "dryrun 4 devices"),
+                (False, "dryrun 4 devices as written"))
+    for repaired, what in runs:
+        cfg = headers.HevcConfig(**dataclasses.asdict(
+            graft_entry.dryrun_cfg(w, h)))
+        enc = jax_tiled_qt(wt, 32, repaired)(cfg, search_range=8)
+        t0 = time.time()
+        stream, _ = enc.encode_sequence_ra(frames)
+        report(what, stream, len(frames), time.time() - t0)
+        dec = tdecoder.GeneralDecoder()
+        dec.decode(stream)
+        print(f"{what}: the port's GeneralDecoder hash OK "
+              f"{sum(dec.hash_status)} of {len(frames)}: {dec.hash_status}",
+              flush=True)
+
+
+def experiment() -> None:
+    """The JAX package's experiment CLI (tools/experiment.main) on
+    chip_smoke.py's `[experiment]` YUV (`chip_smoke.experiment_yuv`:
+    bench_synth_clip(832, 480, 3, seed=42)) at its QPs, --codec intra,
+    and --codec ldp with the spec AMVP list (queue 3, fault 0)."""
+    from video_codecs_tpu.tools import experiment as jexp
+    with tempfile.TemporaryDirectory() as d:
+        path = chip_smoke.experiment_yuv(Path(d))
+        for codec in ("intra", "ldp"):
+            motion.amvp_candidates = (tmotion.amvp_candidates
+                                      if codec == "ldp" else AMVP_AS_WRITTEN)
+            t0 = time.time()
+            jexp.main(chip_smoke.experiment_argv(path, codec))
+            print(f"experiment {codec}: {time.time() - t0:.1f} s", flush=True)
+    motion.amvp_candidates = AMVP_AS_WRITTEN
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ra", action="store_true",
@@ -666,6 +830,13 @@ def main() -> None:
                          "structure with 2 tile columns (cli-ai-tiles)")
     ap.add_argument("--qt-host", action="store_true",
                     help="the host quadtree RD encoder (hevc-qt-host)")
+    ap.add_argument("--tiled-ra", action="store_true",
+                    help="the 1080p RA GOP in 4 tile columns of the dry "
+                         "run's decomposition (tiled-ra)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="the dry run's tiled stream at 4 devices (dryrun)")
+    ap.add_argument("--experiment", action="store_true",
+                    help="the experiment CLI's tables (experiment)")
     ap.add_argument("--no-ldp", action="store_true",
                     help="skip the LD-P streams")
     args = ap.parse_args()
@@ -719,6 +890,12 @@ def main() -> None:
         cli_ai_tiles()
     if args.qt_host:
         qt_host()
+    if args.tiled_ra:
+        tiled("ra")
+    if args.dryrun:
+        tiled("dryrun")
+    if args.experiment:
+        experiment()
 
 
 if __name__ == "__main__":

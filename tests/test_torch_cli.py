@@ -386,8 +386,23 @@ def test_encoder_app_needs_a_card(tmp_path, monkeypatch):
 
 
 def test_decoder_app_stats_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="coding_stats"):
-        tdapp.main(["-b", str(tmp_path / "absent.bin"), "--stats"])
+    """`--stats` (ported, utils/coding_stats.py): on an HEVC all-intra
+    stream, which both CLIs decode with LowDelayDecoder, the port's
+    report of bins per CABAC context class and its hash lines are the
+    JAX CLI's (tests/test_torch_tools_rest.py: H.264 and LD-P)."""
+    frames = bench_synth_clip(64, 48, 2)
+    stream, _ = tic.IntraEncoder(theaders.HevcConfig(width=64, height=48),
+                                 device="cpu").encode_sequence(frames)
+    src = tmp_path / "ai.bin"
+    src.write_bytes(stream)
+    outs = []
+    for main in (tdapp.main, jdapp.main):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["-b", str(src), "--stats"])
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    assert "sig_flag" in outs[0] and "POC    1 [(OK)]" in outs[0]
 
 
 def test_cli_runs_as_module_without_jax(tmp_path):

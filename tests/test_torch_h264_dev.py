@@ -203,6 +203,25 @@ def test_port_runs_without_jax(tmp_path):
         assert sei.parse_sei_rbsp(sei.write_sei_rbsp(
             [sei.RecoveryPoint(1)])) == [sei.RecoveryPoint(1)]
         assert abs(metrics.ssim(base, base, device="cpu") - 1) < 1e-5
+        from video_codecs_tpu_torch import graft_entry
+        from video_codecs_tpu_torch.parallel import sharded
+        from video_codecs_tpu_torch.tools import convert, experiment, misc
+        from video_codecs_tpu_torch.utils import coding_stats, trace
+        fn, args = graft_entry.entry(device="cpu")
+        assert fn(*args)[0].shape == (48, 64)
+        assert sharded.TiledRefQt(graft_entry.dryrun_cfg(64, 32),
+                                  tile_width=32, device="cpu").n_tiles == 2
+        trace.start()
+        coding_stats.start()
+        tstream, _ = H264Encoder(48, 32, entropy="cabac", search_range=8,
+                                 device="cpu").encode_sequence(frames[:1])
+        assert "TOTAL" in coding_stats.stop().report() and trace.stop()
+        assert convert.annexb_byte_count(tstream)["total"] > 0
+        assert convert.convert_bitdepth(bytes([1, 2]), 8, 10) == \\
+            bytes([4, 0, 8, 0])
+        assert len(misc.leaky_bucket_params([800, 400, 400], 30.0)) == 8
+        assert experiment.bd_psnr([1, 2, 3], [30, 31, 32],
+                                  [1, 2, 3], [30, 31, 32]) == 0
         bad = [m for m in sys.modules
                if m in ("jax", "video_codecs_tpu")
                or m.startswith(("jax.", "video_codecs_tpu."))

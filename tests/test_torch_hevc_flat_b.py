@@ -284,5 +284,12 @@ def test_flat_b_cut_options_raise():
               rdoq=True)
     with pytest.raises(ValueError):
         tinter.encode_b_frame_dev(*args, merge_eval="best5", **kw)
-    with pytest.raises(NotImplementedError):       # tile-sharded inputs
-        tinter.encode_b_frame_dev(*args, gx_blk0=0, pic_bw=4, **kw)
+    # the tile-sharded inputs (ported): gx_blk0 = 0 and pic_bw = the
+    # picture's width are the untiled geometry, so the flat path's dict
+    # is the untiled one (tests/test_torch_multichip.py holds a tile's to
+    # the JAX function)
+    frames = clip(64, 48, 2, seed=9)
+    planes = [torch.from_numpy(p) for p in frames[1] + frames[0] * 2]
+    _dict_equal(tinter.encode_b_frame_dev(*planes, gx_blk0=0, pic_bw=4,
+                                          **kw),
+                tinter.encode_b_frame_dev(*planes, **kw), "gx_blk0")

@@ -160,7 +160,7 @@ _COPIES = {
          "QtDeviceRandomAccessEncoder._device_phase",
          "QtDeviceRandomAccessEncoder._sao_decide_qt"},
         {"_sse_blocks", "_coef_bits_blocks", "_pred_cand", "qt_merge_dev"},
-        {"_sao_stats"}),
+        {"_sao_stats", "deblock_maps"}),
     "models/hevc/decoder.py": (
         "models/hevc/decoder.py",
         {"GeneralDecoder._decode_slice_segment", "GeneralDecoder._parse_mvd"},

@@ -218,13 +218,24 @@ def test_ra_cut_options_raise():
     enc = tqt.QtDeviceRandomAccessEncoder(_cfg(theaders, 64, 64))
     assert enc.device == torch.device("cuda")     # the card by default
     assert enc._qt_intra.device == torch.device("cuda")
-    z = torch.zeros((64, 64), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):      # tile-sharded inputs
-        tinter.encode_b_frame_dev(
-            z, z[::2, ::2], z[::2, ::2], z, z[::2, ::2], z[::2, ::2],
-            z, z[::2, ::2], z[::2, ::2], qp=32, w=64, h=64, has_l1=False,
-            search_range=8, sbh=True, rdoq=True, deblock=False,
-            allow_intra=False, merge_eval="best4", me_fields=[])
+    # the tile-sharded inputs (ported): reference 0's ME handed in as
+    # me_fields gives the dict of the run that searched it, and so do
+    # gx_blk0 = 0 / pic_bw = the picture's width, the untiled geometry
+    # (tests/test_torch_multichip.py holds them to the JAX function)
+    (y, u, v), (ry, ru, rv) = [tuple(torch.from_numpy(p) for p in f)
+                               for f in clip(64, 64, 2, seed=5)]
+    planes = (y, u, v, ry, ru, rv, ry, ru, rv)
+    kw = dict(qp=32, w=64, h=64, has_l1=False, search_range=8, sbh=True,
+              rdoq=True, deblock=False, allow_intra=False,
+              merge_eval="best4", cu8=True)
+    want = tinter.encode_b_frame_dev(*planes, **kw)
+    x0 = (torch.arange(4, dtype=torch.int32) * 16).repeat(4)
+    y0 = (torch.arange(4, dtype=torch.int32) * 16).repeat_interleave(4)
+    cur = tinter.encoder_dev._extract_blocks(y.int(), x0, y0, 16)
+    me = tinter.b_me_one(ry.int(), cur, x0, y0, 8, "pyr")
+    for extra in (dict(me_fields=[me]), dict(gx_blk0=0, pic_bw=4)):
+        _dict_equal(tinter.encode_b_frame_dev(*planes, **kw, **extra), want,
+                    str(sorted(extra)))
 
 
 @pytest.mark.parametrize("feature", ["tile_columns", "wpp",

@@ -25,7 +25,8 @@ the plain PyTorch version only for a CPU tensor.
 
 Module map (port -> JAX counterpart):
 
-  utils/device.py            utils/devconst.py (dev_const)
+  utils/device.py            (explicit devices; devconst.py's in-trace
+                             constants have no counterpart)
   entropy/bitstream.py       entropy/bitstream.py (whole)
   entropy/cavlc.py           entropy/cavlc.py (whole)
   ops/h264_transform.py      ops/h264_transform.py (4x4 part)
@@ -50,8 +51,7 @@ Module map (port -> JAX counterpart):
                              coder, CAVLC and CABAC decoder)
   models/h264/host_me.py     (the host coder's card stage: its SAD
                              surfaces and sub-pel phase planes)
-  tools/jm_encoder_app.py,   tools/jm_encoder_app.py, tools/misc.py
-    tools/misc.py              (the level checks)
+  tools/jm_encoder_app.py    tools/jm_encoder_app.py
   models/hevc/inter_dev.py   models/hevc/inter_jax.py (MV helpers,
                              _intra_wavefront, encode_p_frame_dev,
                              DeviceLowDelayEncoder, b_me_one,
@@ -98,6 +98,17 @@ Module map (port -> JAX counterpart):
                              QtDeviceRandomAccessEncoder)
   models/hevc/decoder.py     models/hevc/decoder.py (GeneralDecoder,
                              whole)
+  parallel/sharded.py        __graft_entry__.py's TiledRefQt and
+                             ShardedQt (the RA engine on halo-padded tile
+                             columns)
+  graft_entry.py             __graft_entry__.py (entry,
+                             dryrun_multichip)
+  utils/trace.py,            utils/trace.py, coding_stats.py (whole; the
+    coding_stats.py            H.264 CABAC engines wrapped, the HEVC
+                               CabacDecoder hooked)
+  tools/convert.py,          tools/convert.py, experiment.py (whole),
+    experiment.py,             tools/misc.py (whole)
+    misc.py
 """
 
 import torch

@@ -7,8 +7,9 @@ of the host P coder (`H264Encoder._card_stage`: one
 `host_me.RefSearch`, i.e. one SAD-kernel launch, per list and B
 picture, made on `device`, the card unless the caller passes "cpu"),
 as its P anchors' do; its bi averages and direct predictions keep the
-reference's `mc_luma_np` / `mc_chroma_np`.  The trace and statistics
-wrappers of the entropy coders are cut.
+reference's `mc_luma_np` / `mc_chroma_np`.  The CABAC coder and
+decoder carry the trace and statistics wrappers (utils/trace.py,
+utils/coding_stats.py).
 
 Mirrors JM-18.5 B-slice behavior (reference: jm18.5 lencod/ldecod —
 spatial direct derivation lcommon/src/mc_direct.c Get_Direct_Motion_Vectors
@@ -304,6 +305,10 @@ class H264BEncoder(H264Encoder):
         ce = None
         if self.entropy == "cabac":
             ce = hc.H264CabacEncoder(w, "P", qp, model=0)
+            from video_codecs_tpu_torch.utils import trace as _tr
+            ce = _tr.wrap_syntax(ce, "write")
+            from video_codecs_tpu_torch.utils import coding_stats as _cs
+            ce = _cs.wrap_stats(ce)
             self._cbf = hc.CbfState(mbw, mbh)
             self._cbp_arr = np.zeros((mbh, mbw), np.int32)
             self._cipred = np.zeros((mbh, mbw), np.int32)
@@ -1414,6 +1419,10 @@ class H264BDecoder(H264Decoder):
         w4 = mbw * 4
         zz = cavlc.ZIGZAG_4x4
         cd = hc.H264CabacDecoder(r, "P", qp, model)
+        from video_codecs_tpu_torch.utils import trace as _tr
+        cd = _tr.wrap_syntax(cd, "read")
+        from video_codecs_tpu_torch.utils import coding_stats as _cs
+        cd = _cs.wrap_stats(cd)
         cbf = hc.CbfState(mbw, mbh)
         cbp_arr = np.zeros((mbh, mbw), np.int32)
         cipred = np.zeros((mbh, mbw), np.int32)

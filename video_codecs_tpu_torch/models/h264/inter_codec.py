@@ -12,8 +12,8 @@ instead of per-call numpy; its decisions, in the reference's order and
 types, stay on the host.  Every option of the reference's coder and
 decoder is carried: weighted prediction of P slices, perceptual RDO,
 long-term references with MMCO, list reordering, intra refresh and
-error concealment.  Cut: the trace / statistics wrappers of the CABAC
-coder.
+error concealment, and the trace / statistics wrappers of the CABAC
+coder and decoder (utils/trace.py, utils/coding_stats.py).
 
 Mirrors the JM encoder/decoder behavior (reference: jm18.5 lencod/ldecod —
 mv prediction lcommon/src/mv_prediction.c GetMotionVectorPredictorNormal,
@@ -781,6 +781,10 @@ class H264Encoder(H264IntraEncoder):
         if self.entropy == "cabac":
             from video_codecs_tpu_torch.entropy import h264_cabac as hc
             ce = hc.H264CabacEncoder(w, "P", qp, model=0)
+            from video_codecs_tpu_torch.utils import trace as _tr
+            ce = _tr.wrap_syntax(ce, "write")
+            from video_codecs_tpu_torch.utils import coding_stats as _cs
+            ce = _cs.wrap_stats(ce)
             self._cbf = hc.CbfState(mbw, mbh)
             self._cbp_arr = np.zeros((mbh, mbw), np.int32)
             self._cipred = np.zeros((mbh, mbw), np.int32)
@@ -1729,6 +1733,10 @@ class H264Decoder(H264IntraDecoder):
         w4 = mbw * 4
         zz = cavlc.ZIGZAG_4x4
         cd = hc.H264CabacDecoder(r, "P", qp, model)
+        from video_codecs_tpu_torch.utils import trace as _tr
+        cd = _tr.wrap_syntax(cd, "read")
+        from video_codecs_tpu_torch.utils import coding_stats as _cs
+        cd = _cs.wrap_stats(cd)
         cbf = hc.CbfState(mbw, mbh)
         cbp_arr = np.zeros((mbh, mbw), np.int32)
         cipred = np.zeros((mbh, mbw), np.int32)

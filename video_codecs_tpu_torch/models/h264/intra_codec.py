@@ -3,9 +3,9 @@ and CABAC.
 
 The port's copy of video_codecs_tpu/models/h264/intra_codec.py.  Each
 function and class kept is carried as it is under its own name, with a
-comment giving the original's line.  Cut: the VCT_FORCE_I4 /
-VCT_FORCE_I8 debug flags (fixed off, no environment variable is read)
-and the trace / statistics wrappers of the CABAC coder.  Kept: CAVLC
+comment giving the original's line.  Kept: the VCT_FORCE_I4 /
+VCT_FORCE_I8 debug flags (read through utils/debug.py), the trace /
+statistics wrappers of the CABAC coder and decoder, CAVLC
 and CABAC (Main and High profile: the 8x8 transform and I_8x8), hard,
 trellis and adaptive-rounding quantization, perceptual RDO ("att",
 "ssim": the saliency model of ops/metrics.py runs on the encoder's
@@ -536,6 +536,13 @@ class H264IntraEncoder:
         # (rdopt.c:469-481 SSE + scale*(1-SSIM)). Combine with "att+ssim".
         self.att = "att" in perceptual
         self.ssim_rdo = "ssim" in perceptual
+        from video_codecs_tpu_torch.utils import debug
+        self.force_i4 = debug.env_flag(
+            "VCT_FORCE_I4", False,
+            "H.264: force I_4x4 for every intra MB")
+        self.force_i8 = debug.env_flag(
+            "VCT_FORCE_I8", False,
+            "H.264: force I_8x8 for every intra MB (transform8x8 only)")
         self.ssim_weight = 1024.0   # rdopt.c ssimscale analog (per 16x16)
         self._eta = None            # per-MB lambda weights, set per frame
         self._prev_y = None
@@ -624,6 +631,10 @@ class H264IntraEncoder:
         if self.entropy == "cabac":
             from video_codecs_tpu_torch.entropy import h264_cabac as hc
             ce = hc.H264CabacEncoder(w, "I", qp)
+            from video_codecs_tpu_torch.utils import trace as _tr
+            ce = _tr.wrap_syntax(ce, "write")
+            from video_codecs_tpu_torch.utils import coding_stats as _cs
+            ce = _cs.wrap_stats(ce)
             self._cbf = hc.CbfState(mbw, mbh)
             self._cbp_arr = np.zeros((mbh, mbw), np.int32)
             self._cipred = np.zeros((mbh, mbw), np.int32)
@@ -1254,6 +1265,10 @@ class H264IntraDecoder:
             trans8 = np.zeros((mbh, mbw), bool)
         zz = cavlc.ZIGZAG_4x4
         cd = hc.H264CabacDecoder(r, "I", qp)
+        from video_codecs_tpu_torch.utils import trace as _tr
+        cd = _tr.wrap_syntax(cd, "read")
+        from video_codecs_tpu_torch.utils import coding_stats as _cs
+        cd = _cs.wrap_stats(cd)
         cbf = hc.CbfState(mbw, mbh)
         cbp_arr = np.zeros((mbh, mbw), np.int32)
         cipred = np.zeros((mbh, mbw), np.int32)

@@ -25,9 +25,9 @@ With `cfg.sao` the three flat engines code the IDR through
 `IntraEncoder.encode_frame` (the reference's host CTB loop, computed on
 the device with the same bytes) and decide SAO in every picture with
 `IntraEncoder._sao_decide_apply` (statistics from the SAO kernel, luma
-CTB 16, chroma CTB 8).  Cut, raising NotImplementedError:
-`encode_b_frame_dev`'s `me_fields` / `gx_blk0` (the multichip dryrun's
-tile-sharded inputs); the options the encoders refuse raise ValueError:
+CTB 16, chroma CTB 8).  `encode_b_frame_dev` takes the multichip dry
+run's tile-sharded inputs (`me_fields`, `gx_blk0`, `pic_bw`;
+parallel/sharded.py).  The options the encoders refuse raise ValueError:
 tiles, WPP, weighted prediction, cu_qp_delta and, on the flat B engines,
 what the reference writes wrongly (TMVP, MaxNumMergeCand > 1 in the RA
 header, timing SEI and the long-term IDR, which its B loop does not
@@ -542,14 +542,18 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     first available neighbour A1/B1, else zero MVs), "best4" the CTB32
     path's merge-5 approximation; allow_intra adds the intra candidate
     (its blocks coded on the wavefront); deblock filters the recon with
-    the BS maps of the final motion field at block 16."""
+    the BS maps of the final motion field at block 16.
+
+    For a halo-padded tile of a larger picture (parallel/sharded.py):
+    me_fields, [(mvx, mvy, satd)] per list, replaces reference 0's ME;
+    gx_blk0 is the picture's 16-block column of local column 0 and pic_bw
+    the picture's width in 16-blocks, so the left MV predictors (per 16
+    and per 8) and the merge neighbours follow the picture's edges, not
+    the tile's."""
     if merge_eval not in ("first", "best4"):
         raise ValueError(
             f"encode_b_frame_dev: merge_eval={merge_eval!r} is not one of "
             "'first', 'best4'")
-    if me_fields is not None or gx_blk0 is not None:
-        raise NotImplementedError(
-            "encode_b_frame_dev: tile-sharded inputs are not ported")
     dev = y.device
     bw, bh = w // 16, h // 16
     nb = bw * bh
@@ -576,18 +580,27 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     refs_v = [stack3(ref0_v), stack3(ref1_v)]
     nrefs = [refs_y[0].shape[0], refs_y[1].shape[0]]
     zcol = torch.zeros((bh, 1), dtype=torch.int32, device=dev)
+    by_i = torch.arange(bh, device=dev).repeat_interleave(bw)
+    bx_i = torch.arange(bw, device=dev).repeat(bh)
 
     # ---- ME per (list, ref); per-block best ref by cost ----
     mvs, satds, bits, ridxs = [], [], [], []
     for lx in range(n_lists):
         cand = []
         for r in range(nrefs[lx]):
-            mvx, mvy, satd = b_me_one(refs_y[lx][r], cur, x0, y0,
-                                      search_range, me_method)
+            if me_fields is not None and r == 0:
+                mvx, mvy, satd = me_fields[lx]
+            else:
+                mvx, mvy, satd = b_me_one(refs_y[lx][r], cur, x0, y0,
+                                          search_range, me_method)
             gx = mvx.reshape(bh, bw)
             gy = mvy.reshape(bh, bw)
             px = torch.cat([zcol, gx[:, :-1]], dim=1).reshape(nb)
             py = torch.cat([zcol, gy[:, :-1]], dim=1).reshape(nb)
+            if gx_blk0 is not None:
+                gcol = int(gx_blk0) + bx_i
+                px = torch.where(gcol == 0, 0, px)
+                py = torch.where(gcol == 0, 0, py)
             b = mvd_bits_dev(mvx - px, mvy - py) + (r + 1 if
                                                    nrefs[lx] > 1 else 0)
             cand.append((mvx, mvy, satd, b,
@@ -689,15 +702,18 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
             torch.where((dirs == 1)[:, None, None], uni(p0),
                         uni(p1))).int()
 
-    by_i = torch.arange(bh, device=dev).repeat_interleave(bw)
-    bx_i = torch.arange(bw, device=dev).repeat(bh)
     if merge_eval == "best4":
         mcands = []
         for dx, dy in ((-1, 0), (0, -1), (1, -1), (-1, -1)):
             ys_ = by_i + dy
             xs_ = bx_i + dx
-            ok = (ys_ >= 0) & (ys_ < bh) & (xs_ >= 0) & (xs_ < bw) & \
-                ((dy < 0) | (dx < 0))
+            if gx_blk0 is not None:
+                gxs = int(gx_blk0) + xs_
+                ok = (ys_ >= 0) & (ys_ < bh) & (gxs >= 0) & \
+                    (gxs < int(pic_bw)) & ((dy < 0) | (dx < 0))
+            else:
+                ok = (ys_ >= 0) & (ys_ < bh) & (xs_ >= 0) & (xs_ < bw) & \
+                    ((dy < 0) | (dx < 0))
             mcands.append(tuple(
                 _shift_grid(grid(f), dx, dy, fill).reshape(nb)
                 for f, fill in ((prov_dir, fb_dir), (prov_mv0x, 0),
@@ -928,6 +944,11 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
                 g8y = m8y.reshape(bh8, bw8)
                 p8x = torch.cat([zcol8, g8x[:, :-1]], dim=1).reshape(nb8)
                 p8y = torch.cat([zcol8, g8y[:, :-1]], dim=1).reshape(nb8)
+                if gx_blk0 is not None:
+                    gcol8 = 2 * int(gx_blk0) + torch.arange(
+                        bw8, device=dev).repeat(bh8)
+                    p8x = torch.where(gcol8 == 0, 0, p8x)
+                    p8y = torch.where(gcol8 == 0, 0, p8y)
                 b8_ = mvd_bits_dev(m8x - p8x, m8y - p8y) + \
                     (r + 1 if nrefs[lx] > 1 else 0)
                 cand8.append((m8x, m8y, s8, b8_,

@@ -102,6 +102,54 @@ def _pred_cand(refs_y_pair, r0, r1, xs, ys, n, dirs, mv0x, mv0y,
                     ((q1 + 32) >> 6).clamp(0, 255))).int()
 
 
+# video_codecs_tpu/models/hevc/inter_qt.py:380 (qt_merge_dev's deblock)
+def deblock_maps(rec_y, rec_u, rec_v, qp: int, *, pred_mode, dir8, mv0x8,
+                 mv0y8, mv1x8, mv1y8, r0_8, r1_8, tusplit, split8, cbf_y8,
+                 cbf_y):
+    """`qt_merge_dev`'s deblock as a function of its final maps (the
+    qt dict's keys of the same names): BS at 8-sample granularity (spec
+    8.7.2.4) -- TU8-split and CU8-split CUs create internal edges, and
+    CU-boundary edges use the cbf of the ADJACENT TU -- then
+    `deblock_420_bs`.  The tiled engines (parallel/sharded.py) deblock
+    the assembled picture with it."""
+    def up8(f):
+        return f.repeat_interleave(2, 0).repeat_interleave(2, 1)
+
+    pm8 = up8(pred_mode)
+    dir8 = dir8.int()
+    r0_8, r1_8 = r0_8.int(), r1_8.int()
+    eff8 = torch.where(up8(tusplit | split8), cbf_y8, up8(cbf_y))
+
+    def bs_pair8(sl_a, sl_b):
+        a_i = (pm8 == MODE_INTRA)[sl_a]
+        b_i = (pm8 == MODE_INTRA)[sl_b]
+        intra2 = a_i | b_i
+        diff_dir = dir8[sl_a] != dir8[sl_b]
+        d0 = ((mv0x8[sl_a] - mv0x8[sl_b]).abs() >= 4) | \
+            ((mv0y8[sl_a] - mv0y8[sl_b]).abs() >= 4) | \
+            (r0_8[sl_a] != r0_8[sl_b])
+        d1 = ((mv1x8[sl_a] - mv1x8[sl_b]).abs() >= 4) | \
+            ((mv1y8[sl_a] - mv1y8[sl_b]).abs() >= 4) | \
+            (r1_8[sl_a] != r1_8[sl_b])
+        use0 = (dir8[sl_a] & 1) > 0
+        mv_diff = torch.where(dir8[sl_a] == 3, d0 | d1,
+                              torch.where(use0, d0, d1))
+        one = eff8[sl_a] | eff8[sl_b] | diff_dir | mv_diff
+        return torch.where(intra2, 2, torch.where(one, 1, 0)).int()
+
+    ver8 = bs_pair8(np.s_[:, :-1], np.s_[:, 1:]).T.contiguous()
+    hor8 = bs_pair8(np.s_[:-1, :], np.s_[1:, :]).contiguous()
+    # only TU/PU boundaries are filtered (spec 8.7.2.2): odd 8-grid
+    # edges exist only inside TU8-split or CU8-split CUs
+    inner = tusplit | split8
+    odd_ok_v = inner.T.repeat_interleave(2, 1)          # [bw, bh8]
+    ver8[0::2] = torch.where(odd_ok_v, ver8[0::2], 0)
+    odd_ok_h = inner.repeat_interleave(2, 1)            # [bh, bw8]
+    hor8[0::2] = torch.where(odd_ok_h, hor8[0::2], 0)
+    return deblock_ops.deblock_420_bs(rec_y.int(), rec_u.int(), rec_v.int(),
+                                      qp, ver8, hor8, block=8)
+
+
 # video_codecs_tpu/models/hevc/inter_qt.py:98
 def qt_merge_dev(y, u, v, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
                  st16, qp: int, w: int, h: int, has_l1: bool, sbh: bool,
@@ -356,41 +404,11 @@ def qt_merge_dev(y, u, v, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
     r0_8f = torch.where(use8, st16.get("r0_8", z8).int(), up8(fin_r0))
     r1_8f = torch.where(use8, st16.get("r1_8", z8).int(), up8(fin_r1))
     if deblock:
-        # BS at 8-sample granularity (spec 8.7.2.4): TU8-split and
-        # CU8-split CUs create internal edges, and CU-boundary edges use
-        # the cbf of the ADJACENT TU; the per-8 motion field and the
-        # per-TU effective cbf map
-        pm8, dir8 = up8(pm), dir8f
-        eff8 = torch.where(up8(tusplit | split8m), cbf_y8m, up8(cbf_y))
-
-        def bs_pair8(sl_a, sl_b):
-            a_i = (pm8 == MODE_INTRA)[sl_a]
-            b_i = (pm8 == MODE_INTRA)[sl_b]
-            intra2 = a_i | b_i
-            diff_dir = dir8[sl_a] != dir8[sl_b]
-            d0 = ((m0x8f[sl_a] - m0x8f[sl_b]).abs() >= 4) | \
-                ((m0y8f[sl_a] - m0y8f[sl_b]).abs() >= 4) | \
-                (r0_8f[sl_a] != r0_8f[sl_b])
-            d1 = ((m1x8f[sl_a] - m1x8f[sl_b]).abs() >= 4) | \
-                ((m1y8f[sl_a] - m1y8f[sl_b]).abs() >= 4) | \
-                (r1_8f[sl_a] != r1_8f[sl_b])
-            use0 = (dir8[sl_a] & 1) > 0
-            mv_diff = torch.where(dir8[sl_a] == 3, d0 | d1,
-                                  torch.where(use0, d0, d1))
-            one = eff8[sl_a] | eff8[sl_b] | diff_dir | mv_diff
-            return torch.where(intra2, 2, torch.where(one, 1, 0)).int()
-
-        ver8 = bs_pair8(np.s_[:, :-1], np.s_[:, 1:]).T.contiguous()
-        hor8 = bs_pair8(np.s_[:-1, :], np.s_[1:, :]).contiguous()
-        # only TU/PU boundaries are filtered (spec 8.7.2.2): odd 8-grid
-        # edges exist only inside TU8-split or CU8-split CUs
-        inner = tusplit | split8m
-        odd_ok_v = inner.T.repeat_interleave(2, 1)          # [bw, bh8]
-        ver8[0::2] = torch.where(odd_ok_v, ver8[0::2], 0)
-        odd_ok_h = inner.repeat_interleave(2, 1)            # [bh, bw8]
-        hor8[0::2] = torch.where(odd_ok_h, hor8[0::2], 0)
-        rec_y, rec_u, rec_v = deblock_ops.deblock_420_bs(
-            rec_y, rec_u, rec_v, qp, ver8, hor8, block=8)
+        rec_y, rec_u, rec_v = deblock_maps(
+            rec_y, rec_u, rec_v, qp, pred_mode=pm, dir8=dir8f,
+            mv0x8=m0x8f, mv0y8=m0y8f, mv1x8=m1x8f, mv1y8=m1y8f,
+            r0_8=r0_8f, r1_8=r1_8f, tusplit=tusplit, split8=split8m,
+            cbf_y8=cbf_y8m, cbf_y=cbf_y)
 
     def i16(c):
         return c.clamp(-32768, 32767).to(torch.int16)

@@ -1,12 +1,14 @@
 """Decoder CLI — the TAppDecoder / ldecod analog.
 
 Usage:  python -m video_codecs_tpu_torch.tools.decoder_app -b in.bin
-                [-o out.yuv]
+                [-o out.yuv] [--stats]
 
 The port's copy of video_codecs_tpu/tools/decoder_app.py; `main` keeps
 its name and a comment gives the original's line.  It prints per-picture
 hash-SEI status like HM's decoder and auto-detects H.264 vs HEVC
 streams.  The decoders run on the host, as the reference's do.
+--stats prints the per-syntax-class bin/bit table (the
+TAppDecoderAnalyser build; utils/coding_stats.py).
 
 HEVC routing, repaired: the reference tries `LowDelayDecoder(conceal=
 True)` first and takes the general decoder only if that raises, but that
@@ -16,8 +18,7 @@ never raises and returns wrong pictures (on the reference's own encoder
 CLI's random-access streams too).  Here a stream with a VCL NAL unit type
 `LowDelayDecoder` does not take, or with a B slice, goes to the general
 decoder (`_needs_general`); low-delay P and all-intra streams still
-take `LowDelayDecoder` with its concealment.  Not ported: `--stats`,
-the per-syntax-class bin table of utils/coding_stats.py (it raises).
+take `LowDelayDecoder` with its concealment.
 """
 
 from __future__ import annotations
@@ -59,16 +60,16 @@ def _needs_general(stream: bytes) -> bool:
 # video_codecs_tpu/tools/decoder_app.py:17
 def main(argv=None) -> None:
     from video_codecs_tpu_torch.tools import analyze
-    from video_codecs_tpu_torch.utils import yuv
+    from video_codecs_tpu_torch.utils import coding_stats, yuv
 
     argv = sys.argv[1:] if argv is None else argv
-    if "--stats" in argv:
-        raise NotImplementedError(
-            "decoder_app --stats: utils/coding_stats.py is not ported "
-            "(ROADMAP.md, queue 1 item 6.3)")
+    stats = "--stats" in argv
+    argv = [a for a in argv if a != "--stats"]
     args = dict(zip(argv[::2], argv[1::2]))
     stream = open(args["-b"], "rb").read()
     codec = analyze.sniff_codec(stream)
+    if stats:
+        coding_stats.start()
 
     if codec == "h264":
         from video_codecs_tpu_torch.models.h264 import inter_codec as h264
@@ -93,6 +94,8 @@ def main(argv=None) -> None:
         status = ["(OK)" if ok else "***ERROR***" for ok in dec.hash_status]
         status += ["(no hash SEI)"] * (len(frames) - len(status))
 
+    if stats:
+        print(coding_stats.stop().report())
     for i, st in enumerate(status):
         print(f"POC {i:4d} [{st}]")
     if "-o" in args and frames:

@@ -1,13 +1,96 @@
-"""H.264 level conformance (conformance.c / spec Annex A Table A-1).
+"""JM miscellaneous tools: leaky-bucket analysis, level conformance, YUV->RGB.
 
-The port's copy of the level half of video_codecs_tpu/tools/misc.py: the
-Table A-1 limits, `level_limits`, `check_level_conformance` and
-`minimum_level`, each as it is under its own name with a comment giving
-the original's line.  The leaky-bucket and YUV->RGB tools are not
-carried: the JM encoder CLI (tools/jm_encoder_app.py) reads only these.
+The port's copy of video_codecs_tpu/tools/misc.py, whole: each function
+as it is under its own name with a comment giving the original's line.
+
+Parity references (behavior only, re-implemented vectorized):
+  - jm18.5/lencod/src/leaky_bucket.c (calc_buffer/write_buffer): per-bucket
+    minimum decoder buffer size and initial fullness from the per-frame bit
+    trace, written as big-endian u32 triples.
+  - jm18.5/lencod/src/conformance.c + spec Annex A Table A-1: level limit
+    checks (MaxMBPS/MaxFS/MaxDpbMbs/MaxBR/MaxCPB/MinCR).
+  - jm18.5/lencod/src/cconv_yuv2rgb.c (YUVtoRGB): ITU-R BT.601 integer
+    conversion with the studio-swing Y offset, chroma upsampled by repetition.
 """
 
 from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# Leaky bucket (leaky_bucket.c)
+# ---------------------------------------------------------------------------
+
+
+# video_codecs_tpu/tools/misc.py:24
+def leaky_bucket_params(bits_per_frame, frame_rate: float,
+                        rates=None, n_buckets: int = 8):
+    """Per-bucket (R, B, F): channel rate bits/s, min buffer bits, min
+    initial fullness bits, for a recorded per-frame bit trace.
+
+    Default rates follow calc_buffer: bucket 0 = average rate, each further
+    bucket +avg/4 per second.  For each rate, simulate the decoder buffer
+    (drain one frame's bits per tick, refill at R/fps, cap at the running
+    maximum) to find the deepest underflow => required buffer, then replay
+    from fullness = first-frame bits to find the minimum startup fullness.
+    """
+    bits = np.asarray(bits_per_frame, dtype=np.int64)
+    if bits.size == 0:
+        raise ValueError("empty bit trace")
+    avg = int(bits.mean())
+    if rates is None:
+        rates = [int((avg + i * (avg // 4)) * frame_rate)
+                 for i in range(n_buckets)]
+    rates = sorted(int(r) for r in rates)
+
+    out = []
+    cap = avg * 20  # analysis ceiling, as in calc_buffer
+    for rate in rates:
+        per_tick = int(rate / frame_rate)
+        # Pass 1: find required buffer depth starting full at the ceiling.
+        level = cap
+        min_level, min_at = cap, 0
+        for i, b in enumerate(bits):
+            level -= int(b)
+            if level < min_level:
+                min_level, min_at = level, i
+            level = min(level + per_tick, cap)
+        need = cap - min_level
+        # Pass 2: smallest initial fullness that survives until the
+        # deepest-underflow frame (deficits before it add to the startup).
+        fullness = int(bits[0])
+        level = fullness
+        for i in range(min_at + 1):
+            level -= int(bits[i])
+            if level < 0:
+                fullness -= level
+                level = 0
+            level += per_tick
+            if level > need:
+                break
+        out.append((rate, need, fullness))
+    return out
+
+
+# video_codecs_tpu/tools/misc.py:73
+def write_leaky_bucket_file(path, params) -> None:
+    """Serialize (R, B, F) triples in the JM param-file layout:
+    big-endian u32 count, then u32 R/B/F per bucket (write_buffer)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", len(params)))
+        for r, b, fl in params:
+            f.write(struct.pack(">III", r & 0xFFFFFFFF, b & 0xFFFFFFFF,
+                                fl & 0xFFFFFFFF))
+
+
+# video_codecs_tpu/tools/misc.py:83
+def read_leaky_bucket_file(path):
+    with open(path, "rb") as f:
+        (n,) = struct.unpack(">I", f.read(4))
+        return [struct.unpack(">III", f.read(12)) for _ in range(n)]
+
 
 # ---------------------------------------------------------------------------
 # Level conformance (conformance.c / spec Annex A Table A-1)
@@ -91,3 +174,45 @@ def minimum_level(width: int, height: int, frame_rate: float,
                                        dpb_frames=dpb_frames):
             return idc
     raise ValueError("stream exceeds level 5.2 limits")
+
+
+# ---------------------------------------------------------------------------
+# YUV -> RGB (cconv_yuv2rgb.c, BT.601 studio swing)
+# ---------------------------------------------------------------------------
+
+
+# video_codecs_tpu/tools/misc.py:175
+def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               bit_depth: int = 8) -> np.ndarray:
+    """BT.601 integer conversion with the 16-offset studio-swing Y path,
+    chroma upsampled by sample repetition (4:2:0/4:2:2 -> 4:4:4).
+
+    Returns an (H, W, 3) array of the source dtype, R/G/B order.
+    16.16 fixed-point weights match init_YUVtoRGB (K0..K4 * 65536).
+    """
+    y = np.asarray(y)
+    h, w = y.shape
+    # chroma repetition upsample to luma geometry
+    ry = h // u.shape[0]
+    rx = w // u.shape[1]
+    uu = np.repeat(np.repeat(np.asarray(u), ry, 0), rx, 1)[:h, :w]
+    vv = np.repeat(np.repeat(np.asarray(v), ry, 0), rx, 1)[:h, :w]
+
+    scale = 65536.0
+    wk = [int(round(scale * k)) for k in (1.164, 1.596, 0.391, 0.813, 2.018)]
+    off_y = 16 << (bit_depth - 8)
+    off_c = 1 << (bit_depth - 1)
+    maxv = (1 << bit_depth) - 1
+
+    sy = wk[0] * (y.astype(np.int64) - off_y)
+    su = uu.astype(np.int64) - off_c
+    sv = vv.astype(np.int64) - off_c
+    rnd = 1 << 15
+
+    def clip(x):
+        return np.clip((x + rnd) >> 16, 0, maxv)
+
+    r = clip(sy + wk[1] * sv)
+    g = clip(sy - wk[2] * su - wk[3] * sv)
+    b = clip(sy + wk[4] * su)
+    return np.stack([r, g, b], axis=-1).astype(y.dtype)

@@ -1,9 +1,11 @@
 """numpy -> tensor on an explicit device, with a cache for constant tables.
 
-Counterpart of video_codecs_tpu/utils/devconst.py.  The constant tables
-(transform and quant matrices, Hadamard, neighbour offsets) are the
-"weights" the codec computes with; `const` uploads each once per
-(content, dtype, device) and hands back the same read-only tensor.
+The constant tables (transform and quant matrices, Hadamard, neighbour
+offsets) are the "weights" the codec computes with; `const` uploads
+each once per (content, dtype, device) and hands back the same read-only
+tensor.  video_codecs_tpu/utils/devconst.py has no counterpart: it
+rebuilds `jnp` constants from numpy inside each JAX trace, and eager
+PyTorch has no traces.
 """
 
 from __future__ import annotations
