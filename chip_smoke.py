@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through its hand-written CUDA kernels, the
-SAD surface, the SAO statistics and the full RDOQ: the H.264 device
+SAD surface, the SAO statistics, the full RDOQ and the two intra
+reconstruction wavefronts (the quadtree IDR's and the flat CTB16
+encoder's, one launch per anti-diagonal): the H.264 device
 P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
 then on), the HEVC low-delay P row at 832x480 (as it is, with SAO, and
@@ -29,9 +31,9 @@ its dry run, the experiment CLI, the syntax trace, the coding statistics
 and the conversion and leaky-bucket tools -- in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
-  2. build the three kernels at once, one nvcc each, from
-     video_codecs_tpu_torch/csrc/sad_surface.cu, sao_stats.cu and
-     rdoq.cu;
+  2. build the kernels at once, one nvcc each, from
+     video_codecs_tpu_torch/csrc/sad_surface.cu, sao_stats.cu, rdoq.cu
+     and intra_wavefront.cu (its two kernels);
   3. hold the kernel against its plain PyTorch version at the slice's
      shapes (and at search range 32), exactly, and time the kernel, the
      plain version and one PyTorch call for the same function
@@ -365,12 +367,27 @@ and the conversion and leaky-bucket tools -- in phases:
         bucket over [jm-main]'s per-picture bits, convert_bitdepth 8 ->
         10 -> 8 on its YUV file (`phase_trace_tools`);
  19. require that nothing of the JAX package was imported, in this
-     process or in any worker.
+     process or in any worker;
+ 20. wavefront-kernels (stage 1): hold the two intra wavefront kernels
+     against their plain versions on the same CUDA tensors, max abs
+     error 0 (`phase_wavefront_kernels`): the quadtree kernel
+     (`encode_frame_qt_device`) at the 1080p RA GOP's IDR, its maps from
+     the port's own `decide_qt_device` on the card, and at [hevc-intra]'s
+     416x240 picture; the flat kernel (`encode_frame_device`,
+     `_intra_wavefront`) at the flat 1080p IDR, the 4-column tile stack,
+     the 832x480 LD-P IDR and the intra blocks of bench_ldp_480's first
+     P picture that codes some; each timed (profiler, summed over its
+     launches) beside the plain version, the bound (bytes or int32
+     operations) and the chain floor (diagonals x the first launch).
+     Every stage-2 phase and stage 3 count both kernels' launches from 0
+     (`run_task`, `wave_words`): the 1080p RA GOPs and [hevc-intra] must
+     launch the quadtree kernel, the LD-P, flat B and tile phases the flat
+     one, and no phase may run a wavefront's plain version on the card.
 
 The phases run in three stages, to end well inside the 1,200 s the
 script is given.  Stage 1, alone on the card: phases 1-2 and every
 kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a,
-18a's slab shapes).  Stage 2: the end-to-end phases of 4-17, 18a's
+18a's slab shapes, 20).  Stage 2: the end-to-end phases of 4-17, 18a's
 sequential twin and 18b-e (POOL_TASKS),
 WORKERS at a time,
 each worker a spawned process of its own on the same card with
@@ -393,10 +410,12 @@ beside the kernel's, never in its place.
 Any failed check exits non-zero.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the main paths'
 encodes (a line before gives each path's), the SAD kernel's RA pyramid
-per-B-picture times and bound, the SAO kernel's per 1080p picture and
-the RDOQ kernel's for the 1080p B picture's TU16 luma call; the search
-range 64 surfaces', the RDOQ shapes' and the SAO kernel's flat shapes'
-times print on JSON lines of their own before them.
+per-B-picture times and bound, the SAO kernel's per 1080p picture, the
+RDOQ kernel's for the 1080p B picture's TU16 luma call and the
+wavefronts' for the 1080p RA IDR (quadtree) and the flat 1080p IDR; the
+search range 64 surfaces', the RDOQ shapes', the SAO kernel's flat
+shapes' and the wavefront shapes' times print on JSON lines of their own
+before them.
 """
 
 from __future__ import annotations
@@ -431,7 +450,9 @@ from video_codecs_tpu_torch.models.hevc import inter_codec as hevc_pc
 from video_codecs_tpu_torch.models.hevc import inter_qt, quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ra_codec as hevc_ra
 from video_codecs_tpu_torch.models.hevc import encoder_dev, ratectrl
+from video_codecs_tpu_torch.models.hevc import encoder_qt_dev as eq_dev
 from video_codecs_tpu_torch.models.hevc import sei as sei_mod
+from video_codecs_tpu_torch.ops import intra_wavefront as iw_ops
 from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
@@ -450,6 +471,10 @@ SAO_SRC = "video_codecs_tpu_torch/csrc/sao_stats.cu"
 SAO_REPLACES = "video_codecs_tpu/ops/sao.py:127"
 RDOQ_SRC = "video_codecs_tpu_torch/csrc/rdoq.cu"
 RDOQ_REPLACES = "video_codecs_tpu/ops/rdoq_jax.py:227"
+WAVE_SRC = "video_codecs_tpu_torch/csrc/intra_wavefront.cu"
+QT_WAVE_REPLACES = "video_codecs_tpu/models/hevc/encoder_jax_qt.py:276"
+FLAT_WAVE_REPLACES = "video_codecs_tpu/models/hevc/encoder_jax.py:231"
+FLAT_WAVE_ALSO = "video_codecs_tpu/models/hevc/inter_jax.py:125"
 W, H, QP, SR = 1280, 720, 28, 16
 # The 1080p headline (bench.py:84-107): picture size, QP, search range
 # and GOP length.
@@ -569,6 +594,18 @@ CARD = ""
 RDOQ_REF_CALLS = {"cuda": 0, "cpu": 0}
 # The same for the plain SAO statistics (`sao_stats_ref`, `count_sao_ref`).
 SAO_REF_CALLS = {"cuda": 0, "cpu": 0}
+# The same for the intra wavefronts' plain versions (`count_wave_ref`).
+WAVE_REF_CALLS = {"cuda": 0, "cpu": 0}
+# The phases whose encodes run each wavefront kernel: each must report
+# launches of it (the 1080p RA GOPs and [hevc-intra] the quadtree IDR's;
+# the LD-P, flat B and tile phases the flat kernel, in their IDRs or in
+# their P and B pictures' intra blocks).
+QT_WAVE_PHASES = ("hevc-intra", "hevc-ra", "hevc-ra-sao", "hevc-ra-tz",
+                  "ra-cuda-vs-cpu", "tiled-ra-ref", "tiled-ra")
+FLAT_WAVE_PHASES = ("hevc-ldp", "hevc-ldp-tz", "hevc-ldp-rc", "hevc-ldp-sao",
+                    "hevc-ldp-conf", "ldp-cuda-vs-cpu", "hevc-flat-ra",
+                    "hevc-hierb", "hevc-flat-ra-sao", "flat-ra-cuda-vs-cpu",
+                    "hevc-tiles-wpp")
 
 
 def count_rdoq_ref() -> None:
@@ -593,6 +630,50 @@ def count_sao_ref() -> None:
         return ref(orig, rec, ctb)
 
     sao_ops.sao_stats_ref = counted
+
+
+def count_wave_ref() -> None:
+    """Count every call of the wavefronts' plain versions (the public
+    functions reach them through their modules' names) in WAVE_REF_CALLS,
+    by the device of their first argument."""
+    for mod, name in ((eq_dev, "encode_frame_qt_device_ref"),
+                      (encoder_dev, "encode_frame_device_ref"),
+                      (hevc_inter_dev, "_intra_wavefront_ref")):
+        ref = getattr(mod, name)
+
+        def counted(*a, _ref=ref, **kw):
+            WAVE_REF_CALLS[a[0].device.type] += 1
+            return _ref(*a, **kw)
+
+        setattr(mod, name, counted)
+
+
+def wave_counts() -> tuple[int, int, int]:
+    """The wavefront kernels' launch counts and the plain versions' calls
+    on CUDA tensors, as they stand."""
+    return (iw_ops.qt_wavefront.launches, iw_ops.flat_wavefront.launches,
+            WAVE_REF_CALLS["cuda"])
+
+
+def zero_wave_counts() -> None:
+    iw_ops.qt_wavefront.launches = 0
+    iw_ops.flat_wavefront.launches = 0
+    WAVE_REF_CALLS["cuda"] = 0
+
+
+def wave_words(name: str, wave: tuple) -> str:
+    """A phase's wavefront launches as a line, after checking that the
+    plain versions never ran on the card and that the phase ran the
+    kernel its encodes need."""
+    qt, flat, ref = wave
+    check(ref == 0, f"{name}: a wavefront's plain version ran {ref} times "
+                    "on CUDA tensors")
+    check(qt > 0 or name not in QT_WAVE_PHASES,
+          f"{name}: no qt_wavefront launch")
+    check(flat > 0 or name not in FLAT_WAVE_PHASES,
+          f"{name}: no flat_wavefront launch")
+    return (f"[wavefront] {name}: qt_wavefront launches {qt}, "
+            f"flat_wavefront launches {flat}, plain versions on the card 0")
 
 
 def rdoq_routes(fn):
@@ -1125,7 +1206,7 @@ def build_kernels() -> None:
     """Phase 2: one nvcc for each kernel's source, all started together,
     then load each library."""
     t0 = time.perf_counter()
-    mods = (ss, sao_ops, rdoq_ops)
+    mods = (ss, sao_ops, rdoq_ops, iw_ops)
     with concurrent.futures.ThreadPoolExecutor() as pool:
         builds = list(pool.map(lambda m: m.build(), mods))
     for mod, (so, build_s, log) in zip(mods, builds):
@@ -1134,7 +1215,7 @@ def build_kernels() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] all three kernels built and loaded in "
+    print(f"[build] all four kernel sources built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -4513,6 +4594,257 @@ def phase_tiled_kernels() -> dict:
     return pic
 
 
+# ---- the intra wavefront kernels (stage 1) ---------------------------------
+
+def wave_kernel_ms(fn, name: str, launches: int, reps: int = 5,
+                   tries: int = 3) -> tuple[float | None, float | None, str]:
+    """(device ms of one call of fn() summed over its `launches` launches
+    of the kernel called `name`, the median device ms of its first launch,
+    "") from torch.profiler, asked up to `tries` times; (None, None, the
+    reason) when no session recorded every launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        seen = len(times)
+        if seen == reps * launches:
+            first = statistics.median(times[::launches])
+            return sum(times) / reps / 1e3, first / 1e3, ""
+    return None, None, (f"torch.profiler recorded {seen} of "
+                        f"{reps * launches} {name} launches")
+
+
+def wave_ops(tbs) -> int:
+    """Integer operations of coding TBs, about (8N + 30) per sample of an
+    NxN TB (two transform stages each way of N multiply-adds, and the
+    prediction, quantisation and reconstruction); tbs: (N, count)."""
+    return sum((8 * n + 30) * n * n * c for n, c in tbs)
+
+
+def wave_bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(ms, what binds) of a wavefront call at the card's memory rate and
+    its float32 rate for the int32 operations."""
+    tb, to = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
+
+
+def qt_wave_inputs(w: int, h: int, y, u, v, lam_scale: float, rdoq):
+    """The quadtree IDR's wavefront inputs on the card as
+    `encoder_qt_dev.encode_frame_qt` forms them: the padded int32 planes
+    and the port's own decision maps."""
+    pw, ph = eq_dev._ceil_to(w, 32), eq_dev._ceil_to(h, 32)
+    planes = [to_device(p, "cuda") for p in (y, u, v)]
+    yi = eq_dev._pad_edge(planes[0], ph, pw)
+    ui = eq_dev._pad_edge(planes[1], ph // 2, pw // 2)
+    vi = eq_dev._pad_edge(planes[2], ph // 2, pw // 2)
+    maps = eq_dev.decide_qt_device(yi, HEVC_QP, w, h, rdoq, lam_scale)
+    return (yi, ui, vi) + tuple(maps)
+
+
+def qt_wave_tbs(depth8: torch.Tensor, w: int, h: int) -> tuple[list, int]:
+    """The TBs a decided tree codes, (N, count) luma and chroma, and its
+    CUs: the CU origins inside w x h whose depth matches."""
+    d = depth8.cpu().numpy()
+    tbs, cus = [], 0
+    for depth, n in ((0, 32), (1, 16), (2, 8)):
+        sub = d[::n // 8, ::n // 8]
+        ys, xs = np.nonzero(sub == depth)
+        c = int(((ys * n < h) & (xs * n < w)).sum())
+        tbs += [(n, c), (max(n // 2, 4), 2 * c)]
+        cus += c
+    return tbs, cus
+
+
+def flat_wave_inputs(kind: str):
+    """The flat wavefront's inputs on the card: (what, y, u, v, modes, qp,
+    bw, bh, sbh, rdoq) of the flat 1080p IDR, the 4-column tile stack and
+    the 832x480 LD-P IDR, as `IntraEncoder._dispatch` and
+    `tiles.encode_tiles_dev` form them."""
+    if kind == "ldp":
+        cfg = ldp_cfg(LDP_W, LDP_H)
+        y, u, v = bench_synth_clip(LDP_W, LDP_H, 1)[0]
+    elif kind == "tiles":
+        cfg = tiles_cfg(HEVC_W, HEVC_H)
+        y, u, v = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
+    else:
+        cfg = flat_cfg(HEVC_W, HEVC_H, 3)
+        y, u, v = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
+    bw, bh = cfg.width // 16, cfg.height // 16
+    yi, ui, vi = (to_device(p, "cuda").int() for p in (y, u, v))
+    if kind == "tiles":
+        nt = cfg.tile_columns
+        bw //= nt
+
+        def stack(p, n):
+            return p.reshape(p.shape[0], nt, bw * n).transpose(
+                0, 1).contiguous()
+
+        yi, ui, vi = stack(yi, 16), stack(ui, 8), stack(vi, 8)
+    modes = encoder_dev.decide_modes_device(yi, cfg.qp, bw, bh)
+    return (yi, ui, vi, modes, cfg.qp, bw, bh, cfg.sign_data_hiding,
+            bool(cfg.rdoq))
+
+
+def ldp_intra_args() -> tuple:
+    """The arguments of the first `_intra_wavefront` call with intra
+    blocks of bench_ldp_480's encode on the card (its P pictures code a
+    few dozen intra blocks each)."""
+    frames = bench_synth_clip(LDP_W, LDP_H, 3)
+    enc = hevc_inter_dev.DeviceLowDelayEncoder(ldp_cfg(LDP_W, LDP_H),
+                                               search_range=LDP_SR,
+                                               device="cuda")
+    seen = []
+    orig = hevc_inter_dev._intra_wavefront
+
+    def record(*a):
+        if not seen and bool(a[3].any()):
+            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                              else tuple(t.clone() for t in x)
+                              if isinstance(x, tuple) else x for x in a))
+        return orig(*a)
+
+    hevc_inter_dev._intra_wavefront = record
+    try:
+        enc.encode_sequence_ldp(frames)
+    finally:
+        hevc_inter_dev._intra_wavefront = orig
+    check(bool(seen), "bench_ldp_480's first P pictures coded no intra "
+                      "block")
+    return seen[0]
+
+
+def wave_row(what: str, kernel: str, run, plain, cmp, launches: int,
+             nbytes: int, tbs: list, note: str) -> dict:
+    """One shape of a wavefront kernel: run() (the kernel) against plain()
+    (its plain version) on the same CUDA tensors through cmp(got, want) ->
+    max abs error, which must be 0; the kernel's time (profiler, summed
+    over its launches), the plain version's (CUDA events around the one
+    check call), the bounds; prints one line and returns the row."""
+    got = run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain()
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = cmp(got, want)
+    check(err == 0, f"[wavefront-kernels] {kernel} != plain at {what} (max "
+                    f"abs err {err})")
+    del got, want
+    ev = cuda_ms(run, reps=5, warm=1)
+    ms, first, tnote = wave_kernel_ms(run, kernel, launches)
+    ops = wave_ops(tbs)
+    bound, by = wave_bound(nbytes, ops)
+    chain = None if first is None else launches * first
+    print(f"[wavefront-kernels] {kernel} {what}: equal (max abs err 0); "
+          f"{launches} launches; kernel {kms(ms, 3)} (profiler, summed over "
+          f"the launches{', ' + tnote if tnote else ''}), {ev:.3f} ms a "
+          f"wrapper call (CUDA events); bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int32 ops, {by}), "
+          f"{of_bound(bound, ms)}; chain floor {kms(chain, 3)} ({launches} "
+          f"diagonals x the first launch's {kms(first, 4)}); plain "
+          f"{plain_ms:.1f} ms"
+          f"{'' if ms is None else f' ({plain_ms / ms:.0f}x the kernel)'}; "
+          f"{note}")
+    return dict(kernel=kernel, what=what, launches=launches, ms=ms,
+                event_ms=ev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                chain_ms=chain, library_ms=None, max_abs_err=err,
+                note=tnote or None)
+
+
+def _max_err(got, want) -> int:
+    """Max abs difference over matching tensors (dicts or sequences)."""
+    if isinstance(got, dict):
+        got, want = [got[k] for k in want], [want[k] for k in want]
+    return max(int((g.long() - w_.long()).abs().max()) if g.numel() else 0
+               for g, w_ in zip(got, want))
+
+
+def phase_wavefront_kernels() -> tuple[dict, dict]:
+    """Stage 1: the two intra wavefront kernels against their plain
+    versions on the same CUDA tensors, exactly, timed beside their bounds:
+    the quadtree kernel at the 1080p RA GOP's IDR (the port's own
+    decision maps on the card) and at [hevc-intra]'s 416x240 picture; the
+    flat kernel at the flat 1080p IDR, the 4-column tile stack, the
+    832x480 LD-P IDR and an LD-P P picture with intra blocks.  Returns the
+    1080p rows of each kernel (the kernels line's)."""
+    rows = []
+    ra_enc = inter_qt.QtDeviceRandomAccessEncoder(
+        ra_cfg(HEVC_W, HEVC_H), search_range=RA_SR, device="cuda")
+    for what, w, h, y, u, v, lam_scale, cfg in (
+            ("1080p RA IDR", HEVC_W, HEVC_H,
+             *synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0],
+             ra_enc._qt_intra.lam_scale, ra_enc.cfg),
+            ("416x240 [hevc-intra]", 416, 240,
+             *synth_clip(416, 240, 1, seed=9)[0], 1.0, hevc_cfg(416, 240))):
+        rdoq = bool(cfg.rdoq)
+        ins = qt_wave_inputs(w, h, y, u, v, lam_scale, rdoq)
+        args = ins + (cfg.qp, hevc_intra_codec.chroma_qp(cfg.qp), w, h,
+                      cfg.sign_data_hiding, rdoq, lam_scale)
+        ph, pw = ins[0].shape
+        launches = pw // 32 + 2 * (ph // 32 - 1)
+        tbs, cus = qt_wave_tbs(ins[3], w, h)
+        nbytes = 4 * (9 * ph * pw // 2 + sum(m.numel() for m in ins[3:]))
+        rows.append(wave_row(
+            what, "qt_wavefront_kernel",
+            lambda: eq_dev.encode_frame_qt_device(*args),
+            lambda: eq_dev.encode_frame_qt_device_ref(*args), _max_err,
+            launches, nbytes, tbs,
+            f"{cus} CUs ({', '.join(f'{c} of {n}' for n, c in tbs[::2])}), "
+            f"{pw}x{ph} padded, QP {cfg.qp}, RDOQ-lite {rdoq}, SBH "
+            f"{cfg.sign_data_hiding}, lam_scale {lam_scale:g}"))
+        del ins, args
+    for kind, what in (("flat", "flat 1080p IDR"),
+                       ("tiles", "1080p 4-column tile stack"),
+                       ("ldp", "832x480 LD-P IDR")):
+        yi, ui, vi, modes, qp, bw, bh, sbh, rdoq = flat_wave_inputs(kind)
+        args = (yi, ui, vi, modes, qp, hevc_intra_codec.chroma_qp(qp), bw,
+                bh, sbh, rdoq)
+        nt = yi.shape[0] if yi.dim() == 3 else 1
+        blocks = nt * bw * bh
+        nbytes = (4 * 2 * (yi.numel() + ui.numel() + vi.numel()) +
+                  4 * modes.numel() + 4 * blocks * (256 + 128) + 3 * blocks)
+        rows.append(wave_row(
+            what, "flat_wavefront_kernel",
+            lambda: encoder_dev.encode_frame_device(*args),
+            lambda: encoder_dev.encode_frame_device_ref(*args), _max_err,
+            bw + 2 * (bh - 1), nbytes, [(16, blocks), (8, 2 * blocks)],
+            f"{blocks} blocks{f' in {nt} tiles' if nt > 1 else ''}, QP {qp},"
+            f" RDOQ-lite {rdoq}, SBH {sbh}"))
+        del yi, ui, vi, modes, args
+    a = ldp_intra_args()
+    bw, bh = a[-2], a[-1]
+    grid = a[3].cpu().numpy()
+    by, bx = np.nonzero(grid)
+    k = int(grid.sum())
+    rows.append(wave_row(
+        "bench_ldp_480 P picture's intra blocks", "flat_wavefront_kernel",
+        lambda: hevc_inter_dev._intra_wavefront(*a),
+        lambda: hevc_inter_dev._intra_wavefront_ref(*a),
+        lambda g, w_: _max_err(g[0] + g[1], w_[0] + w_[1]),
+        len(set((bx + 2 * by).tolist())), 4 * k * (3 * 384 + 1) + 3 * k,
+        [(16, k), (8, 2 * k)],
+        f"{k} intra blocks of {bw * bh} on {len(set((bx + 2 * by).tolist()))}"
+        f" of {bw + 2 * (bh - 1)} diagonals"))
+    del a
+    torch.cuda.empty_cache()
+    print("[wavefront-kernels] no single PyTorch call computes a wavefront "
+          "(prediction, transform, quantisation and recon chained over "
+          "diagonals; library_ms null)")
+    print(json.dumps({"intra_wavefront_shapes": rows}))
+    return rows[0], rows[2]
+
+
 def decode_ra(stream: bytes) -> tuple:
     """Decode a random-access stream with the port's GeneralDecoder:
     (hash_status, each picture's SHA-1, seconds).  Stage 3 runs it in a
@@ -4950,23 +5282,27 @@ WORKERS, WORKER_THREADS = 5, 2
 
 
 def worker_init(card: str) -> None:
-    """Start a stage-2 worker: load the three kernels stage 1 built and
-    count the plain versions' calls, as main does."""
+    """Start a stage-2 worker: load the kernels stage 1 built and count
+    the plain versions' calls, as main does."""
     global CARD
     CARD = card
     torch.set_num_threads(WORKER_THREADS)
-    for mod in (ss, sao_ops, rdoq_ops):
+    for mod in (ss, sao_ops, rdoq_ops, iw_ops):
         mod._load()
     count_rdoq_ref()
     count_sao_ref()
+    count_wave_ref()
 
 
 def run_task(name: str, fn, args: tuple, kw: dict) -> tuple:
     """Run one phase in a worker with its output kept: (name, passed,
-    result, standard output, standard error, seconds).  A failed check
-    (SystemExit) or an exception is caught here, its traceback kept, and
-    reported as not passed, and so is an import of the JAX package."""
+    result, standard output, standard error, seconds, the wavefront
+    kernels' launches and their plain versions' calls on the card, counted
+    from 0 just before the phase).  A failed check (SystemExit) or an
+    exception is caught here, its traceback kept, and reported as not
+    passed, and so is an import of the JAX package."""
     out, err = io.StringIO(), io.StringIO()
+    zero_wave_counts()
     t0 = time.perf_counter()
     ok, res = False, None
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -4979,34 +5315,36 @@ def run_task(name: str, fn, args: tuple, kw: dict) -> tuple:
         except (Exception, SystemExit):
             traceback.print_exc()
     return (name, ok, res, out.getvalue(), err.getvalue(),
-            time.perf_counter() - t0)
+            time.perf_counter() - t0, wave_counts())
 
 
-def run_pool(tasks: list) -> dict:
+def run_pool(tasks: list) -> tuple[dict, dict]:
     """Stage 2: run tasks on WORKERS spawned processes that share the
     card, print each phase's output as it ends, and return the results
-    by name.  The first phase that fails stops every worker and exits
-    non-zero."""
+    and the wavefront counts (`wave_counts`) by name.  The first phase
+    that fails stops every worker and exits non-zero."""
     t0 = time.perf_counter()
     pool = concurrent.futures.ProcessPoolExecutor(
         WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=worker_init, initargs=(CARD,))
-    results, done = {}, False
+    results, waves, done = {}, {}, False
     try:
         futs = [pool.submit(run_task, *t) for t in tasks]
         for fut in concurrent.futures.as_completed(futs):
-            name, ok, res, out, err, secs = fut.result()
+            name, ok, res, out, err, secs, wave = fut.result()
             sys.stdout.write(out)
             sys.stderr.write(err)
             print(f"[pool] {name}: {secs:.1f} s in its worker", flush=True)
             check(ok, f"phase {name} failed")
+            print(wave_words(name, wave), flush=True)
             results[name] = res
+            waves[name] = wave
         done = True
     finally:
         _stop(pool, done)
     print(f"[pool] {len(tasks)} phases on {WORKERS} workers in "
           f"{time.perf_counter() - t0:.1f} s")
-    return results
+    return results, waves
 
 
 def run_stage3() -> tuple:
@@ -5047,6 +5385,7 @@ def main() -> None:
     build_kernels()
     count_rdoq_ref()
     count_sao_ref()
+    count_wave_ref()
     # Stage 1: the kernels against their plain versions, timed alone.
     phase_kernel()
     rq = phase_rdoq_kernel()
@@ -5057,10 +5396,11 @@ def main() -> None:
     r64 = phase_sad_r64()
     sad_jm = phase_sad_jm()
     phase_tiled_kernels()
+    qt_row, flat_row = phase_wavefront_kernels()
     print(f"[time] stage 1 (the build and the kernels alone) ended at "
           f"{time.perf_counter() - t_start:.1f} s")
     # Stage 2: the earlier slices' paths, WORKERS at a time.
-    res = run_pool(POOL_TASKS)
+    res, waves = run_pool(POOL_TASKS)
     ra_launches, ra_rdoq = res["hevc-ra"]
     ra_sao_sad, sao_launches, ra_sao_rdoq = res["hevc-ra-sao"]
     ldp_launches, ldp_rdoq = res["hevc-ldp"]
@@ -5089,7 +5429,10 @@ def main() -> None:
     # Stage 3: the tile-sharded 1080p GOP alone on the card; the port's
     # decoder checks its stream in a process of its own meanwhile.
     t3 = time.perf_counter()
+    zero_wave_counts()
     tiled_sad, tiled_rdoq, tiled_sha = run_stage3()
+    waves["tiled-ra"] = wave_counts()
+    print(wave_words("tiled-ra", waves["tiled-ra"]))
     print(f"[time] stage 3 ([tiled-ra] and its decode) "
           f"{time.perf_counter() - t3:.1f} s")
     ref_sad, ref_rdoq, ref_sha = res["tiled-ra-ref"]
@@ -5161,6 +5504,15 @@ def main() -> None:
           f"the plain version ran 0 times in them; its times and bound are "
           f"the {r['what']} call's (B={r['b']}; every shape on the next "
           "line)")
+    qt_all = sum(w_[0] for w_ in waves.values())
+    flat_all = sum(w_[1] for w_ in waves.values())
+    print(f"[kernels] qt_wavefront launches: "
+          + ", ".join(f"{n} {w_[0]}" for n, w_ in waves.items() if w_[0])
+          + f", together {qt_all}; flat_wavefront launches: "
+          + ", ".join(f"{n} {w_[1]}" for n, w_ in waves.items() if w_[1])
+          + f", together {flat_all} (the plain versions 0 times on the card"
+          "); their times and bounds are the 1080p RA IDR's and the flat "
+          "1080p IDR's (every shape on the intra_wavefront_shapes line)")
     print(json.dumps({"sad_surface_r64": r64}))
     print(json.dumps({"sad_surface_jm": sad_jm}))
     print(json.dumps({"rdoq_dev_shapes": rq}))
@@ -5186,7 +5538,16 @@ def main() -> None:
         "max_abs_err": max(x["max_abs_err"] for x in rq), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-        "ms_note": r["note"]}]}))
+        "ms_note": r["note"]}] + [{
+        "name": name, "route": "cuda", "source": WAVE_SRC,
+        "replaces": rep, "launches": n, "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "chain_ms": row["chain_ms"],
+        "ms_note": row["note"], **extra} for name, rep, n, row, extra in (
+            ("intra_qt_wavefront", QT_WAVE_REPLACES, qt_all, qt_row, {}),
+            ("intra_flat_wavefront", FLAT_WAVE_REPLACES, flat_all, flat_row,
+             {"also_replaces": FLAT_WAVE_ALSO}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -80,14 +80,16 @@ _COPIES = {
                                     "_predict_single_mode",
                                     "encode_frame_device"},
                                    {"encode_frame", "_put_blocks",
-                                    "_tile_schedule", "_proxy_sum"}),
+                                    "_tile_schedule", "_proxy_sum",
+                                    "encode_frame_device_ref",
+                                    "flat_lambdas"}),
     "models/hevc/encoder_qt_dev.py": (
         "models/hevc/encoder_jax_qt.py", set(),
         {"z_index_dev", "gather_refs_z", "_grid", "_mode_sweep",
          "_level_rate_bits", "_trial_cost", "_sum2x2", "decide_qt_device",
          "_scatter", "_scan_type_dev", "_code_tb_batch",
          "encode_frame_qt_device", "bs_maps_from_depth"},
-        {"_pad_edge", "encode_frame_qt"}),
+        {"_pad_edge", "encode_frame_qt", "encode_frame_qt_device_ref"}),
     "models/hevc/intra_codec.py": (
         "models/hevc/intra_codec.py",
         {"code_tb_np", "IntraEncoder.__init__", "IntraEncoder.encode_frame",
@@ -126,7 +128,8 @@ _COPIES = {
          "DeviceLowDelayEncoder.encode_frame"},
         {"_i32", "_round_cost", "_round_const", "_persum", "_sum2x2",
          "_to4", "_from4", "_ssef", "DeviceLowDelayEncoder._device_phase",
-         "bs_maps_b_dev", "_check_flat_b", "_b_device_phase"}),
+         "bs_maps_b_dev", "_check_flat_b", "_b_device_phase",
+         "_intra_wavefront_ref"}),
     "models/hevc/motion.py": ("models/hevc/motion.py", {"amvp_candidates"},
                               set(), set()),
     "models/hevc/motion_hm.py": ("models/hevc/motion_hm.py", set(), set(),

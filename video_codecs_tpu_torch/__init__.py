@@ -19,7 +19,7 @@ entry points `DeviceH264Encoder`, `H264Encoder`, `QuadtreeFastEncoder`,
 `QtDeviceRandomAccessEncoder`, `DeviceLowDelayEncoder` and the flat
 `IntraEncoder` run on the card unless the caller asks for the CPU), no autograd (work runs under `torch.inference_mode()`), and
 a hand-written CUDA kernel wherever the reference had a Pallas kernel
-(and for its SAO-statistics and full-RDOQ XLA loops).  A
+(and for its SAO-statistics, full-RDOQ and intra-wavefront XLA loops).  A
 kernel wrapper launches its kernel for a CUDA tensor or raises; it runs
 the plain PyTorch version only for a CPU tensor.
 
@@ -76,6 +76,11 @@ Module map (port -> JAX counterpart):
   models/hevc/encoder_dev.py models/hevc/encoder_jax.py (helpers and
                              the flat CTB16 intra encoder encode_frame;
                              tile-column stacks)
+  ops/intra_wavefront.py     the wrappers of the two wavefront kernels
+    + csrc/intra_wavefront.cu  for encoder_jax_qt.encode_frame_qt_device,
+                             encoder_jax.encode_frame_device and
+                             inter_jax._intra_wavefront (the plain
+                             versions: the models' ..._ref functions)
   parallel/tiles.py          parallel/tiles.py (the tile columns as one
                              batch where the reference shards them)
   models/hevc/encoder_qt_dev.py  models/hevc/encoder_jax_qt.py (whole)

@@ -30,6 +30,7 @@ from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import intra as intra_ops
+from video_codecs_tpu_torch.ops import intra_wavefront
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops import rdoq_dev
 from video_codecs_tpu_torch.ops import transform as tr_ops
@@ -292,7 +293,53 @@ def encode_frame_device(y, u, v, modes, qp: int, qp_c: int, bw: int, bh: int,
     one wavefront: each diagonal's batch holds that diagonal's blocks of
     every tile, block (t, bx, by) at index t * bw * bh + by * bw + bx of
     the level arrays (the reference's shard_map layout,
-    parallel/tiles.py:80), and the rec planes stay stacked."""
+    parallel/tiles.py:80), and the rec planes stay stacked.
+
+    CUDA tensors go through the hand-written kernel
+    (`intra_wavefront.flat_wavefront`: one launch per diagonal); CPU
+    tensors through the plain version `encode_frame_device_ref`.  The
+    kernel takes hard quantisation and RDOQ-lite (rdoq "full" raises
+    ValueError on the card)."""
+    if y.device.type == "cpu":
+        return encode_frame_device_ref(y, u, v, modes, qp, qp_c, bw, bh,
+                                       sbh, rdoq)
+    dev = y.device
+    nt = y.shape[0] if y.dim() == 3 else 0
+    h, w = y.shape[-2:]
+    b = bw * bh * max(nt, 1)
+    lead = (nt,) if nt else ()
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    st = dict(rec_y=zeros(*lead, h, w), rec_u=zeros(*lead, h // 2, w // 2),
+              rec_v=zeros(*lead, h // 2, w // 2),
+              levels_y=zeros(b, 16, 16), levels_cb=zeros(b, 8, 8),
+              levels_cr=zeros(b, 8, 8),
+              cbf=torch.zeros((3, b), dtype=torch.bool, device=dev))
+    intra_wavefront.flat_wavefront(
+        y.int().contiguous(), u.int().contiguous(), v.int().contiguous(),
+        modes.int().contiguous(), (st["rec_y"], st["rec_u"], st["rec_v"]),
+        (st["levels_y"], st["levels_cb"], st["levels_cr"]), tuple(st["cbf"]),
+        qp, qp_c, bw, bh, sbh, rdoq, flat_lambdas(qp, qp_c),
+        LITE_LAM_SCALE)
+    return st
+
+
+def flat_lambdas(qp: int, qp_c: int) -> tuple[float, float]:
+    """`_code_blocks`' default lambda (lam=None) at the luma and the
+    chroma QP."""
+    return tuple(0.57 * 2.0 ** ((q - 12) / 3.0) for q in (qp, qp_c))
+
+
+# RDOQ-lite's rate scale where `_code_blocks` leaves it at the default.
+LITE_LAM_SCALE = quant_ops.rdoq_lite.__kwdefaults__["lam_scale"]
+
+
+def encode_frame_device_ref(y, u, v, modes, qp: int, qp_c: int, bw: int,
+                            bh: int, sbh: bool = False, rdoq: bool = False):
+    """The plain version of `encode_frame_device`: the reference's
+    wavefront as eager torch ops, one batch per diagonal."""
     coords, valid, steps, _ = _wavefront_schedule(bw, bh)
     dev = y.device
     nt = y.shape[0] if y.dim() == 3 else 0

@@ -44,6 +44,7 @@ from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import intra as intra_ops
+from video_codecs_tpu_torch.ops import intra_wavefront
 from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops import rdoq_dev
 from video_codecs_tpu_torch.ops import transform as tr_ops
@@ -314,7 +315,27 @@ def encode_frame_qt_device(y, u, v, depth8, m8, m16, m32, qp: int, qp_c: int,
                            w: int, h: int, sbh: bool, rdoq: bool,
                            lam_scale: float = 1.0):
     """Wavefront recon of the decided quadtree; returns recon planes and
-    coefficient planes (padded dims; caller crops)."""
+    coefficient planes (padded dims; caller crops).
+
+    CUDA tensors go through the hand-written kernel
+    (`intra_wavefront.qt_wavefront`: one launch per CTB diagonal, the
+    decided tree read on the card, no host sync); CPU tensors through the
+    plain version `encode_frame_qt_device_ref`."""
+    if y.device.type == "cpu":
+        return encode_frame_qt_device_ref(y, u, v, depth8, m8, m16, m32, qp,
+                                          qp_c, w, h, sbh, rdoq, lam_scale)
+    lam = tuple(lam_scale * 0.57 * 2.0 ** ((q - 12) / 3.0)
+                for q in (qp, qp_c))
+    return intra_wavefront.qt_wavefront(y, u, v, depth8, m8, m16, m32, qp,
+                                        qp_c, w, h, sbh, rdoq, lam,
+                                        RDOQ_LAM_SCALE)
+
+
+def encode_frame_qt_device_ref(y, u, v, depth8, m8, m16, m32, qp: int,
+                               qp_c: int, w: int, h: int, sbh: bool,
+                               rdoq: bool, lam_scale: float = 1.0):
+    """The plain version of `encode_frame_qt_device`: the reference's
+    wavefront as eager torch ops, one batch per micro-step of a diagonal."""
     ph, pw = y.shape
     dev = y.device
     cw, ch = pw // CTB, ph // CTB

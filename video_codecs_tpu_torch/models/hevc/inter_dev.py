@@ -60,6 +60,7 @@ from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
 from video_codecs_tpu_torch.ops import interp
 from video_codecs_tpu_torch.ops import intra as intra_ops
+from video_codecs_tpu_torch.ops import intra_wavefront
 from video_codecs_tpu_torch.ops import me as me_ops
 from video_codecs_tpu_torch.ops.quant import fma32, log2_xla
 from video_codecs_tpu_torch.utils.device import to_device
@@ -186,7 +187,41 @@ def _intra_wavefront(yi, ui, vi, intra_grid, intra_modes, planes, cbfs,
     Returns the updated (planes, cbfs), new tensors.  The intra map is
     read back once; each diagonal d = bx + 2 * by codes only its intra
     blocks, in one batch, and a diagonal without one is skipped (the
-    reference's masked lanes write nothing)."""
+    reference's masked lanes write nothing).
+
+    CUDA tensors go through the hand-written kernel
+    (`intra_wavefront.flat_wavefront`: one launch per diagonal that holds
+    an intra block, on clones of the planes and cbfs, coded in place);
+    CPU tensors through the plain version `_intra_wavefront_ref`."""
+    if yi.device.type == "cpu":
+        return _intra_wavefront_ref(yi, ui, vi, intra_grid, intra_modes,
+                                    planes, cbfs, qp, qp_c, sbh, rdoq, bw,
+                                    bh)
+    grid = intra_grid.cpu().numpy()
+    if not grid.any():
+        return planes, cbfs
+    steps = bw + 2 * (bh - 1)
+    diags = np.zeros(steps, bool)
+    by, bx = np.nonzero(grid)
+    diags[bx + 2 * by] = True
+    planes = tuple(p.clone(memory_format=torch.contiguous_format)
+                   for p in planes)
+    cbfs = tuple(c.clone(memory_format=torch.contiguous_format)
+                 for c in cbfs)
+    intra_wavefront.flat_wavefront(
+        yi.int().contiguous(), ui.int().contiguous(), vi.int().contiguous(),
+        intra_modes.int().contiguous(), planes[:3], planes[3:], cbfs, qp,
+        qp_c, bw, bh, sbh, rdoq, encoder_dev.flat_lambdas(qp, qp_c),
+        encoder_dev.LITE_LAM_SCALE, intra=intra_grid, diags=diags,
+        lv_planes=True)
+    return planes, cbfs
+
+
+def _intra_wavefront_ref(yi, ui, vi, intra_grid, intra_modes, planes, cbfs,
+                         qp: int, qp_c: int, sbh: bool, rdoq: bool,
+                         bw: int, bh: int):
+    """The plain version of `_intra_wavefront`: each diagonal's intra
+    blocks as one batch of eager torch ops."""
     grid = intra_grid.cpu().numpy()
     if not grid.any():
         return planes, cbfs
