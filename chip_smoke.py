@@ -6,7 +6,7 @@
 Drives the port's main paths through its hand-written CUDA kernels, the
 SAD surface, the SAO statistics, the full RDOQ and the two intra
 reconstruction wavefronts (the quadtree IDR's and the flat CTB16
-encoder's, one launch per anti-diagonal): the H.264 device
+encoder's, one persistent launch per call): the H.264 device
 P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
 then on), the HEVC low-delay P row at 832x480 (as it is, with SAO, and
@@ -370,15 +370,20 @@ and the conversion and leaky-bucket tools -- in phases:
      process or in any worker;
  20. wavefront-kernels (stage 1): hold the two intra wavefront kernels
      against their plain versions on the same CUDA tensors, max abs
-     error 0 (`phase_wavefront_kernels`): the quadtree kernel
-     (`encode_frame_qt_device`) at the 1080p RA GOP's IDR, its maps from
-     the port's own `decide_qt_device` on the card, and at [hevc-intra]'s
-     416x240 picture; the flat kernel (`encode_frame_device`,
-     `_intra_wavefront`) at the flat 1080p IDR, the 4-column tile stack,
-     the 832x480 LD-P IDR and the intra blocks of bench_ldp_480's first
-     P picture that codes some; each timed (profiler, summed over its
-     launches) beside the plain version, the bound (bytes or int32
-     operations) and the chain floor (diagonals x the first launch).
+     error 0, one launch per call (`phase_wavefront_kernels`): the
+     quadtree kernel (`encode_frame_qt_device`) at a one-CTB 32x32
+     picture, the 1080p RA GOP's IDR, its maps from the port's own
+     `decide_qt_device` on the card, and [hevc-intra]'s 416x240 picture;
+     the flat kernel (`encode_frame_device`, `_intra_wavefront`) at a
+     one-block 16x16 picture, the flat 1080p IDR, the 4-column tile
+     stack, the 832x480 LD-P IDR and the intra blocks of bench_ldp_480's
+     first P picture that codes some; each timed (profiler, one event a
+     call) beside the per-diagonal version's time, a wrapper call (CUDA
+     events), the plain
+     version, the bound (bytes or int32 operations) and the chain floor
+     (the units on the critical path x the one-unit picture's time); at
+     1080p the persistent grid must hold fewer CTAs than there are
+     units.
      Every stage-2 phase and stage 3 count both kernels' launches from 0
      (`run_task`, `wave_words`): the 1080p RA GOPs and [hevc-intra] must
      launch the quadtree kernel, the LD-P, flat B and tile phases the flat
@@ -4596,17 +4601,19 @@ def phase_tiled_kernels() -> dict:
 
 # ---- the intra wavefront kernels (stage 1) ---------------------------------
 
-def wave_kernel_ms(fn, name: str, launches: int, reps: int = 5,
-                   tries: int = 3) -> tuple[float | None, float | None, str]:
-    """(device ms of one call of fn() summed over its `launches` launches
-    of the kernel called `name`, the median device ms of its first launch,
-    "") from torch.profiler, asked up to `tries` times; (None, None, the
-    reason) when no session recorded every launch."""
+def wave_kernel_ms(fn, name: str, reps: int = 7,
+                   tries: int = 3) -> tuple[float | None, str]:
+    """(median device ms of fn()'s one launch of the kernel called `name`,
+    note) from torch.profiler, asked up to `tries` times for a session
+    that records every call; when none does, the median over the
+    launches the sessions did record, each a whole kernel's device time,
+    with the count in the note; (None, the reason) when none was
+    recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    seen = 0
+    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -4614,12 +4621,32 @@ def wave_kernel_ms(fn, name: str, launches: int, reps: int = 5,
             torch.cuda.synchronize()
         times = [e.device_time for e in prof.events()
                  if e.device_type == DeviceType.CUDA and name in e.name]
-        seen = len(times)
-        if seen == reps * launches:
-            first = statistics.median(times[::launches])
-            return sum(times) / reps / 1e3, first / 1e3, ""
-    return None, None, (f"torch.profiler recorded {seen} of "
-                        f"{reps * launches} {name} launches")
+        if len(times) == reps:
+            return statistics.median(times) / 1e3, ""
+        seen += times
+    if not seen:
+        return None, f"torch.profiler recorded no {name} launch"
+    return statistics.median(seen) / 1e3, (
+        f"the median of the {len(seen)} launches torch.profiler recorded "
+        f"for {tries * reps} calls")
+
+
+def wave_critical_path(mask: np.ndarray) -> int:
+    """The longest chain of units of a [bh, bw] grid (True: coded) in
+    which each unit waits on a coded left, top-left, top or top-right
+    neighbour: a full grid's is its bw + 2 (bh - 1) diagonals."""
+    bh, bw = mask.shape
+    depth = np.zeros((bh, bw), np.int64)
+    for d in range(bw + 2 * (bh - 1)):
+        for y in range(max(0, (d - bw + 2) // 2), min(bh - 1, d // 2) + 1):
+            x = d - 2 * y
+            if not mask[y, x]:
+                continue
+            nb = [depth[y + dy, x + dx] for dx, dy in
+                  ((-1, 0), (-1, -1), (0, -1), (1, -1))
+                  if 0 <= x + dx < bw and 0 <= y + dy < bh]
+            depth[y, x] = 1 + max(nb, default=0)
+    return int(depth.max(initial=0))
 
 
 def wave_ops(tbs) -> int:
@@ -4664,13 +4691,17 @@ def qt_wave_tbs(depth8: torch.Tensor, w: int, h: int) -> tuple[list, int]:
 
 
 def flat_wave_inputs(kind: str):
-    """The flat wavefront's inputs on the card: (what, y, u, v, modes, qp,
-    bw, bh, sbh, rdoq) of the flat 1080p IDR, the 4-column tile stack and
-    the 832x480 LD-P IDR, as `IntraEncoder._dispatch` and
-    `tiles.encode_tiles_dev` form them."""
+    """The flat wavefront's inputs on the card: (y, u, v, modes, qp, bw,
+    bh, sbh, rdoq) of the flat 1080p IDR, the 4-column tile stack, the
+    832x480 LD-P IDR and the flat IDR's first 16x16 block as a picture,
+    as `IntraEncoder._dispatch` and `tiles.encode_tiles_dev` form them."""
     if kind == "ldp":
         cfg = ldp_cfg(LDP_W, LDP_H)
         y, u, v = bench_synth_clip(LDP_W, LDP_H, 1)[0]
+    elif kind == "unit":
+        cfg = flat_cfg(16, 16, 3)
+        y, u, v = (np.ascontiguousarray(p[:n, :n]) for p, n in zip(
+            synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0], (16, 8, 8)))
     elif kind == "tiles":
         cfg = tiles_cfg(HEVC_W, HEVC_H)
         y, u, v = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
@@ -4721,15 +4752,34 @@ def ldp_intra_args() -> tuple:
     return seen[0]
 
 
-def wave_row(what: str, kernel: str, run, plain, cmp, launches: int,
-             nbytes: int, tbs: list, note: str) -> dict:
-    """One shape of a wavefront kernel: run() (the kernel) against plain()
-    (its plain version) on the same CUDA tensors through cmp(got, want) ->
-    max abs error, which must be 0; the kernel's time (profiler, summed
-    over its launches), the plain version's (CUDA events around the one
-    check call), the bounds; prints one line and returns the row."""
+# The kernels' times in their one-launch-per-diagonal version (commit
+# 884abb4, measured by this script on "NVIDIA H100 80GB HBM3, 700.00 W"),
+# printed beside this version's.
+WAVE_DIAG_MS = {"1080p RA IDR": 6.910, "416x240 [hevc-intra]": 1.456,
+                "flat 1080p IDR": 6.384, "1080p 4-column tile stack": 2.301,
+                "832x480 LD-P IDR": 2.069,
+                "bench_ldp_480 P picture's intra blocks": 0.307}
+
+
+def wave_row(what: str, kernel: str, run, plain, cmp, counter, units: int,
+             crit: int, unit_ms: float | None, nbytes: int, tbs: list,
+             note: str) -> dict:
+    """One shape of a wavefront kernel: run() (the kernel, one launch,
+    counted by `counter`) against plain() (its plain version) on the same
+    CUDA tensors through cmp(got, want) -> max abs error, which must be 0;
+    the kernel's time (profiler), a wrapper call's (CUDA events), the
+    plain version's (CUDA events around the one check call), the byte and
+    operation bound, and the chain floor: `crit` units on the critical
+    path x one unit's serial time `unit_ms` (the kernel's time on a
+    one-unit picture; None: this row is that picture).  Prints one line
+    and returns the row."""
+    l0 = counter.launches
     got = run()
     torch.cuda.synchronize()
+    launches = counter.launches - l0
+    grid = counter.last_grid
+    check(launches == 1, f"[wavefront-kernels] {kernel} at {what}: "
+                         f"{launches} launches for one call")
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -4742,23 +4792,31 @@ def wave_row(what: str, kernel: str, run, plain, cmp, launches: int,
                     f"abs err {err})")
     del got, want
     ev = cuda_ms(run, reps=5, warm=1)
-    ms, first, tnote = wave_kernel_ms(run, kernel, launches)
+    ms, tnote = wave_kernel_ms(run, kernel)
     ops = wave_ops(tbs)
     bound, by = wave_bound(nbytes, ops)
-    chain = None if first is None else launches * first
+    if unit_ms is None:
+        unit_ms = ms
+    chain = None if unit_ms is None else crit * unit_ms
+    diag = WAVE_DIAG_MS.get(what)
+    over = None if ms is None else ev - ms
     print(f"[wavefront-kernels] {kernel} {what}: equal (max abs err 0); "
-          f"{launches} launches; kernel {kms(ms, 3)} (profiler, summed over "
-          f"the launches{', ' + tnote if tnote else ''}), {ev:.3f} ms a "
-          f"wrapper call (CUDA events); bound {bound:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int32 ops, {by}), "
-          f"{of_bound(bound, ms)}; chain floor {kms(chain, 3)} ({launches} "
-          f"diagonals x the first launch's {kms(first, 4)}); plain "
-          f"{plain_ms:.1f} ms"
+          f"1 launch of {grid} CTAs for {units} units; kernel {kms(ms, 3)} "
+          f"(profiler{', ' + tnote if tnote else ''})"
+          f"{f' against {diag:.3f} ms per diagonal' if diag else ''}, "
+          f"{ev:.3f} ms a wrapper call (CUDA events"
+          f"{'' if over is None else f', {over:.3f} ms above the kernel'}); "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+          f"int32 ops, {by}), {of_bound(bound, ms)}; chain floor "
+          f"{kms(chain, 3)} ({crit} units on the critical path x one unit's "
+          f"{kms(unit_ms, 4)}); plain {plain_ms:.1f} ms"
           f"{'' if ms is None else f' ({plain_ms / ms:.0f}x the kernel)'}; "
           f"{note}")
-    return dict(kernel=kernel, what=what, launches=launches, ms=ms,
-                event_ms=ev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                chain_ms=chain, library_ms=None, max_abs_err=err,
+    return dict(kernel=kernel, what=what, launches=launches, grid=grid,
+                units=units, ms=ms, diag_ms=diag, event_ms=ev,
+                wrapper_over_ms=over, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, chain_ms=chain, critical_units=crit,
+                unit_ms=unit_ms, library_ms=None, max_abs_err=err,
                 note=tnote or None)
 
 
@@ -4772,39 +4830,52 @@ def _max_err(got, want) -> int:
 
 def phase_wavefront_kernels() -> tuple[dict, dict]:
     """Stage 1: the two intra wavefront kernels against their plain
-    versions on the same CUDA tensors, exactly, timed beside their bounds:
-    the quadtree kernel at the 1080p RA GOP's IDR (the port's own
-    decision maps on the card) and at [hevc-intra]'s 416x240 picture; the
-    flat kernel at the flat 1080p IDR, the 4-column tile stack, the
-    832x480 LD-P IDR and an LD-P P picture with intra blocks.  Returns the
+    versions on the same CUDA tensors, exactly, one launch per call, timed
+    beside their bounds: each kernel first on a one-unit picture (the
+    1080p source's first CTB, its first 16x16 block) for one unit's
+    serial time; then the quadtree kernel at the 1080p RA GOP's IDR (the
+    port's own decision maps on the card) and at [hevc-intra]'s 416x240
+    picture; the flat kernel at the flat 1080p IDR, the 4-column tile
+    stack, the 832x480 LD-P IDR and an LD-P P picture with intra blocks.
+    At 1080p the grid must be smaller than the unit count.  Returns the
     1080p rows of each kernel (the kernels line's)."""
     rows = []
+    qt, flat = iw_ops.qt_wavefront, iw_ops.flat_wavefront
     ra_enc = inter_qt.QtDeviceRandomAccessEncoder(
         ra_cfg(HEVC_W, HEVC_H), search_range=RA_SR, device="cuda")
+    src = synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0]
+    unit_ms = {}
     for what, w, h, y, u, v, lam_scale, cfg in (
-            ("1080p RA IDR", HEVC_W, HEVC_H,
-             *synth_clip(HEVC_W, HEVC_H, 1, seed=5)[0],
+            ("one CTB (32x32)", 32, 32, src[0][:32, :32], src[1][:16, :16],
+             src[2][:16, :16], ra_enc._qt_intra.lam_scale, ra_enc.cfg),
+            ("1080p RA IDR", HEVC_W, HEVC_H, *src,
              ra_enc._qt_intra.lam_scale, ra_enc.cfg),
             ("416x240 [hevc-intra]", 416, 240,
              *synth_clip(416, 240, 1, seed=9)[0], 1.0, hevc_cfg(416, 240))):
         rdoq = bool(cfg.rdoq)
-        ins = qt_wave_inputs(w, h, y, u, v, lam_scale, rdoq)
+        ins = qt_wave_inputs(w, h, np.ascontiguousarray(y),
+                             np.ascontiguousarray(u), np.ascontiguousarray(v),
+                             lam_scale, rdoq)
         args = ins + (cfg.qp, hevc_intra_codec.chroma_qp(cfg.qp), w, h,
                       cfg.sign_data_hiding, rdoq, lam_scale)
         ph, pw = ins[0].shape
-        launches = pw // 32 + 2 * (ph // 32 - 1)
+        units = (ph // 32) * (pw // 32)
         tbs, cus = qt_wave_tbs(ins[3], w, h)
         nbytes = 4 * (9 * ph * pw // 2 + sum(m.numel() for m in ins[3:]))
-        rows.append(wave_row(
+        row = wave_row(
             what, "qt_wavefront_kernel",
             lambda: eq_dev.encode_frame_qt_device(*args),
-            lambda: eq_dev.encode_frame_qt_device_ref(*args), _max_err,
-            launches, nbytes, tbs,
+            lambda: eq_dev.encode_frame_qt_device_ref(*args), _max_err, qt,
+            units, pw // 32 + 2 * (ph // 32 - 1), unit_ms.get("qt"), nbytes,
+            tbs,
             f"{cus} CUs ({', '.join(f'{c} of {n}' for n, c in tbs[::2])}), "
             f"{pw}x{ph} padded, QP {cfg.qp}, RDOQ-lite {rdoq}, SBH "
-            f"{cfg.sign_data_hiding}, lam_scale {lam_scale:g}"))
+            f"{cfg.sign_data_hiding}, lam_scale {lam_scale:g}")
+        unit_ms.setdefault("qt", row["ms"])
+        rows.append(row)
         del ins, args
-    for kind, what in (("flat", "flat 1080p IDR"),
+    for kind, what in (("unit", "one block (16x16)"),
+                       ("flat", "flat 1080p IDR"),
                        ("tiles", "1080p 4-column tile stack"),
                        ("ldp", "832x480 LD-P IDR")):
         yi, ui, vi, modes, qp, bw, bh, sbh, rdoq = flat_wave_inputs(kind)
@@ -4814,35 +4885,48 @@ def phase_wavefront_kernels() -> tuple[dict, dict]:
         blocks = nt * bw * bh
         nbytes = (4 * 2 * (yi.numel() + ui.numel() + vi.numel()) +
                   4 * modes.numel() + 4 * blocks * (256 + 128) + 3 * blocks)
-        rows.append(wave_row(
+        row = wave_row(
             what, "flat_wavefront_kernel",
             lambda: encoder_dev.encode_frame_device(*args),
             lambda: encoder_dev.encode_frame_device_ref(*args), _max_err,
-            bw + 2 * (bh - 1), nbytes, [(16, blocks), (8, 2 * blocks)],
+            flat, blocks, bw + 2 * (bh - 1), unit_ms.get("flat"), nbytes,
+            [(16, blocks), (8, 2 * blocks)],
             f"{blocks} blocks{f' in {nt} tiles' if nt > 1 else ''}, QP {qp},"
-            f" RDOQ-lite {rdoq}, SBH {sbh}"))
+            f" RDOQ-lite {rdoq}, SBH {sbh}")
+        unit_ms.setdefault("flat", row["ms"])
+        rows.append(row)
         del yi, ui, vi, modes, args
+    for row in rows:
+        if row["what"] in ("1080p RA IDR", "flat 1080p IDR"):
+            check(row["grid"] < row["units"],
+                  f"[wavefront-kernels] {row['kernel']} {row['what']}: a "
+                  f"grid of {row['grid']} CTAs for {row['units']} units")
     a = ldp_intra_args()
     bw, bh = a[-2], a[-1]
     grid = a[3].cpu().numpy()
-    by, bx = np.nonzero(grid)
     k = int(grid.sum())
+    crit = wave_critical_path(grid)
     rows.append(wave_row(
         "bench_ldp_480 P picture's intra blocks", "flat_wavefront_kernel",
         lambda: hevc_inter_dev._intra_wavefront(*a),
         lambda: hevc_inter_dev._intra_wavefront_ref(*a),
-        lambda g, w_: _max_err(g[0] + g[1], w_[0] + w_[1]),
-        len(set((bx + 2 * by).tolist())), 4 * k * (3 * 384 + 1) + 3 * k,
+        lambda g, w_: _max_err(g[0] + g[1], w_[0] + w_[1]), flat, bw * bh,
+        crit, unit_ms.get("flat"), 4 * k * (3 * 384 + 1) + 3 * k,
         [(16, k), (8, 2 * k)],
-        f"{k} intra blocks of {bw * bh} on {len(set((bx + 2 * by).tolist()))}"
-        f" of {bw + 2 * (bh - 1)} diagonals"))
+        f"{k} intra blocks of {bw * bh}, the longest chain of dependent "
+        f"intra blocks {crit}"))
+    over = rows[-1]["wrapper_over_ms"]
+    print(f"[wavefront-kernels] a wrapper call at the P picture's shape: "
+          f"{'not measured' if over is None else f'{over:.3f} ms'} above "
+          f"its kernel (CUDA events against the profiler; 0.9-1.1 ms in "
+          f"the per-diagonal version)")
     del a
     torch.cuda.empty_cache()
     print("[wavefront-kernels] no single PyTorch call computes a wavefront "
           "(prediction, transform, quantisation and recon chained over "
           "diagonals; library_ms null)")
     print(json.dumps({"intra_wavefront_shapes": rows}))
-    return rows[0], rows[2]
+    return rows[1], rows[4]
 
 
 def decode_ra(stream: bytes) -> tuple:

@@ -14,11 +14,16 @@ On the CPU:
     compile), and the port's plain version on a 2-tile stack;
   - CPU tensors run the plain versions and launch nothing;
   - a build failure raises; the table buffer's layout is the kernel
-    source's, and the RDOQ-lite lambdas are `quant.rdoq_lite`'s.
+    source's, and the RDOQ-lite lambdas are `quant.rdoq_lite`'s;
+  - the wrapper's device tables are cached per card and lambda value, and
+    `_intra_wavefront`'s CUDA branch reads nothing back to the host.
 On the card (`cuda`, skipped here) each kernel equals its plain version on
-the same CUDA tensors, max abs error 0: picture edges that are not
-multiples of 32, all 35 modes at every CU size, SBH and RDOQ-lite on and
-off, a 2-tile stack and a P picture with a sparse intra grid:
+the same CUDA tensors, max abs error 0, in one launch per call: picture
+edges that are not multiples of 32, all 35 modes at every CU size, SBH
+and RDOQ-lite on and off, a 2-tile stack, P pictures with a sparse, an
+empty and a full intra grid, one-unit pictures, one-CTB rows and columns,
+and 1080p pictures whose units outnumber the resident CTAs (the ticket
+order's forward progress):
 
     python -m pytest --noconftest -m cuda tests/test_torch_intra_wavefront.py
 
@@ -393,6 +398,81 @@ def test_lite_lambdas_are_rdoq_lites(lam_scale):
     assert tquant.log_1p_tables()[1].dtype == np.float32
 
 
+def test_device_tables_cached_per_card_and_lambda(monkeypatch):
+    """Two calls with equal lambdas get the same tensors, and neither
+    hashes a table through `utils.device.const`."""
+    def refuse(*a, **kw):
+        raise AssertionError("const called")
+
+    monkeypatch.setattr("video_codecs_tpu_torch.utils.device.const", refuse)
+    iw._consts.cache_clear()
+    dev = torch.device("cpu")
+    lam = ted.flat_lambdas(32, chroma_qp(32))
+    a = iw._consts(dev, lam, ted.LITE_LAM_SCALE)
+    b = iw._consts(dev, tuple(float(x) for x in lam), ted.LITE_LAM_SCALE)
+    assert all(x is y for x, y in zip(a, b))
+    c = iw._consts(dev, (lam[0] * 2, lam[1]), ted.LITE_LAM_SCALE)
+    assert c[0] is a[0] and c[1] is a[1] and c[2] is not a[2]
+    np.testing.assert_array_equal(
+        a[2].numpy(), iw.lite_lambdas(*lam, ted.LITE_LAM_SCALE))
+    np.testing.assert_array_equal(a[0].numpy(), iw.tables_np())
+    iw._consts.cache_clear()
+
+
+@pytest.mark.parametrize("cbf_layout", ["blocks", "grid"])
+def test_intra_wavefront_cuda_branch_reads_nothing_back(monkeypatch,
+                                                        cbf_layout):
+    """`_intra_wavefront`'s CUDA branch, run on CPU tensors with the
+    library, the stream and the device check patched (the kernel a no-op
+    that reports its grid), calls no .cpu(), .item(), .numpy(), .tolist()
+    and no bool() of a tensor; it launches once and returns clones of the
+    shapes it was given: cbfs as [B] (the P and B pictures) or as
+    [bh, bw] (the RA quadtree's `qt_merge_dev`)."""
+    import ctypes
+    import inspect
+
+    calls = []
+
+    def fake_flat(*args):
+        calls.append(args)
+        ctypes.cast(args[-2], ctypes.POINTER(ctypes.c_int))[0] = 3
+        return 0
+
+    fake_flat.__name__ = "vct_intra_flat_wavefront"
+    lib = type("Lib", (), {"vct_intra_flat_wavefront":
+                           staticmethod(fake_flat)})
+    monkeypatch.setattr(iw, "_device", lambda y: y.device)
+    monkeypatch.setattr(iw, "launch_stream", lambda dev: 0)
+    monkeypatch.setattr(iw, "_load", lambda: lib)
+    monkeypatch.setattr(iw.flat_wavefront, "launches", 0)
+    monkeypatch.setattr(iw.flat_wavefront, "last_grid", 0)
+    src = inspect.getsource(tinter._intra_wavefront).replace(
+        'yi.device.type == "cpu"', 'yi.device.type == "card"')
+    assert src.count('"card"') == 1
+    ns = dict(tinter._intra_wavefront.__globals__)
+    exec(src, ns)
+    args, bw, bh = _intra_case(64, 48, 5)
+    if cbf_layout == "grid":
+        args = args[:6] + (tuple(c.reshape(bh, bw) for c in args[6]),)
+    tquant.log_1p_tables()          # host tables, built once per process
+    iw.tables_np()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a host read on the card's path")
+
+    for name in ("cpu", "item", "numpy", "tolist", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    planes, cbfs = ns["_intra_wavefront"](*args, 32, chroma_qp(32), True,
+                                          True, bw, bh)
+    launches, grid = iw.flat_wavefront.launches, iw.flat_wavefront.last_grid
+    monkeypatch.undo()
+    assert len(calls) == 1 and launches == 1 and grid == 3
+    for got, orig in zip(planes + cbfs, args[5] + args[6]):
+        assert got is not orig and torch.equal(got, orig)
+        assert got.shape == orig.shape
+    assert calls[0][4] is not None                 # the intra map, on the card
+
+
 # ---- on the card -----------------------------------------------------------
 
 def _need_card():
@@ -418,7 +498,8 @@ def _qt_check(planes, maps, qp, w, h, sbh, rdoq):
                                      sbh, rdoq)
     torch.cuda.synchronize()
     ph, pw = planes[0].shape
-    assert iw.qt_wavefront.launches - l0 == pw // 32 + 2 * (ph // 32 - 1)
+    assert iw.qt_wavefront.launches - l0 == 1
+    assert 1 <= iw.qt_wavefront.last_grid <= (ph // 32) * (pw // 32)
     want = tqt.encode_frame_qt_device_ref(*planes, *maps, qp, chroma_qp(qp),
                                           w, h, sbh, rdoq)
     _equal(got, want, (w, h, qp, sbh, rdoq))
@@ -470,7 +551,7 @@ def test_flat_kernel_picture_and_tile_stack(sbh, rdoq, nt):
     got = ted.encode_frame_device(y, u, v, modes, qp, chroma_qp(qp), bw, bh,
                                   sbh=sbh, rdoq=rdoq)
     torch.cuda.synchronize()
-    assert iw.flat_wavefront.launches - l0 == bw + 2 * (bh - 1)
+    assert iw.flat_wavefront.launches - l0 == 1
     want = ted.encode_frame_device_ref(y, u, v, modes, qp, chroma_qp(qp), bw,
                                        bh, sbh=sbh, rdoq=rdoq)
     _equal(got, want, (sbh, rdoq, nt))
@@ -487,9 +568,7 @@ def test_flat_kernel_p_picture_sparse_intra(qp, sbh, rdoq):
     gp, gc = tinter._intra_wavefront(*args, qp, chroma_qp(qp), sbh, rdoq, bw,
                                      bh)
     torch.cuda.synchronize()
-    grid = args[3].cpu().numpy()
-    by, bx = np.nonzero(grid)
-    assert iw.flat_wavefront.launches - l0 == len(set(bx + 2 * by))
+    assert iw.flat_wavefront.launches - l0 == 1
     wp, wc = tinter._intra_wavefront_ref(*args, qp, chroma_qp(qp), sbh, rdoq,
                                          bw, bh)
     for g, w_ in zip(gp + gc, wp + wc):
@@ -523,3 +602,105 @@ def test_cuda_calls_never_reach_the_plain_versions(monkeypatch):
         ted.encode_frame_device(y, u, v, modes, qp, chroma_qp(qp), w // 16,
                                 h // 16, sbh=True, rdoq="full")
     torch.cuda.synchronize()
+
+
+def _flat_check(w, h, qp, sbh, rdoq, seed):
+    """The flat kernel on a w x h picture against its plain version."""
+    bw, bh = w // 16, h // 16
+    y, u, v = (torch.from_numpy(p.astype(np.int32)).cuda()
+               for p in synth(w, h, seed))
+    modes = ted.decide_modes_device(y, qp, bw, bh)
+    l0 = iw.flat_wavefront.launches
+    got = ted.encode_frame_device(y, u, v, modes, qp, chroma_qp(qp), bw, bh,
+                                  sbh=sbh, rdoq=rdoq)
+    torch.cuda.synchronize()
+    assert iw.flat_wavefront.launches - l0 == 1
+    assert 1 <= iw.flat_wavefront.last_grid <= bw * bh
+    want = ted.encode_frame_device_ref(y, u, v, modes, qp, chroma_qp(qp), bw,
+                                       bh, sbh=sbh, rdoq=rdoq)
+    _equal(got, want, (w, h, qp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "all"])
+def test_flat_kernel_p_picture_no_and_all_intra(kind):
+    """A P picture with no intra block (planes and cbfs come back
+    unchanged, in one launch that codes nothing) and one whose blocks are
+    all intra."""
+    _need_card()
+    args, bw, bh = _intra_case(208, 128, 19, "cuda")
+    args = list(args)
+    args[3] = (torch.zeros_like if kind == "none" else torch.ones_like)(
+        args[3])
+    for qp, sbh, rdoq in ((32, True, True), (27, False, False)):
+        l0 = iw.flat_wavefront.launches
+        gp, gc = tinter._intra_wavefront(*args, qp, chroma_qp(qp), sbh, rdoq,
+                                         bw, bh)
+        torch.cuda.synchronize()
+        assert iw.flat_wavefront.launches - l0 == 1
+        wp, wc = tinter._intra_wavefront_ref(*args, qp, chroma_qp(qp), sbh,
+                                             rdoq, bw, bh)
+        for g, w_ in zip(gp + gc, wp + wc):
+            assert (g.long() - w_.long()).abs().max().item() == 0
+        if kind == "none":
+            for g, orig in zip(gp + gc, args[5] + args[6]):
+                assert torch.equal(g, orig)
+        else:
+            assert not torch.equal(gp[0], args[5][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,w,h", [("qt", 32, 32), ("flat", 16, 16),
+                                        ("qt", 1920, 32), ("qt", 32, 1088),
+                                        ("flat", 1920, 32),
+                                        ("flat", 32, 1088)])
+def test_one_unit_pictures_rows_and_columns(kernel, w, h):
+    """One CTB (32x32) and one block (16x16); a one-CTB row (1920x32) and
+    a one-CTB column (32x1088), where each unit waits on one neighbour."""
+    _need_card()
+    qp = 32
+    if kernel == "qt":
+        planes, maps = _qt_inputs(w, h, qp, True, 23)
+        _qt_check(planes, maps, qp, w, h, True, True)
+    else:
+        _flat_check(w, h, qp, True, True, 23)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["qt", "flat"])
+def test_1080p_more_units_than_resident_ctas(kernel):
+    """At 1920x1080 the units (2,040 CTBs, 8,040 blocks) outnumber the
+    CTAs the card holds at once, so the persistent grid is smaller than
+    the unit count and each CTA codes many units in ticket order."""
+    _need_card()
+    w, h, qp = 1920, 1080, 32
+    if kernel == "qt":
+        planes, maps = _qt_inputs(w, h, qp, True, 29)
+        _qt_check(planes, maps, qp, w, h, True, True)
+        assert iw.qt_wavefront.last_grid < 60 * 34
+    else:
+        _flat_check(w, 1072, qp, True, True, 29)
+        assert iw.flat_wavefront.last_grid < 120 * 67
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [0.2, 0.5])
+def test_flat_kernel_p_picture_more_units_than_ctas(frac):
+    """An 832x480 P picture (1,560 blocks, more than the CTAs the card
+    holds at once) with a seeded fraction of intra blocks: CTAs mix the
+    blocks they code with the ones they pass over."""
+    _need_card()
+    args, bw, bh = _intra_case(832, 480, 31, "cuda")
+    args = list(args)
+    rng = np.random.default_rng(int(frac * 100))
+    args[3] = torch.from_numpy(rng.random((bh, bw)) < frac).cuda()
+    l0 = iw.flat_wavefront.launches
+    gp, gc = tinter._intra_wavefront(*args, 32, chroma_qp(32), True, True,
+                                     bw, bh)
+    torch.cuda.synchronize()
+    assert iw.flat_wavefront.launches - l0 == 1
+    assert iw.flat_wavefront.last_grid < bw * bh
+    wp, wc = tinter._intra_wavefront_ref(*args, 32, chroma_qp(32), True,
+                                         True, bw, bh)
+    for g, w_ in zip(gp + gc, wp + wc):
+        assert (g.long() - w_.long()).abs().max().item() == 0

@@ -296,7 +296,7 @@ def encode_frame_device(y, u, v, modes, qp: int, qp_c: int, bw: int, bh: int,
     parallel/tiles.py:80), and the rec planes stay stacked.
 
     CUDA tensors go through the hand-written kernel
-    (`intra_wavefront.flat_wavefront`: one launch per diagonal); CPU
+    (`intra_wavefront.flat_wavefront`: one persistent launch); CPU
     tensors through the plain version `encode_frame_device_ref`.  The
     kernel takes hard quantisation and RDOQ-lite (rdoq "full" raises
     ValueError on the card)."""

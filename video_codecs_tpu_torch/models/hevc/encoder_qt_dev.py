@@ -318,8 +318,8 @@ def encode_frame_qt_device(y, u, v, depth8, m8, m16, m32, qp: int, qp_c: int,
     coefficient planes (padded dims; caller crops).
 
     CUDA tensors go through the hand-written kernel
-    (`intra_wavefront.qt_wavefront`: one launch per CTB diagonal, the
-    decided tree read on the card, no host sync); CPU tensors through the
+    (`intra_wavefront.qt_wavefront`: one persistent launch, the decided
+    tree read on the card, no host sync); CPU tensors through the
     plain version `encode_frame_qt_device_ref`."""
     if y.device.type == "cpu":
         return encode_frame_qt_device_ref(y, u, v, depth8, m8, m16, m32, qp,

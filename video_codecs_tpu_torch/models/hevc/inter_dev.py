@@ -183,37 +183,34 @@ def _intra_wavefront(yi, ui, vi, intra_grid, intra_modes, planes, cbfs,
     each intra block reads decode-order-correct neighbors.
 
     planes: (rec_y, rec_u, rec_v, coef_y, coef_u, coef_v);
-    cbfs: (cbf_y, cbf_u, cbf_v) flat [B] bool with inter blocks filled.
-    Returns the updated (planes, cbfs), new tensors.  The intra map is
-    read back once; each diagonal d = bx + 2 * by codes only its intra
-    blocks, in one batch, and a diagonal without one is skipped (the
-    reference's masked lanes write nothing).
+    cbfs: (cbf_y, cbf_u, cbf_v) [B] bool (or [bh, bw], as the RA
+    quadtree's `qt_merge_dev` passes them) with inter blocks filled.
+    Returns the updated (planes, cbfs), new tensors of the same shapes.
 
     CUDA tensors go through the hand-written kernel
-    (`intra_wavefront.flat_wavefront`: one launch per diagonal that holds
-    an intra block, on clones of the planes and cbfs, coded in place);
-    CPU tensors through the plain version `_intra_wavefront_ref`."""
+    (`intra_wavefront.flat_wavefront`: one launch, on copies of the planes
+    and cbfs, coded in place; the kernel reads the intra map on the card,
+    codes its blocks in wavefront order and passes over the others, so the
+    host reads nothing back); CPU tensors through the plain version
+    `_intra_wavefront_ref`, which reads the map once and codes each
+    diagonal's intra blocks in one batch."""
     if yi.device.type == "cpu":
         return _intra_wavefront_ref(yi, ui, vi, intra_grid, intra_modes,
                                     planes, cbfs, qp, qp_c, sbh, rdoq, bw,
                                     bh)
-    grid = intra_grid.cpu().numpy()
-    if not grid.any():
-        return planes, cbfs
-    steps = bw + 2 * (bh - 1)
-    diags = np.zeros(steps, bool)
-    by, bx = np.nonzero(grid)
-    diags[bx + 2 * by] = True
-    planes = tuple(p.clone(memory_format=torch.contiguous_format)
-                   for p in planes)
-    cbfs = tuple(c.clone(memory_format=torch.contiguous_format)
-                 for c in cbfs)
+    # the copies: one torch.cat per dtype into one buffer, one launch each
+    copies = []
+    for ts in (planes, cbfs):
+        buf = torch.cat([t.reshape(-1) for t in ts])
+        copies.append(tuple(c.view(t.shape) for c, t in zip(
+            buf.split([t.numel() for t in ts]), ts)))
+    planes, cbfs = copies
     intra_wavefront.flat_wavefront(
         yi.int().contiguous(), ui.int().contiguous(), vi.int().contiguous(),
-        intra_modes.int().contiguous(), planes[:3], planes[3:], cbfs, qp,
+        intra_modes.int().contiguous(), planes[:3], planes[3:],
+        tuple(c.view(-1) for c in cbfs), qp,
         qp_c, bw, bh, sbh, rdoq, encoder_dev.flat_lambdas(qp, qp_c),
-        encoder_dev.LITE_LAM_SCALE, intra=intra_grid, diags=diags,
-        lv_planes=True)
+        encoder_dev.LITE_LAM_SCALE, intra=intra_grid, lv_planes=True)
     return planes, cbfs
 
 

@@ -1,18 +1,20 @@
 """The HEVC intra reconstruction wavefronts as hand-written Hopper kernels.
 
-Two entries launch the two kernels of csrc/intra_wavefront.cu, one launch
-per anti-diagonal, on CUDA tensors:
+Two entries launch the two kernels of csrc/intra_wavefront.cu, one
+persistent launch per call, on CUDA tensors:
 
-  `qt_wavefront`    the quadtree IDR's wavefront over CTB32 diagonals
+  `qt_wavefront`    the quadtree IDR's wavefront over CTB32 units
                     (`encoder_qt_dev.encode_frame_qt_device`, the reference's
                     encoder_jax_qt.py:276), counted in
                     `qt_wavefront.launches`;
-  `flat_wavefront`  the flat CTB16 wavefront over 16x16-block diagonals
+  `flat_wavefront`  the flat CTB16 wavefront over 16x16 blocks
                     (`encoder_dev.encode_frame_device`, encoder_jax.py:231,
                     and `inter_dev._intra_wavefront`, inter_jax.py:125),
                     counted in `flat_wavefront.launches`.
 
-The plain versions are the model modules' eager loops
+Each call allocates a zeroed int32 scratch tensor (the kernel's ticket
+counter and one done flag per unit) and records the CTAs it launched in
+`.last_grid`.  The plain versions are the model modules' eager loops
 (`encode_frame_qt_device_ref`, `encode_frame_device_ref`,
 `_intra_wavefront_ref`); the public functions there run them for CPU
 tensors and call these entries for CUDA tensors, which launch or raise:
@@ -36,7 +38,7 @@ from video_codecs_tpu_torch.ops import quant as quant_ops
 from video_codecs_tpu_torch.ops.sad_surface import (build_library,
                                                     launch_stream)
 from video_codecs_tpu_torch.utils import rom
-from video_codecs_tpu_torch.utils.device import const
+from video_codecs_tpu_torch.utils.device import to_device
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "intra_wavefront.cu"
 _LIB = None
@@ -63,11 +65,12 @@ def _load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         qt = lib.vct_intra_qt_wavefront
         qt.restype = i
-        qt.argtypes = [p] * 13 + [i] * 8 + [p] * 3 + [i] * 2 + [p]
+        ip = ctypes.POINTER(i)
+        qt.argtypes = [p] * 13 + [i] * 8 + [p] * 4 + [ip, p]
         flat = lib.vct_intra_flat_wavefront
         flat.restype = i
-        flat.argtypes = ([p] * 11 + [i] + [p] * 3 + [i] * 11 + [p] * 4 +
-                         [i] * 2 + [p])
+        flat.argtypes = [p] * 11 + [i] + [p] * 3 + [i] * 11 + [p] * 4 + [
+            ip, p]
         _LIB = lib
     return _LIB
 
@@ -123,10 +126,30 @@ def _device(y: torch.Tensor) -> torch.device:
     return y.device
 
 
-def _consts(dev, lam: np.ndarray):
-    return (const(tables_np(), dev, torch.int32),
-            const(quant_ops.log_1p_tables()[1], dev, torch.float32),
-            const(lam, dev, torch.float32))
+@functools.lru_cache(maxsize=None)
+def _tables_dev(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The table buffer and the RDOQ-lite rates on `dev`, uploaded once."""
+    return (to_device(tables_np(), dev, torch.int32),
+            to_device(quant_ops.log_1p_tables()[1], dev, torch.float32))
+
+
+@functools.lru_cache(maxsize=256)
+def _consts(dev: torch.device, lam: tuple[float, float], lam_scale: float):
+    """(tables, rates, lam_td) on `dev`, cached per card and lambda value:
+    a call hashes a few floats, never the tables' bytes."""
+    return _tables_dev(dev) + (
+        to_device(lite_lambdas(*lam, lam_scale), dev, torch.float32),)
+
+
+def _launch(fn, *args) -> int:
+    """Call a C entry with its trailing (grid out-parameter, stream) and
+    raise on a launch error; returns the CTAs launched."""
+    grid = ctypes.c_int(0)
+    err = fn(*args[:-1], ctypes.byref(grid), args[-1])
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
+                           f"{err}")
+    return grid.value
 
 
 def qt_wavefront(y, u, v, depth8, m8, m16, m32, qp: int, qp_c: int, w: int,
@@ -136,8 +159,8 @@ def qt_wavefront(y, u, v, depth8, m8, m16, m32, qp: int, qp_c: int, w: int,
     [ph, pw], u / v [ph/2, pw/2] and the decided maps (depth8 [ph/8, pw/8],
     m8 / m16 / m32) -> the dict of `encode_frame_qt_device` (rec_y/u/v and
     coef_y/u/v, int32, padded dims).  lam: RDOQ-lite's lambda for the luma
-    and the chroma QP; lam_scale its rate scale.  One launch per CTB
-    diagonal, all on the current stream, no host sync."""
+    and the chroma QP; lam_scale its rate scale.  One launch on the
+    current stream, no host sync."""
     dev = _device(y)
     ph, pw = y.shape
     ins = dict(y=y.int().contiguous(), u=u.int().contiguous(),
@@ -153,42 +176,44 @@ def qt_wavefront(y, u, v, depth8, m8, m16, m32, qp: int, qp_c: int, w: int,
             raise ValueError(f"qt_wavefront: {k} {tuple(t.shape)}, want "
                              f"{shapes[k]}")
     lite = _rdoq_mode(rdoq)
-    st = {k: torch.zeros(shapes[k[-1]], dtype=torch.int32, device=dev)
+    # every CTB writes its whole tile (zeros where the tree codes no CU)
+    st = {k: torch.empty(shapes[k[-1]], dtype=torch.int32, device=dev)
           for k in ("rec_y", "rec_u", "rec_v", "coef_y", "coef_u",
                     "coef_v")}
-    steps = pw // 32 + 2 * (ph // 32 - 1)
-    tab, rate, lam_td = _consts(dev, lite_lambdas(*lam, lam_scale))
-    err = _load().vct_intra_qt_wavefront(
+    sync = torch.zeros(1 + (ph // 32) * (pw // 32), dtype=torch.int32,
+                       device=dev)
+    tab, rate, lam_td = _consts(dev, (float(lam[0]), float(lam[1])),
+                                float(lam_scale))
+    qt_wavefront.last_grid = _launch(
+        _load().vct_intra_qt_wavefront,
         *(ins[k].data_ptr() for k in ("y", "u", "v", "depth8", "m8", "m16",
                                       "m32")),
         *(st[k].data_ptr() for k in ("rec_y", "rec_u", "rec_v", "coef_y",
                                      "coef_u", "coef_v")),
         ph, pw, w, h, qp, qp_c, int(bool(sbh)), lite, tab.data_ptr(),
-        rate.data_ptr(), lam_td.data_ptr(), 0, steps, launch_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"qt_wavefront kernel launch failed: cudaError "
-                           f"{err}")
-    qt_wavefront.launches += steps
+        rate.data_ptr(), lam_td.data_ptr(), sync.data_ptr(),
+        launch_stream(dev))
+    qt_wavefront.launches += 1
     return st
 
 
 qt_wavefront.launches = 0
+qt_wavefront.last_grid = 0
 
 
 def flat_wavefront(y, u, v, modes, rec, levels, cbf, qp: int, qp_c: int,
                    bw: int, bh: int, sbh: bool, rdoq,
                    lam: tuple[float, float], lam_scale: float, *,
                    intra: torch.Tensor | None = None,
-                   diags: np.ndarray | None = None,
                    lv_planes: bool = False) -> None:
     """The flat CTB16 wavefront on the card, in place: int32 planes y [H, W]
     (or a stack of tile columns [T, H, W]) and u / v, modes [(T,) bh, bw];
     rec = (rec_y, rec_u, rec_v) like the originals, coded in place; levels
     = (y, cb, cr) as [B, 16, 16] / [B, 8, 8] blocks, block (t, bx, by) at
     t * bw * bh + by * bw + bx, or with lv_planes as planes like rec;
-    cbf = three [B] bool.  intra [bh, bw] bool codes only its blocks;
-    diags [steps] bool (host) launches only those diagonals.  One launch
-    per diagonal taken, on the current stream."""
+    cbf = three [B] bool.  intra [bh, bw] bool (on the card) codes only
+    its blocks; the kernel reads it, the host never does.  One launch on
+    the current stream."""
     dev = _device(y)
     nt = y.shape[0] if y.dim() == 3 else 1
     H, W = y.shape[-2:]
@@ -221,34 +246,26 @@ def flat_wavefront(y, u, v, modes, rec, levels, cbf, qp: int, qp_c: int,
     if intra is not None:
         if y.dim() == 3:
             raise ValueError("flat_wavefront: an intra grid needs one picture")
-        intra = intra.to(torch.uint8).contiguous()
-        _check("intra", intra, torch.uint8, dev)
+        if intra.dtype != torch.bool:     # the kernel reads bytes of 0 / 1
+            intra = intra.to(torch.uint8)
+        intra = intra.contiguous()
+        _check("intra", intra, intra.dtype, dev)
         if tuple(intra.shape) != (bh, bw):
             raise ValueError(f"flat_wavefront: intra {tuple(intra.shape)}")
     lite = _rdoq_mode(rdoq)
-    steps = bw + 2 * (bh - 1)
-    diag_on = None
-    n_launch = steps
-    if diags is not None:
-        diag_on = np.ascontiguousarray(diags, dtype=np.uint8)
-        if diag_on.shape != (steps,):
-            raise ValueError(f"flat_wavefront: diags {diag_on.shape}, want "
-                             f"({steps},)")
-        n_launch = int(diag_on.astype(bool).sum())
-    tab, rate, lam_td = _consts(dev, lite_lambdas(*lam, lam_scale))
-    err = _load().vct_intra_flat_wavefront(
+    sync = torch.zeros(1 + b, dtype=torch.int32, device=dev)
+    tab, rate, lam_td = _consts(dev, (float(lam[0]), float(lam[1])),
+                                float(lam_scale))
+    flat_wavefront.last_grid = _launch(
+        _load().vct_intra_flat_wavefront,
         y.data_ptr(), u.data_ptr(), v.data_ptr(), modes.data_ptr(),
         None if intra is None else intra.data_ptr(),
         *(t.data_ptr() for t in rec), *(t.data_ptr() for t in levels),
         int(lv_planes), *(t.data_ptr() for t in cbf), nt, H, W, Hc, Wc, bw,
         bh, qp, qp_c, int(bool(sbh)), lite, tab.data_ptr(), rate.data_ptr(),
-        lam_td.data_ptr(),
-        None if diag_on is None else diag_on.ctypes.data, 0, steps,
-        launch_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"flat_wavefront kernel launch failed: cudaError "
-                           f"{err}")
-    flat_wavefront.launches += n_launch
+        lam_td.data_ptr(), sync.data_ptr(), launch_stream(dev))
+    flat_wavefront.launches += 1
 
 
 flat_wavefront.launches = 0
+flat_wavefront.last_grid = 0
