@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through its hand-written CUDA kernels, the
-SAD surface, the SAO statistics, the full RDOQ and the two intra
+SAD surface, the SAO statistics, the full RDOQ, the two intra
 reconstruction wavefronts (the quadtree IDR's and the flat CTB16
-encoder's, one persistent launch per call): the H.264 device
+encoder's, one persistent launch per call) and the three
+inter-prediction kernels (motion compensation with its uni/bi combine,
+the quarter-pel SATD refinement, the bi refinement pass): the H.264 device
 P-slice engine at
 1280x720, the HEVC random-access GOP-8 headline at 1920x1072 (SAO off,
 then on), the HEVC low-delay P row at 832x480 (as it is, with SAO, and
@@ -32,8 +34,8 @@ and the conversion and leaky-bucket tools -- in phases:
 
   1. require a CUDA card; print its name and power limit (nvidia-smi);
   2. build the kernels at once, one nvcc each, from
-     video_codecs_tpu_torch/csrc/sad_surface.cu, sao_stats.cu, rdoq.cu
-     and intra_wavefront.cu (its two kernels);
+     video_codecs_tpu_torch/csrc/sad_surface.cu, sao_stats.cu, rdoq.cu,
+     intra_wavefront.cu (its two kernels) and inter_pred.cu (its three);
   3. hold the kernel against its plain PyTorch version at the slice's
      shapes (and at search range 32), exactly, and time the kernel, the
      plain version and one PyTorch call for the same function
@@ -388,11 +390,33 @@ and the conversion and leaky-bucket tools -- in phases:
      (`run_task`, `wave_words`): the 1080p RA GOPs and [hevc-intra] must
      launch the quadtree kernel, the LD-P, flat B and tile phases the flat
      one, and no phase may run a wavefront's plain version on the card.
+ 21. inter-pred-kernels (stage 1): hold the three kernels of
+     csrc/inter_pred.cu against their plain versions on the same CUDA
+     tensors, max abs error 0 (predictions, SATDs, MVs), one launch per
+     call (`phase_inter_pred_kernels`): `mc_pred_kernel` at the 1080p RA
+     B picture's merge candidates (bi and uni, with the SATD), its final
+     luma and chroma, the qt merge's CU32 candidates, the CU8 tree's bi
+     cost and chroma, bench_ldp_480's 4-reference merge candidate and
+     chroma, the tile slab's merge candidate; `qpel_refine_kernel` at
+     the RA list, the LD-P reference, the CU8 tree and the slab's n = 16
+     and 8; `bi_refine_kernel` at the RA B picture and the slab; the
+     combine alone (`interp.bi_average` on CUDA tensors, no main path
+     calls it); each timed (profiler) with L2 flushed before every
+     launch and warm in L2, beside a wrapper call (CUDA events), the
+     plain version and the bound (the distinct work of the inputs: the
+     window samples read once, bytes at 3.35 TB/s, or int32 operations at
+     PEAK_I32; no share is stated for a time under its bound).  Every
+     stage-2 phase and stage 3
+     report the three kernels' launches (`inter_words`): every HEVC
+     device engine must launch `mc_pred` and `refine_qpel`, the host
+     coders' pass 1 `refine_qpel`, the B pictures `bi_refine_pass`; no
+     phase may run a plain version (or the eager stages they are made
+     of) on the card, or the combine alone.
 
 The phases run in three stages, to end well inside the 1,200 s the
 script is given.  Stage 1, alone on the card: phases 1-2 and every
 kernel-vs-plain check and kernel time (3, 6, 7a, 7e, 8a, 8e, 9a, 13a,
-18a's slab shapes, 20).  Stage 2: the end-to-end phases of 4-17, 18a's
+18a's slab shapes, 20, 21).  Stage 2: the end-to-end phases of 4-17, 18a's
 sequential twin and 18b-e (POOL_TASKS),
 WORKERS at a time,
 each worker a spawned process of its own on the same card with
@@ -417,10 +441,12 @@ line before it lists the kernels, with the launches of the main paths'
 encodes (a line before gives each path's), the SAD kernel's RA pyramid
 per-B-picture times and bound, the SAO kernel's per 1080p picture, the
 RDOQ kernel's for the 1080p B picture's TU16 luma call and the
-wavefronts' for the 1080p RA IDR (quadtree) and the flat 1080p IDR; the
-search range 64 surfaces', the RDOQ shapes', the SAO kernel's flat
-shapes' and the wavefront shapes' times print on JSON lines of their own
-before them.
+wavefronts' for the 1080p RA IDR (quadtree) and the flat 1080p IDR, and
+the inter-prediction kernels' for the 1080p RA B picture's merge
+candidate, one list's refinement and its bi pass; the search range 64
+surfaces', the RDOQ shapes', the SAO kernel's flat shapes', the
+wavefront shapes' and the inter-prediction shapes' times print on JSON
+lines of their own before them.
 """
 
 from __future__ import annotations
@@ -457,7 +483,10 @@ from video_codecs_tpu_torch.models.hevc import ra_codec as hevc_ra
 from video_codecs_tpu_torch.models.hevc import encoder_dev, ratectrl
 from video_codecs_tpu_torch.models.hevc import encoder_qt_dev as eq_dev
 from video_codecs_tpu_torch.models.hevc import sei as sei_mod
+from video_codecs_tpu_torch.ops import inter_pred as ip_ops
+from video_codecs_tpu_torch.ops import interp as interp_ops
 from video_codecs_tpu_torch.ops import intra_wavefront as iw_ops
+from video_codecs_tpu_torch.ops import me as me_ops
 from video_codecs_tpu_torch.ops import rdoq_dev as rdoq_ops
 from video_codecs_tpu_torch.ops import sad_surface as ss
 from video_codecs_tpu_torch.ops import sao as sao_ops
@@ -480,6 +509,13 @@ WAVE_SRC = "video_codecs_tpu_torch/csrc/intra_wavefront.cu"
 QT_WAVE_REPLACES = "video_codecs_tpu/models/hevc/encoder_jax_qt.py:276"
 FLAT_WAVE_REPLACES = "video_codecs_tpu/models/hevc/encoder_jax.py:231"
 FLAT_WAVE_ALSO = "video_codecs_tpu/models/hevc/inter_jax.py:125"
+INTER_SRC = "video_codecs_tpu_torch/csrc/inter_pred.cu"
+MC_REPLACES = "video_codecs_tpu/ops/interp.py:103"
+MC_ALSO = ("video_codecs_tpu/ops/interp.py:115, :127, :145, :155, :170; "
+           "video_codecs_tpu/models/hevc/inter_jax.py:660, :814, :1004; "
+           "video_codecs_tpu/models/hevc/inter_qt.py:83")
+REFINE_REPLACES = "video_codecs_tpu/ops/me.py:253"
+BI_REPLACES = "video_codecs_tpu/models/hevc/inter_jax.py:586"
 W, H, QP, SR = 1280, 720, 28, 16
 # The 1080p headline (bench.py:84-107): picture size, QP, search range
 # and GOP length.
@@ -593,6 +629,8 @@ PROFILER_SETTLE_S = 0.02
 
 # The card's name and power limit as nvidia-smi gives them (main sets it).
 CARD = ""
+# The modules of the kernel sources, each with `build` and `_load`.
+KERNEL_MODULES = (ss, sao_ops, rdoq_ops, iw_ops, ip_ops)
 
 # Calls of the plain RDOQ (`rdoq_dev_ref`) by the device its coefficients
 # lie on, counted by the wrapper `count_rdoq_ref` installs.
@@ -601,6 +639,9 @@ RDOQ_REF_CALLS = {"cuda": 0, "cpu": 0}
 SAO_REF_CALLS = {"cuda": 0, "cpu": 0}
 # The same for the intra wavefronts' plain versions (`count_wave_ref`).
 WAVE_REF_CALLS = {"cuda": 0, "cpu": 0}
+# The same for the inter-prediction kernels' plain versions and the eager
+# stages they are made of (`count_inter_ref`).
+INTER_REF_CALLS = {"cuda": 0, "cpu": 0}
 # The phases whose encodes run each wavefront kernel: each must report
 # launches of it (the 1080p RA GOPs and [hevc-intra] the quadtree IDR's;
 # the LD-P, flat B and tile phases the flat kernel, in their IDRs or in
@@ -611,6 +652,25 @@ FLAT_WAVE_PHASES = ("hevc-ldp", "hevc-ldp-tz", "hevc-ldp-rc", "hevc-ldp-sao",
                     "hevc-ldp-conf", "ldp-cuda-vs-cpu", "hevc-flat-ra",
                     "hevc-hierb", "hevc-flat-ra-sao", "flat-ra-cuda-vs-cpu",
                     "hevc-tiles-wpp")
+# The phases whose encodes run each inter-prediction kernel: every HEVC
+# device engine motion-compensates (`mc_pred`) and refines
+# (`refine_qpel`; the host coders' pass 1 too); the B pictures of the RA,
+# flat B and tiled engines run the bi pass (`bi_refine_pass`).
+BI_PHASES = ("hevc-ra", "hevc-ra-sao", "hevc-ra-tz", "ra-cuda-vs-cpu",
+             "hevc-flat-ra", "hevc-hierb", "hevc-flat-ra-sao",
+             "flat-ra-cuda-vs-cpu", "flat-ra-cuda-vs-cpu-sao",
+             "tiled-ra-ref", "tiled-ra", "dryrun")
+MC_PHASES = BI_PHASES + ("hevc-ldp", "hevc-ldp-tz", "hevc-ldp-rc",
+                         "hevc-ldp-sao", "hevc-ldp-conf", "ldp-cuda-vs-cpu")
+REFINE_PHASES = MC_PHASES + ("hevc-ldp-host", "hevc-ldp-wp", "hevc-ldp-dqp",
+                             "cli-ra", "cli-ra-cuda-vs-cpu")
+# The plain versions `count_inter_ref` counts: the entries' and the eager
+# stages they are built from.
+INTER_REFS = ((ip_ops, "mc_pred_ref"), (ip_ops, "refine_qpel_ref"),
+              (ip_ops, "bi_refine_pass_ref"), (me_ops, "_refine"),
+              (interp_ops, "mc_luma14_multi_ref"),
+              (interp_ops, "mc_chroma14_multi_ref"),
+              (interp_ops, "bi_average_ref"))
 
 
 def count_rdoq_ref() -> None:
@@ -653,24 +713,65 @@ def count_wave_ref() -> None:
         setattr(mod, name, counted)
 
 
-def wave_counts() -> tuple[int, int, int]:
+def count_inter_ref() -> None:
+    """Count every call of the inter-prediction kernels' plain versions
+    and of the eager stages they are made of (INTER_REFS; the entries
+    reach them through their modules' names) in INTER_REF_CALLS, by the
+    device of their first tensor argument."""
+    for mod, name in INTER_REFS:
+        ref = getattr(mod, name)
+
+        def counted(*a, _ref=ref, **kw):
+            INTER_REF_CALLS[a[0].device.type] += 1
+            return _ref(*a, **kw)
+
+        setattr(mod, name, counted)
+
+
+def wave_counts() -> tuple:
     """The wavefront kernels' launch counts and the plain versions' calls
-    on CUDA tensors, as they stand."""
+    on CUDA tensors, then the same for the inter-prediction kernels
+    (`mc_pred`, `refine_qpel`, `bi_refine_pass`, the combine alone), as
+    they stand."""
     return (iw_ops.qt_wavefront.launches, iw_ops.flat_wavefront.launches,
-            WAVE_REF_CALLS["cuda"])
+            WAVE_REF_CALLS["cuda"], ip_ops.mc_pred.launches,
+            ip_ops.refine_qpel.launches, ip_ops.bi_refine_pass.launches,
+            ip_ops.bi_average.launches, INTER_REF_CALLS["cuda"])
 
 
 def zero_wave_counts() -> None:
     iw_ops.qt_wavefront.launches = 0
     iw_ops.flat_wavefront.launches = 0
     WAVE_REF_CALLS["cuda"] = 0
+    for fn in (ip_ops.mc_pred, ip_ops.refine_qpel, ip_ops.bi_refine_pass,
+               ip_ops.bi_average):
+        fn.launches = 0
+    INTER_REF_CALLS["cuda"] = 0
+
+
+def inter_words(name: str, counts: tuple) -> str:
+    """A phase's inter-prediction launches as a line, after checking that
+    the plain versions never ran on the card, that the combine alone never
+    ran, and that the phase ran the kernels its encodes need."""
+    mc, refine, bi, avg, ref = counts[3:]
+    check(ref == 0, f"{name}: an inter-prediction plain version ran {ref} "
+                    "times on CUDA tensors")
+    check(avg == 0, f"{name}: bi_average on CUDA tensors ran {avg} times "
+                    "(every combine goes through mc_pred)")
+    for n_, k, phases in ((mc, "mc_pred", MC_PHASES),
+                          (refine, "refine_qpel", REFINE_PHASES),
+                          (bi, "bi_refine_pass", BI_PHASES)):
+        check(n_ > 0 or name not in phases, f"{name}: no {k} launch")
+    return (f"[inter-pred] {name}: mc_pred launches {mc}, refine_qpel "
+            f"launches {refine}, bi_refine_pass launches {bi}, plain "
+            "versions on the card 0")
 
 
 def wave_words(name: str, wave: tuple) -> str:
     """A phase's wavefront launches as a line, after checking that the
     plain versions never ran on the card and that the phase ran the
     kernel its encodes need."""
-    qt, flat, ref = wave
+    qt, flat, ref = wave[:3]
     check(ref == 0, f"{name}: a wavefront's plain version ran {ref} times "
                     "on CUDA tensors")
     check(qt > 0 or name not in QT_WAVE_PHASES,
@@ -711,13 +812,17 @@ def check(cond: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
-    """Median device time of fn() in ms (CUDA events, synchronised)."""
+def cuda_ms(fn, reps: int = 7, warm: int = 2, between=None) -> float:
+    """Median device time of fn() in ms (CUDA events, synchronised),
+    with between() before each timed call, outside the events, where
+    given."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if between is not None:
+            between()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1211,7 +1316,7 @@ def build_kernels() -> None:
     """Phase 2: one nvcc for each kernel's source, all started together,
     then load each library."""
     t0 = time.perf_counter()
-    mods = (ss, sao_ops, rdoq_ops, iw_ops)
+    mods = KERNEL_MODULES
     with concurrent.futures.ThreadPoolExecutor() as pool:
         builds = list(pool.map(lambda m: m.build(), mods))
     for mod, (so, build_s, log) in zip(mods, builds):
@@ -1220,7 +1325,7 @@ def build_kernels() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}")
-    print(f"[build] all four kernel sources built and loaded in "
+    print(f"[build] all {len(mods)} kernel sources built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1678,16 +1783,20 @@ def sao_bound(h: int, w: int, ctb: int) -> tuple[float, float, float]:
     return max(nbytes / PEAK_BYTES, ops / PEAK_OPS) * 1e3, nbytes, ops
 
 
-def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
+def kernel_device_ms(fn, name: str, reps: int = 21,
+                     between=None) -> float | None:
     """Median device time in ms of the kernels called `name` that reps
-    calls of fn() launch, from torch.profiler; None if the profiler saw
-    none (kernel_ms asks again)."""
+    calls of fn() launch, from torch.profiler, with between() before each
+    call where given (`flush_l2`); None if the profiler saw none
+    (kernel_ms asks again)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     times = [e.device_time for e in prof.events()
@@ -1695,23 +1804,27 @@ def kernel_device_ms(fn, name: str, reps: int = 21) -> float | None:
     return statistics.median(times) / 1e3 if times else None
 
 
-def kernel_ms(fn, name: str, reps: int = 21,
-              tries: int = 3) -> tuple[float | None, str]:
+def kernel_ms(fn, name: str, reps: int = 21, tries: int = 3,
+              between=None) -> tuple[float | None, str]:
     """(kernel time in ms, "") from kernel_device_ms, asked up to `tries`
     times, or (None, the reason) when no profiler session recorded a
     kernel called `name`.  A wrapper call's CUDA-event time is never
     taken for the kernel's: it holds the wrapper's host work too."""
     for _ in range(tries):
-        ms = kernel_device_ms(fn, name, reps)
+        ms = kernel_device_ms(fn, name, reps, between)
         if ms is not None:
             return ms, ""
     return None, f"torch.profiler recorded no {name} in {tries} tries"
 
 
 def of_bound(bound: float, ms: float | None) -> str:
-    """The kernel time's share of its bound, from a kernel time only."""
+    """The kernel time's share of its bound, from a kernel time only; a
+    time under the bound states no share (the data came from a cache, or
+    the count misses work)."""
     if ms is None:
         return "share of the bound not measured"
+    if ms < bound:
+        return "faster than the bound: no share stated"
     return f"{bound / ms:.1%} of it"
 
 
@@ -4929,6 +5042,315 @@ def phase_wavefront_kernels() -> tuple[dict, dict]:
     return rows[1], rows[4]
 
 
+# ---- the inter-prediction kernels (stage 1) -------------------------------
+
+# The card's int32 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (the
+# H100 SXM's boost clock; NVIDIA's Hopper architecture white paper), one
+# operation a lane and clock (a multiply-add counts one).
+PEAK_I32 = 132 * 64 * 1.98e9
+
+
+def mc_block_ops(n: int, taps: int, hyps: int, satd: bool) -> int:
+    """int32 operations of one block of `mc_pred`: per hypothesis both
+    filter passes ((n + taps - 1) x n and n x n samples of `taps`
+    multiply-adds), the combine (4 a sample), the SATD (the 8x8
+    Hadamard's 48 butterflies a row and column pass, abs and sum: 8 a
+    sample)."""
+    mac = ((n + taps - 1) * n + n * n) * taps
+    return hyps * mac + 4 * n * n + (8 * n * n if satd else 0)
+
+
+def refine_block_ops(n: int) -> int:
+    """int32 operations of one block of `refine_qpel`, the work distinct
+    candidates need: per round the three columns' horizontal passes over
+    n + 8 rows ((n + 8) x n x 8), then a vertical pass (n x n x 8), the
+    uni rounding and difference (4 a sample) and the SATD (8 a sample)
+    for each of round 1's 9 candidates and round 2's 8 (its centre is
+    round 1's winner)."""
+    cand = n * n * 8 + 4 * n * n + 8 * n * n
+    return 2 * 3 * (n + 8) * n * 8 + 17 * cand
+
+
+def bi_block_ops(n: int) -> int:
+    """int32 operations of one block of `bi_refine_pass`, the work
+    distinct hypotheses need: 18 MCs (L0's start, L1's 9 candidates, L0's
+    8 other than its start; L1's winner is kept) and 18 bi averages with
+    their SATD."""
+    return 18 * mc_block_ops(n, 8, 1, True)
+
+
+def window_bytes(refs, ridx, ox, oy, k: int, mask=None) -> int:
+    """4 x the distinct samples of the stack refs [R, H, W] that k x k
+    windows at (ox, oy) [B] of planes ridx [B] read, each coordinate
+    clamped into the plane as the kernels clamp it; `mask` [B] keeps the
+    blocks that read one."""
+    r, h, w = refs.shape
+    off = torch.arange(k, device=refs.device)
+    xs = (ox.long()[:, None] + off).clamp(0, w - 1)
+    ys = (oy.long()[:, None] + off).clamp(0, h - 1)
+    ri = ridx.long()
+    if mask is not None:
+        xs, ys, ri = xs[mask], ys[mask], ri[mask]
+    seen = torch.zeros(r * h * w, dtype=torch.bool, device=refs.device)
+    seen[((ri[:, None, None] * h + ys[:, :, None]) * w +
+          xs[:, None, :]).reshape(-1)] = True
+    return 4 * int(seen.sum())
+
+
+_L2_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Write 128 MB, 2.5x the H100's 50 MB L2, so that the next launch
+    reads its inputs from HBM."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(32 << 20, dtype=torch.int32,
+                                     device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
+def inter_bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(ms, what binds) at the card's memory rate and int32 issue rate."""
+    tb, to = nbytes / PEAK_BYTES, ops / PEAK_I32
+    return max(tb, to) * 1e3, ("operations" if to >= tb else "bytes")
+
+
+def inter_planes() -> dict:
+    """The planes of the shapes `[inter-pred-kernels]` runs at, on the
+    card (int32, as the engines hold them): the 1080p RA B picture (POC 4
+    of phase 7's clip, its references POC 0 and 8), the 544-wide tile
+    slab of phase 18a, bench_ldp_480's picture 4 and its 4 references."""
+    ra = synth_clip(HEVC_W, HEVC_H, 9, seed=5)
+    ldp = bench_synth_clip(LDP_W, LDP_H, 5)
+
+    def dev(a):
+        return to_device(np.ascontiguousarray(a), "cuda", torch.int32)
+
+    out = {}
+    for c, name in ((0, "y"), (1, "u")):
+        scale = 1 if c == 0 else 2
+        out[f"ra_{name}"] = (dev(ra[4][c]), dev(ra[0][c][None]),
+                             dev(ra[8][c][None]))
+        out[f"slab_{name}"] = (
+            dev(tiled_slab(ra[4][c], scale)),
+            dev(tiled_slab(ra[0][c], scale)[None]),
+            dev(tiled_slab(ra[8][c], scale)[None]))
+        out[f"ldp_{name}"] = (dev(ldp[4][c]),
+                              dev(np.stack([ldp[r][c] for r in range(4)])),
+                              None)
+    return out
+
+
+def inter_blocks(cur_plane, n: int, rng, refs0, refs1, reach: int = 64):
+    """The n-grid's blocks of a picture (raster order, as the engines form
+    them): (x0, y0, cur [B, n, n]) and, per block, reference indices into
+    each stack, quarter-pel MVs within `reach` samples and a direction
+    (1, 2 or 3) on the card."""
+    h, w = cur_plane.shape
+    gx, gy = w // n, h // n
+    x0 = torch.arange(gx, dtype=torch.int32, device="cuda").repeat(gy) * n
+    y0 = torch.arange(gy, dtype=torch.int32,
+                      device="cuda").repeat_interleave(gx) * n
+    cur = encoder_dev._extract_blocks(cur_plane, x0, y0, n)
+    b = gx * gy
+
+    def t(a):
+        return to_device(a.astype(np.int32), "cuda")
+
+    mv = [t(rng.integers(-4 * reach, 4 * reach + 1, b)) for _ in range(4)]
+    r0 = t(rng.integers(0, refs0.shape[0], b))
+    r1 = t(rng.integers(0, 1 if refs1 is None else refs1.shape[0], b))
+    dirs = t(rng.integers(1, 4, b))
+    return x0, y0, cur, mv, r0, r1, dirs
+
+
+def inter_row(what: str, kernel: str, counter, run, plain, nbytes: int,
+              ops: int, per_picture: int, note: str) -> dict:
+    """One shape of an inter-prediction kernel: run() (one launch, counted
+    by `counter`) against plain() on the same CUDA tensors, exactly; the
+    kernel's time with L2 flushed before each launch (profiler: `ms`,
+    held to the HBM bound) and back to back with its inputs left in L2
+    (`warm_ms`, the merge loop's case: its candidates read the same
+    stacks), a wrapper call's (CUDA events, L2 flushed), the plain
+    version's (CUDA events, median of 3), the bound.  Prints one line and
+    returns the row."""
+    l0 = counter.launches
+    got = run()
+    torch.cuda.synchronize()
+    launches = counter.launches - l0
+    check(launches == 1, f"[inter-pred-kernels] {kernel} at {what}: "
+                         f"{launches} launches for one call")
+    want = plain()
+    err = _max_err(got if isinstance(got, tuple) else (got,),
+                   want if isinstance(want, tuple) else (want,))
+    check(err == 0, f"[inter-pred-kernels] {kernel} != plain at {what} "
+                    f"(max abs err {err})")
+    del got, want
+    plain_ms = cuda_ms(plain, reps=3, warm=1)
+    ev = cuda_ms(run, reps=7, warm=2, between=flush_l2)
+    ms, tnote = kernel_ms(run, kernel, between=flush_l2)
+    warm_ms, wnote = kernel_ms(run, kernel)
+    bound, by = inter_bound(nbytes, ops)
+    print(f"[inter-pred-kernels] {kernel} {what}: equal (max abs err 0), "
+          f"1 launch; kernel {kms(ms)} with L2 flushed (profiler"
+          f"{', ' + tnote if tnote else ''}), {kms(warm_ms)} warm in L2"
+          f"{' (' + wnote + ')' if wnote else ''}, {ev:.4f} ms a wrapper "
+          f"call (CUDA events, L2 flushed); bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int32 ops, {by}), "
+          f"{of_bound(bound, ms)}; plain {plain_ms:.3f} ms"
+          f"{'' if ms is None else f' ({plain_ms / ms:.0f}x the kernel)'}"
+          f"; {per_picture} a picture on its path; {note}")
+    return dict(kernel=kernel, what=what, ms=ms, warm_ms=warm_ms,
+                event_ms=ev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bytes=nbytes, ops=ops, library_ms=None, max_abs_err=err,
+                per_picture=per_picture, note=tnote or None)
+
+
+def phase_inter_pred_kernels() -> tuple[dict, dict, dict]:
+    """Stage 1: the three inter-prediction kernels against their plain
+    versions on the same CUDA tensors, exactly (predictions, SATDs, MVs),
+    one launch per call, timed beside their bounds, at the paths' shapes:
+    the 1080p RA B picture (the merge candidates' SATD, uni and bi; the
+    final luma and chroma; the qt merge's CU32 candidates; the CU8 tree's
+    bi cost and chroma; the refinement of each list; the bi pass),
+    bench_ldp_480's P picture (4 references) and the tile slab; and the
+    combine alone (`bi_average` on given planes, off the main paths).
+    Each bound counts the distinct work the inputs need: the samples the
+    blocks' windows cover (each read once), the originals, the outputs
+    (the SATD alone where the call asks for it) and, in the refinements,
+    the filter passes distinct candidates need.  Returns the kernels
+    line's rows: the RA B picture's merge candidate, its list refinement
+    and its bi pass."""
+    mc, rq, bi = ip_ops.mc_pred, ip_ops.refine_qpel, ip_ops.bi_refine_pass
+    pl = inter_planes()
+    rng = np.random.default_rng(2222)
+    rows = []
+
+    def mc_row(what, key, n, luma, l1, cur, per_picture, dirs=None):
+        cur_plane, refs0, refs1 = pl[key]
+        x0, y0, cblk, mv, r0, r1, d = inter_blocks(cur_plane, n, rng, refs0,
+                                                   refs1)
+        d = d if dirs is None else dirs
+        b = x0.shape[0]
+        kw = dict(luma=luma, cur=cblk if cur else None)
+        taps, shift = (8, 2) if luma else (4, 3)
+        half = taps // 2 - 1
+        dv = (d if isinstance(d, torch.Tensor) else
+              torch.full((b,), d, dtype=torch.int32, device="cuda"))
+        use0 = (dv == 1) | (dv == 3) if l1 else None
+        use1 = dv != 1
+        hyps = b
+        if l1:
+            kw.update(l1=(refs1, r1, mv[2], mv[3]), dirs=d)
+            hyps = int(use0.sum()) + int(use1.sum())
+        args = (refs0, r0, x0, y0, mv[0], mv[1], n)
+
+        def win(refs, ridx, mx, my, mask):
+            return window_bytes(refs, ridx, x0 + (mx >> shift) - half,
+                                y0 + (my >> shift) - half, n + taps - 1,
+                                mask)
+
+        nbytes = (win(refs0, r0, mv[0], mv[1], use0) +
+                  (win(refs1, r1, mv[2], mv[3], use1) if l1 else 0) +
+                  4 * b * (5 + (3 if l1 else 0) +
+                           (1 if isinstance(d, torch.Tensor) and l1 else 0)) +
+                  (4 * b * n * n + 4 * b if cur else 4 * b * n * n))
+        ops = (hyps * ((n + taps - 1) * n + n * n) * taps +
+               b * mc_block_ops(n, taps, 0, cur))
+        rows.append(inter_row(
+            what, "mc_pred_kernel", mc, lambda: ip_ops.mc_pred(*args, **kw),
+            lambda: ip_ops.mc_pred_ref(*args, **kw), nbytes, ops,
+            per_picture, f"{'luma' if luma else 'chroma'} n={n} B={b}"
+            f"{', L1' if l1 else ''}{', the SATD alone' if cur else ''}"))
+        return rows[-1]
+
+    def refine_row(what, key, n, per_picture):
+        cur_plane, refs0, _ = pl[key]
+        x0, y0, cblk, mv, _, _, _ = inter_blocks(cur_plane, n, rng, refs0,
+                                                 None)
+        b = x0.shape[0]
+        ref = refs0[0]
+        mvx, mvy = mv[0] // 4 * 4, mv[1] // 4 * 4
+        args = (ref, cblk, x0, y0, mvx, mvy, n)
+        # round 1's candidates cover (n + 8)^2 samples from
+        # ((mv - 2) >> 2) - 3; round 2's lie inside (a lower bound)
+        nbytes = (window_bytes(ref[None], torch.zeros_like(x0),
+                               x0 + ((mvx - 2) >> 2) - 3,
+                               y0 + ((mvy - 2) >> 2) - 3, n + 8) +
+                  4 * (b * n * n + 4 * b + 3 * b))
+        ops = b * refine_block_ops(n)
+        rows.append(inter_row(
+            what, "qpel_refine_kernel", rq,
+            lambda: ip_ops.refine_qpel(*args),
+            lambda: ip_ops.refine_qpel_ref(*args), nbytes, ops, per_picture,
+            f"n={n} B={b}, integer start MVs within 64 samples"))
+        return rows[-1]
+
+    def bi_row(what, key, per_picture):
+        cur_plane, refs0, refs1 = pl[key]
+        x0, y0, cblk, mv, r0, r1, _ = inter_blocks(cur_plane, 16, rng,
+                                                   refs0, refs1)
+        b = x0.shape[0]
+        args = (refs0, refs1, r0, r1, cblk, x0, y0, *mv, 16)
+        # each list's start window (n + 7)^2 (a lower bound: the
+        # candidates walk up to 3 quarter samples from it)
+        nbytes = (window_bytes(refs0, r0, x0 + (mv[0] >> 2) - 3,
+                               y0 + (mv[1] >> 2) - 3, 23) +
+                  window_bytes(refs1, r1, x0 + (mv[2] >> 2) - 3,
+                               y0 + (mv[3] >> 2) - 3, 23) +
+                  4 * (b * 256 + 8 * b + 5 * b))
+        ops = b * bi_block_ops(16)
+        rows.append(inter_row(
+            what, "bi_refine_kernel", bi,
+            lambda: ip_ops.bi_refine_pass(*args),
+            lambda: ip_ops.bi_refine_pass_ref(*args), nbytes, ops,
+            per_picture, f"n=16 B={b}, 18 candidates in order"))
+        return rows[-1]
+
+    head_mc = mc_row("1080p RA B merge candidate (bi, SATD)", "ra_y", 16,
+                     True, True, True, 6)
+    mc_row("1080p RA anchor P merge candidate (uni, SATD)", "ra_y", 16,
+           True, False, True, 6)
+    mc_row("1080p RA B final luma", "ra_y", 16, True, True, False, 1)
+    mc_row("1080p RA B final chroma", "ra_u", 8, False, True, False, 2)
+    mc_row("1080p qt merge CU32 luma", "ra_y", 32, True, True, False, 5)
+    mc_row("1080p qt merge CU32 chroma", "ra_u", 16, False, True, False, 10)
+    mc_row("1080p CU8 tree bi cost (SATD)", "ra_y", 8, True, True, True, 1,
+           dirs=3)
+    mc_row("1080p CU8 tree chroma", "ra_u", 4, False, True, False, 2)
+    mc_row("832x480 LD-P merge candidate (4 references, SATD)", "ldp_y",
+           16, True, False, True, 6)
+    mc_row("832x480 LD-P final chroma", "ldp_u", 8, False, False, False, 2)
+    mc_row("tile slab merge candidate (bi, SATD)", "slab_y", 16, True, True,
+           True, 6)
+    head_refine = refine_row("1080p RA B, one list", "ra_y", 16, 2)
+    refine_row("832x480 LD-P, one reference", "ldp_y", 16, 4)
+    refine_row("1080p CU8 tree, one list", "ra_y", 8, 2)
+    refine_row("tile slab, one list", "slab_y", 16, 2)
+    refine_row("tile slab CU8 tree, one list", "slab_y", 8, 2)
+    head_bi = bi_row("1080p RA B", "ra_y", 1)
+    bi_row("tile slab", "slab_y", 1)
+    # the combine alone: interp.bi_average on CUDA tensors
+    cur_plane, refs0, refs1 = pl["ra_y"]
+    x0, y0, _, mv, r0, r1, _ = inter_blocks(cur_plane, 16, rng, refs0,
+                                            refs1)
+    p0 = ip_ops.mc_pred(refs0, r0, x0, y0, mv[0], mv[1], 16, out14=True)
+    p1 = ip_ops.mc_pred(refs1, r1, x0, y0, mv[2], mv[3], 16, out14=True)
+    avg = inter_row("1080p RA B planes (the combine alone)",
+                    "mc_average_kernel", ip_ops.bi_average,
+                    lambda: ip_ops.bi_average(p0, p1),
+                    lambda: interp_ops.bi_average_ref(p0, p1),
+                    12 * p0.numel(), 4 * p0.numel(), 0,
+                    "interp.bi_average's CUDA branch; no main path calls it")
+    del p0, p1, pl
+    torch.cuda.empty_cache()
+    print("[inter-pred-kernels] no single PyTorch call gathers per-block "
+          "windows by reference index and filters them with per-block taps "
+          "(library_ms null)")
+    print(json.dumps({"inter_pred_shapes": rows + [avg]}))
+    return head_mc, head_refine, head_bi
+
+
 def decode_ra(stream: bytes) -> tuple:
     """Decode a random-access stream with the port's GeneralDecoder:
     (hash_status, each picture's SHA-1, seconds).  Stage 3 runs it in a
@@ -5371,11 +5793,12 @@ def worker_init(card: str) -> None:
     global CARD
     CARD = card
     torch.set_num_threads(WORKER_THREADS)
-    for mod in (ss, sao_ops, rdoq_ops, iw_ops):
+    for mod in KERNEL_MODULES:
         mod._load()
     count_rdoq_ref()
     count_sao_ref()
     count_wave_ref()
+    count_inter_ref()
 
 
 def run_task(name: str, fn, args: tuple, kw: dict) -> tuple:
@@ -5421,6 +5844,7 @@ def run_pool(tasks: list) -> tuple[dict, dict]:
             print(f"[pool] {name}: {secs:.1f} s in its worker", flush=True)
             check(ok, f"phase {name} failed")
             print(wave_words(name, wave), flush=True)
+            print(inter_words(name, wave), flush=True)
             results[name] = res
             waves[name] = wave
         done = True
@@ -5470,6 +5894,7 @@ def main() -> None:
     count_rdoq_ref()
     count_sao_ref()
     count_wave_ref()
+    count_inter_ref()
     # Stage 1: the kernels against their plain versions, timed alone.
     phase_kernel()
     rq = phase_rdoq_kernel()
@@ -5481,6 +5906,7 @@ def main() -> None:
     sad_jm = phase_sad_jm()
     phase_tiled_kernels()
     qt_row, flat_row = phase_wavefront_kernels()
+    mc_row, refine_row, bi_row = phase_inter_pred_kernels()
     print(f"[time] stage 1 (the build and the kernels alone) ended at "
           f"{time.perf_counter() - t_start:.1f} s")
     # Stage 2: the earlier slices' paths, WORKERS at a time.
@@ -5517,6 +5943,7 @@ def main() -> None:
     tiled_sad, tiled_rdoq, tiled_sha = run_stage3()
     waves["tiled-ra"] = wave_counts()
     print(wave_words("tiled-ra", waves["tiled-ra"]))
+    print(inter_words("tiled-ra", waves["tiled-ra"]))
     print(f"[time] stage 3 ([tiled-ra] and its decode) "
           f"{time.perf_counter() - t3:.1f} s")
     ref_sad, ref_rdoq, ref_sha = res["tiled-ra-ref"]
@@ -5597,6 +6024,19 @@ def main() -> None:
           + f", together {flat_all} (the plain versions 0 times on the card"
           "); their times and bounds are the 1080p RA IDR's and the flat "
           "1080p IDR's (every shape on the intra_wavefront_shapes line)")
+    inter_all = {k: sum(w_[i] for w_ in waves.values())
+                 for i, k in ((3, "mc_pred"), (4, "refine_qpel"),
+                              (5, "bi_refine_pass"))}
+    print("[kernels] " + "; ".join(
+        f"{k} launches: " + ", ".join(f"{n} {w_[i]}" for n, w_ in
+                                      waves.items() if w_[i]) +
+        f", together {inter_all[k]}" for i, k in ((3, "mc_pred"),
+                                                  (4, "refine_qpel"),
+                                                  (5, "bi_refine_pass"))) +
+          " (the plain versions and the combine alone 0 times on the "
+          "card); their times and bounds are the 1080p RA B picture's "
+          "merge candidate, one list's refinement and its bi pass (every "
+          "shape on the inter_pred_shapes line)")
     print(json.dumps({"sad_surface_r64": r64}))
     print(json.dumps({"sad_surface_jm": sad_jm}))
     print(json.dumps({"rdoq_dev_shapes": rq}))
@@ -5631,7 +6071,18 @@ def main() -> None:
         "ms_note": row["note"], **extra} for name, rep, n, row, extra in (
             ("intra_qt_wavefront", QT_WAVE_REPLACES, qt_all, qt_row, {}),
             ("intra_flat_wavefront", FLAT_WAVE_REPLACES, flat_all, flat_row,
-             {"also_replaces": FLAT_WAVE_ALSO}))]}))
+             {"also_replaces": FLAT_WAVE_ALSO}))] + [{
+        "name": name, "route": "cuda", "source": INTER_SRC,
+        "replaces": rep, "launches": inter_all[name],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "event_ms": row["event_ms"], "warm_ms": row["warm_ms"],
+        "ms_note": row["note"], "shape": row["what"], **extra}
+        for name, rep, row, extra in (
+            ("mc_pred", MC_REPLACES, mc_row, {"also_replaces": MC_ALSO}),
+            ("refine_qpel", REFINE_REPLACES, refine_row, {}),
+            ("bi_refine_pass", BI_REPLACES, bi_row, {}))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -46,6 +46,7 @@ from video_codecs_tpu_torch.models.hevc import inter_dev  # noqa: E402
 from video_codecs_tpu_torch.models.hevc.intra_codec import (  # noqa: E402
     chroma_qp)
 from video_codecs_tpu_torch.ops import deblock as deblock_ops  # noqa: E402
+from video_codecs_tpu_torch.ops import inter_pred  # noqa: E402
 from video_codecs_tpu_torch.ops import me as me_ops  # noqa: E402
 from video_codecs_tpu_torch.utils.device import to_device  # noqa: E402
 
@@ -125,9 +126,8 @@ def main() -> None:
                     continue
                 imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
                                                  sr)
-                mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0,
-                                             imx * 4, imy * 4, 16, 2)
-                me_ops._refine(refs_y[r], cur, x0, y0, mvx, mvy, 16, 1)
+                inter_pred.refine_qpel(refs_y[r], cur, x0, y0, imx * 4,
+                                       imy * 4, 16)
 
         report("ME, 4 references", *measure(me_all)[:3])
         report("decide_modes_device", *measure(

@@ -8,7 +8,8 @@ settings: QP 32, SR64 pyramid ME, CU8 tree off, TMVP candidate with an
 empty collocated field, full RDOQ, HM lambda of its GOP entry) and
 prints, for the whole device phase (`encode_b_frame_dev` + `qt_merge_dev`
 + copy back) and for its stages run on their own -- the per-list motion
-search (`b_me_one`: pyramid SAD surfaces + two SATD refinements), the
+search (`b_me_one`: pyramid SAD surfaces + the two SATD refinement
+rounds in one `refine_qpel` launch), the
 16x16 intra mode decision, the TB coding with the full RDOQ at each size
 the path codes (TU16 luma, TU8 chroma, the RQT's TU8 luma and TU4
 chroma), and the CU32 tree pass:

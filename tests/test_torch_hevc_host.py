@@ -109,7 +109,8 @@ _COPIES = {
          "_mc_chroma14_core", "mc_chroma14_multi", "mc_chroma_multi",
          "bi_average", "mc_luma_np", "mc_chroma_np", "_mc_luma14_np",
          "_mc_chroma14_np"},
-        {"gather_window", "_filter2"}),
+        {"gather_window", "_filter2", "_inter_pred", "mc_luma14_multi_ref",
+         "mc_chroma14_multi_ref", "bi_average_ref"}),
     "ops/me.py": ("ops/me.py", set(),
                   {"integer_search", "_sad_at_points", "tz_search",
                    "_sad_best_around", "_pool4", "pyramid_search",

@@ -20,7 +20,11 @@ of the host lambda ladder.
 
 The integer motion search is the pyramid or, through
 `ops/me.motion_search`, HM's full search, TZSearch or "auto" (the
-reference's dispatch, inter_jax.py:225-236 and :462-476).
+reference's dispatch, inter_jax.py:225-236 and :462-476).  The stages
+after it go through ops/inter_pred, one kernel launch each on the card:
+the two quarter-pel SATD rounds (`refine_qpel`), the alternating bi pass
+(`bi_refine_pass`), and every motion-compensated prediction with its
+uni/bi combine and, for the merge candidates, its SATD (`mc_pred`).
 With `cfg.sao` the three flat engines code the IDR through
 `IntraEncoder.encode_frame` (the reference's host CTB loop, computed on
 the device with the same bytes) and decide SAO in every picture with
@@ -58,7 +62,7 @@ from video_codecs_tpu_torch.models.hevc import ra_codec as ra
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import cost as cost_ops
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
-from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import inter_pred
 from video_codecs_tpu_torch.ops import intra as intra_ops
 from video_codecs_tpu_torch.ops import intra_wavefront
 from video_codecs_tpu_torch.ops import me as me_ops
@@ -301,11 +305,8 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
         if me_method == "pyr":
             imx, imy = me_ops.pyramid_search(refs_y[r], cur, x0, y0, 16,
                                              search_range)
-            mvx, mvy = imx * 4, imy * 4
-            mvx, mvy, _ = me_ops._refine(refs_y[r], cur, x0, y0, mvx, mvy,
-                                         16, 2)
-            mvx, mvy, satd = me_ops._refine(refs_y[r], cur, x0, y0, mvx,
-                                            mvy, 16, 1)
+            mvx, mvy, satd = inter_pred.refine_qpel(
+                refs_y[r], cur, x0, y0, imx * 4, imy * 4, 16)
         else:
             mvx, mvy, satd = me_ops.motion_search(
                 refs_y[r], cur, x0, y0, 16, search_range, me_method)
@@ -362,8 +363,7 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
     cost_mrg = torch.full((nb,), INF, dtype=torch.int32, device=dev)
     mrg_mvx = mrg_mvy = mrg_ref = zeros
     for idx, (cx, cy, cr, ok) in enumerate(cands):
-        pred = interp.mc_luma_multi(refs_y, cr, x0, y0, cx, cy, 16)
-        satd = cost_ops.hadamard_satd_8x8(cur, pred)
+        satd = inter_pred.mc_pred(refs_y, cr, x0, y0, cx, cy, 16, cur=cur)
         c = satd + _round_const(sl * (2 + idx))
         c = torch.where(ok, c, INF)
         better = c < cost_mrg
@@ -389,8 +389,8 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
     pred_mode = torch.where(use_intra, MODE_INTRA, MODE_INTER).int()
 
     # ---- 3. final MC + residual coding for inter blocks ----
-    pred_y_fin = interp.mc_luma_multi(refs_y, fin_ref, x0, y0,
-                                      fin_mvx, fin_mvy, 16)
+    pred_y_fin = inter_pred.mc_pred(refs_y, fin_ref, x0, y0, fin_mvx,
+                                    fin_mvy, 16)
     rd = "full" if rdoq else False
     lv_y, rec_blk, cbf_y = encoder_dev._code_blocks(
         cur, pred_y_fin, qp, 4, intra_slice=False, sbh=sbh, rdoq=rd,
@@ -401,10 +401,10 @@ def encode_p_frame_dev(y, u, v, refs_y, refs_u, refs_v,
     vi = v.int()
     cur_u = encoder_dev._extract_blocks(ui, cx0, cy0, 8)
     cur_v = encoder_dev._extract_blocks(vi, cx0, cy0, 8)
-    pred_u = interp.mc_chroma_multi(refs_u.int(), fin_ref, cx0, cy0,
-                                    fin_mvx, fin_mvy, 8)
-    pred_v = interp.mc_chroma_multi(refs_v.int(), fin_ref, cx0, cy0,
-                                    fin_mvx, fin_mvy, 8)
+    pred_u = inter_pred.mc_pred(refs_u.int(), fin_ref, cx0, cy0, fin_mvx,
+                                fin_mvy, 8, luma=False)
+    pred_v = inter_pred.mc_pred(refs_v.int(), fin_ref, cx0, cy0, fin_mvx,
+                                fin_mvy, 8, luma=False)
     lv_u, rec_u_blk, cbf_u = encoder_dev._code_blocks(
         cur_u, pred_u, qp_c, 3, intra_slice=False, sbh=sbh, rdoq=rd,
         is_luma=False, lam=lam)
@@ -525,9 +525,8 @@ def b_me_one(ref_y, cur, x0, y0, search_range: int, me_method: str,
     if me_method == "pyr":
         imx, imy = me_ops.pyramid_search(ref_y, cur, x0, y0, n,
                                          search_range)
-        mvx, mvy = imx * 4, imy * 4
-        mvx, mvy, _ = me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 2)
-        return me_ops._refine(ref_y, cur, x0, y0, mvx, mvy, n, 1)
+        return inter_pred.refine_qpel(ref_y, cur, x0, y0, imx * 4, imy * 4,
+                                      n)
     return me_ops.motion_search(ref_y, cur, x0, y0, n, search_range,
                                 me_method)
 
@@ -655,33 +654,9 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     # bi hypothesis from the two best-uni MVs, then ONE alternating
     # refinement round per list (TEncSearch.cpp:3567, one pass)
     if has_l1:
-        p0_14 = interp.mc_luma14_multi(refs_y[0], ridxs[0],
-                                       x0, y0, mvs[0][0], mvs[0][1], 16)
-
-        def bi_refine(fix14, refs_l, ridx_l, mvx, mvy):
-            best = cost_ops.hadamard_satd_8x8(
-                cur, interp.bi_average(
-                    fix14, interp.mc_luma14_multi(
-                        refs_l, ridx_l, x0, y0, mvx, mvy, 16)))
-            for k in range(8):
-                cx_ = mvx + int(me_ops._OFFS8[k][0])
-                cy_ = mvy + int(me_ops._OFFS8[k][1])
-                satd = cost_ops.hadamard_satd_8x8(
-                    cur, interp.bi_average(
-                        fix14, interp.mc_luma14_multi(
-                            refs_l, ridx_l, x0, y0, cx_, cy_, 16)))
-                better = satd < best
-                best = torch.where(better, satd, best)
-                mvx = torch.where(better, cx_, mvx)
-                mvy = torch.where(better, cy_, mvy)
-            return mvx, mvy, best
-
-        b1x, b1y, _ = bi_refine(p0_14, refs_y[1], ridxs[1],
-                                mvs[1][0], mvs[1][1])
-        p1r_14 = interp.mc_luma14_multi(refs_y[1], ridxs[1], x0, y0,
-                                        b1x, b1y, 16)
-        b0x, b0y, satd_bi = bi_refine(p1r_14, refs_y[0], ridxs[0],
-                                      mvs[0][0], mvs[0][1])
+        b0x, b0y, b1x, b1y, satd_bi = inter_pred.bi_refine_pass(
+            refs_y[0], refs_y[1], ridxs[0], ridxs[1], cur, x0, y0,
+            mvs[0][0], mvs[0][1], mvs[1][0], mvs[1][1], 16)
         cost_bi = satd_bi + _round_cost(sl, 8 + bits[0] + bits[1])
         mvs_bi = ((b0x, b0y), (b1x, b1y))
     else:
@@ -721,18 +696,12 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
 
     fb_dir = 3 if has_l1 else 1
 
-    def uni(q):
-        return ((q + 32) >> 6).clamp(0, 255)
-
-    def mrg_pred(dirs, m0x, m0y, m1x, m1y, r0, r1):
-        p0 = interp.mc_luma14_multi(refs_y[0], r0, x0, y0, m0x, m0y, 16)
-        if not has_l1:
-            return uni(p0).int()
-        p1 = interp.mc_luma14_multi(refs_y[1], r1, x0, y0, m1x, m1y, 16)
-        return torch.where(
-            (dirs == 3)[:, None, None], interp.bi_average(p0, p1),
-            torch.where((dirs == 1)[:, None, None], uni(p0),
-                        uni(p1))).int()
+    def mrg_satd(dirs, m0x, m0y, m1x, m1y, r0, r1):
+        """SATD of the merge candidate's prediction (`mrg_pred`, uni
+        list 0 without L1, one `mc_pred` launch on the card)."""
+        return inter_pred.mc_pred(
+            refs_y[0], r0, x0, y0, m0x, m0y, 16, dirs=dirs, cur=cur,
+            l1=(refs_y[1], r1, m1x, m1y) if has_l1 else None)
 
     if merge_eval == "best4":
         mcands = []
@@ -802,8 +771,7 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
         mrg_r0 = mrg_r1 = zr
         for idx, (cd, c0x, c0y, c1x, c1y, cr0, cr1, ok) in \
                 enumerate(mcands):
-            pred = mrg_pred(cd, c0x, c0y, c1x, c1y, cr0, cr1)
-            c = cost_ops.hadamard_satd_8x8(cur, pred) + _round_const(
+            c = mrg_satd(cd, c0x, c0y, c1x, c1y, cr0, cr1) + _round_const(
                 sl * (2 + idx))
             c = torch.where(ok, c, INF)
             better = c < cost_mrg
@@ -836,10 +804,8 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
         mrg_mv1y = pick0(prov_mv1y)
         mrg_r0 = pick0(prov_r0)
         mrg_r1 = pick0(prov_r1)
-        pred_mrg = mrg_pred(mrg_dir, mrg_mv0x, mrg_mv0y, mrg_mv1x,
-                            mrg_mv1y, mrg_r0, mrg_r1)
-        cost_mrg = cost_ops.hadamard_satd_8x8(cur, pred_mrg) + \
-            _round_const(sl * 2)
+        cost_mrg = mrg_satd(mrg_dir, mrg_mv0x, mrg_mv0y, mrg_mv1x,
+                            mrg_mv1y, mrg_r0, mrg_r1) + _round_const(sl * 2)
 
     # ---- intra candidate (orig-neighbour sweep); without allow_intra
     # (the CTB32 qt path: z-scan intra availability) the modes are only
@@ -867,19 +833,14 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     pred_mode = torch.where(use_intra, MODE_INTRA, MODE_INTER).int()
 
     # ---- final MC + residual ----
-    def final_pred(refs0, refs1, xs, ys, n, mv0, mv1, mc14):
-        q0 = mc14(refs0, fin_r0, xs, ys, mv0[0], mv0[1], n)
-        if has_l1:
-            q1 = mc14(refs1, fin_r1, xs, ys, mv1[0], mv1[1], n)
-            return torch.where(
-                (fin_dir == 3)[:, None, None], interp.bi_average(q0, q1),
-                torch.where((fin_dir == 1)[:, None, None], uni(q0),
-                            uni(q1))).int()
-        return uni(q0).int()
+    def final_pred(refs0, refs1, xs, ys, n, mv0, mv1, luma):
+        return inter_pred.mc_pred(
+            refs0, fin_r0, xs, ys, mv0[0], mv0[1], n, luma=luma,
+            dirs=fin_dir,
+            l1=(refs1, fin_r1, mv1[0], mv1[1]) if has_l1 else None)
 
-    pred_y_fin = final_pred(refs_y[0], refs_y[1] if has_l1 else refs_y[0],
-                            x0, y0, 16, (fin_mv0x, fin_mv0y),
-                            (fin_mv1x, fin_mv1y), interp.mc_luma14_multi)
+    pred_y_fin = final_pred(refs_y[0], refs_y[1], x0, y0, 16,
+                            (fin_mv0x, fin_mv0y), (fin_mv1x, fin_mv1y), True)
     rd = "full" if rdoq else rdoq
     lv_y, rec_blk, cbf_y, bits_y = encoder_dev._code_blocks_rate(
         cur, pred_y_fin, qp, 4, sbh=sbh, rdoq=rd, lam=lam)
@@ -890,9 +851,9 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
     r0u, r0v = refs_u[0], refs_v[0]
     r1u, r1v = refs_u[1], refs_v[1]
     pred_u = final_pred(r0u, r1u, cx0, cy0, 8, (fin_mv0x, fin_mv0y),
-                        (fin_mv1x, fin_mv1y), interp.mc_chroma14_multi)
+                        (fin_mv1x, fin_mv1y), False)
     pred_v = final_pred(r0v, r1v, cx0, cy0, 8, (fin_mv0x, fin_mv0y),
-                        (fin_mv1x, fin_mv1y), interp.mc_chroma14_multi)
+                        (fin_mv1x, fin_mv1y), False)
     lv_u, rec_u_blk, cbf_u, bits_u = encoder_dev._code_blocks_rate(
         cur_u, pred_u, qp_c, 3, sbh=sbh, rdoq=rd, is_luma=False, lam=lam)
     lv_v, rec_v_blk, cbf_v, bits_v = encoder_dev._code_blocks_rate(
@@ -998,13 +959,11 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
             cost_uni8.append(best8[4])
         zr8 = torch.zeros(nb8, dtype=torch.int32, device=dev)
         if has_l1:
-            q0 = interp.mc_luma14_multi(refs_y[0], ridxs8[0], x8, y8,
-                                        mvs8[0][0], mvs8[0][1], 8)
-            q1 = interp.mc_luma14_multi(refs_y[1], ridxs8[1], x8, y8,
-                                        mvs8[1][0], mvs8[1][1], 8)
-            cost_bi8 = cost_ops.hadamard_satd_8x8(
-                cur8, interp.bi_average(q0, q1)) + _round_cost(
-                sl, 6 + bits8[0] + bits8[1])
+            satd_bi8 = inter_pred.mc_pred(
+                refs_y[0], ridxs8[0], x8, y8, mvs8[0][0], mvs8[0][1], 8,
+                l1=(refs_y[1], ridxs8[1], mvs8[1][0], mvs8[1][1]), dirs=3,
+                cur=cur8)
+            cost_bi8 = satd_bi8 + _round_cost(sl, 6 + bits8[0] + bits8[1])
             uni0 = cost_uni8[0] <= cost_uni8[1]
             uni_min = torch.minimum(cost_uni8[0], cost_uni8[1])
             dir8 = torch.where(cost_bi8 < uni_min, 3,
@@ -1022,25 +981,20 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
         r0_8 = ridxs8[0]
         r1_8 = ridxs8[1] if has_l1 else zr8
 
-        def pred8(refs, xs, ys, n, mv0, mv1, mc14):
-            q0 = mc14(refs[0], r0_8, xs, ys, mv0[0], mv0[1], n)
-            if not has_l1:
-                return uni(q0).int()
-            q1 = mc14(refs[1], r1_8, xs, ys, mv1[0], mv1[1], n)
-            return torch.where(
-                (dir8 == 3)[:, None, None], interp.bi_average(q0, q1),
-                torch.where((dir8 == 1)[:, None, None], uni(q0),
-                            uni(q1))).int()
+        def pred8(refs, xs, ys, n, mv0, mv1, luma):
+            return inter_pred.mc_pred(
+                refs[0], r0_8, xs, ys, mv0[0], mv0[1], n, luma=luma,
+                dirs=dir8,
+                l1=(refs[1], r1_8, mv1[0], mv1[1]) if has_l1 else None)
 
-        pred8_y = pred8(refs_y, x8, y8, 8, (m0x8, m0y8), (m1x8, m1y8),
-                        interp.mc_luma14_multi)
+        pred8_y = pred8(refs_y, x8, y8, 8, (m0x8, m0y8), (m1x8, m1y8), True)
         cx8, cy8 = x8 // 2, y8 // 2
         cur4u = encoder_dev._extract_blocks(ui, cx8, cy8, 4)
         cur4v = encoder_dev._extract_blocks(vi, cx8, cy8, 4)
         pred4u = pred8((r0u, r1u), cx8, cy8, 4, (m0x8, m0y8),
-                       (m1x8, m1y8), interp.mc_chroma14_multi)
+                       (m1x8, m1y8), False)
         pred4v = pred8((r0v, r1v), cx8, cy8, 4, (m0x8, m0y8),
-                       (m1x8, m1y8), interp.mc_chroma14_multi)
+                       (m1x8, m1y8), False)
         lv8y, rec8y, cbf8y, rb8y = encoder_dev._code_blocks_rate(
             cur8, pred8_y, qp, 3, sbh=sbh, rdoq=rd, lam=lam)
         lv4u8, rec4u8, cbf4u8, rb4u = encoder_dev._code_blocks_rate(

@@ -44,7 +44,7 @@ from video_codecs_tpu_torch.models.hevc import quadtree_codec
 from video_codecs_tpu_torch.models.hevc import ra_codec as ra
 from video_codecs_tpu_torch.models.hevc.intra_codec import chroma_qp
 from video_codecs_tpu_torch.ops import deblock as deblock_ops
-from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import inter_pred
 from video_codecs_tpu_torch.ops import sao as sao_ops
 from video_codecs_tpu_torch.ops.quant import fma32
 from video_codecs_tpu_torch.utils import rom
@@ -88,18 +88,14 @@ def _coef_bits_blocks(coef_plane, xs, ys, n):
 
 # video_codecs_tpu/models/hevc/inter_qt.py:83
 def _pred_cand(refs_y_pair, r0, r1, xs, ys, n, dirs, mv0x, mv0y,
-               mv1x, mv1y, has_l1, mc14):
+               mv1x, mv1y, has_l1, luma):
     """Uni/bi prediction for per-block candidate motion (8-bit clipped);
-    refs are [R, H, W] stacks with per-block ref indices r0/r1."""
-    q0 = mc14(refs_y_pair[0], r0, xs, ys, mv0x, mv0y, n)
-    if not has_l1:
-        return ((q0 + 32) >> 6).clamp(0, 255).int()
-    q1 = mc14(refs_y_pair[1], r1, xs, ys, mv1x, mv1y, n)
-    return torch.where(
-        (dirs == 3)[:, None, None], interp.bi_average(q0, q1),
-        torch.where((dirs == 1)[:, None, None],
-                    ((q0 + 32) >> 6).clamp(0, 255),
-                    ((q1 + 32) >> 6).clamp(0, 255))).int()
+    refs are [R, H, W] stacks with per-block ref indices r0/r1 (one
+    `inter_pred.mc_pred` launch on the card; `luma` picks the filter where
+    the reference passed its MC function)."""
+    return inter_pred.mc_pred(
+        refs_y_pair[0], r0, xs, ys, mv0x, mv0y, n, luma=luma, dirs=dirs,
+        l1=(refs_y_pair[1], r1, mv1x, mv1y) if has_l1 else None)
 
 
 # video_codecs_tpu/models/hevc/inter_qt.py:380 (qt_merge_dev's deblock)
@@ -251,13 +247,11 @@ def qt_merge_dev(y, u, v, ref0_y, ref0_u, ref0_v, ref1_y, ref1_u, ref1_v,
     for c in cands:
         m0x, m0y, m1x, m1y, dirs, cr0, cr1 = c
         py32 = _pred_cand(refs_y, cr0, cr1, x32, y32, 32, dirs, m0x, m0y,
-                          m1x, m1y, has_l1, interp.mc_luma14_multi)
+                          m1x, m1y, has_l1, True)
         pu32 = _pred_cand(refs_u, cr0, cr1, x32 // 2, y32 // 2, 16, dirs,
-                          m0x, m0y, m1x, m1y, has_l1,
-                          interp.mc_chroma14_multi)
+                          m0x, m0y, m1x, m1y, has_l1, False)
         pv32 = _pred_cand(refs_v, cr0, cr1, x32 // 2, y32 // 2, 16, dirs,
-                          m0x, m0y, m1x, m1y, has_l1,
-                          interp.mc_chroma14_multi)
+                          m0x, m0y, m1x, m1y, has_l1, False)
 
         def ssd(a, b):
             d = a - b

@@ -14,6 +14,13 @@ in jnp): 14-bit intermediates, shift2 = 6, final (p + 32) >> 6 for
 uni-prediction and (p0 + p1 + 64) >> 7 for bi-prediction.
 `gather_window` is the integer motion search's edge-clamped window.
 
+The multi-reference entries (`mc_luma14_multi`, `mc_luma_multi`,
+`mc_chroma14_multi`, `mc_chroma_multi`) and `bi_average` launch the
+hand-written kernels of csrc/inter_pred.cu for CUDA tensors
+(`ops/inter_pred.mc_pred`, `inter_pred.bi_average`) and run their plain
+versions, the eager bodies `mc_luma14_multi_ref`, `mc_chroma14_multi_ref`
+and `bi_average_ref`, for CPU tensors.
+
 The square-block numpy twins of the host low-delay P coder and its
 decoder (`mc_luma_np`, `mc_chroma_np`, their 14-bit cores and the
 explicit weighted uni-prediction `mc_luma_wp_np` / `mc_chroma_wp_np`)
@@ -132,11 +139,17 @@ def _mc_luma14_core(win: torch.Tensor, fx, fy, n: int) -> torch.Tensor:
     return _filter2(win, taps[fx.long()], taps[fy.long()], n)
 
 
-# video_codecs_tpu/ops/interp.py:127
-def mc_luma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
-                    n: int) -> torch.Tensor:
-    """Luma MC to the 14-bit domain from stacked references [R, H, W] with
-    a per-block reference index (bi-pred hypothesis / WP input)."""
+def _inter_pred():
+    """ops/inter_pred, imported at the first CUDA call (it imports this
+    module)."""
+    from video_codecs_tpu_torch.ops import inter_pred
+    return inter_pred
+
+
+def mc_luma14_multi_ref(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
+                        n: int) -> torch.Tensor:
+    """The plain version of `mc_luma14_multi`: the reference's gather and
+    two-stage filter as eager torch ops."""
     ix = x0 + (mvx >> 2)
     iy = y0 + (mvy >> 2)
     win = _gather_window_multi(refs.int(), ridx, ix - 3, iy - 3, n + 7,
@@ -144,11 +157,24 @@ def mc_luma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
     return _mc_luma14_core(win, mvx & 3, mvy & 3, n)
 
 
+# video_codecs_tpu/ops/interp.py:127
+def mc_luma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
+                    n: int) -> torch.Tensor:
+    """Luma MC to the 14-bit domain from stacked references [R, H, W] with
+    a per-block reference index (bi-pred hypothesis / WP input)."""
+    if refs.device.type != "cpu":
+        return _inter_pred().mc_pred(refs, ridx, x0, y0, mvx, mvy, n,
+                                     out14=True)
+    return mc_luma14_multi_ref(refs, ridx, x0, y0, mvx, mvy, n)
+
+
 # video_codecs_tpu/ops/interp.py:138
 def mc_luma_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
                   n: int) -> torch.Tensor:
     """Spec-exact uni-pred luma MC from stacked references [R, H, W]."""
-    p14 = mc_luma14_multi(refs, ridx, x0, y0, mvx, mvy, n)
+    if refs.device.type != "cpu":
+        return _inter_pred().mc_pred(refs, ridx, x0, y0, mvx, mvy, n)
+    p14 = mc_luma14_multi_ref(refs, ridx, x0, y0, mvx, mvy, n)
     return ((p14 + 32) >> 6).clamp(0, 255).int()
 
 
@@ -158,9 +184,9 @@ def _mc_chroma14_core(win: torch.Tensor, fx, fy, n: int) -> torch.Tensor:
     return _filter2(win, taps[fx.long()], taps[fy.long()], n)
 
 
-# video_codecs_tpu/ops/interp.py:155
-def mc_chroma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
-                      n: int) -> torch.Tensor:
+def mc_chroma14_multi_ref(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
+                          n: int) -> torch.Tensor:
+    """The plain version of `mc_chroma14_multi` (eager torch ops)."""
     ix = x0 + (mvx >> 3)
     iy = y0 + (mvy >> 3)
     win = _gather_window_multi(refs.int(), ridx, ix - 1, iy - 1, n + 3,
@@ -168,18 +194,37 @@ def mc_chroma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
     return _mc_chroma14_core(win, mvx & 7, mvy & 7, n)
 
 
+# video_codecs_tpu/ops/interp.py:155
+def mc_chroma14_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
+                      n: int) -> torch.Tensor:
+    if refs.device.type != "cpu":
+        return _inter_pred().mc_pred(refs, ridx, x0, y0, mvx, mvy, n,
+                                     luma=False, out14=True)
+    return mc_chroma14_multi_ref(refs, ridx, x0, y0, mvx, mvy, n)
+
+
 # video_codecs_tpu/ops/interp.py:164
 def mc_chroma_multi(refs: torch.Tensor, ridx, x0, y0, mvx, mvy,
                     n: int) -> torch.Tensor:
-    p14 = mc_chroma14_multi(refs, ridx, x0, y0, mvx, mvy, n)
+    if refs.device.type != "cpu":
+        return _inter_pred().mc_pred(refs, ridx, x0, y0, mvx, mvy, n,
+                                     luma=False)
+    p14 = mc_chroma14_multi_ref(refs, ridx, x0, y0, mvx, mvy, n)
     return ((p14 + 32) >> 6).clamp(0, 255).int()
+
+
+def bi_average_ref(p0_14: torch.Tensor, p1_14: torch.Tensor) -> torch.Tensor:
+    """The plain version of `bi_average` (eager torch ops)."""
+    return ((p0_14 + p1_14 + 64) >> 7).clamp(0, 255).int()
 
 
 # video_codecs_tpu/ops/interp.py:170
 def bi_average(p0_14: torch.Tensor, p1_14: torch.Tensor) -> torch.Tensor:
     """Default bi-pred combine (spec 8.5.4.2.3.2): both hypotheses in the
     14-bit domain, (p0 + p1 + 64) >> 7, clipped to 8-bit."""
-    return ((p0_14 + p1_14 + 64) >> 7).clamp(0, 255).int()
+    if p0_14.device.type != "cpu":
+        return _inter_pred().bi_average(p0_14, p1_14)
+    return bi_average_ref(p0_14, p1_14)
 
 
 # video_codecs_tpu/ops/interp.py:277

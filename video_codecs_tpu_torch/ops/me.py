@@ -6,7 +6,9 @@ HM's TZSearch `tz_search` (:82-157) with its candidate rings
 and `_sad_best_around`, `_sad_at_points` (the plain gather path), the
 SATD refinement `_refine` (:253-269) and `motion_search` (:271), which
 runs "full" (HM's FastSearch 0), "tz" (FastSearch 1) or "auto" (full up
-to search range 12, TZ beyond) and then the refinement.
+to search range 12, TZ beyond) and then the refinement's two rounds as
+one entry, `inter_pred.refine_qpel` (one launch of the Hopper kernel on
+CUDA tensors; `_refine`, one round, is its plain version).
 
 Every SAD comes from `sad_surface` (the Hopper kernel on CUDA tensors,
 which takes the 8-bit samples as they are; 4x4-pooled planes are rounded
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from video_codecs_tpu_torch.ops import cost as cost_ops
-from video_codecs_tpu_torch.ops import interp
+from video_codecs_tpu_torch.ops import inter_pred, interp
 from video_codecs_tpu_torch.ops.interp import gather_window
 from video_codecs_tpu_torch.ops.sad_surface import sad_surface
 from video_codecs_tpu_torch.utils.device import const
@@ -293,7 +295,4 @@ def motion_search(ref: torch.Tensor, cur: torch.Tensor, x0, y0, n: int,
         imx, imy = tz_search(ref, cur, x0, y0, n, search_range)
     else:
         imx, imy = integer_search(ref, cur, x0, y0, n, search_range)
-    mvx, mvy = imx * 4, imy * 4
-    mvx, mvy, _ = _refine(ref, cur, x0, y0, mvx, mvy, n, 2)
-    mvx, mvy, satd = _refine(ref, cur, x0, y0, mvx, mvy, n, 1)
-    return mvx, mvy, satd
+    return inter_pred.refine_qpel(ref, cur, x0, y0, imx * 4, imy * 4, n)
